@@ -37,6 +37,19 @@ def _close(got, ref, dtype):
     assert err <= TOL[dtype] * scale, (err, scale)
 
 
+def _off_the_kink(x, gamma, beta, g, groups, eps):
+    """g with zeros where the GroupNorm output lies within 1e-3 of the ReLU
+    kink: there the kernel's and the plain version's statistics, equal to
+    fp32 rounding, may put an element on either side, and its gradient
+    then differs by g itself."""
+    n, c = x.shape[0], x.shape[-1]
+    xg = x.double().reshape(n, -1, groups, c // groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
+    v = ((xg - mean) / torch.sqrt(var + eps)).reshape(n, -1, c) * gamma.double() \
+        + beta.double()
+    return g * (v.abs() > 1e-3).reshape(g.shape).to(g.dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("x_shape, cout", [
     ((1, 5, 6, 7, 8), 2),
@@ -112,19 +125,74 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fused_norm.fused_group_norm_relu(x, g.cpu(), g)
 
 
-def test_kernel_outputs_refuse_backward(cuda):
-    """No backward kernels yet: a backward pass through either kernel on the
-    card raises instead of leaving the inputs without gradients."""
-    x = torch.randn((1, 4, 5, 6, 16), device=cuda, requires_grad=True)
-    w = torch.randn((3, 3, 3, 16, 16), device=cuda, requires_grad=True)
-    y = conv3d.conv3d_small(x, w)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        y.sum().backward()
-    g = torch.ones(16, device=cuda, requires_grad=True)
-    b = torch.zeros(16, device=cuda, requires_grad=True)
-    y = fused_norm.fused_group_norm_relu(x, g, b)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        y.sum().backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape, cout", [
+    ((1, 5, 6, 7, 8), 2),      # dX conv with Cin' = 2
+    ((2, 3, 9, 70, 16), 16),   # ragged dW segments, two samples
+    ((1, 4, 4, 131, 24), 13),
+    ((1, 2, 3, 5, 64), 64),    # dW taps split over blocks
+    ((1, 3, 5, 9, 10), 7),     # Cin not a multiple of 4
+])
+def test_conv3d_small_backward_matches_plain(cuda, dtype, x_shape, cout):
+    """dX (the forward kernel on the transposed packed weight) and dW (the
+    split-V reduction) against torch.nn.grad on the same inputs, with one
+    launch each and no forward launch in the backward."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(x_shape, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, 3, x_shape[-1], cout), generator=gen, device=cuda)
+         * 0.1).to(dtype)
+    g = torch.randn(x_shape[:4] + (cout,), generator=gen, device=cuda).to(dtype)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = conv3d.conv3d_small(xr, wr)
+    before = conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    dx, dw = conv3d.conv3d_small_backward_plain(x, w, g)
+    assert xr.grad.dtype == dtype and wr.grad.dtype == dtype
+    _close(xr.grad, dx, dtype)
+    _close(wr.grad, dw, dtype)
+
+
+def test_conv3d_small_backward_skips_dx(cuda):
+    x = torch.randn((1, 3, 4, 5, 8), device=cuda)
+    w = torch.randn((3, 3, 3, 8, 4), device=cuda, requires_grad=True)
+    before = conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES
+    conv3d.conv3d_small(x, w).sum().backward()
+    assert (conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES) == (before[0], before[1] + 1)
+    _close(w.grad, conv3d.conv3d_small_backward_plain(
+        x, w.detach(), torch.ones((1, 3, 4, 5, 4), device=cuda))[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, groups, relu", [
+    ((1, 7, 9, 11, 16), 8, True),
+    ((3, 5, 5, 5, 24), 8, False),
+    ((2, 3, 4, 5, 512), 8, True),
+    ((1, 40000, 16), 8, True),
+])
+def test_fused_gn_backward_matches_plain(cuda, dtype, shape, groups, relu):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 2).to(dtype)
+    c = shape[-1]
+    gamma = torch.randn(c, generator=gen, device=cuda)
+    beta = torch.randn(c, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = _off_the_kink(x, gamma, beta, g, groups, 1e-6)
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    y = fused_norm.fused_group_norm_relu(xr, gr, br, groups, 1e-6, relu)
+    before = fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == \
+        (before[0], before[1] + 1)
+    dx, dgamma, dbeta = fused_norm.fused_group_norm_relu_backward_plain(
+        x, gamma, beta, g, groups, 1e-6, relu)
+    assert xr.grad.dtype == dtype and gr.grad.dtype == torch.float32
+    _close(xr.grad, dx, dtype)
+    _close(gr.grad, dgamma, dtype)
+    _close(br.grad, dbeta, dtype)
 
 
 def test_conv_layer_on_card_matches_plain(cuda):

@@ -1,8 +1,9 @@
 """The port's kernel modules (tpuseg_torch/kernels) against the JAX kernels.
 
-On CPU tensors the wrappers run their plain PyTorch versions; these tests
-feed the same numpy-seeded inputs to the Pallas kernels (interpret mode,
-as tests/test_pallas_kernels.py runs them) and to the port.  The CUDA
+On CPU tensors the wrappers run their plain PyTorch versions, forward and
+backward; these tests feed the same numpy-seeded inputs to the Pallas
+kernels (interpret mode, as tests/test_pallas_kernels.py runs them), to
+their custom VJPs and to the port.  The CUDA
 kernels themselves are held against the plain versions on the card by
 tests/test_torch_port_cuda.py and chip_smoke.py.
 """
@@ -10,12 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpuseg.kernels.conv3d import _xla_conv
 from tpuseg.kernels.conv3d import conv3d_small as jax_conv3d_small
+from tpuseg.kernels.conv3d import conv3d_small_vjp
 from tpuseg.kernels.conv3d import supported as jax_supported
-from tpuseg.kernels.fused_norm import fused_group_norm_relu_pallas
+from tpuseg.kernels.fused_norm import (
+    fused_group_norm_relu_pallas,
+    fused_group_norm_relu_vjp,
+)
 from tpuseg_torch.kernels import conv3d, fused_norm
 from tpuseg_torch.nn.layers import ConvND
 
@@ -88,24 +94,93 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
 
 
 @pytest.mark.parametrize("kernel", ["conv3d_small", "fused_group_norm_relu"])
-def test_kernel_node_backward_raises(monkeypatch, kernel):
-    """The launch is an autograd node: its output carries a grad_fn and a
-    backward pass raises, so gradients are never silently missing.  The
-    launch is replaced by the plain version here (no card)."""
-    x = torch.randn(1, 3, 4, 5, 8, requires_grad=True)
+def test_kernel_node_backward_raises(kernel):
+    """The op is an autograd node that saves its input for the backward
+    kernels: once that input is changed in place, a backward pass raises
+    instead of differentiating values that are gone."""
+    x = torch.randn(1, 3, 4, 5, 8)
     if kernel == "conv3d_small":
         w = torch.randn(3, 3, 3, 8, 4, requires_grad=True)
-        monkeypatch.setattr(conv3d, "_launch",
-                            lambda x, packed, cout: conv3d.conv3d_small_plain(x, w))
-        y = conv3d._Conv3dSmall.apply(x, w, conv3d.pack_weight(w, x.dtype))
+        y = conv3d.conv3d_small(x, w)
     else:
         g, b = torch.ones(8, requires_grad=True), torch.zeros(8, requires_grad=True)
-        monkeypatch.setattr(fused_norm, "_launch",
-                            fused_norm.fused_group_norm_relu_plain)
-        y = fused_norm._FusedGroupNormReLU.apply(x, g, b, 8, 1e-6, True)
-    assert y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        y = fused_norm.fused_group_norm_relu(x, g, b, 8, 1e-6, True)
+    assert y.grad_fn is not None and "Backward" in type(y.grad_fn).__name__
+    x.mul_(2.0)
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
         y.sum().backward()
+
+
+@pytest.mark.parametrize("x_shape, cout", [
+    ((1, 4, 5, 6, 16), 16),
+    ((2, 3, 4, 5, 8), 2),
+])
+def test_conv3d_small_backward_plain_matches_jax_vjp(x_shape, cout):
+    """conv3d_small_backward_plain against jax.vjp of conv3d_small_vjp
+    (Pallas forward in interpret mode, XLA backward): dx and dw within
+    1e-5 * max(1, max |ref|); the flipped-weight conv, which the dX kernel
+    runs, gives the same dx."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, x_shape[-1], cout)) * 0.2).astype(np.float32)
+    g = rng.standard_normal(x_shape[:4] + (cout,)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: conv3d_small_vjp(a, b, True),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    tx, tw, tg = (torch.from_numpy(a) for a in (x, w, g))
+    dx, dw = conv3d.conv3d_small_backward_plain(tx, tw, tg)
+    for got, ref in ((dx, jdx), (dw, jdw),
+                     (conv3d.conv3d_small_plain(tg, conv3d.flip_weight(tw)), jdx)):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_fused_gn_backward_plain_matches_jax_vjp(relu):
+    """fused_group_norm_relu_backward_plain against jax.vjp of
+    fused_group_norm_relu_vjp (its recompute through _gn_relu_reference),
+    eps 1e-6 passed to both: dx, dgamma, dbeta within 1e-5 * max(1,
+    max |ref|).  Gradients are zeroed within 1e-3 of the ReLU kink, where
+    the two may put an element on either side."""
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((2, 3, 4, 5, 16)) * 2 + 0.5).astype(np.float32)
+    gamma = rng.standard_normal(16).astype(np.float32)
+    beta = rng.standard_normal(16).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    pre = fused_norm.fused_group_norm_relu(
+        torch.from_numpy(x).double(), torch.from_numpy(gamma).double(),
+        torch.from_numpy(beta).double(), 8, 1e-6, relu=False).numpy()
+    g = g * (np.abs(pre) > 1e-3)
+    _, vjp = jax.vjp(lambda a, b, c: fused_group_norm_relu_vjp(a, b, c, 8, 1e-6, relu),
+                     jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    refs = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    got = fused_norm.fused_group_norm_relu_backward_plain(
+        *(torch.from_numpy(a) for a in (x, gamma, beta, g)), 8, 1e-6, relu)
+    for t, ref in zip(got, refs):
+        assert t.dtype == torch.float32 and t.shape == ref.shape
+        np.testing.assert_allclose(t.numpy(), ref,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+
+
+def test_kernel_nodes_differentiate_with_the_plain_backward():
+    """On CPU tensors both nodes' backward passes are the plain backward
+    versions, and they agree with torch autograd through the plain
+    forward versions (float64, so only the formulas are compared)."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(1, 3, 4, 5, 8, generator=gen, dtype=torch.float64)
+    w = torch.randn(3, 3, 3, 8, 16, generator=gen, dtype=torch.float64)
+    gamma = torch.randn(16, generator=gen, dtype=torch.float64)
+    beta = torch.randn(16, generator=gen, dtype=torch.float64)
+    grads = []
+    for conv, norm in ((conv3d.conv3d_small, fused_norm.fused_group_norm_relu),
+                       (conv3d.conv3d_small_plain, fused_norm.fused_group_norm_relu_plain)):
+        leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+        y = norm(conv(leaves[0], leaves[1]), leaves[2], leaves[3], 8, 1e-6, True)
+        (y * torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape).cos()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_conv_layer_packs_its_weight_once():

@@ -37,6 +37,7 @@ from tpuseg_torch.data.nifti import read_nifti, write_nifti
 from tpuseg_torch.data.normalize import percentile_zscore
 from tpuseg_torch.infer.serving import SegServer
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 
 F, K, S = 8, 3, 16  # features, classes, cube side
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,7 +162,8 @@ def test_reference_pth_loads_strict(params, port_model, tmp_path):
 def test_golden_file_is_current():
     """tests/data/torch_port_golden.npz, which chip_smoke.py reads without
     JAX, still equals what the JAX package computes, and the port's CPU
-    forward reproduces it (atol 1e-4)."""
+    forward (atol 1e-4) and train step (loss 1e-5, grads 1e-4 relative to
+    max(1, max |g|)) reproduce it."""
     spec = importlib.util.spec_from_file_location(
         "make_torch_port_golden", os.path.join(REPO, "tests", "make_torch_port_golden.py"))
     gen = importlib.util.module_from_spec(spec)
@@ -178,6 +180,28 @@ def test_golden_file_is_current():
     with torch.no_grad():
         _, probs = net(torch.from_numpy(stored["x"]))
     np.testing.assert_allclose(probs.numpy(), stored["probs"], atol=1e-4)
+
+    grads = sorted(k for k in stored.files if k.startswith("grad/"))
+    assert grads == sorted(k for k in fresh if k.startswith("grad/"))
+    assert [k[5:] for k in grads] == sorted(n for n, _ in net.named_parameters())
+    for key in ("train_x", "train_label"):
+        np.testing.assert_array_equal(stored[key], fresh[key])
+    for key in ["train_loss", "train_metric"] + grads:
+        np.testing.assert_allclose(stored[key], fresh[key], rtol=1e-5, atol=1e-6)
+    net = UNet(int(stored["num_classes"]), int(stored["features"]), dropout=0.0)
+    net.load_state_dict(unet_params_from_jax(seeded_unet_params(
+        int(stored["seed"]), int(stored["features"]), int(stored["num_classes"]),
+        int(stored["in_ch"]))), strict=True)
+    trainer = make_segmentation_trainer(
+        net, int(stored["num_classes"]), "MutilDiceLoss",
+        alpha=[1.0] * int(stored["num_classes"]), device="cpu")
+    m = trainer.train_step({"image": torch.from_numpy(stored["train_x"]),
+                            "label": torch.from_numpy(stored["train_label"])})
+    assert abs(float(m["loss"]) - float(stored["train_loss"])) <= 1e-5
+    for name, p in net.named_parameters():
+        ref = stored[f"grad/{name}"]
+        scale = max(1.0, float(np.abs(ref).max()))
+        assert float(np.abs(p.grad.numpy() - ref).max()) <= 1e-4 * scale, name
 
 
 def _call(app, method, path, query="", body=b""):
@@ -253,15 +277,24 @@ def test_resample_and_normalize_match_jax(interp):
 
 def test_cli_parses_the_serve_flags():
     cfg = parse_cli(["--infer.model_dir", "runs/x", "--model.num_classes", "5",
-                     "--infer.new_size", "[96,96,64]", "--model.features=8"])
+                     "--infer.new_size", "[96,96,64]", "--model.features=8",
+                     "--train.lr", "1e-4", "--train.resume", "false",
+                     "--train.alpha", "[1,2]", "--data.image_size", "[16,16,16]"])
     assert cfg.infer.model_dir == "runs/x" and cfg.infer.new_size == (96, 96, 64)
     assert cfg.model.num_classes == 5 and cfg.model.features == 8
+    assert cfg.train.lr == 1e-4 and cfg.train.resume is False
+    assert cfg.train.alpha == [1, 2] and cfg.data.image_size == (16, 16, 16)
     for bad in (["--model.num_classes"], ["model.num_classes", "5"],
-                ["--train.lr", "1"], ["--infer.new_size", "[1,2]"]):
+                ["--train.nope", "1"], ["--infer.new_size", "[1,2]"],
+                ["--train.resume", "maybe"], ["--train.packed_stem", "true"],
+                ["--train.mesh_data", "2"], ["--data.online_augment", "1"]):
         with pytest.raises(ValueError):
             parse_cli(bad)
+    assert parse_cli(["--train.packed_stem", "false"]).train.packed_stem is False
 
 
 def test_serve_imports_no_jax():
-    code = "import sys, tpuseg_torch.serve; assert 'jax' not in sys.modules"
+    """Neither entry point of the port (serve, train) imports JAX."""
+    code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train; "
+            "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

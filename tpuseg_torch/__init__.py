@@ -9,10 +9,11 @@ Module parameters use the reference PyTorch framework's names and layouts
 (``compat/weights.py``), so reference ``.pth`` files load with
 ``strict=True``.
 
-The serving path runs the small-channel 3x3x3 conv and the fused
-GroupNorm+ReLU through hand-written CUDA kernels (``kernels/``), built with
+The serving path (``serve``) and the training path (``train``) run the
+small-channel 3x3x3 conv and the fused GroupNorm+ReLU, forward and
+backward, through hand-written CUDA kernels (``kernels/``), built with
 ``nvcc`` for ``sm_90a`` at first use.  On CPU tensors those wrappers run
-their plain PyTorch versions; on CUDA tensors they launch the kernel or
+their plain PyTorch versions; on CUDA tensors they launch the kernels or
 raise.
 """
 

@@ -1,29 +1,33 @@
-"""Reference-compatible 3D U-Net Model classes, inference only.
+"""Reference-compatible 3D U-Net Model classes.
 
 Counterpart of ``tpuseg/compat/seg_models.py`` for ``MutilUNet3dModel`` and
 ``BinaryUNet3dModel``: the reference constructor signature, ``.pth``
-loading, ``inference(Volume, newSize)`` and ``predict``.  Training
-(``trainprocess``) and the sliding-window ``inference_patch`` are later
-slices of the port.
+loading, ``trainprocess`` (Adam, the reference's per-class alpha/gamma,
+best/latest checkpoints with resume), ``inference(Volume, newSize)`` and
+``predict``.  The sliding-window ``inference_patch`` is a later slice.
 
 The network runs the plain UNet3d (the JAX class serves a packed twin by
 default, an exact rewrite of the same net; the packed twins are not ported
-yet).  ``batch_size`` and ``loss_name`` are accepted for signature parity
-and unused by inference.
+yet).
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from tpuseg_torch.compat.weights import unet_params_from_jax
+from tpuseg_torch.data.dataset import DataLoader, SegDataset3D
 from tpuseg_torch.data.geometry import Volume
 from tpuseg_torch.data.normalize import percentile_zscore
 from tpuseg_torch.infer.volume import infer_volume, probs_to_mask
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
+from tpuseg_torch.tasks.trainer import TrainerConfig
+from tpuseg_torch.tools.summary import print_summary
+from tpuseg_torch.tools.visualization import plot_result
 
 
 def disable_tf32() -> None:
@@ -54,6 +58,8 @@ def _checkpoint_file(model_path: str) -> str:
 
 class _SegModel3d:
     inference_normalizer = staticmethod(percentile_zscore)
+    binary = False
+    optimizer = "adam"  # the reference's 3D models train with Adam
 
     def __init__(self, image_depth: int, image_height: int, image_width: int,
                  image_channel: int, numclass: int, batch_size: int = 1,
@@ -70,6 +76,14 @@ class _SegModel3d:
         self.numclass = numclass
         self.batch_size = batch_size
         self.loss_name = loss_name
+        self.accuracyname = "dice"
+        # the reference's per-class defaults: binary (0.25, 2), mutil 3D
+        # ([1] * C, 3)
+        if self.binary:
+            self.alpha, self.gamma = 0.25, 2
+        else:
+            self.alpha, self.gamma = [1.0] * numclass, 3
+        self.trainer = None
         self.device = torch.device(
             device if device is not None else ("cuda" if use_cuda else "cpu"))
         disable_tf32()
@@ -96,6 +110,42 @@ class _SegModel3d:
         self.load_torch_checkpoint(
             unet_params_from_jax(tree, levels=self.model.levels))
 
+    def _dataloader(self, images, labels, shuffle: bool) -> DataLoader:
+        return DataLoader(SegDataset3D(images, labels, binary=self.binary),
+                          batch_size=self.batch_size, shuffle=shuffle)
+
+    def trainprocess(self, trainimage: Sequence[str], trainmask: Sequence[str],
+                     validationimage: Sequence[str],
+                     validationmask: Sequence[str], model_dir: str,
+                     epochs: int = 50, lr: float = 1e-3, showwind=(8, 8),
+                     resume: bool = False):
+        """Train on .npy volume/label path lists, keep the best (validation
+        dice) and latest checkpoints under ``model_dir`` and write the loss
+        and accuracy curves there.  ``showwind`` (the mask mosaics) is
+        accepted for signature parity: the mosaics need cv2 and are not
+        ported yet.  Returns the history."""
+        print("[INFO] training the network...")
+        os.makedirs(model_dir, exist_ok=True)
+        print_summary(self.model, type(self).__name__)
+        self.trainer = make_segmentation_trainer(
+            self.model, self.numclass, self.loss_name, alpha=self.alpha,
+            gamma=self.gamma, accuracy_name=self.accuracyname,
+            config=TrainerConfig(epochs=epochs, lr=lr, optimizer=self.optimizer),
+            device=self.device)
+        train_loader = self._dataloader(trainimage, trainmask, shuffle=True)
+        val_loader = self._dataloader(validationimage, validationmask, shuffle=False)
+        history = self.trainer.fit(lambda: iter(train_loader),
+                                   lambda: iter(val_loader), model_dir,
+                                   resume=resume)
+        self.model.eval()
+        plot_result(model_dir, history["train_loss"], history["valdation_loss"],
+                    "train_loss", "valdation_loss", "loss")
+        plot_result(model_dir, history["train_accuracy"],
+                    history["valdation_accuracy"], "train_accuracy",
+                    "valdation_accuracy", "accuracy")
+        self.clear_GPU_cache()
+        return history
+
     def _forward_probs(self, batch: torch.Tensor) -> torch.Tensor:
         return self.model(batch)[1]
 
@@ -121,6 +171,8 @@ class _SegModel3d:
 
 class BinaryUNet3dModel(_SegModel3d):
     """One output class, sigmoid and threshold (labels != 0 are foreground)."""
+
+    binary = True
 
 
 class MutilUNet3dModel(_SegModel3d):

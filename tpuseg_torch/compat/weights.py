@@ -89,7 +89,7 @@ def unet_params_from_jax(tree: Mapping, levels: int = 4) -> Dict[str, torch.Tens
             f"UNet params hold {len(leftover)} tensors the converter does not "
             f"map: {leftover[:8]}{'...' if len(leftover) > 8 else ''}"
         )
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def seeded_unet_params(seed: int, features: int, num_classes: int,

@@ -1,22 +1,60 @@
 """Config + CLI for the port's entry points (counterpart of
-``tpuseg/config.py``, holding only the fields ``serve`` reads).
+``tpuseg/config.py``).
 
 Overrides take the JAX package's form, ``--section.field value`` or
-``--section.field=value``; tuples are given as JSON lists.
+``--section.field=value``; tuples, lists and fields that default to None
+are given as JSON.  Fields the port cannot honour yet (the mesh, the packed
+twins, online augmentation, profiler traces) raise when set to anything but
+their default.
 """
 from __future__ import annotations
 
 import json
 import sys
-from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field, fields
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclass
 class ModelConfig:
+    name: str = "unet3d"  # the only model ported so far
     num_classes: int = 2
     image_channel: int = 1
     features: int = 16
+    dropout: float = 0.2
+
+
+@dataclass
+class DataConfig:
+    train_csv: str = ""
+    train_aug_csv: str = ""  # optional augmented manifest, appended to train
+    val_csv: str = ""
+    image_size: Tuple[int, ...] = (112, 112, 128)  # (x, y, z)
+    batch_size: int = 1
+    binary_labels: bool = False  # labels != 0 -> 1
+    online_augment: bool = False  # not ported yet
+    shuffle_seed: int = 0
+
+
+@dataclass
+class TrainConfig:
+    epochs: int = 100
+    lr: float = 1e-3
+    optimizer: str = "adam"
+    loss_name: str = "MutilDiceLoss"
+    alpha: Optional[List[float]] = None
+    gamma: float = 2.0
+    accuracy_name: str = "dice"
+    grad_clip: Optional[float] = None
+    early_stop_patience: Optional[int] = None
+    model_dir: str = "log/run"
+    resume: bool = False
+    mesh_data: int = -1  # not ported yet
+    mesh_model: int = 1  # not ported yet
+    mesh_space: int = 1  # not ported yet
+    packed_stem: bool = False  # not ported yet
+    profile: bool = False  # not ported yet
+    compute_dtype: str = "float32"  # "bfloat16": f32 master weights, bf16 compute
 
 
 @dataclass
@@ -28,7 +66,36 @@ class InferConfig:
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
+
+    def to_json(self) -> str:
+        return json.dumps({f.name: vars(getattr(self, f.name)) for f in fields(self)},
+                          indent=2)
+
+
+# settings whose paths are not ported yet: they must keep these defaults
+NOT_PORTED = {
+    ("train", "mesh_data"): -1, ("train", "mesh_model"): 1,
+    ("train", "mesh_space"): 1, ("train", "packed_stem"): False,
+    ("train", "profile"): False, ("data", "online_augment"): False,
+}
+
+
+def _parse(current, value: str):
+    if isinstance(current, bool):
+        if value.lower() not in ("1", "true", "yes", "0", "false", "no"):
+            raise ValueError(f"not a boolean: {value!r}")
+        return value.lower() in ("1", "true", "yes")
+    if current is None or isinstance(current, list):
+        return json.loads(value)
+    if isinstance(current, tuple):
+        parsed = tuple(json.loads(value))
+        if len(parsed) != len(current):
+            raise ValueError(f"needs {len(current)} values: {value}")
+        return parsed
+    return type(current)(value)
 
 
 def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
@@ -53,12 +120,12 @@ def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
         section = getattr(cfg, section_name, None)
         if section is None or not hasattr(section, field_name):
             raise ValueError(f"unknown setting {path!r}")
-        current = getattr(section, field_name)
-        if isinstance(current, tuple):
-            parsed = tuple(json.loads(value))
-            if len(parsed) != len(current):
-                raise ValueError(f"{path} needs {len(current)} values: {value}")
-        else:
-            parsed = type(current)(value)
+        try:
+            parsed = _parse(getattr(section, field_name), value)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+        if NOT_PORTED.get((section_name, field_name), parsed) != parsed:
+            raise ValueError(f"--{path} {value}: not ported yet (only the default "
+                             f"{NOT_PORTED[(section_name, field_name)]!r} runs)")
         setattr(section, field_name, parsed)
     return cfg

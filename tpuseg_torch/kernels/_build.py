@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled at first use by one ``nvcc`` call into
-one shared library with a plain C interface, which is loaded with
-``ctypes``:
+At first use every ``csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/tpuseg_torch/lib....so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
+         -Xcompiler -fPIC -Xptxas -v -o <tmpdir>/<name>.o csrc/<name>.cu  # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o build/tpuseg_torch/lib....so <tmpdir>/*.o
 
 The library lands in ``build/tpuseg_torch/`` at the repository root, named
 by a hash of the sources, so an edited kernel is rebuilt and a stale build
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -50,6 +52,14 @@ _SIGNATURES = {
     # rows_per_chunk, n_chunks, eps, relu, dtype, stream
     "tpuseg_group_norm_relu": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                                _I, _I, _F, _I, _I, _P],
+    # x, g, partial, dw, n, d, h, w, cin, cout, tile_w, n_chunks, dtype,
+    # stream
+    "tpuseg_conv3d_small_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
+    # x, grad_y, stats, gamma, beta, dx, dgamma, dbeta, partial, coef, n, v,
+    # c, groups, rows_per_chunk, n_chunks, relu, dtype, stream
+    "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _LL, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -79,20 +89,35 @@ def library_path() -> Path:
 def _compile(out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-        *[str(s) for s in _sources() if s.suffix == ".cu"],
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    log = []
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        objects, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(objdir, src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+                   "-fPIC", "-Xptxas", "-v", "-o", obj, str(src)]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:  # every process is waited for, failed or not
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
     os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    return "".join(log)
 
 
 def library() -> ctypes.CDLL:

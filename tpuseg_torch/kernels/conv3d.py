@@ -26,9 +26,23 @@ it the served forward's 10 calls ran 0.65 ms slower on an H100).
 ``mma.sync`` / ``wgmma``, TMA staging and a fused GroupNorm-statistics
 epilogue are later work.
 
-On a CPU tensor ``conv3d_small`` runs ``conv3d_small_plain``; on a CUDA
-tensor it launches the kernel or raises.  The launch is an autograd node
-whose backward raises until the backward kernels are written.
+The backward replaces the XLA conv VJP of ``conv3d_small_vjp``
+(conv3d.py:161).  dX is a SAME 3x3x3 conv of the output gradient with the
+spatially flipped, Cin<->Cout-transposed weight, so it launches the same
+kernel on a second packed weight (``pack_weight_t``, made once per weight
+version by the layer); for every conv in the supported range the
+transposed conv (Cin' = Cout >= 2, Cout' = Cin <= 64) is one the kernel
+takes.  dW (``csrc/conv3d_small_dw.cu``) is a reduction over all N·D·H·W
+positions into 27·Cin·Cout sums, the same FLOPs as the forward: blocks walk
+ranges of output rows, stage the 9 input rows and the gradient row each
+needs in shared memory, keep a 4 x 8 (ci x co) tile of one tap in
+registers across their range, and write one fp32 partial per block range;
+a second launch sums the partials in fp64 in a fixed order, so dW is
+deterministic.  dX is skipped when x needs no gradient.
+
+``conv3d_small`` is an autograd node: on CPU tensors its forward and
+backward run the plain versions; on CUDA tensors they launch the kernels
+or raise.
 """
 from __future__ import annotations
 
@@ -39,11 +53,16 @@ import torch.nn.functional as F
 
 from tpuseg_torch.kernels import _build
 
-# kernel launches by `conv3d_small` in this process (plain calls not counted)
+# kernel launches by `conv3d_small` in this process: forward, the backward's
+# dX conv and the backward's dW reduction (plain calls not counted)
 LAUNCHES = 0
+DX_LAUNCHES = 0
+DW_LAUNCHES = 0
 
 # must match csrc/conv3d_small.cu
 _XT, _CO, _TY, _MAX_TW, _SMEM_FLOATS = 4, 8, 4, 64, 12 * 1024
+# must match csrc/conv3d_small_dw.cu
+_DW_CIT, _DW_COT, _DW_THREADS = 4, 8, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,6 +93,33 @@ def conv3d_small_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def conv3d_small_dx_plain(grad_y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain dX: ``torch.nn.grad.conv3d_input`` on the channels-last views;
+    (N, D, H, W, Cin) in ``grad_y.dtype``."""
+    n, d, h, wd, _ = grad_y.shape
+    dx = torch.nn.grad.conv3d_input(
+        (n, w.shape[3], d, h, wd), w.to(grad_y.dtype).permute(4, 3, 0, 1, 2),
+        grad_y.permute(0, 4, 1, 2, 3), padding=1)
+    return dx.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3d_small_dw_plain(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
+    """Plain dW: ``torch.nn.grad.conv3d_weight`` on the channels-last views;
+    (3, 3, 3, Cin, Cout) in ``x.dtype``."""
+    dw = torch.nn.grad.conv3d_weight(
+        x.permute(0, 4, 1, 2, 3), (grad_y.shape[-1], x.shape[-1], 3, 3, 3),
+        grad_y.to(x.dtype).permute(0, 4, 1, 2, 3), padding=1)
+    return dw.permute(2, 3, 4, 1, 0)
+
+
+def conv3d_small_backward_plain(x: torch.Tensor, w: torch.Tensor,
+                                grad_y: torch.Tensor):
+    """Plain PyTorch backward of ``conv3d_small_plain``: (dx in
+    ``x.dtype``, dw (3, 3, 3, Cin, Cout) in ``w.dtype``)."""
+    g = grad_y.to(x.dtype)
+    return conv3d_small_dx_plain(g, w), conv3d_small_dw_plain(x, g).to(w.dtype)
+
+
 def _tile_w(w: int, cin: int) -> int:
     """Block x-segment: a multiple of 4, at most 64 wide and as wide as the
     staged rows (TY + 2 rows of (tw + 2) x Cin floats) fit in 48 KB, with W
@@ -82,6 +128,35 @@ def _tile_w(w: int, cin: int) -> int:
     tiles = -(-w // widest)
     per = -(-w // tiles)
     return -(-per // _XT) * _XT
+
+
+def _dw_tile_w(w: int, cin: int, cout: int) -> int:
+    """dW's x segment: as wide as 9 staged rows of (tw + 2) x cin_pad
+    floats and one gradient row of tw x cout_pad floats fit in 48 KB, with
+    W split evenly."""
+    cin_pad = -(-cin // _DW_CIT) * _DW_CIT
+    cout_pad = -(-cout // _DW_COT) * _DW_COT
+    widest = (_SMEM_FLOATS - 18 * cin_pad) // (9 * cin_pad + cout_pad)
+    segments = -(-w // widest)
+    return -(-w // segments)
+
+
+def _dw_chunks(x_shape, cout: int, device) -> int:
+    """Row-group ranges of the dW kernel: about 8 blocks per SM in all, and
+    never more ranges than row groups."""
+    n, d, h, w, cin = x_shape
+    tiles = 27 * (-(-cin // _DW_CIT)) * (-(-cout // _DW_COT))
+    parts = -(-tiles // _DW_THREADS)
+    groups = n * d * h * -(-w // _dw_tile_w(w, cin, cout))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(groups, 8 * sms // parts))
+
+
+def flip_weight(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO kernel -> the kernel of the transposed conv (dX = that conv of
+    the output gradient): taps flipped in all three dims, Cin and Cout
+    swapped."""
+    return w.flip(0, 1, 2).transpose(3, 4)
 
 
 def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -99,8 +174,13 @@ def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return packed
 
 
-def _launch(x: torch.Tensor, packed: torch.Tensor, cout: int) -> torch.Tensor:
-    global LAUNCHES
+def pack_weight_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``pack_weight`` of the transposed conv's kernel (the backward's dX
+    conv): (27, Cout, cin_pad)."""
+    return pack_weight(flip_weight(w), dtype)
+
+
+def _conv(x: torch.Tensor, packed: torch.Tensor, cout: int, what: str) -> torch.Tensor:
     n, d, h, wd, cin = x.shape
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.library()
@@ -110,40 +190,102 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, cout: int) -> torch.Tensor:
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, d, h, wd, cin,
             cout, packed.shape[2], _tile_w(wd, cin), _DTYPES[x.dtype], stream,
         )
-    _build.check(err, "conv3d_small")
+    _build.check(err, what)
+    return y
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, cout: int) -> torch.Tensor:
+    global LAUNCHES
+    y = _conv(x, packed, cout, "conv3d_small")
     LAUNCHES += 1
     return y
 
 
+def _launch_dx(grad_y: torch.Tensor, packed_t: torch.Tensor, cin: int) -> torch.Tensor:
+    global DX_LAUNCHES
+    dx = _conv(grad_y, packed_t, cin, "conv3d_small dX")
+    DX_LAUNCHES += 1
+    return dx
+
+
+def _launch_dw(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
+    """dW (3, 3, 3, Cin, Cout) fp32 of x and the output gradient."""
+    global DW_LAUNCHES
+    n, d, h, wd, cin = x.shape
+    cout = grad_y.shape[-1]
+    chunks = _dw_chunks(tuple(x.shape), cout, x.device)
+    partial = torch.empty((chunks, 27, cin, cout), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tpuseg_conv3d_small_dw(
+            x.data_ptr(), grad_y.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            n, d, h, wd, cin, cout, _dw_tile_w(wd, cin, cout), chunks,
+            _DTYPES[x.dtype], stream,
+        )
+    _build.check(err, "conv3d_small dW")
+    DW_LAUNCHES += 1
+    return dw
+
+
 class _Conv3dSmall(torch.autograd.Function):
-    """The kernel as an autograd node: the forward launches it; the
-    backward kernels are not written yet, so a backward pass through it
-    raises instead of silently leaving x and w without gradients."""
+    """The conv as an autograd node: kernels for CUDA tensors (forward, dX
+    with the transposed packed weight, dW), the plain versions for CPU
+    tensors."""
 
     @staticmethod
-    def forward(ctx, x, w, packed):
+    def forward(ctx, x, w, packed, packed_t):
+        ctx.save_for_backward(x, w)
+        ctx.packed_t = packed_t
+        if x.device.type == "cpu":
+            return conv3d_small_plain(x, w)
         return _launch(x, packed, w.shape[4])
 
     @staticmethod
     def backward(ctx, grad_y):
-        raise NotImplementedError(
-            "conv3d_small has no backward kernel yet: the CUDA path is "
-            "inference only (run it under torch.no_grad/inference_mode)"
+        x, w = ctx.saved_tensors
+        if grad_y.device.type == "cpu":
+            dx, dw = conv3d_small_backward_plain(x, w, grad_y)
+            return (dx if ctx.needs_input_grad[0] else None,
+                    dw if ctx.needs_input_grad[1] else None, None, None)
+        g = grad_y.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            packed_t = ctx.packed_t
+            if packed_t is None:
+                packed_t = pack_weight_t(w, x.dtype)
+            dx = _launch_dx(g, packed_t, w.shape[3])
+        if ctx.needs_input_grad[1]:
+            dw = _launch_dw(x, g).to(w.dtype)
+        return dx, dw, None, None
+
+
+def _check_packed(packed, x, rows: int, cols: int, what: str) -> None:
+    if (packed.device != x.device or packed.dtype != torch.float32
+            or tuple(packed.shape) != (27, rows, -(-cols // _CO) * _CO)
+            or not packed.is_contiguous()):
+        raise ValueError(
+            f"conv3d_small: {what} {tuple(packed.shape)} {packed.dtype} on "
+            f"{packed.device} is not the layer's packed weight"
         )
 
 
 def conv3d_small(x: torch.Tensor, w: torch.Tensor,
-                 packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 packed: Optional[torch.Tensor] = None,
+                 packed_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SAME stride-1 3x3x3 conv without bias, NDHWC in / NDHWC out.
 
     ``x`` (N, D, H, W, Cin) contiguous, float32 or bfloat16;
-    ``w`` (3, 3, 3, Cin, Cout), any float dtype and strides; ``packed``,
-    optional, is ``pack_weight(w, x.dtype)`` made once by the caller.
-    Accumulates in fp32 and returns ``x.dtype``.  CPU tensors take the plain
-    version; on a CUDA tensor the result cannot be differentiated (its
-    backward raises)."""
+    ``w`` (3, 3, 3, Cin, Cout), any float dtype and strides; ``packed`` and
+    ``packed_t``, optional, are ``pack_weight(w, x.dtype)`` and
+    ``pack_weight_t(w, x.dtype)`` made once by the caller (the backward
+    packs ``packed_t`` itself when it is not given).  Accumulates in fp32
+    and returns ``x.dtype``; differentiable in x and w.  CPU tensors take
+    the plain versions; CUDA tensors the kernels, forward and backward."""
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return conv3d_small_plain(x, w)
+        return _Conv3dSmall.apply(x, w, None, None)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
             f"conv3d_small: x on {x.device}, w on {w.device}; both must be "
@@ -163,11 +305,8 @@ def conv3d_small(x: torch.Tensor, w: torch.Tensor,
     cin, cout = w.shape[3], w.shape[4]
     if packed is None:
         packed = pack_weight(w, x.dtype)
-    elif (packed.device != x.device or packed.dtype != torch.float32
-          or tuple(packed.shape) != (27, cin, -(-cout // _CO) * _CO)
-          or not packed.is_contiguous()):
-        raise ValueError(
-            f"conv3d_small: packed weight {tuple(packed.shape)} "
-            f"{packed.dtype} on {packed.device} is not pack_weight(w, x.dtype)"
-        )
-    return _Conv3dSmall.apply(x, w, packed)
+    else:
+        _check_packed(packed, x, cin, cout, "packed weight")
+    if packed_t is not None:
+        _check_packed(packed_t, x, cout, cin, "transposed packed weight")
+    return _Conv3dSmall.apply(x, w, packed, packed_t)

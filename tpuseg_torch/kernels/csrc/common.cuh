@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace tpuseg {
 
@@ -15,5 +16,30 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 
 __device__ __forceinline__ void store_float(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_float(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// VEC consecutive channels from global memory: one 16-byte (fp32) or
+// 8-byte (bf16) load for VEC = 4, which the conv entry points pick only when
+// Cin is a multiple of 4 and x is 16-byte aligned
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  if constexpr (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
 
 }  // namespace tpuseg

@@ -34,31 +34,6 @@ constexpr int MAX_TW = 64;    // output x positions per block
 constexpr int SMEM_FLOATS = 12 * 1024;  // 48 KB of staged input rows
 constexpr int MAX_THREADS = TY * (MAX_TW / XT) * (64 / CO);
 
-// VEC consecutive channels from global memory: one 16-byte (fp32) or
-// 8-byte (bf16) load for VEC = 4, which tpuseg_conv3d_small picks only when
-// Cin is a multiple of 4 and x is 16-byte aligned
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  if constexpr (VEC == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-  if constexpr (VEC == 4) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-
 template <typename T, int VEC>
 __global__ void __launch_bounds__(MAX_THREADS) conv3d_small_kernel(
     const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
@@ -100,7 +75,7 @@ __global__ void __launch_bounds__(MAX_THREADS) conv3d_small_kernel(
       const int gx = x0 + lx - 1;
       float v[VEC];
       if (z_ok && yi >= 0 && yi < H && gx >= 0 && gx < W) {
-        load_vec<VEC>(
+        tpuseg::load_vec<VEC>(
             x + ((((size_t)n * D + zi) * H + yi) * (size_t)W + gx) * cin + ci, v);
       } else {
 #pragma unroll

@@ -19,12 +19,22 @@ Pallas formula ``s2 / count - mean**2`` (fused_norm.py:62) cancels (large
 mean).  Folding the statistics into the preceding conv's epilogue, which
 would save the stats pass's read, is later work.
 
+The backward (``csrc/fused_norm_bwd.cu``, replacing the JAX recompute
+through ``_gn_relu_reference`` in ``fused_group_norm_relu_vjp``) is
+memory-bound too: it reads x and the output gradient twice and writes dx
+once.  It takes the per-(sample, group) mean and rstd that the forward's
+finalize launch wrote, recomputes the normalized map and the ReLU mask
+from x (nothing of the forward's size is saved but x itself), sums
+g·mask and g·mask·x̂ per (sample, channel) in split-V partials merged in
+fp64, and writes dx = rstd·(γĝ − mean_grp(γĝ) − x̂·mean_grp(γĝx̂)) in one
+elementwise pass; dγ and dβ come from the same sums.
+
 ``eps`` is an argument: flax ``nn.GroupNorm``, the default path of the JAX
 model, uses 1e-6, while the JAX fused path runs at 1e-5.
 
-On a CPU tensor ``fused_group_norm_relu`` runs the plain version; on a CUDA
-tensor it launches the kernel or raises.  The launch is an autograd node
-whose backward raises until the backward kernel is written.
+``fused_group_norm_relu`` is an autograd node: on CPU tensors its forward
+and backward run the plain versions; on CUDA tensors they launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -32,9 +42,10 @@ import torch
 
 from tpuseg_torch.kernels import _build
 
-# kernel launches by `fused_group_norm_relu` in this process (one per call;
-# plain calls not counted)
+# kernel launches by `fused_group_norm_relu` in this process, forward (one
+# per call) and backward; plain calls not counted
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C = 1024  # must match csrc/fused_norm.cu
@@ -54,6 +65,30 @@ def fused_group_norm_relu_plain(x, gamma, beta, groups: int = 8,
     return y.reshape(shape).to(x.dtype)
 
 
+def fused_group_norm_relu_backward_plain(x, gamma, beta, grad_y,
+                                        groups: int = 8, eps: float = 1e-6,
+                                        relu: bool = True):
+    """Plain PyTorch backward of ``fused_group_norm_relu_plain``: the
+    kernel's formula in torch ops, fp32 statistics.  Returns (dx in
+    ``x.dtype``, dgamma in ``gamma.dtype``, dbeta in ``beta.dtype``)."""
+    n, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(n, -1, groups, c // groups).float()
+    var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = ((xg - mean) * rstd).reshape(n, -1, c)
+    g = grad_y.reshape(n, -1, c).float()
+    if relu:
+        g = g * (xhat * gamma.float() + beta.float() > 0)
+    dbeta = g.sum(dim=(0, 1))
+    dgamma = (g * xhat).sum(dim=(0, 1))
+    dxhat = (g * gamma.float()).reshape(xg.shape)
+    xh = xhat.reshape(xg.shape)
+    dx = rstd * (dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
+                 - xh * (dxhat * xh).mean(dim=(1, 3), keepdim=True))
+    return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype))
+
+
 def _chunking(v: int, c: int):
     """Rows per stats block (~16K elements, at least one row per thread
     group) and the number of chunks."""
@@ -62,13 +97,13 @@ def _chunking(v: int, c: int):
     return rows, -(-v // rows)
 
 
-def _launch(x, gamma, beta, groups: int, eps: float, relu: bool):
+def _launch(x, gamma32, beta32, groups: int, eps: float, relu: bool):
+    """Forward launches; returns (y, stats), stats (n, groups, 2) holding
+    each (sample, group)'s mean and rstd."""
     global LAUNCHES
     n, c = x.shape[0], x.shape[-1]
     v = x.numel() // (n * c)
     rows, n_chunks = _chunking(v, c)
-    gamma32 = gamma.detach().float().contiguous()
-    beta32 = beta.detach().float().contiguous()
     y = torch.empty_like(x)
     partial = torch.empty((n, n_chunks, groups, 3), dtype=torch.float32,
                           device=x.device)
@@ -83,25 +118,67 @@ def _launch(x, gamma, beta, groups: int, eps: float, relu: bool):
         )
     _build.check(err, "fused_group_norm_relu")
     LAUNCHES += 1
-    return y
+    return y, stats
+
+
+def _launch_backward(x, grad_y, stats, gamma32, beta32, groups: int,
+                     relu: bool):
+    """Backward launches; returns (dx, dgamma, dbeta), the last two fp32."""
+    global BWD_LAUNCHES
+    n, c = x.shape[0], x.shape[-1]
+    v = x.numel() // (n * c)
+    rows, n_chunks = _chunking(v, c)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    partial = torch.empty((n, n_chunks, c, 2), dtype=torch.float32,
+                          device=x.device)
+    coef = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tpuseg_group_norm_relu_bwd(
+            x.data_ptr(), grad_y.data_ptr(), stats.data_ptr(),
+            gamma32.data_ptr(), beta32.data_ptr(), dx.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(),
+            coef.data_ptr(), n, v, c, groups, rows, n_chunks,
+            int(bool(relu)), _DTYPES[x.dtype], stream,
+        )
+    _build.check(err, "fused_group_norm_relu backward")
+    BWD_LAUNCHES += 1
+    return dx, dgamma, dbeta
 
 
 class _FusedGroupNormReLU(torch.autograd.Function):
-    """The kernel as an autograd node: the forward launches it; the
-    backward kernel is not written yet, so a backward pass through it
-    raises instead of silently leaving x, gamma and beta without
-    gradients."""
+    """The op as an autograd node: kernels for CUDA tensors, the plain
+    versions for CPU tensors.  Saves x and, on the card, the forward's
+    per-(sample, group) mean and rstd."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups, eps, relu):
-        return _launch(x, gamma, beta, groups, eps, relu)
+        ctx.groups, ctx.eps, ctx.relu = groups, eps, relu
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, gamma, beta)
+            return fused_group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
+        gamma32 = gamma.detach().float().contiguous()
+        beta32 = beta.detach().float().contiguous()
+        y, stats = _launch(x, gamma32, beta32, groups, eps, relu)
+        ctx.save_for_backward(x, gamma, beta, stats, gamma32, beta32)
+        return y
 
     @staticmethod
     def backward(ctx, grad_y):
-        raise NotImplementedError(
-            "fused_group_norm_relu has no backward kernel yet: the CUDA path "
-            "is inference only (run it under torch.no_grad/inference_mode)"
-        )
+        if grad_y.device.type == "cpu":
+            x, gamma, beta = ctx.saved_tensors
+            return fused_group_norm_relu_backward_plain(
+                x, gamma, beta, grad_y, ctx.groups, ctx.eps, ctx.relu) \
+                + (None, None, None)
+        x, gamma, beta, stats, gamma32, beta32 = ctx.saved_tensors
+        dx, dgamma, dbeta = _launch_backward(
+            x, grad_y.to(x.dtype).contiguous(), stats, gamma32, beta32,
+            ctx.groups, ctx.relu)
+        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                None, None, None)
 
 
 def fused_group_norm_relu(x, gamma, beta, groups: int = 8, eps: float = 1e-6,
@@ -110,18 +187,17 @@ def fused_group_norm_relu(x, gamma, beta, groups: int = 8, eps: float = 1e-6,
 
     ``x`` (N, *spatial, C) contiguous, float32 or bfloat16; ``gamma``,
     ``beta`` (C,).  Statistics in fp32 (merged in fp64), output ``x.dtype``.
-    CPU tensors take the plain version; on a CUDA tensor the result cannot
-    be differentiated (its backward raises)."""
-    if x.device.type == "cpu" and gamma.device.type == "cpu" \
-            and beta.device.type == "cpu":
-        return fused_group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
-    if x.device.type != "cuda" or gamma.device != x.device \
-            or beta.device != x.device:
+    Differentiable in x, gamma and beta.  CPU tensors take the plain
+    versions; CUDA tensors the kernels, forward and backward."""
+    on_cpu = (x.device.type == "cpu" and gamma.device.type == "cpu"
+              and beta.device.type == "cpu")
+    if not on_cpu and (x.device.type != "cuda" or gamma.device != x.device
+                       or beta.device != x.device):
         raise ValueError(
             f"fused_group_norm_relu: x on {x.device}, gamma on {gamma.device},"
             f" beta on {beta.device}; all must be on one CUDA device"
         )
-    if x.dtype not in _DTYPES:
+    if not on_cpu and x.dtype not in _DTYPES:
         raise TypeError(
             f"fused_group_norm_relu: x dtype {x.dtype} not in {list(_DTYPES)}"
         )
@@ -133,6 +209,6 @@ def fused_group_norm_relu(x, gamma, beta, groups: int = 8, eps: float = 1e-6,
         )
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError("fused_group_norm_relu: gamma and beta must be (C,)")
-    if not x.is_contiguous():
+    if not on_cpu and not x.is_contiguous():
         raise ValueError("fused_group_norm_relu: x must be contiguous")
     return _FusedGroupNormReLU.apply(x, gamma, beta, groups, eps, relu)

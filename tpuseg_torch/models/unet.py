@@ -49,18 +49,21 @@ class UNet(nn.Module):
         self.conv = OutputHead(f, num_classes)
         he_normal_init_(self, generator)
 
-    def forward(self, x: torch.Tensor):
-        """x (N, D, H, W, Cin) -> (logits, probs), each (N, D, H, W, K)."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """x (N, D, H, W, Cin) -> (logits, probs), each (N, D, H, W, K), in
+        x's dtype.  ``generator`` (on x's device) draws the channel-dropout
+        masks in training mode; every block draws from it in turn."""
         skips = []
         for lvl in range(self.levels):
-            x = getattr(self, f"encoder{lvl + 1}")(x)
+            x = getattr(self, f"encoder{lvl + 1}")(x, generator)
             skips.append(x)
             x = max_pool_nd(x)
-        x = self.bottleneck(x)
+        x = self.bottleneck(x, generator)
         for lvl in reversed(range(self.levels)):
             x = getattr(self, f"upconv{lvl + 1}")(x)
             x = torch.cat([x, skips[lvl]], dim=-1)
-            x = getattr(self, f"decoder{lvl + 1}")(x)
+            x = getattr(self, f"decoder{lvl + 1}")(x, generator)
         return self.conv(x)
 
 

@@ -11,6 +11,10 @@ layouts (conv ``weight`` (O, I, *k), transpose-conv ``weight`` (I, O, *k),
 GroupNorm ``weight``/``bias``), so reference ``.pth`` state_dicts load
 unchanged; ``compat/weights.py`` converts tpuseg's flax trees.
 
+Mixed precision, as the JAX trainer's ``cast_for_compute``: a layer runs
+in its input's dtype and casts its float32 master parameters to it with a
+differentiable ``.to()``, so their gradients come back in float32.
+
 Layout: ``x.permute`` of an NDHWC tensor to NCDHW is a view with
 ``channels_last_3d`` strides, so cuDNN takes the convs that are not ours
 without a copy and returns ``channels_last_3d``, whose NDHWC permute is
@@ -26,7 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuseg_torch.kernels.conv3d import conv3d_small, pack_weight, supported
+from tpuseg_torch.kernels.conv3d import (
+    conv3d_small,
+    pack_weight,
+    pack_weight_t,
+    supported,
+)
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
 
 # flax nn.GroupNorm's epsilon: the JAX model's default (served) path
@@ -49,9 +58,11 @@ class ConvND(nn.Module):
     A 3x3x3 conv inside ``conv3d_small``'s supported range goes to the
     hand-written kernel (the convs the TPU kernel took); every other conv
     goes to ``F.conv3d``, as XLA took them outside Pallas.  On the card the
-    kernel's packed weight is made once and made again only when the weight
-    changes in place (``load_state_dict``, an optimizer step) or moves; a
-    write through ``weight.data`` is not seen."""
+    kernel's packed weights (the forward's, and the transposed one of the
+    backward's dX conv when a gradient will be asked for) are made once
+    and made again only when the weight changes in place
+    (``load_state_dict``, an optimizer step) or moves; a write through
+    ``weight.data`` is not seen."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True):
@@ -65,25 +76,35 @@ class ConvND(nn.Module):
             self.bias = nn.Parameter(torch.empty(features))
         else:
             self.register_parameter("bias", None)
-        self._packed = None  # (key, pack_weight result)
+        self._packed = None    # (key, pack_weight result)
+        self._packed_t = None  # (key, pack_weight_t result)
+
+    def _key(self, dtype: torch.dtype):
+        return self.weight._version, self.weight.data_ptr(), dtype
 
     def _packed_weight(self, w_dhwio: torch.Tensor, dtype: torch.dtype):
-        key = (self.weight._version, self.weight.data_ptr(), dtype)
-        if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_weight(w_dhwio, dtype))
+        if self._packed is None or self._packed[0] != self._key(dtype):
+            self._packed = (self._key(dtype), pack_weight(w_dhwio, dtype))
         return self._packed[1]
 
+    def _packed_weight_t(self, w_dhwio: torch.Tensor, dtype: torch.dtype):
+        if self._packed_t is None or self._packed_t[0] != self._key(dtype):
+            self._packed_t = (self._key(dtype), pack_weight_t(w_dhwio, dtype))
+        return self._packed_t[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w_dhwio = self.weight.permute(2, 3, 4, 1, 0)  # view
+        w = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        w_dhwio = w.permute(2, 3, 4, 1, 0)  # view
         if supported(tuple(x.shape), tuple(w_dhwio.shape)):
-            packed = self._packed_weight(w_dhwio, x.dtype) if x.is_cuda else None
-            y = conv3d_small(x, w_dhwio, packed)
-            return y if self.bias is None else y + self.bias.to(y.dtype)
-        y = F.conv3d(
-            to_channels_first(x), self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            padding=self.pad,
-        )
+            packed = packed_t = None
+            if x.is_cuda:
+                packed = self._packed_weight(w_dhwio, x.dtype)
+                if torch.is_grad_enabled() and x.requires_grad:
+                    packed_t = self._packed_weight_t(w_dhwio, x.dtype)
+            y = conv3d_small(x, w_dhwio, packed, packed_t)
+            return y if bias is None else y + bias
+        y = F.conv3d(to_channels_first(x), w, bias, padding=self.pad)
         return to_channels_last(y)
 
 
@@ -120,11 +141,13 @@ class ChannelDropout(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` lives on x's device (``core/prng.py``
+        ``step_generator``); None draws from the global RNG."""
         if not self.training or self.rate == 0.0:
             return x
         shape = (x.shape[0], 1, 1, 1, x.shape[-1])
         keep = torch.rand(shape, generator=generator, device=x.device) >= self.rate
-        return x * keep.to(x.dtype) / (1.0 - self.rate)
+        return x * (keep.to(x.dtype) / (1.0 - self.rate))
 
 
 def max_pool_nd(x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +168,8 @@ class FusedGNReLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_group_norm_relu(x, self.weight, self.bias, self.groups,
+        return fused_group_norm_relu(x, self.weight.to(x.dtype),
+                                     self.bias.to(x.dtype), self.groups,
                                      self.eps, relu=True)
 
 
@@ -171,9 +195,10 @@ class ConvBlock(nn.Module):
             cin = features
         self.drop = ChannelDropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for conv, norm in self.names:
-            x = self.drop(getattr(self, norm)(getattr(self, conv)(x)))
+            x = self.drop(getattr(self, norm)(getattr(self, conv)(x)), generator)
         return x
 
 

@@ -1,6 +1,6 @@
-"""Where a served request's time goes, on one CUDA card.
+"""Where a served request's and a train step's time goes, on one CUDA card.
 
-    python -m tpuseg_torch.tools.profiling [--passes 2] [--forwards 5]
+    python -m tpuseg_torch.tools.profiling [--passes 2] [--forwards 5] [--train-steps 3]
 
 Builds the served model as ``tpuseg_torch.serve`` does (UNet3d, features
 16, 5 classes, new_size 112x112x128, seeded weights), then for each of
@@ -10,7 +10,13 @@ times the stages of one ``POST /predict`` in the order ``infer_volume`` and
 forward, argmax and download, nearest resample back, NIfTI write.  Device
 stages end with a synchronize; all times are host-clock ms.  It then traces
 ``--forwards`` forwards at the served size with ``torch.profiler`` and sums
-the device time per kernel name.  It prints one JSON object, with the
+the device time per kernel name.  Last it traces ``--train-steps`` UNet3d
+train steps at the reference KiPA setting (112x112x128, batch 1, 5
+classes, MutilDiceLoss, Adam at 1e-3, f32, seeded weights and a random
+batch) after one warmup step, and sums their device time per kernel name.
+It also sums the device time under each ``aten::convolution_backward``
+call by its input shapes, which names the cuDNN convs (those outside the
+kernels' range) that cost the most.  It prints one JSON object, with the
 card's ``nvidia-smi`` name and power limit.
 
 ``synthetic_ct`` makes the request volumes; ``chip_smoke.py`` sends the
@@ -99,8 +105,8 @@ def request_stages(model, src: str, dst: str, new_size=NEW_SIZE) -> dict:
     return ms
 
 
-def _device_us(event) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(event, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:
+    for attr in attrs:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
@@ -119,18 +125,69 @@ def forward_kernel_split(model, new_size=NEW_SIZE, forwards: int = 5) -> dict:
             for _ in range(forwards):
                 model._forward_probs(batch)
             torch.cuda.synchronize()
+    return _device_split(prof, forwards)
+
+
+def _device_split(prof, count: int) -> dict:
     split = {}
     for event in prof.key_averages():
         us = _device_us(event)
         if us > 0:
-            split[event.key] = us / forwards / 1e3
+            split[event.key] = us / count / 1e3
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE):
+    """Device ms per f32 UNet3d train step, by kernel name, from
+    ``torch.profiler`` over ``steps`` steps after a warmup step; and the
+    device ms per step under ``aten::convolution_backward``, by the call's
+    (grad_output, input, weight) shapes."""
+    from tpuseg_torch.compat.weights import seeded_unet_params, unet_params_from_jax
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
+    from tpuseg_torch.tasks.trainer import TrainerConfig
+
+    model = UNet(CLASSES, FEATURES)
+    model.load_state_dict(unet_params_from_jax(
+        seeded_unet_params(SEED, FEATURES, CLASSES, 1)), strict=True)
+    trainer = make_segmentation_trainer(
+        model, CLASSES, "MutilDiceLoss", alpha=[1.0] * CLASSES,
+        config=TrainerConfig(optimizer="adam", lr=1e-3), device="cuda")
+    x, y, z = new_size
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batch = {"image": torch.randn((1, z, y, x, 1), device="cuda", generator=gen),
+             "label": torch.randint(0, CLASSES, (1, z, y, x), device="cuda",
+                                    generator=gen)}
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = _device_split(prof, steps)
+    # a second pass with the host ops, to attribute cuDNN conv backward time
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    conv_bwd = {}
+    for event in prof.key_averages(group_by_input_shape=True):
+        if event.key == "aten::convolution_backward":
+            key = " ".join("x".join(map(str, s)) for s in event.input_shapes[:3])
+            conv_bwd[key] = conv_bwd.get(key, 0.0) + _device_us(
+                event, ("device_time_total", "cuda_time_total")) / steps / 1e3
+    return kernels, dict(sorted(conv_bwd.items(), key=lambda kv: -kv[1]))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--forwards", type=int, default=5)
+    ap.add_argument("--train-steps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -158,10 +215,14 @@ def main(argv=None) -> int:
             stages[key] = [request_stages(model, src, os.path.join(tmp, "mask.nii.gz"))
                            for _ in range(args.passes)]
     split = forward_kernel_split(model, forwards=args.forwards)
+    train_split, conv_bwd = train_step_kernel_split(args.train_steps)
     print(json.dumps({"card": smi, "torch": torch.__version__,
                       "stages_ms": stages,
                       "forward_device_ms_by_kernel": split,
-                      "forward_device_ms": sum(split.values())}))
+                      "forward_device_ms": sum(split.values()),
+                      "train_step_device_ms_by_kernel": train_split,
+                      "train_step_device_ms": sum(train_split.values()),
+                      "train_step_conv_backward_device_ms_by_shapes": conv_bwd}))
     return 0
 
 
