@@ -11,21 +11,27 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
  3. holds each kernel against its plain PyTorch version on the card at
     every shape the serving and training paths hand it (UNet3d, features
     16, input 112x112x128), in float32 (TF32 off) and bfloat16, and times
-    both: the forward kernels at the 10 conv and 18 GroupNorm shapes, the
-    conv's dX (the forward kernel on the transposed weight) at the 10 conv
-    shapes with the channels swapped, its dW at the 10 conv shapes, and the
-    GroupNorm+ReLU backward at the 18 GroupNorm shapes;
+    both: the conv's forward at its 10 shapes of the plain net, the
+    GroupNorm+ReLU forward at its 18 shapes (the 4 packed ones are the
+    same maps viewed as (N, 8V', F)), the conv's dX (the forward kernel on
+    the transposed weight) at the 10 conv shapes with the channels
+    swapped, its dW at the 10 conv shapes, the GroupNorm+ReLU backward at
+    the 18 GroupNorm shapes, and the packed k3 conv (K3) at the packed
+    twin's three shapes: one part of 8*16 channels, two parts of 128, and
+    the packed_levels=2 shape (one part of 8*32 channels on 32x28x28);
  4. runs the port's UNet at the golden file's sizes in float32 and holds
     it against what the JAX package produced
     (``tests/data/torch_port_golden.npz``): the probabilities of a 32^3
-    forward, and the loss and every parameter gradient of one 16^3 train
-    step;
+    forward, plain and through the packed twin at packed_levels 1 and 2,
+    and the loss and every parameter gradient of one 16^3 train step;
  5. starts the port's ``SegServer`` through ``tpuseg_torch.serve``'s code
     path on a local port (seeded weights, 5 classes), sends three CT-like
-    NIfTI volumes to ``POST /predict``, fetches each mask with
-    ``GET /getresult`` and checks its shape, its labels, the kernel launch
-    counts of the request and its agreement with the same forward through
-    the plain versions;
+    NIfTI volumes to ``POST /predict`` (served by the packed twin, the
+    default), fetches each mask with ``GET /getresult`` and checks its
+    shape, its labels, the kernel launch counts of the request and its
+    agreement with the plain, unpacked net through the plain versions, and
+    times the f32 forward four ways (packed twin and plain net, each with
+    the kernels and with the plain versions);
  6. trains through ``tpuseg_torch.train``'s code path (``build`` and
     ``run``, as ``python -m tpuseg_torch.train`` does) on 3 training and 1
     validation seeded .npy volume of 128x112x112 with blob labels 0..4:
@@ -41,7 +47,8 @@ Before its last line it prints one JSON object with each kernel's launches
 on the served and training paths, error, times (one f32 forward's or train
 step's worth of calls), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
-(for the conv's forward, dX and dW that call is the plain version itself),
+(for the conv's forward, dX and dW that call is the plain version itself;
+for K3, cuDNN's dense coarse conv of the concatenated parts),
 and the card's ``nvidia-smi`` line; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check, a missing card or a failed build
 exits non-zero without that line.
@@ -68,13 +75,19 @@ NEW_SIZE = (112, 112, 128)  # (x, y, z): the served UNet3d input
 FEATURES, CLASSES = 16, 5
 REQUEST_SIZES = ((160, 160, 96), (200, 180, 120), (112, 112, 128))  # (x, y, z)
 KERNELS = ("conv3d_small", "conv3d_small_dx", "conv3d_small_dw",
-           "fused_group_norm_relu", "fused_group_norm_relu_bwd")
-# per request: k3 convs inside conv3d_small's range / ConvBlock GroupNorms
-EXPECTED_LAUNCHES = {"conv3d_small": 10, "conv3d_small_dx": 0, "conv3d_small_dw": 0,
-                     "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 0}
-# per train step: every one of them forward and backward
+           "fused_group_norm_relu", "fused_group_norm_relu_bwd",
+           "packed_conv3d_structured")
+# per request through the packed twin (packed_levels 1): the k3 convs of
+# levels 1-2 inside conv3d_small's range, the ConvBlock GroupNorms (4 of
+# them packed), and the packed level's three packed -> packed k3 convs
+EXPECTED_LAUNCHES = {"conv3d_small": 7, "conv3d_small_dx": 0, "conv3d_small_dw": 0,
+                     "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 0,
+                     "packed_conv3d_structured": 3}
+# per train step (the plain net): K1 and K2 forward and backward
 TRAIN_LAUNCHES = {"conv3d_small": 10, "conv3d_small_dx": 10, "conv3d_small_dw": 10,
-                  "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 18}
+                  "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 18,
+                  "packed_conv3d_structured": 0}
+TRAIN_KERNELS = tuple(k for k in KERNELS if TRAIN_LAUNCHES[k])
 # tolerance on max |kernel - plain|, relative to max(1, max |plain|):
 # float32 sums the same products in another order (1e-4 leaves two decades
 # over fp32 rounding of 27*64 terms); bfloat16 rounds the output to 8 bits,
@@ -89,8 +102,9 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # bf16 step, the control, whose worst parameter lands near 0.4 there.
 GOLDEN_GRAD_TOL = 1e-4
 STEP_GRAD_TOL = 2e-2
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on
+# the tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES_PER_S = {"float32": 67e12, "bfloat16": 989e12}, 3.35e12
 TRAIN_DHW = (128, 112, 112)  # (z, y, x) of the training volumes
 
 
@@ -137,22 +151,27 @@ def level_shape(level: int):
     return (z >> level, y >> level, x >> level)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, dtype_name: str):
+    """(least ms the card could take, "operations" or "bytes") for work on
+    inputs of ``dtype_name``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def counts(conv3d, fused_norm) -> dict:
+def counts(mods) -> dict:
+    conv3d, fused_norm = mods["conv3d"], mods["fused_norm"]
     return {"conv3d_small": conv3d.LAUNCHES, "conv3d_small_dx": conv3d.DX_LAUNCHES,
             "conv3d_small_dw": conv3d.DW_LAUNCHES,
             "fused_group_norm_relu": fused_norm.LAUNCHES,
-            "fused_group_norm_relu_bwd": fused_norm.BWD_LAUNCHES}
+            "fused_group_norm_relu_bwd": fused_norm.BWD_LAUNCHES,
+            "packed_conv3d_structured": mods["packed_conv"].LAUNCHES}
 
 
-def reset_counts(conv3d, fused_norm) -> None:
+def reset_counts(mods) -> None:
+    conv3d, fused_norm = mods["conv3d"], mods["fused_norm"]
     conv3d.LAUNCHES = conv3d.DX_LAUNCHES = conv3d.DW_LAUNCHES = 0
     fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    mods["packed_conv"].LAUNCHES = 0
 
 
 def delta(after: dict, before: dict) -> dict:
@@ -200,6 +219,29 @@ def norm_cases():
     return [(f * 2 ** lvl, lvl, 4 if lvl < 4 else 2) for lvl in range(5)]
 
 
+def packed_cases():
+    """(c_fine of each part, out f, packed grid level, uses per served
+    forward) of K3 in the packed twin: the finest level's two packed ->
+    packed convs and its decoder's two-part conv at packed_levels 1, and
+    the packed_levels=2 level-1 conv (not on the default path)."""
+    f = FEATURES
+    return [((f,), f, 1, 2), ((f, f), f, 1, 1), ((2 * f,), 2 * f, 2, 0)]
+
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    """Mean ms per call of fn with CUDA events, after a warmup."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
                uses, bound, library_ms):
     results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err,
@@ -224,8 +266,9 @@ def _off_the_kink(torch, x, gamma, beta, g):
     return g * (v.abs() > 1e-3).reshape(g.shape).to(g.dtype)
 
 
-def phase_kernels(torch, conv3d, fused_norm):
+def phase_kernels(torch, mods):
     """Each kernel against its plain version at the path shapes, timed."""
+    conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {name: [] for name in KERNELS}
     for dtype_name in ("float32", "bfloat16"):
@@ -249,7 +292,7 @@ def phase_kernels(torch, conv3d, fused_norm):
             ms, plain_ms = time_pair(torch, lambda: conv3d.conv3d_small(x, wt, packed),
                                      lambda: conv3d.conv3d_small_plain(x, wt))
             _check_row(results, "conv3d_small", dtype_name, what, *rel_err(got, ref),
-                       ms, plain_ms, uses, bound_ms(flops, io), plain_ms)
+                       ms, plain_ms, uses, bound_ms(flops, io, dtype_name), plain_ms)
             # dX: the forward kernel on the transposed weight, channels swapped
             packed_t = conv3d.pack_weight_t(wt, dtype)
             got = conv3d._launch_dx(g, packed_t, cin)
@@ -258,7 +301,8 @@ def phase_kernels(torch, conv3d, fused_norm):
             ms, plain_ms = time_pair(torch, lambda: conv3d._launch_dx(g, packed_t, cin),
                                      lambda: conv3d.conv3d_small_dx_plain(g, wt))
             _check_row(results, "conv3d_small_dx", dtype_name, f"{cout}->{cin} @{d}x{h}x{w}",
-                       *rel_err(got, ref), ms, plain_ms, uses, bound_ms(flops, io), plain_ms)
+                       *rel_err(got, ref), ms, plain_ms, uses,
+                       bound_ms(flops, io, dtype_name), plain_ms)
             # dW
             got = conv3d._launch_dw(x, g)
             ref = conv3d.conv3d_small_dw_plain(x, g)
@@ -266,7 +310,7 @@ def phase_kernels(torch, conv3d, fused_norm):
             ms, plain_ms = time_pair(torch, lambda: conv3d._launch_dw(x, g),
                                      lambda: conv3d.conv3d_small_dw_plain(x, g))
             _check_row(results, "conv3d_small_dw", dtype_name, what, *rel_err(got, ref),
-                       ms, plain_ms, uses, bound_ms(flops, io), plain_ms)
+                       ms, plain_ms, uses, bound_ms(flops, io, dtype_name), plain_ms)
         for c, lvl, uses in norm_cases():
             d, h, w = level_shape(lvl)
             n_el = d * h * w * c
@@ -286,7 +330,7 @@ def phase_kernels(torch, conv3d, fused_norm):
             # about 10 flops per element (statistics, normalize, affine, ReLU)
             _check_row(results, "fused_group_norm_relu", dtype_name, what,
                        *rel_err(got, ref), ms, plain_ms, uses,
-                       bound_ms(10.0 * n_el, 2 * n_el * size), None)
+                       bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name), None)
             # backward: dx, dgamma, dbeta from the forward's statistics
             _, stats = fused_norm._launch(x, gamma, beta, 8, 1e-6, True)
             got = fused_norm._launch_backward(x, g, stats, gamma, beta, 8, True)
@@ -301,7 +345,41 @@ def phase_kernels(torch, conv3d, fused_norm):
             # about 20 flops per element over its two passes
             _check_row(results, "fused_group_norm_relu_bwd", dtype_name,
                        what + " (dx, dgamma, dbeta)", err, scale, ms, plain_ms, uses,
-                       bound_ms(20.0 * n_el, 3 * n_el * size), None)
+                       bound_ms(20.0 * n_el, 3 * n_el * size, dtype_name), None)
+        for c_fines, f, lvl, uses in packed_cases():
+            d, h, w = level_shape(lvl)
+            npos = d * h * w
+            parts = [torch.randn((1, d, h, w, 8 * c), generator=gen, device="cuda").to(dtype)
+                     for c in c_fines]
+            cin = sum(c_fines)
+            wf = (torch.randn((3, 3, 3, cin, f), generator=gen, device="cuda")
+                  * (2.0 / (27 * cin)) ** 0.5).cpu()
+            splits = [sum(c_fines[:i]) for i in range(len(c_fines) + 1)]
+            # dense packed kernels on the CPU (exact), as the model makes them
+            w3s = [mods["pack_k3_to_k3_coarse"](wf[..., a:b, :]).cuda()
+                   for a, b in zip(splits, splits[1:])]
+            packed = packed_conv.pack_structured(w3s, dtype)  # once, as the model does
+            got = packed_conv.packed_conv3d_structured(parts, w3s, packed=packed)
+            ref = packed_conv.packed_conv3d_plain(parts, w3s)
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(
+                torch, lambda: packed_conv.packed_conv3d_structured(parts, w3s, packed=packed),
+                lambda: packed_conv.packed_conv3d_plain(parts, w3s))
+            # library: cuDNN's dense coarse conv of the concatenated input
+            x_cat = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
+            w_cat = torch.cat(w3s, dim=3).to(dtype).permute(4, 3, 0, 1, 2)
+            library_ms = time_ms(
+                torch, lambda: torch.nn.functional.conv3d(x_cat, w_cat, padding=1))
+            # the work the function needs: each fine output reads 27 fine taps
+            # of cin channels (the kernel's 64 * cin structural rows per
+            # output channel are 64/27 of that, the rest products by zero)
+            flops = 2.0 * npos * 8 * f * 27 * cin
+            io = (8 * cin + 8 * f) * npos * size + 64 * cin * 8 * f * 4
+            what = (f"{' + '.join(str(8 * c) for c in c_fines)}->{8 * f} "
+                    f"@{d}x{h}x{w} packed")
+            _check_row(results, "packed_conv3d_structured", dtype_name, what,
+                       *rel_err(got, ref), ms, plain_ms, uses, bound_ms(flops, io, dtype_name),
+                       library_ms)
     return results
 
 
@@ -329,16 +407,31 @@ def phase_golden(torch, mods):
         f"near-ties {bad}")
     if not err <= 1e-4 or bad:
         fail("golden mismatch")
+    # the packed twin against JAX packed_unet3d_apply, through K3 and K1
+    for lv in (1, 2):
+        c0 = counts(mods)
+        with torch.inference_mode():
+            _, probs = mods["packed_unet3d_apply"](
+                net, torch.from_numpy(g["x"]).cuda(), packed_levels=lv)
+        launches = delta(counts(mods), c0)
+        err = float(np.abs(probs.cpu().numpy() - g[f"packed_probs/{lv}"]).max())
+        say(f"  golden packed twin, packed_levels {lv}: probs max_abs_err {err:.3g} "
+            f"(tol 1e-4); launches {launches}")
+        if not err <= 1e-4:
+            fail(f"golden packed_levels {lv} mismatch")
+        if launches["packed_conv3d_structured"] != 3 * lv:
+            fail(f"packed_levels {lv} forward launched K3 "
+                 f"{launches['packed_conv3d_structured']} times, not {3 * lv}")
 
     # one train step (MutilDiceLoss, dropout 0) against the JAX grads
     net = UNet(classes, features, dropout=0.0, in_channels=in_ch)
     net.load_state_dict(weights, strict=True)
     trainer = mods["make_segmentation_trainer"](
         net, classes, "MutilDiceLoss", alpha=[1.0] * classes, device="cuda")
-    c0 = counts(mods["conv3d"], mods["fused_norm"])
+    c0 = counts(mods)
     m = trainer.train_step({"image": torch.from_numpy(g["train_x"]).cuda(),
                             "label": torch.from_numpy(g["train_label"]).cuda()})
-    launches = delta(counts(mods["conv3d"], mods["fused_norm"]), c0)
+    launches = delta(counts(mods), c0)
     loss_err = abs(m["loss"].item() - float(g["train_loss"]))
     worst, worst_name, median, _ = grad_errors(
         {n: p.grad for n, p in net.named_parameters()},
@@ -349,25 +442,46 @@ def phase_golden(torch, mods):
         f"max |g| {median:.3g}); launches {launches}")
     if not loss_err <= 1e-5 or not worst <= GOLDEN_GRAD_TOL:
         fail("golden train step mismatch")
-    if not all(launches[k] > 0 for k in KERNELS):
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
         fail(f"golden train step missed a kernel: {launches}")
 
 
 @contextlib.contextmanager
-def plain_kernels(layers, conv3d, fused_norm):
-    """Route the model's two kernel calls to their plain versions."""
-    saved = layers.conv3d_small, layers.fused_group_norm_relu
-    layers.conv3d_small = lambda x, w, packed, packed_t: conv3d.conv3d_small_plain(x, w)
-    layers.fused_group_norm_relu = fused_norm.fused_group_norm_relu_plain
+def plain_kernels(mods):
+    """Route the models' kernel calls (the plain net's layers and the packed
+    twin's) to their plain versions."""
+    conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
+    routes = [
+        (mods["layers"], "conv3d_small",
+         lambda x, w, packed, packed_t: conv3d.conv3d_small_plain(x, w)),
+        (mods["layers"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
+        (mods["vnet_packed"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
+        (mods["unet_packed"], "packed_conv3d_structured",
+         lambda parts, w3s, bias=None, relu=False, packed=None:
+             packed_conv.packed_conv3d_plain(parts, w3s, bias, relu)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+    for mod, name, fn in routes:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        layers.conv3d_small, layers.fused_group_norm_relu = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def unpacked(model):
+    """Serve ``model`` through the plain net, not the packed twin."""
+    model.packed_inference = False
+    try:
+        yield
+    finally:
+        del model.packed_inference  # back to the class default
 
 
 def phase_serve(torch, mods, workdir):
     serve, parse_cli, SegServer = mods["serve"], mods["parse_cli"], mods["SegServer"]
-    conv3d, fused_norm, layers = mods["conv3d"], mods["fused_norm"], mods["layers"]
     read_nifti, write_nifti = mods["read_nifti"], mods["write_nifti"]
     synthetic_ct = mods["synthetic_ct"]
     cfg = parse_cli(["--model.num_classes", str(CLASSES), "--infer.new_size",
@@ -380,22 +494,28 @@ def phase_serve(torch, mods, workdir):
                        result_dir=os.path.join(workdir, "results"))
     say(f"  server warmup {time.perf_counter() - t0:.3f} s")
 
-    # device time of one forward at the served size, kernels vs plain
+    # device time of one forward at the served size: the packed twin (as
+    # served) and the plain net, each with the kernels and the plain versions
     x = torch.randn((1, NEW_SIZE[2], NEW_SIZE[1], NEW_SIZE[0], 1),
                     generator=torch.Generator(device="cuda").manual_seed(SEED),
                     device="cuda")
 
-    def fwd():
-        with torch.inference_mode():
-            model.model(x)
+    def fwd(packed: bool, kernels: bool):
+        def run():
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.inference_mode())
+                if not kernels:
+                    stack.enter_context(plain_kernels(mods))
+                if not packed:
+                    stack.enter_context(unpacked(model))
+                model._inference_probs(x)
+        return run
 
-    def fwd_plain():
-        with plain_kernels(layers, conv3d, fused_norm):
-            fwd()
-
-    fwd_ms, fwd_plain_ms = time_pair(torch, fwd, fwd_plain, iters=10)
-    say(f"  UNet3d forward 1x{NEW_SIZE[2]}x{NEW_SIZE[1]}x{NEW_SIZE[0]} f32: "
-        f"kernels {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms")
+    packed_k, plain_k = time_pair(torch, fwd(True, True), fwd(False, True), iters=10)
+    packed_p, plain_p = time_pair(torch, fwd(True, False), fwd(False, False), iters=10)
+    say(f"  UNet3d forward 1x{NEW_SIZE[2]}x{NEW_SIZE[1]}x{NEW_SIZE[0]} f32: packed twin "
+        f"kernels {packed_k:.3f} ms, plain versions {packed_p:.3f} ms; plain net "
+        f"kernels {plain_k:.3f} ms, plain versions {plain_p:.3f} ms")
 
     httpd = server.make_server("127.0.0.1", 0)
     port = httpd.server_address[1]
@@ -403,7 +523,7 @@ def phase_serve(torch, mods, workdir):
     thread.start()
     rng = np.random.default_rng(SEED)
     try:
-        reset_counts(conv3d, fused_norm)
+        reset_counts(mods)
         for i, size in enumerate(REQUEST_SIZES):
             vol = synthetic_ct(size, rng)
             name = f"case{i}.nii.gz"
@@ -411,7 +531,7 @@ def phase_serve(torch, mods, workdir):
             write_nifti(vol, src)
             with open(src, "rb") as f:
                 body = f.read()
-            c0 = counts(conv3d, fused_norm)
+            c0 = counts(mods)
             t0 = time.perf_counter()
             req = urllib.request.Request(
                 f"http://127.0.0.1:{port}/predict?filename={name}", data=body,
@@ -419,7 +539,7 @@ def phase_serve(torch, mods, workdir):
             with urllib.request.urlopen(req, timeout=600) as resp:
                 answer = json.load(resp)
             predict_s = time.perf_counter() - t0
-            launches = delta(counts(conv3d, fused_norm), c0)
+            launches = delta(counts(mods), c0)
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{port}/getresult?file={answer['result']}",
                     timeout=600) as resp:
@@ -429,14 +549,14 @@ def phase_serve(torch, mods, workdir):
             with open(out, "wb") as f:
                 f.write(payload)
             mask = read_nifti(out).array
-            with plain_kernels(layers, conv3d, fused_norm):
+            with plain_kernels(mods), unpacked(model):
                 ref = model.inference(vol, cfg.infer.new_size).array
             agree = float((mask == ref).mean())
             labels = sorted(int(v) for v in np.unique(mask))
             say(f"  request {i} {size[0]}x{size[1]}x{size[2]}: POST /predict "
                 f"{predict_s * 1e3:.1f} ms, with GET /getresult {total_s * 1e3:.1f} ms; "
-                f"launches {launches}; labels {labels}; agreement with plain "
-                f"{agree:.6f}")
+                f"launches {launches}; labels {labels}; agreement with the plain "
+                f"net through the plain versions {agree:.6f}")
             if mask.shape != vol.array.shape:
                 fail(f"mask shape {mask.shape} != volume {vol.array.shape}")
             if mask.min() < 0 or mask.max() > CLASSES - 1:
@@ -445,7 +565,7 @@ def phase_serve(torch, mods, workdir):
                 fail(f"launches {launches} != {EXPECTED_LAUNCHES}")
             if not agree >= 0.999:
                 fail(f"agreement {agree} < 0.999")
-        path_launches = counts(conv3d, fused_norm)
+        path_launches = counts(mods)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -484,15 +604,15 @@ def write_training_data(workdir: str, rng) -> tuple:
     return tuple(manifests)
 
 
-def _watch_steps(trainer, conv3d, fused_norm, record: list) -> None:
+def _watch_steps(trainer, mods, record: list) -> None:
     """Record each train/eval step's kernel launches on ``record``."""
     for kind in ("train_step", "eval_step"):
         step = getattr(trainer, kind)
 
         def watched(batch, step=step, kind=kind):
-            c0 = counts(conv3d, fused_norm)
+            c0 = counts(mods)
             out = step(batch)
-            record.append((kind, delta(counts(conv3d, fused_norm), c0)))
+            record.append((kind, delta(counts(mods), c0)))
             return out
 
         setattr(trainer, kind, watched)
@@ -500,7 +620,6 @@ def _watch_steps(trainer, conv3d, fused_norm, record: list) -> None:
 
 def phase_train(torch, mods, workdir):
     train, parse_cli = mods["train"], mods["parse_cli"]
-    conv3d, fused_norm, layers = mods["conv3d"], mods["fused_norm"], mods["layers"]
     train_csv, val_csv = write_training_data(workdir, np.random.default_rng(SEED))
     model_dir = os.path.join(workdir, "run")
     flags = ["--model.num_classes", str(CLASSES), "--model.features", str(FEATURES),
@@ -513,13 +632,13 @@ def phase_train(torch, mods, workdir):
     cfg = parse_cli(flags + ["--train.epochs", "2"])
     trainer, train_loader, val_loader = train.build(cfg, device="cuda")
     steps = []
-    _watch_steps(trainer, conv3d, fused_norm, steps)
-    reset_counts(conv3d, fused_norm)
+    _watch_steps(trainer, mods, steps)
+    reset_counts(mods)
     t0 = time.perf_counter()
     history = train.run(cfg, trainer, train_loader, val_loader)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    path_launches = counts(conv3d, fused_norm)
+    path_launches = counts(mods)
     eval_expect = {k: (v if k in ("conv3d_small", "fused_group_norm_relu") else 0)
                    for k, v in TRAIN_LAUNCHES.items()}
     say(f"  2 epochs x 3 steps + validation in {run_s:.2f} s; history {history}")
@@ -588,7 +707,7 @@ def phase_train(torch, mods, workdir):
     eps = torch.randn(image.shape, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(SEED))
     loss_k, grads_k = loss_and_grads(image)
-    with plain_kernels(layers, conv3d, fused_norm):
+    with plain_kernels(mods):
         loss_p, grads_p = loss_and_grads(image)
         floor = grad_errors(loss_and_grads(image * (1 + 1e-7 * eps))[1], grads_p)
     worst, worst_name, median, worst_abs = grad_errors(grads_k, grads_p)
@@ -615,7 +734,7 @@ def phase_train(torch, mods, workdir):
             fail(f"{dtype_name} train step loss {m['loss'].item()}")
 
         def plain_step(owner=owner):
-            with plain_kernels(layers, conv3d, fused_norm):
+            with plain_kernels(mods):
                 owner.train_step(batch)
 
         ms, plain_ms = time_pair(torch, lambda owner=owner: owner.train_step(batch),
@@ -638,8 +757,9 @@ def main() -> int:
     from tpuseg_torch.core.prng import step_generator
     from tpuseg_torch.data.nifti import read_nifti, write_nifti
     from tpuseg_torch.infer.serving import SegServer
-    from tpuseg_torch.kernels import _build, conv3d, fused_norm
+    from tpuseg_torch.kernels import _build, conv3d, fused_norm, packed_conv
     from tpuseg_torch.losses import build_loss
+    from tpuseg_torch.models import unet_packed, vnet_packed
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
@@ -664,16 +784,19 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  ptxas {line.strip()}")
 
-    say(f"phase 3: kernels vs plain ({smi})")
-    kernels = phase_kernels(torch, conv3d, fused_norm)
-
     mods = dict(
         serve=serve, train=train, parse_cli=parse_cli, SegServer=SegServer,
-        conv3d=conv3d, fused_norm=fused_norm, layers=layers, read_nifti=read_nifti,
+        conv3d=conv3d, fused_norm=fused_norm, packed_conv=packed_conv, layers=layers,
+        unet_packed=unet_packed, vnet_packed=vnet_packed,
+        packed_unet3d_apply=unet_packed.packed_unet3d_apply,
+        pack_k3_to_k3_coarse=vnet_packed.pack_k3_to_k3_coarse, read_nifti=read_nifti,
         write_nifti=write_nifti, synthetic_ct=synthetic_ct, UNet=UNet,
         seeded_unet_params=seeded_unet_params, unet_params_from_jax=unet_params_from_jax,
         make_segmentation_trainer=make_segmentation_trainer, build_loss=build_loss,
         step_generator=step_generator)
+    say(f"phase 3: kernels vs plain ({smi})")
+    kernels = phase_kernels(torch, mods)
+
     say("phase 4: golden")
     phase_golden(torch, mods)
 
@@ -698,6 +821,8 @@ def main() -> int:
                                   "tpuseg/kernels/fused_norm.py:74"),
         "fused_group_norm_relu_bwd": ("tpuseg_torch/kernels/csrc/fused_norm_bwd.cu",
                                       "tpuseg/kernels/fused_norm.py:136"),
+        "packed_conv3d_structured": ("tpuseg_torch/kernels/csrc/packed_conv.cu",
+                                     "tpuseg/kernels/packed_conv.py:184"),
     }
     for name, rows in kernels.items():
         f32 = [r for r in rows if r["dtype"] == "float32"]

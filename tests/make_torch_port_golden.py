@@ -6,7 +6,9 @@ GPU (``chip_smoke.py`` phase 4) without JAX.
 
 The file holds the seed and model sizes (the weights are remade from them by
 ``tpuseg_torch.compat.weights.seeded_unet_params``), a 32^3 input with the
-plain ``UNet.apply`` probabilities and argmax mask, and a 16^3 train batch
+plain ``UNet.apply`` probabilities and argmax mask and the packed twin's
+(``packed_unet3d_apply``) probabilities at ``packed_levels`` 1 and 2
+(``packed_probs/1``, ``packed_probs/2``), and a 16^3 train batch
 (``train_x``, ``train_label``) with the loss, the metric and every
 parameter gradient (``grad/<name>``, reference names and torch layouts) of
 one step of the JAX trainer's loss (MutilDiceLoss, dropout 0), all float32.
@@ -65,8 +67,31 @@ def jax_train_step(params, image, label):
     return float(value), float(multiclass_dice_coeff(probs, y)), grads
 
 
+def packed_golden(levels=(1, 2)) -> dict:
+    """``packed_probs/<lv>``: the JAX packed twin's probabilities on the
+    golden input at each of ``levels``, on the CPU."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from tpuseg.models.unet_packed import packed_unet3d_apply
+    from tpuseg_torch.compat.weights import seeded_unet_params
+
+    params = seeded_unet_params(SEED, FEATURES, NUM_CLASSES, IN_CH)
+    out = {}
+    for lv in levels:
+        apply = jax.jit(functools.partial(
+            packed_unet3d_apply, num_classes=NUM_CLASSES, features=FEATURES,
+            packed_levels=lv))
+        _, pp = apply({"params": params}, jnp.asarray(golden_input()))
+        out[f"packed_probs/{lv}"] = np.asarray(pp, np.float32)
+    return out
+
+
 def compute_golden() -> dict:
-    """The golden arrays, computed with the JAX package on the CPU."""
+    """Every golden array but the packed twin's (``packed_golden``),
+    computed with the JAX package on the CPU."""
     import jax
     import jax.numpy as jnp
 
@@ -97,7 +122,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    np.savez_compressed(GOLDEN, **compute_golden())
+    np.savez_compressed(GOLDEN, **compute_golden(), **packed_golden())
     print(f"wrote {GOLDEN} ({os.path.getsize(GOLDEN)} bytes)")
 
 

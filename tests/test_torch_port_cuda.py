@@ -12,9 +12,11 @@ shapes.
 import pytest
 import torch
 
-from tpuseg_torch.kernels import conv3d, fused_norm
+from tpuseg_torch.kernels import conv3d, fused_norm, packed_conv
 
 pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -215,3 +217,51 @@ def test_conv_layer_on_card_matches_plain(cuda):
         _close(got, ref, torch.float32)
         with torch.no_grad():
             conv.weight.mul_(-1.5)
+
+
+def _coarse(w):
+    """(3, 3, 3, C, F) fine kernel -> the dense packed (3, 3, 3, 8C, 8F),
+    on the CPU where the transform is exact."""
+    from tpuseg_torch.models.vnet_packed import pack_k3_to_k3_coarse
+
+    return pack_k3_to_k3_coarse(w.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid, c_fines, f, bias, relu", [
+    ((1, 3, 4, 5), (2,), 2, False, False),      # 8F = 16: one padded N tile
+    ((2, 5, 7, 9), (8,), 8, True, True),        # positions not a multiple of 128
+    ((1, 4, 6, 7), (8, 8), 8, False, True),     # two parts, the decoder's concat
+    ((1, 3, 5, 6), (4, 12), 20, True, False),   # two parts of other C, 8F = 160
+])
+def test_packed_conv_kernel_matches_plain(cuda, dtype, grid, c_fines, f, bias, relu):
+    """K3 against its plain version (the dense coarse conv), one launch."""
+    gen = torch.Generator().manual_seed(5)
+    parts = [torch.randn(grid + (8 * c,), generator=gen).to(cuda, dtype)
+             for c in c_fines]
+    w3s = [_coarse(torch.randn((3, 3, 3, c, f), generator=gen) * 0.2).to(cuda)
+           for c in c_fines]
+    b = torch.randn(8 * f, generator=gen).to(cuda) if bias else None
+    before = packed_conv.LAUNCHES
+    with torch.inference_mode():
+        got = packed_conv.packed_conv3d_structured(parts, w3s, b, relu)
+        torch.cuda.synchronize()
+        ref = packed_conv.packed_conv3d_plain(parts, w3s, b, relu)
+    assert packed_conv.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == grid + (8 * f,)
+    _close(got, ref, dtype)
+
+
+def test_packed_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn((1, 3, 4, 5, 16), device=cuda)
+    w3 = _coarse(torch.randn((3, 3, 3, 2, 2))).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_conv.packed_conv3d_structured([x.transpose(2, 3)], [w3])
+    with pytest.raises(TypeError):
+        packed_conv.packed_conv3d_structured([x.half()], [w3])
+    with pytest.raises(ValueError, match="unsupported"):
+        packed_conv.packed_conv3d_structured([x[..., :12].contiguous()], [w3])
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_conv.packed_conv3d_structured([x], [w3.cpu()])
+    with pytest.raises(RuntimeError, match="no backward"):
+        packed_conv.packed_conv3d_structured([x.requires_grad_()], [w3])

@@ -22,8 +22,10 @@ from tpuseg.kernels.fused_norm import (
     fused_group_norm_relu_pallas,
     fused_group_norm_relu_vjp,
 )
-from tpuseg_torch.kernels import conv3d, fused_norm
+from tpuseg_torch.kernels import conv3d, fused_norm, packed_conv
 from tpuseg_torch.nn.layers import ConvND
+
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("x_shape, cout", [
@@ -82,7 +84,7 @@ def test_conv3d_small_tile_width(wd, cin, tile):
 def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
     """A tensor off the CPU gets the kernel or an error, never the plain
     version (the meta device stands in for a device without the kernel)."""
-    before = conv3d.LAUNCHES, fused_norm.LAUNCHES
+    before = conv3d.LAUNCHES, fused_norm.LAUNCHES, packed_conv.LAUNCHES
     x = torch.empty((1, 4, 4, 4, 16), device="meta")
     w = torch.empty((3, 3, 3, 16, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -90,7 +92,12 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():
     g = torch.empty(16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_norm.fused_group_norm_relu(x, g, g)
-    assert (conv3d.LAUNCHES, fused_norm.LAUNCHES) == before
+    w3 = torch.empty((3, 3, 3, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_conv.packed_conv3d_structured([x], [w3])
+    with pytest.raises(ValueError, match="CUDA"):  # one part on the CPU
+        packed_conv.packed_conv3d_structured([x, torch.empty(x.shape)], [w3, w3])
+    assert (conv3d.LAUNCHES, fused_norm.LAUNCHES, packed_conv.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("kernel", ["conv3d_small", "fused_group_norm_relu"])

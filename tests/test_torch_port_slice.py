@@ -37,7 +37,10 @@ from tpuseg_torch.data.nifti import read_nifti, write_nifti
 from tpuseg_torch.data.normalize import percentile_zscore
 from tpuseg_torch.infer.serving import SegServer
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.models.unet_packed import packed_unet3d_apply as port_packed_apply
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
+
+torch.set_num_threads(1)
 
 F, K, S = 8, 3, 16  # features, classes, cube side
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,15 +164,20 @@ def test_reference_pth_loads_strict(params, port_model, tmp_path):
 
 def test_golden_file_is_current():
     """tests/data/torch_port_golden.npz, which chip_smoke.py reads without
-    JAX, still equals what the JAX package computes, and the port's CPU
-    forward (atol 1e-4) and train step (loss 1e-5, grads 1e-4 relative to
-    max(1, max |g|)) reproduce it."""
+    JAX, still equals what the JAX package computes (the packed twin's
+    probabilities: packed_levels 1 recomputed with JAX
+    ``packed_unet3d_apply`` within 1e-5; both levels within 2e-5 of the
+    recomputed plain ones and not equal to the stored plain ones), and the
+    port's CPU forward and packed forward at packed_levels 1 and 2 (atol
+    1e-4) and train step (loss 1e-5, grads 1e-4 relative to max(1,
+    max |g|)) reproduce it."""
     spec = importlib.util.spec_from_file_location(
         "make_torch_port_golden", os.path.join(REPO, "tests", "make_torch_port_golden.py"))
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
     stored = np.load(gen.GOLDEN)
-    fresh = gen.compute_golden()
+    fresh = {**gen.compute_golden(), **gen.packed_golden(levels=(1,))}
+    np.testing.assert_allclose(stored["packed_probs/1"], fresh["packed_probs/1"], atol=1e-5)
     for key in ("seed", "features", "num_classes", "in_ch", "x"):
         np.testing.assert_array_equal(stored[key], fresh[key])
     np.testing.assert_allclose(stored["probs"], fresh["probs"], atol=1e-5)
@@ -180,6 +188,16 @@ def test_golden_file_is_current():
     with torch.no_grad():
         _, probs = net(torch.from_numpy(stored["x"]))
     np.testing.assert_allclose(probs.numpy(), stored["probs"], atol=1e-4)
+    for lv in (1, 2):  # the packed twin's probabilities, chip_smoke phase 4
+        key = f"packed_probs/{lv}"
+        # JAX's packed and plain forwards of one net: f32 convs summed in
+        # other orders (7.6e-6 apart when written)
+        np.testing.assert_allclose(stored[key], fresh["probs"], atol=2e-5)
+        assert not np.array_equal(stored[key], stored["probs"])
+        with torch.no_grad():
+            _, probs = port_packed_apply(net, torch.from_numpy(stored["x"]),
+                                         packed_levels=lv)
+        np.testing.assert_allclose(probs.numpy(), stored[key], atol=1e-4)
 
     grads = sorted(k for k in stored.files if k.startswith("grad/"))
     assert grads == sorted(k for k in fresh if k.startswith("grad/"))
@@ -294,7 +312,9 @@ def test_cli_parses_the_serve_flags():
 
 
 def test_serve_imports_no_jax():
-    """Neither entry point of the port (serve, train) imports JAX."""
-    code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train; "
+    """Neither entry point of the port (serve, train) nor its packed twin
+    and K3 module imports JAX."""
+    code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train, "
+            "tpuseg_torch.models.unet_packed, tpuseg_torch.kernels.packed_conv; "
             "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

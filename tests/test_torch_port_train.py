@@ -33,6 +33,8 @@ from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 
+torch.set_num_threads(1)
+
 F, K, S = 8, 3, 16  # features, classes, cube side
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALPHA = [1.0] * K

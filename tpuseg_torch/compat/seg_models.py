@@ -6,9 +6,12 @@ loading, ``trainprocess`` (Adam, the reference's per-class alpha/gamma,
 best/latest checkpoints with resume), ``inference(Volume, newSize)`` and
 ``predict``.  The sliding-window ``inference_patch`` is a later slice.
 
-The network runs the plain UNet3d (the JAX class serves a packed twin by
-default, an exact rewrite of the same net; the packed twins are not ported
-yet).
+``inference`` serves the space-to-depth packed twin of the UNet3d
+(``models/unet_packed.py``, the K3 kernel on the card) whenever every side
+of the resized volume divides by 2**levels, as the JAX class does
+(``packed_inference``, a class attribute, switches it off); it is an exact
+rewrite of the same net on the same parameters.  ``predict`` and training
+run the plain net, as in JAX.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from tpuseg_torch.data.geometry import Volume
 from tpuseg_torch.data.normalize import percentile_zscore
 from tpuseg_torch.infer.volume import infer_volume, probs_to_mask
 from tpuseg_torch.models.unet import UNet
+from tpuseg_torch.models.unet_packed import packed_unet3d_apply
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.summary import print_summary
@@ -149,9 +153,27 @@ class _SegModel3d:
     def _forward_probs(self, batch: torch.Tensor) -> torch.Tensor:
         return self.model(batch)[1]
 
+    # Space-to-depth packed serving (models/unet_packed.py), an exact
+    # rewrite of the plain net's forward; set False on an instance or the
+    # class to serve the plain net.
+    packed_inference = True
+
+    def _supports_packed(self, spatial) -> bool:
+        """The JAX rule: packed when every side divides by 2**levels."""
+        div = 2 ** self.model.levels
+        return self.packed_inference and all(s > 0 and s % div == 0 for s in spatial)
+
+    def _inference_probs(self, batch: torch.Tensor) -> torch.Tensor:
+        """The served forward: the packed twin (its derived weights made
+        once per weight version, ``unet_packed.packed_weights``) or the
+        plain net, by the batch's shape."""
+        if self._supports_packed(tuple(batch.shape[1:4])):
+            return packed_unet3d_apply(self.model, batch)[1]
+        return self._forward_probs(batch)
+
     def inference(self, imagesitk: Volume, newSize=(96, 96, 96)) -> Volume:
         """Whole-volume inference at the fixed (x, y, z) size ``newSize``."""
-        return infer_volume(imagesitk, self._forward_probs, newSize,
+        return infer_volume(imagesitk, self._inference_probs, newSize,
                             normalizer=self.inference_normalizer,
                             device=self.device)
 

@@ -6,6 +6,8 @@
 * ``fused_norm`` — fused GroupNorm+ReLU, forward and backward
   (tpuseg/kernels/fused_norm.py; ``csrc/fused_norm.cu``,
   ``csrc/fused_norm_bwd.cu``)
+* ``packed_conv`` — structured space-to-depth packed k3 conv, forward
+  (tpuseg/kernels/packed_conv.py; ``csrc/packed_conv.cu``)
 
 Sources live in ``csrc/`` and are built on first use by ``_build``.
 """

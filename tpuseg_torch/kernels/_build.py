@@ -60,6 +60,10 @@ _SIGNATURES = {
     # c, groups, rows_per_chunk, n_chunks, relu, dtype, stream
     "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _LL, _I, _I, _I, _I, _I, _I, _P],
+    # xa, xb, c8a, c8b, rows, wk, bias, y, n, d, h, w, k, n_pad, f8, relu,
+    # dtype, stream
+    "tpuseg_packed_conv3d": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
 }
 
 

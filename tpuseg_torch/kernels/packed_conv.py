@@ -1,0 +1,273 @@
+"""Structured space-to-depth packed k3 conv, hand-written for Hopper.
+
+Replaces the Pallas kernel ``packed_conv3d_structured`` of
+``tpuseg/kernels/packed_conv.py`` (line 184; its ``_kernel``,
+``pack_weight_structured`` and ``_taps``).  A fine stride-1 SAME 3x3x3 conv
+run on space-to-depth packed activations (N, D', H', W', 8C), delta-major
+channels ``delta * C + c`` with ``delta = (dd * 2 + dh) * 2 + dw``, is a
+coarse SAME 3x3x3 conv whose (3, 3, 3, 8C, 8F) kernel
+(``models/vnet_packed.py`` ``pack_k3_to_k3_coarse``) is only 1/8 dense:
+per axis the centre coarse tap carries all four (delta_in, delta_out)
+blocks and each outer tap one.  The dense conv, which the JAX package runs
+through XLA and which is this module's plain version, does 27 * 8C rows of
+multiply-adds per output channel; the structural conv 64 * C.
+
+What bounds it on the card: arithmetic.  Each output position costs 64C x
+8F multiply-adds (128 x 1024 at C = F = 16) against 8C values read and 8F
+written, so in fp32 on CUDA cores it is compute-bound many times over.
+
+The design (``csrc/packed_conv.cu``) is an implicit GEMM on CUDA cores in
+fp32, not the TPU design (a rolling 4-slot VMEM plane buffer fed by DMA,
+an im2col scratch and one MXU GEMM per plane).  The structural weight is a
+(K, 8F) matrix whose rows are, tap by tap, only the valid input-delta
+channel runs (``_taps``), with an int32 table naming each row's part, tap
+and channel.  A block owns 128 consecutive output positions and 128 output
+channels; per step of 32 rows it gathers the shifted input values those
+rows name into shared memory (zero outside the volume), copies the weight
+rows, and each of 256 threads accumulates an 8 x 8 register tile.  bf16
+inputs are widened on the gather; sums and the bias/ReLU epilogue are fp32.
+
+Two input parts.  The decoder's first conv reads the concat [up; skip] of
+two packed tensors.  Rather than materialise it, the kernel takes both
+parts, each with its own C, and sums both in one launch: the table's rows
+cover part 0's schedule and then part 1's, and
+``conv(concat) = conv_up(up; w[..., :f, :]) + conv_skip(skip; w[..., f:, :])``.
+
+A bf16 ``wgmma`` version with TMA-staged halos (each plane an M = H'W',
+N = 128, K = 1024 GEMM, an ideal tensor-core shape) is later work.  There
+is no backward: the packed twin is served, not trained, in this port.
+
+``packed_conv3d_structured`` runs the plain version on CPU tensors and the
+kernel on CUDA tensors, or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from tpuseg_torch.kernels import _build
+
+# kernel launches by `packed_conv3d_structured` in this process (plain
+# calls not counted)
+LAUNCHES = 0
+
+# must match csrc/packed_conv.cu
+_BN, _MAX_C8 = 128, 1 << 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _axis_valid(u):
+    """Valid (din, dout) pairs of one axis at coarse tap u (0/1/2), from
+    t = 2(u-1) + din - dout + 1 in [0, 3): u=0 -> {(1,0)}, u=1 -> all four,
+    u=2 -> {(0,1)}."""
+    pairs = []
+    for din in range(2):
+        for dout in range(2):
+            if 0 <= 2 * (u - 1) + din - dout + 1 < 3:
+                pairs.append((din, dout))
+    return pairs
+
+
+def _tap_chunks(tap, c_fine):
+    """For coarse tap (a, b, c): the valid input-delta set as contiguous
+    channel runs [(lo, hi), ...] of the delta-major packed channel dim,
+    with delta = (dd*2+dh)*2+dw and c_fine channels per delta."""
+    din_sets = []
+    for u in tap:
+        dins = sorted({din for din, _ in _axis_valid(u)})
+        din_sets.append(dins)
+    deltas = sorted(
+        (dd * 2 + dh) * 2 + dw
+        for dd in din_sets[0] for dh in din_sets[1] for dw in din_sets[2]
+    )
+    runs = []
+    for d in deltas:
+        lo, hi = d * c_fine, (d + 1) * c_fine
+        if runs and runs[-1][1] == lo:
+            runs[-1] = (runs[-1][0], hi)
+        else:
+            runs.append((lo, hi))
+    return runs
+
+
+def _taps(c_fine):
+    """Static schedule: [(tap(a,b,c), (lo,hi), k_offset), ...] and the
+    total structural K."""
+    sched = []
+    k_off = 0
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                for lo, hi in _tap_chunks((a, b, c), c_fine):
+                    sched.append(((a, b, c), (lo, hi), k_off))
+                    k_off += hi - lo
+    return sched, k_off
+
+
+def pack_weight_structured(w3: torch.Tensor, c_fine: int) -> torch.Tensor:
+    """Dense packed kernel (3, 3, 3, 8C, 8F) -> the stacked structural
+    weight (64C, 8F): the valid input-channel rows of each tap, in
+    ``_taps`` order (the JAX function without its K padding)."""
+    sched, _ = _taps(c_fine)
+    return torch.cat([w3[a, b, c, lo:hi, :] for (a, b, c), (lo, hi), _ in sched])
+
+
+def row_table(c_fines: Sequence[int]) -> torch.Tensor:
+    """The kernel's int32 row table for parts of these C: row k of the
+    structural weight reads channel ``code & 0xffff`` of part ``code >>
+    24`` at tap ``(code >> 16) & 0xff`` (= (a * 3 + b) * 3 + c)."""
+    codes = []
+    for part, c_fine in enumerate(c_fines):
+        for (a, b, c), (lo, hi), _ in _taps(c_fine)[0]:
+            tap = (a * 3 + b) * 3 + c
+            codes.extend((part << 24) | (tap << 16) | ch for ch in range(lo, hi))
+    return torch.tensor(codes, dtype=torch.int32)
+
+
+def pack_structured(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
+    """Dense per-part kernels -> ``(wk, rows)`` for the kernel: wk the
+    (K, n_pad) fp32 structural weight of all parts, rounded through
+    ``dtype`` (the JAX kernel casts its weight to the activation dtype),
+    its 8F columns zero-padded to a multiple of 128; rows the int32 table.
+    Both on the weights' device; a caller makes them once per weight."""
+    c_fines = [w3.shape[3] // 8 for w3 in w3s]
+    f8 = w3s[0].shape[4]
+    stacked = torch.cat([pack_weight_structured(w3.detach().to(dtype), c)
+                         for w3, c in zip(w3s, c_fines)])
+    n_pad = -(-f8 // _BN) * _BN
+    wk = torch.zeros((stacked.shape[0], n_pad), dtype=torch.float32,
+                     device=stacked.device)
+    wk[:, :f8] = stacked
+    return wk, row_table(c_fines).to(stacked.device)
+
+
+def packed_conv3d_plain(parts: Sequence[torch.Tensor], w3s: Sequence[torch.Tensor],
+                        bias: Optional[torch.Tensor] = None,
+                        relu: bool = False) -> torch.Tensor:
+    """Plain PyTorch version, what the JAX package runs: the dense coarse
+    conv (``F.conv3d``, SAME) of the channel concat of ``parts`` with the
+    per-part dense kernels concatenated along their input channels, plus
+    ``bias``, then ReLU."""
+    x = parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=-1)
+    w3 = w3s[0] if len(w3s) == 1 else torch.cat(list(w3s), dim=3)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w3.to(x.dtype).permute(4, 3, 0, 1, 2),
+                 padding=1).permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    if relu:
+        y = torch.relu(y)
+    return y.contiguous()
+
+
+def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int) -> bool:
+    """Whether the kernel takes parts of these shapes with 8F output
+    channels: one or two 5-D parts over the same (N, D', H', W'), each with
+    8C <= 65536 channels (C >= 1), 8F >= 8, and N·D'·H'·W' < 2**31 (the
+    positions are one flat grid dimension of 128 per block)."""
+    if not 1 <= len(part_shapes) <= 2 or f8 < 8 or f8 % 8:
+        return False
+    grid = tuple(part_shapes[0][:4])
+    for shape in part_shapes:
+        if len(shape) != 5 or tuple(shape[:4]) != grid:
+            return False
+        if shape[4] < 8 or shape[4] % 8 or shape[4] > _MAX_C8:
+            return False
+    npos = grid[0] * grid[1] * grid[2] * grid[3]
+    return 1 <= npos < 2 ** 31
+
+
+def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
+    global LAUNCHES
+    wk, rows = packed
+    xa = parts[0]
+    xb = parts[1] if len(parts) == 2 else None
+    n, d, h, w = xa.shape[:4]
+    y = torch.empty((n, d, h, w, f8), dtype=xa.dtype, device=xa.device)
+    b32 = None if bias is None else bias.detach().to(xa.dtype).float().contiguous()
+    lib = _build.library()
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream(xa.device).cuda_stream
+        err = lib.tpuseg_packed_conv3d(
+            xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[4],
+            0 if xb is None else xb.shape[4], rows.data_ptr(), wk.data_ptr(),
+            None if b32 is None else b32.data_ptr(), y.data_ptr(), n, d, h, w,
+            wk.shape[0], wk.shape[1], f8, int(bool(relu)), _DTYPES[xa.dtype],
+            stream,
+        )
+    _build.check(err, "packed_conv3d_structured")
+    LAUNCHES += 1
+    return y
+
+
+def _check_packed(packed, parts, f8: int) -> None:
+    wk, rows = packed
+    k = sum(8 * p.shape[4] for p in parts)
+    dev = parts[0].device
+    if (wk.device != dev or rows.device != dev or wk.dtype != torch.float32
+            or rows.dtype != torch.int32 or tuple(rows.shape) != (k,)
+            or tuple(wk.shape) != (k, -(-f8 // _BN) * _BN)
+            or not wk.is_contiguous() or not rows.is_contiguous()):
+        raise ValueError(
+            f"packed_conv3d_structured: packed weight {tuple(wk.shape)} "
+            f"{wk.dtype} / rows {tuple(rows.shape)} {rows.dtype} on {wk.device} "
+            "is not pack_structured of these parts' kernels"
+        )
+
+
+def packed_conv3d_structured(parts: Sequence[torch.Tensor],
+                             w3s: Sequence[torch.Tensor],
+                             bias: Optional[torch.Tensor] = None,
+                             relu: bool = False, packed=None) -> torch.Tensor:
+    """SAME coarse k3 conv of one or two delta-major packed parts, summed.
+
+    ``parts``: (N, D', H', W', 8C_i) contiguous, float32 or bfloat16, one
+    dtype; ``w3s``: each part's dense packed kernel (3, 3, 3, 8C_i, 8F)
+    (``pack_k3_to_k3_coarse`` of its slice of the fine kernel's input
+    channels); ``bias`` (8F,) optional; ``packed`` optional, the
+    ``pack_structured(w3s, x.dtype)`` a caller made once.  Returns
+    (N, D', H', W', 8F) in the parts' dtype.  CPU tensors take the plain
+    version (differentiable); CUDA tensors the kernel, which has no
+    backward, so it raises when a gradient would be asked for."""
+    parts, w3s = tuple(parts), tuple(w3s)
+    tensors = parts + w3s + (() if bias is None else (bias,))
+    if all(t.device.type == "cpu" for t in tensors):
+        return packed_conv3d_plain(parts, w3s, bias, relu)
+    dev = parts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            "packed_conv3d_structured: tensors on "
+            f"{sorted({str(t.device) for t in tensors})}; all must be on one "
+            "CUDA device (or all on the CPU)"
+        )
+    dtype = parts[0].dtype
+    if dtype not in _DTYPES or any(p.dtype != dtype for p in parts):
+        raise TypeError(
+            f"packed_conv3d_structured: part dtypes {[p.dtype for p in parts]} "
+            f"must be one of {list(_DTYPES)}"
+        )
+    f8 = w3s[0].shape[-1] if w3s else 0
+    if (len(w3s) != len(parts)
+            or not supported([tuple(p.shape) for p in parts], f8)
+            or any(tuple(w.shape) != (3, 3, 3, p.shape[4], f8)
+                   for p, w in zip(parts, w3s))
+            or (bias is not None and tuple(bias.shape) != (f8,))):
+        raise ValueError(
+            "packed_conv3d_structured: unsupported shapes: parts "
+            f"{[tuple(p.shape) for p in parts]}, kernels "
+            f"{[tuple(w.shape) for w in w3s]}, bias "
+            f"{None if bias is None else tuple(bias.shape)}"
+        )
+    if not all(p.is_contiguous() for p in parts):
+        raise ValueError("packed_conv3d_structured: parts must be contiguous NDHWC")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "packed_conv3d_structured: the CUDA kernel has no backward; call "
+            "it under torch.no_grad() or torch.inference_mode()"
+        )
+    if packed is None:
+        packed = pack_structured(w3s, dtype)
+    else:
+        _check_packed(packed, parts, f8)
+    return _launch(parts, packed, bias, relu, f8)

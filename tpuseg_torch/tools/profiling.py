@@ -7,10 +7,10 @@ Builds the served model as ``tpuseg_torch.serve`` does (UNet3d, features
 three synthetic CT volumes (160x160x96, 200x180x120, 112x112x128, x y z)
 times the stages of one ``POST /predict`` in the order ``infer_volume`` and
 ``SegServer`` run them: NIfTI read, linear resample, normalization, upload,
-forward, argmax and download, nearest resample back, NIfTI write.  Device
-stages end with a synchronize; all times are host-clock ms.  It then traces
-``--forwards`` forwards at the served size with ``torch.profiler`` and sums
-the device time per kernel name.  Last it traces ``--train-steps`` UNet3d
+forward (the packed twin, as served), argmax and download, nearest resample
+back, NIfTI write.  Device stages end with a synchronize; all times are
+host-clock ms.  It then traces ``--forwards`` served forwards at the served
+size with ``torch.profiler`` and sums the device time per kernel name.  Last it traces ``--train-steps`` UNet3d
 train steps at the reference KiPA setting (112x112x128, batch 1, 5
 classes, MutilDiceLoss, Adam at 1e-3, f32, seeded weights and a random
 batch) after one warmup step, and sums their device time per kernel name.
@@ -89,7 +89,7 @@ def request_stages(model, src: str, dst: str, new_size=NEW_SIZE) -> dict:
         batch = batch.to(model.device)
         torch.cuda.synchronize()
         lap("upload")
-        probs = model._forward_probs(batch)
+        probs = model._inference_probs(batch)
         torch.cuda.synchronize()
         lap("forward")
         mask = probs_to_mask(probs[0]).cpu().numpy()
@@ -113,17 +113,18 @@ def _device_us(event, attrs=("self_device_time_total", "self_cuda_time_total")) 
 
 
 def forward_kernel_split(model, new_size=NEW_SIZE, forwards: int = 5) -> dict:
-    """Device ms per forward, by kernel name, from ``torch.profiler``."""
+    """Device ms per served forward (the packed twin where the shape takes
+    it, as ``inference`` runs it), by kernel name, from ``torch.profiler``."""
     x, y, z = new_size
     batch = torch.randn((1, z, y, x, 1), device=model.device,
                         generator=torch.Generator(model.device).manual_seed(SEED))
     with torch.inference_mode():
-        model._forward_probs(batch)
+        model._inference_probs(batch)
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(forwards):
-                model._forward_probs(batch)
+                model._inference_probs(batch)
             torch.cuda.synchronize()
     return _device_split(prof, forwards)
 
