@@ -41,14 +41,28 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     saved step, epoch and Adam moments), one step's loss and parameter
     gradients against the same step through the plain versions (same
     weights, batch and dropout generator), and times the f32 and bf16
-    train steps, kernels against plain.
+    train steps, kernels against plain;
+ 7. K2's micro-benchmarks (``tpuseg_torch.benchmarks``) at the probes' full
+    shapes (N 8, 96^3, C 16): every variant of the slab conv GEMM (K4
+    ``dot_only``/``abuild``/``full``, K5 ``v0``/``v2``/``v3``/``v5``) and
+    of the flat channels-last conv (K6, xcat prebuilt and built in the
+    kernel) against its plain version on the same inputs, the plain
+    version timed; the partial slab variants' one cuDNN conv3d of the same
+    function checked and timed too, and cuDNN's bf16 conv of the whole
+    conv as the whole-conv variants' yardstick; then, counts from 0,
+    ``kmicro``, ``kmicro2``, ``kmicro3`` and ``kbench`` run as a user runs
+    them (the bench path: the probes' lines, whose times are the kernels',
+    and the 6-conv bf16 chains through K2 against cuDNN, whose one-layer
+    difference is checked).
 
 Before its last line it prints one JSON object with each kernel's launches
 on the served and training paths, error, times (one f32 forward's or train
 step's worth of calls), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
 (for the conv's forward, dX and dW that call is the plain version itself;
-for K3, cuDNN's dense coarse conv of the concatenated parts),
+for K3, cuDNN's dense coarse conv of the concatenated parts; for the
+probe kernels, cuDNN's bf16 conv at the probe shape, beside their whole-conv
+variant), each probe kernel's variants with their own library call,
 and the card's ``nvidia-smi`` line; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check, a missing card or a failed build
 exits non-zero without that line.
@@ -82,11 +96,11 @@ KERNELS = ("conv3d_small", "conv3d_small_dx", "conv3d_small_dw",
 # them packed), and the packed level's three packed -> packed k3 convs
 EXPECTED_LAUNCHES = {"conv3d_small": 7, "conv3d_small_dx": 0, "conv3d_small_dw": 0,
                      "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 0,
-                     "packed_conv3d_structured": 3}
+                     "packed_conv3d_structured": 3, "slab_conv": 0, "flat_conv": 0}
 # per train step (the plain net): K1 and K2 forward and backward
 TRAIN_LAUNCHES = {"conv3d_small": 10, "conv3d_small_dx": 10, "conv3d_small_dw": 10,
                   "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 18,
-                  "packed_conv3d_structured": 0}
+                  "packed_conv3d_structured": 0, "slab_conv": 0, "flat_conv": 0}
 TRAIN_KERNELS = tuple(k for k in KERNELS if TRAIN_LAUNCHES[k])
 # tolerance on max |kernel - plain|, relative to max(1, max |plain|):
 # float32 sums the same products in another order (1e-4 leaves two decades
@@ -164,7 +178,8 @@ def counts(mods) -> dict:
             "conv3d_small_dw": conv3d.DW_LAUNCHES,
             "fused_group_norm_relu": fused_norm.LAUNCHES,
             "fused_group_norm_relu_bwd": fused_norm.BWD_LAUNCHES,
-            "packed_conv3d_structured": mods["packed_conv"].LAUNCHES}
+            "packed_conv3d_structured": mods["packed_conv"].LAUNCHES,
+            "slab_conv": mods["slab_conv"].LAUNCHES, "flat_conv": mods["flat_conv"].LAUNCHES}
 
 
 def reset_counts(mods) -> None:
@@ -172,6 +187,7 @@ def reset_counts(mods) -> None:
     conv3d.LAUNCHES = conv3d.DX_LAUNCHES = conv3d.DW_LAUNCHES = 0
     fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
     mods["packed_conv"].LAUNCHES = 0
+    mods["slab_conv"].LAUNCHES = mods["flat_conv"].LAUNCHES = 0
 
 
 def delta(after: dict, before: dict) -> dict:
@@ -744,6 +760,109 @@ def phase_train(torch, mods, workdir):
     return path_launches
 
 
+def phase_bench(torch, mods):
+    """K2's micro-benchmarks at the probes' full shapes.  Each K4-K6
+    variant is held to its plain version (one bf16 step) and the plain
+    version timed; each partial slab variant's one cuDNN call is held to
+    it too and timed.  Then the probe modules run with counts from 0, as a
+    user runs them, and their times are the kernels' ms.  Returns
+    ({kernel: {tag: row}}, the bench path's launches)."""
+    kmicro, kmicro2, kmicro3, kbench = (mods[k] for k in ("kmicro", "kmicro2", "kmicro3",
+                                                          "kbench"))
+    s1, s3 = kmicro.DEFAULTS, kmicro3.DEFAULTS  # kmicro2.DEFAULTS is s1
+    t0 = time.perf_counter()
+    in1 = kmicro.make_inputs("cuda")
+    in2 = kmicro2.make_inputs("cuda", k4_inputs=in1)  # K4's xf, drawn once
+    in3 = kmicro3.make_inputs("cuda")
+    torch.cuda.synchronize()
+    say(f"  inputs drawn (numpy default_rng(0), the probes' order) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the whole conv's yardstick: cuDNN's bf16 conv of K4 full's work, on
+    # the probe's NDHWC volume, with K4's weight as a DHWIO kernel
+    # (Wm[(dx, co), (dz, dy, ci)]) in channels_last_3d
+    w_lib = in1["wm"].reshape(3, 16, 3, 3, 16).permute(1, 4, 2, 3, 0).contiguous(
+        memory_format=torch.channels_last_3d)
+    x_lib = in1["x_nd"].permute(0, 4, 1, 2, 3)
+    conv_ms = time_ms(torch, lambda: torch.nn.functional.conv3d(x_lib, w_lib, padding=1))
+    say(f"  library: cuDNN bf16 conv3d {tuple(x_lib.shape)} channels_last_3d "
+        f"{conv_ms:.4f} ms")
+    whole = ("K4 full", "K6 pre", "K6 cat")
+
+    xflat, w2 = in3["xflat"], in3["w2"]
+    xcat = mods["flat_conv"].build_xcat(xflat)
+    # (kernel, tag, kernel call, plain call, library call or None)
+    cases = [("slab_conv", f"K4 {kind}", lambda kind=kind: kmicro.kernel(in1, kind, s1),
+              lambda kind=kind: kmicro.plain(in1, kind, s1),
+              kmicro.library(in1["xf"], in1["wm"], kind, s1))
+             for kind in kmicro.KINDS]
+    cases += [("slab_conv", f"K5 {tag}", lambda tag=tag: kmicro2.kernel(in2, tag, s1),
+               lambda tag=tag: kmicro2.plain(in2, tag, s1),
+               kmicro.library(in2["xf"], in2[tag], kmicro2.variant_args(tag, s1)[0], s1))
+              for tag in kmicro2.VARIANTS]
+    cases += [("flat_conv", "K6 pre", lambda: kmicro3.kernel(xcat, w2, s3, True),
+               lambda: kmicro3.plain(xcat, w2, s3, True), None),
+              ("flat_conv", "K6 cat", lambda: kmicro3.kernel(xflat, w2, s3, False),
+               lambda: kmicro3.plain(xflat, w2, s3, False), None)]
+    results = {"slab_conv": {}, "flat_conv": {}}
+    for name, tag, kernel, plain, lib in cases:
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        del got
+        if not err <= TOL["bfloat16"] * scale:
+            fail(f"{name} {tag}: error {err} > {TOL['bfloat16']} * {scale}")
+        library_ms, lib_note = (conv_ms, "the whole conv") if tag in whole else (None, "none")
+        if lib is not None:
+            lib_err, _ = rel_err(kmicro.library_out(lib()), ref)
+            if not lib_err <= TOL["bfloat16"] * scale:
+                fail(f"{name} {tag}: cuDNN differs from the plain version by {lib_err}")
+            library_ms = time_ms(torch, lib)
+            lib_note = f"one cuDNN conv3d, max_abs_err {lib_err:.3g}"
+        del ref
+        # the plain version builds A in fp32 in device memory: fewer runs
+        plain_ms = time_ms(torch, plain, iters=3)
+        results[name][tag] = dict(max_abs_err=err, plain_ms=plain_ms, library_ms=library_ms)
+        say(f"  {name} {tag}: max_abs_err {err:.3g} (scale {scale:.3g}), plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} ({lib_note})")
+    del xcat
+
+    # the bench path, as `python -m tpuseg_torch.benchmarks.<probe>` runs it
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    r4 = kmicro.run("cuda", inputs=in1)
+    r5 = kmicro2.run("cuda", inputs=in2)
+    r6 = kmicro3.run("cuda", inputs=in3)
+    del in1, in2, in3
+    chains = kbench.run("cuda")
+    torch.cuda.synchronize()
+    path_launches = counts(mods)
+    say(f"  bench path in {time.perf_counter() - t0:.1f} s; launches {path_launches}")
+    # each variant's kernel time and bound, from the probe modules' run
+    timed = {f"K4 {kind}": r4[kind] for kind in kmicro.KINDS}
+    timed.update({f"K5 {tag}": r5[tag] for tag in kmicro2.VARIANTS})
+    timed["K6 pre"] = {"ms": r6["a_prebuilt_xcat"]["kernel_ms"],
+                       **r6["a_prebuilt_xcat"]["kernel_bound"]}
+    timed["K6 cat"] = r6["b_inkernel_cat"]
+    for name, rows in results.items():
+        for tag, row in rows.items():
+            t = timed[tag]
+            row.update(ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+            say(f"  {name} {tag}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}: {t['gflop']:.1f} GFLOP the output needs, "
+                f"{t['mbytes']:.1f} MB; the probe's GEMM {t['gemm_gflop']:.1f} GFLOP)")
+    for case, r in chains.items():
+        say(f"  kbench {case}: cuDNN {r['cudnn']:.2f} TF/s ({r['cudnn_ms']:.4f} ms per "
+            f"chain), conv3d_small {r['conv3d_small']:.2f} TF/s ({r['conv3d_small_ms']:.4f} "
+            f"ms); one layer max_abs_diff {r['max_abs_diff_1layer']:.3g} (scale "
+            f"{r['scale_1layer']:.3g})")
+        if not r["max_abs_diff_1layer"] <= TOL["bfloat16"] * r["scale_1layer"]:
+            fail(f"kbench {case}: K2 and cuDNN differ by {r['max_abs_diff_1layer']}")
+    return results, path_launches
+
+
 def main() -> int:
     import torch
 
@@ -751,13 +870,15 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
     from tpuseg_torch import serve, train
+    from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
     from tpuseg_torch.compat.seg_models import disable_tf32
     from tpuseg_torch.compat.weights import seeded_unet_params, unet_params_from_jax
     from tpuseg_torch.config import parse_cli
     from tpuseg_torch.core.prng import step_generator
     from tpuseg_torch.data.nifti import read_nifti, write_nifti
     from tpuseg_torch.infer.serving import SegServer
-    from tpuseg_torch.kernels import _build, conv3d, fused_norm, packed_conv
+    from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
+                                      slab_conv)
     from tpuseg_torch.losses import build_loss
     from tpuseg_torch.models import unet_packed, vnet_packed
     from tpuseg_torch.models.unet import UNet
@@ -793,7 +914,8 @@ def main() -> int:
         write_nifti=write_nifti, synthetic_ct=synthetic_ct, UNet=UNet,
         seeded_unet_params=seeded_unet_params, unet_params_from_jax=unet_params_from_jax,
         make_segmentation_trainer=make_segmentation_trainer, build_loss=build_loss,
-        step_generator=step_generator)
+        step_generator=step_generator, slab_conv=slab_conv, flat_conv=flat_conv,
+        kmicro=kmicro, kmicro2=kmicro2, kmicro3=kmicro3, kbench=kbench)
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -808,6 +930,8 @@ def main() -> int:
         train_launches = phase_train(torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 7: K2 micro-benchmarks ({smi})")
+    bench_rows, bench_launches = phase_bench(torch, mods)
 
     summary = []
     sources = {
@@ -826,9 +950,9 @@ def main() -> int:
     }
     for name, rows in kernels.items():
         f32 = [r for r in rows if r["dtype"] == "float32"]
-        launches = serve_launches[name] + train_launches[name]
+        launches = serve_launches[name] + train_launches[name] + bench_launches[name]
         if launches == 0:
-            fail(f"{name} was not launched on the serving or training path")
+            fail(f"{name} was not launched on the serving, training or bench path")
         lib = [r["library_ms"] for r in f32]
         # one f32 forward's (or train step's) worth of calls at the path shapes
         per_pass = lambda key: sum(r[key] * r["uses"] for r in f32)  # noqa: E731
@@ -836,12 +960,34 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches,
             "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name]},
+                                 "train": train_launches[name],
+                                 "bench": bench_launches[name]},
             "max_abs_err": max(r["max_abs_err"] for r in f32),
             "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"),
             "bound_ms": per_pass("bound_ms"),
             "bound_by": max(f32, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
             "library_ms": None if None in lib else per_pass("library_ms"),
+        })
+    # the probe kernels: the variant that computes the whole conv (K4 full,
+    # K6 with the concat built in the kernel), every variant beside it
+    for name, replaces, main_tag in (
+            ("slab_conv", "benchmarks/kmicro_r2.py:65, benchmarks/kmicro2_r2.py:88", "K4 full"),
+            ("flat_conv", "benchmarks/kmicro3_r2.py:99,112", "K6 cat")):
+        rows = bench_rows[name]
+        launches = bench_launches[name]
+        if launches == 0:
+            fail(f"{name} was not launched on the bench path")
+        top = rows[main_tag]
+        summary.append({
+            "name": name, "route": "cuda", "source": f"tpuseg_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name],
+                                 "bench": launches},
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "variants": {tag: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by")} for tag, r in rows.items()},
         })
     say(json.dumps({"kernels": summary}))
     say(smi)

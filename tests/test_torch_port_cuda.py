@@ -12,7 +12,8 @@ shapes.
 import pytest
 import torch
 
-from tpuseg_torch.kernels import conv3d, fused_norm, packed_conv
+from tpuseg_torch.benchmarks import kmicro, kmicro2, kmicro3
+from tpuseg_torch.kernels import conv3d, flat_conv, fused_norm, packed_conv, slab_conv
 
 pytestmark = pytest.mark.cuda
 
@@ -265,3 +266,90 @@ def test_packed_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         packed_conv.packed_conv3d_structured([x], [w3.cpu()])
     with pytest.raises(RuntimeError, match="no backward"):
         packed_conv.packed_conv3d_structured([x.requires_grad_()], [w3])
+
+
+# K4/K5 shapes: LV = 240 lanes (a ragged second tile of 128, the full
+# epilogue's shifts across a tile edge and its wrap), and the probe's widths
+# (C 16, 96 x 96 planes, WP 128) at a cut depth
+SLAB_SHAPES = {
+    "small": dict(N=2, D=4, H=5, W=6, C=16, COUT=16, WP=48, BD=2),
+    "probe": dict(N=1, D=8, H=96, W=96, C=16, COUT=16, WP=128, BD=4),
+}
+SLAB_VARIANTS = [("kmicro", kind) for kind in kmicro.KINDS] + [
+    ("kmicro2", tag) for tag in kmicro2.VARIANTS]
+
+
+@pytest.mark.parametrize("size", list(SLAB_SHAPES))
+@pytest.mark.parametrize("probe, variant", SLAB_VARIANTS)
+def test_slab_conv_kernel_matches_plain(cuda, size, probe, variant):
+    """Every K4/K5 variant against its plain version, one launch, one bf16
+    step."""
+    mod = kmicro if probe == "kmicro" else kmicro2
+    s = SLAB_SHAPES[size]
+    inputs = mod.make_inputs(cuda, **s)
+    before = slab_conv.LAUNCHES
+    got = mod.kernel(inputs, variant, s)
+    torch.cuda.synchronize()
+    assert slab_conv.LAUNCHES == before + 1
+    ref = mod.plain(inputs, variant, s)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    _close(got, ref, torch.bfloat16)
+
+
+FLAT_SHAPES = {
+    # SV = 48 rows, under one block's 112; the last chunk's halo past S
+    "small": dict(N=2, D=3, H=6, W=6, C=16, COUT=16, WS=8, ROWS=24, HALO=24),
+    "small_c32": dict(N=1, D=2, H=7, W=5, C=32, COUT=16, WS=8, ROWS=28, HALO=28),
+    "probe": dict(N=1, D=2, H=96, W=96, C=16, COUT=16, WS=112, ROWS=1792, HALO=256),
+}
+
+
+@pytest.mark.parametrize("size", list(FLAT_SHAPES))
+@pytest.mark.parametrize("prebuilt", [True, False])
+def test_flat_conv_kernel_matches_plain(cuda, size, prebuilt):
+    """K6, xcat prebuilt and built in the kernel, against its plain version
+    (chunk windows, zero rows past S), one launch, one bf16 step."""
+    s = FLAT_SHAPES[size]
+    inputs = kmicro3.make_inputs(cuda, **s)
+    x = flat_conv.build_xcat(inputs["xflat"]) if prebuilt else inputs["xflat"]
+    before = flat_conv.LAUNCHES
+    got = kmicro3.kernel(x, inputs["w2"], s, prebuilt)
+    torch.cuda.synchronize()
+    assert flat_conv.LAUNCHES == before + 1
+    ref = kmicro3.plain(x, inputs["w2"], s, prebuilt)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    _close(got, ref, torch.bfloat16)
+
+
+def test_probe_kernels_count_launches(cuda):
+    """Each wrapper counts its kernel's launches, and only those."""
+    s = SLAB_SHAPES["small"]
+    inputs = kmicro.make_inputs(cuda, **s)
+    s6 = FLAT_SHAPES["small"]
+    in6 = kmicro3.make_inputs(cuda, **s6)
+    before = (slab_conv.LAUNCHES, flat_conv.LAUNCHES)
+    for kind in kmicro.KINDS:
+        kmicro.kernel(inputs, kind, s)
+        kmicro.plain(inputs, kind, s)
+    kmicro3.kernel(in6["xflat"], in6["w2"], s6, False)
+    kmicro3.plain(in6["xflat"], in6["w2"], s6, False)
+    torch.cuda.synchronize()
+    assert (slab_conv.LAUNCHES, flat_conv.LAUNCHES) == (before[0] + 3, before[1] + 1)
+
+
+def test_probe_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    s = SLAB_SHAPES["small"]
+    inputs = kmicro.make_inputs(cuda, **s)
+    xf, wm = inputs["xf"], inputs["wm"]
+    with pytest.raises(TypeError):
+        slab_conv.slab_conv(xf.float(), wm.float(), "full", wp=48)
+    with pytest.raises(ValueError, match="CUDA"):
+        slab_conv.slab_conv(xf, wm.cpu(), "full", wp=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        slab_conv.slab_conv(xf.transpose(2, 3).contiguous().transpose(2, 3), wm, "full",
+                            wp=48)
+    in6 = kmicro3.make_inputs(cuda, **FLAT_SHAPES["small"])
+    with pytest.raises(TypeError):
+        flat_conv.flat_conv(in6["xflat"].float(), in6["w2"].float(), ws=8, rows=24, halo=24)
+    with pytest.raises(ValueError, match="CUDA"):
+        flat_conv.flat_conv(in6["xflat"], in6["w2"].cpu(), ws=8, rows=24, halo=24)

@@ -8,6 +8,14 @@
   ``csrc/fused_norm_bwd.cu``)
 * ``packed_conv`` — structured space-to-depth packed k3 conv, forward
   (tpuseg/kernels/packed_conv.py; ``csrc/packed_conv.cu``)
+* ``slab_conv``  — the slab-layout conv GEMM of K2's micro-benchmarks K4
+  and K5, bf16 tensor cores (benchmarks/kmicro_r2.py, kmicro2_r2.py;
+  ``csrc/slab_conv.cu``)
+* ``flat_conv``  — the flat channels-last conv of micro-benchmark K6, bf16
+  tensor cores (benchmarks/kmicro3_r2.py; ``csrc/flat_conv.cu``)
 
 Sources live in ``csrc/`` and are built on first use by ``_build``.
 """
+from tpuseg_torch.kernels import conv3d, flat_conv, fused_norm, packed_conv, slab_conv
+
+__all__ = ["conv3d", "flat_conv", "fused_norm", "packed_conv", "slab_conv"]

@@ -64,6 +64,11 @@ _SIGNATURES = {
     # dtype, stream
     "tpuseg_packed_conv3d": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _P],
+    # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream
+    "tpuseg_slab_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
+    # x, w2, out, n, d, s, sv, c, ws, pre, stream
+    "tpuseg_flat_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -42,4 +42,58 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
   }
 }
 
+// ---- bf16 tensor-core building blocks (mma.sync m16n8k16, fp32 accumulate)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory; lane i names row (i & 15) of
+// the 16-row tile, columns (i >> 4) * 8 .. + 8: an mma A fragment of a
+// row-major [m][k] tile
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the same, transposed: from a row-major [k][n] tile (lane i names k row
+// (i & 15), n columns (i >> 4) * 8 .. + 8) the B fragments of two n8 tiles,
+// {r0, r1} for columns 0-7 and {r2, r3} for columns 8-15
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// one n8 tile's B fragment from a row-major [k][n] tile (lanes 0-15 name
+// k rows 0-15; the addresses of lanes 16-31 are not read)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32.  d[0..1]: row
+// lane / 4, columns 2 (lane % 4) + 0..1; d[2..3]: row lane / 4 + 8
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// eight floats rounded to bf16 (nearest even) in one 16-byte word
+__device__ __forceinline__ uint4 pack_bf16x8(const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 t = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&t);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 }  // namespace tpuseg
