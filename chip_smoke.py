@@ -10,8 +10,9 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
  2. builds the hand-written kernels from ``tpuseg_torch/kernels/csrc``;
  3. holds each kernel against its plain PyTorch version on the card at
     every shape the serving and training paths hand it (UNet3d, features
-    16, input 112x112x128), in float32 (TF32 off) and bfloat16, and times
-    both: the conv's forward at its 10 shapes of the plain net, the
+    16, input 112x112x128), in float32 (TF32 off) and bfloat16 (where the
+    conv runs its tensor-core kernels), and times both: the conv's forward
+    at its 10 shapes of the plain net, the
     GroupNorm+ReLU forward at its 18 shapes (the 4 packed ones are the
     same maps viewed as (N, 8V', F)), the conv's dX (the forward kernel on
     the transposed weight) at the 10 conv shapes with the channels
@@ -40,8 +41,11 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     the loss, the best/ and latest/ checkpoints, a resumed third epoch (the
     saved step, epoch and Adam moments), one step's loss and parameter
     gradients against the same step through the plain versions (same
-    weights, batch and dropout generator), and times the f32 and bf16
-    train steps, kernels against plain;
+    weights, batch and dropout generator); then the mixed-precision path
+    (``--train.compute_dtype bfloat16``, the conv on its tensor-core
+    kernels) for 1 epoch of 3 steps with counts from 0, checking every
+    step's launches; and times the f32 and bf16 train steps, kernels
+    against plain;
  7. K2's micro-benchmarks (``tpuseg_torch.benchmarks``) at the probes' full
     shapes (N 8, 96^3, C 16): every variant of the slab conv GEMM (K4
     ``dot_only``/``abuild``/``full``, K5 ``v0``/``v2``/``v3``/``v5``) and
@@ -56,8 +60,9 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     difference is checked).
 
 Before its last line it prints one JSON object with each kernel's launches
-on the served and training paths, error, times (one f32 forward's or train
-step's worth of calls), the least time the card could take for that work
+on the served, f32 and bf16 training and bench paths, error, times (one
+forward's or train step's worth of calls: in f32, and for the conv's
+tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
 (for the conv's forward, dX and dW that call is the plain version itself;
 for K3, cuDNN's dense coarse conv of the concatenated parts; for the
@@ -263,8 +268,9 @@ def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
     results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err,
                               ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                               bound_by=bound[1], library_ms=library_ms))
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     say(f"  {name} {dtype_name} {what}: max_abs_err {err:.3g} (scale {scale:.3g}) "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms "
         f"({bound[1]})")
     if not err <= TOL[dtype_name] * scale:
         fail(f"{name} {dtype_name} {what}: error {err} > {TOL[dtype_name]} * {scale}")
@@ -703,6 +709,29 @@ def phase_train(torch, mods, workdir):
             or meta["epoch"] != 3 or meta["step"] != 9:
         fail("resume did not continue from the saved state")
 
+    # the mixed-precision training path (bf16 compute over f32 master
+    # weights, K2 on the tensor cores): 1 epoch of 3 steps, counts from 0
+    cfg_bf = parse_cli(flags[:-1] + [os.path.join(workdir, "run_bf16"), "--train.epochs",
+                                     "1", "--train.compute_dtype", "bfloat16"])
+    trainer_bf, train_loader_bf, val_loader_bf = train.build(cfg_bf, device="cuda")
+    steps_bf = []
+    _watch_steps(trainer_bf, mods, steps_bf)
+    reset_counts(mods)
+    history_bf = train.run(cfg_bf, trainer_bf, train_loader_bf, val_loader_bf)
+    torch.cuda.synchronize()
+    bf16_launches = counts(mods)
+    for kind, launches in steps_bf:
+        expect = TRAIN_LAUNCHES if kind == "train_step" else eval_expect
+        if launches != expect:
+            fail(f"bf16 {kind} launches {launches} != {expect}")
+    kinds = [k for k, _ in steps_bf]
+    say(f"  bf16 training: 1 epoch x 3 steps + validation, history {history_bf}; "
+        f"launches per step as in f32 on all {kinds.count('train_step')} train steps "
+        f"and {kinds.count('eval_step')} eval step")
+    if kinds.count("train_step") != 3 or kinds.count("eval_step") != 1 \
+            or not all(np.isfinite(history_bf["train_loss"])):
+        fail(f"bf16 training steps {kinds}, history {history_bf}")
+
     # one step's loss and gradients, kernels against plain (same weights,
     # batch and dropout generator)
     batch = resumed._put(next(iter(train_loader3)))
@@ -741,10 +770,7 @@ def phase_train(torch, mods, workdir):
         fail("the gradient tolerance does not tell a bf16 step from an f32 one")
 
     # step time, f32 and bf16, kernels against plain
-    for dtype_name, owner in (("float32", resumed), ("bfloat16", None)):
-        if owner is None:
-            owner = train.build(parse_cli(flags + ["--train.compute_dtype", dtype_name]),
-                                device="cuda")[0]
+    for dtype_name, owner in (("float32", resumed), ("bfloat16", trainer_bf)):
         m = owner.train_step(batch)
         if not np.isfinite(m["loss"].item()):
             fail(f"{dtype_name} train step loss {m['loss'].item()}")
@@ -757,7 +783,7 @@ def phase_train(torch, mods, workdir):
                                  plain_step, iters=5)
         say(f"  train step {dtype_name} 1x{TRAIN_DHW[0]}x{TRAIN_DHW[1]}x{TRAIN_DHW[2]}: "
             f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms (loss {m['loss'].item():.5f})")
-    return path_launches
+    return path_launches, bf16_launches
 
 
 def phase_bench(torch, mods):
@@ -927,47 +953,71 @@ def main() -> int:
         say(f"phase 5: serving ({smi})")
         serve_launches = phase_serve(torch, mods, workdir)
         say(f"phase 6: training ({smi})")
-        train_launches = phase_train(torch, mods, workdir)
+        train_launches, bf16_launches = phase_train(torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"phase 7: K2 micro-benchmarks ({smi})")
     bench_rows, bench_launches = phase_bench(torch, mods)
 
     summary = []
-    sources = {
-        "conv3d_small": ("tpuseg_torch/kernels/csrc/conv3d_small.cu",
-                         "tpuseg/kernels/conv3d.py:100"),
-        "conv3d_small_dx": ("tpuseg_torch/kernels/csrc/conv3d_small.cu",
-                            "tpuseg/kernels/conv3d.py:161"),
-        "conv3d_small_dw": ("tpuseg_torch/kernels/csrc/conv3d_small_dw.cu",
-                            "tpuseg/kernels/conv3d.py:161"),
-        "fused_group_norm_relu": ("tpuseg_torch/kernels/csrc/fused_norm.cu",
-                                  "tpuseg/kernels/fused_norm.py:74"),
-        "fused_group_norm_relu_bwd": ("tpuseg_torch/kernels/csrc/fused_norm_bwd.cu",
-                                      "tpuseg/kernels/fused_norm.py:136"),
-        "packed_conv3d_structured": ("tpuseg_torch/kernels/csrc/packed_conv.cu",
-                                     "tpuseg/kernels/packed_conv.py:184"),
-    }
-    for name, rows in kernels.items():
-        f32 = [r for r in rows if r["dtype"] == "float32"]
-        launches = serve_launches[name] + train_launches[name] + bench_launches[name]
+    # (name in the line, phase 3 rows, dtype, source, the TPU kernel): the
+    # f32 conv runs the CUDA-core kernels on the served and f32 training
+    # paths, the bf16 conv the tensor-core kernels on the mixed-precision
+    # training path and the bench path (kbench's chains)
+    entries = [
+        ("conv3d_small", "conv3d_small", "float32", "conv3d_small.cu", "conv3d.py:100"),
+        ("conv3d_small_dx", "conv3d_small_dx", "float32", "conv3d_small.cu", "conv3d.py:161"),
+        ("conv3d_small_dw", "conv3d_small_dw", "float32", "conv3d_small_dw.cu",
+         "conv3d.py:161"),
+        ("conv3d_small_tc", "conv3d_small", "bfloat16", "conv3d_small_tc.cu",
+         "conv3d.py:100"),
+        ("conv3d_small_tc_dx", "conv3d_small_dx", "bfloat16", "conv3d_small_tc.cu",
+         "conv3d.py:161"),
+        ("conv3d_small_dw_tc", "conv3d_small_dw", "bfloat16", "conv3d_small_dw_tc.cu",
+         "conv3d.py:161"),
+        ("fused_group_norm_relu", "fused_group_norm_relu", "float32", "fused_norm.cu",
+         "fused_norm.py:74"),
+        ("fused_group_norm_relu_bwd", "fused_group_norm_relu_bwd", "float32",
+         "fused_norm_bwd.cu", "fused_norm.py:136"),
+        ("packed_conv3d_structured", "packed_conv3d_structured", "float32",
+         "packed_conv.cu", "packed_conv.py:184"),
+    ]
+
+    def per_pass(rows, field):
+        """One forward's (or train step's) worth of calls at the path shapes."""
+        return sum(r[field] * r["uses"] for r in rows)
+
+    for name, key, dtype_name, source, replaces in entries:
+        rows = [r for r in kernels[key] if r["dtype"] == dtype_name]
+        if key.startswith("conv3d_small"):
+            by_path = ({"serve": serve_launches[key], "train": train_launches[key]}
+                       if dtype_name == "float32" else
+                       {"train_bf16": bf16_launches[key], "bench": bench_launches[key]})
+        else:
+            by_path = {"serve": serve_launches[key], "train": train_launches[key],
+                       "train_bf16": bf16_launches[key]}
+        launches = sum(by_path.values())
         if launches == 0:
             fail(f"{name} was not launched on the serving, training or bench path")
-        lib = [r["library_ms"] for r in f32]
-        # one f32 forward's (or train step's) worth of calls at the path shapes
-        per_pass = lambda key: sum(r[key] * r["uses"] for r in f32)  # noqa: E731
-        summary.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches,
-            "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name],
-                                 "bench": bench_launches[name]},
-            "max_abs_err": max(r["max_abs_err"] for r in f32),
-            "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"),
-            "bound_ms": per_pass("bound_ms"),
-            "bound_by": max(f32, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
-            "library_ms": None if None in lib else per_pass("library_ms"),
-        })
+        lib = [r["library_ms"] for r in rows]
+        entry = {
+            "name": name, "route": "cuda", "dtype": dtype_name,
+            "source": f"tpuseg_torch/kernels/csrc/{source}",
+            "replaces": f"tpuseg/kernels/{replaces}", "launches": launches,
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per_pass(rows, "ms"), "plain_ms": per_pass(rows, "plain_ms"),
+            "bound_ms": per_pass(rows, "bound_ms"),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
+            "library_ms": None if None in lib else per_pass(rows, "library_ms"),
+        }
+        if not key.startswith("conv3d_small"):
+            # the same kernel's bf16 instantiation, timed in phase 3
+            bf = [r for r in kernels[key] if r["dtype"] == "bfloat16"]
+            entry["bfloat16"] = {f: per_pass(bf, f) for f in ("ms", "plain_ms", "bound_ms")}
+            entry["bfloat16"]["library_ms"] = (
+                None if None in [r["library_ms"] for r in bf] else per_pass(bf, "library_ms"))
+        summary.append(entry)
     # the probe kernels: the variant that computes the whole conv (K4 full,
     # K6 with the concat built in the kernel), every variant beside it
     for name, replaces, main_tag in (
@@ -982,7 +1032,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"tpuseg_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name],
-                                 "bench": launches},
+                                 "train_bf16": bf16_launches[name], "bench": launches},
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

@@ -53,14 +53,26 @@ def _off_the_kink(x, gamma, beta, g, groups, eps):
     return g * (v.abs() > 1e-3).reshape(g.shape).to(g.dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("x_shape, cout", [
+# the bf16 tensor-core kernels tile H and W by up to 128 voxels and take
+# Cin and Cout in 16s: H = 1, W not a multiple of the tile, several
+# samples, Cin 8, 12 (8-byte copies), 10 (2-byte copies), 16, 64 and Cout 2,
+# 5, 16, 64, and dX (the conv with Cin and Cout swapped) of each
+CONV_CASES = [
     ((1, 5, 6, 7, 8), 2),
     ((2, 3, 9, 70, 16), 16),
     ((1, 4, 4, 131, 24), 13),
     ((1, 2, 3, 5, 64), 64),
     ((1, 3, 5, 9, 10), 7),  # Cin not a multiple of 4: one channel per load
-])
+    ((2, 3, 1, 131, 12), 5),  # H = 1, two samples
+    ((2, 4, 1, 37, 64), 2),
+    ((2, 3, 7, 45, 8), 64),
+    ((1, 6, 19, 23, 16), 5),
+    ((2, 5, 11, 30, 64), 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape, cout", CONV_CASES)
 @pytest.mark.parametrize("offset", [0, 1])  # 1: x not 16-byte aligned
 def test_conv3d_small_kernel_matches_plain(cuda, dtype, x_shape, cout, offset):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -129,13 +141,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("x_shape, cout", [
-    ((1, 5, 6, 7, 8), 2),      # dX conv with Cin' = 2
-    ((2, 3, 9, 70, 16), 16),   # ragged dW segments, two samples
-    ((1, 4, 4, 131, 24), 13),
-    ((1, 2, 3, 5, 64), 64),    # dW taps split over blocks
-    ((1, 3, 5, 9, 10), 7),     # Cin not a multiple of 4
-])
+@pytest.mark.parametrize("x_shape, cout", CONV_CASES)
 def test_conv3d_small_backward_matches_plain(cuda, dtype, x_shape, cout):
     """dX (the forward kernel on the transposed packed weight) and dW (the
     split-V reduction) against torch.nn.grad on the same inputs, with one
@@ -156,6 +162,59 @@ def test_conv3d_small_backward_matches_plain(cuda, dtype, x_shape, cout):
     assert xr.grad.dtype == dtype and wr.grad.dtype == dtype
     _close(xr.grad, dx, dtype)
     _close(wr.grad, dw, dtype)
+
+
+@pytest.mark.parametrize("x_shape, cout", [((2, 9, 13, 40, 32), 16), ((1, 6, 9, 11, 64), 64)])
+def test_conv3d_small_bf16_dw_is_deterministic(cuda, x_shape, cout):
+    """Two bf16 dW calls on the same inputs are bit-identical: each block
+    sums a fixed range in a fixed order, the partials in fp64 in order."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(x_shape, generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn(x_shape[:4] + (cout,), generator=gen, device=cuda).to(torch.bfloat16)
+    before = conv3d.DW_LAUNCHES
+    a = conv3d._launch_dw(x, g)
+    b = conv3d._launch_dw(x, g)
+    torch.cuda.synchronize()
+    assert conv3d.DW_LAUNCHES == before + 2
+    assert torch.equal(a, b)
+    _close(a, conv3d.conv3d_small_dw_plain(x.float(), g.float()), torch.bfloat16)
+
+
+def test_conv3d_small_routes_by_dtype(cuda, monkeypatch):
+    """A bf16 tensor reaches the tensor-core entries and an f32 tensor the
+    CUDA-core ones, forward, dX and dW, each launch counted; the f32
+    entries refuse bf16 outright."""
+    from tpuseg_torch.kernels import _build
+
+    lib = _build.library()
+    calls = []
+    for name in ("tpuseg_conv3d_small", "tpuseg_conv3d_small_tc",
+                 "tpuseg_conv3d_small_dw", "tpuseg_conv3d_small_dw_tc"):
+        fn = getattr(lib, name)
+        monkeypatch.setattr(lib, name, lambda *a, fn=fn, name=name: (calls.append(name),
+                                                                       fn(*a))[1])
+    for dtype, suffix in ((torch.bfloat16, "_tc"), (torch.float32, "")):
+        calls.clear()
+        x = torch.randn((1, 4, 5, 6, 16), device=cuda).to(dtype).requires_grad_()
+        w = (torch.randn((3, 3, 3, 16, 8), device=cuda) * 0.1).to(dtype).requires_grad_()
+        before = conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES
+        conv3d.conv3d_small(x, w).float().sum().backward()
+        torch.cuda.synchronize()
+        assert (conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES) == \
+            (before[0] + 1, before[1] + 1, before[2] + 1)
+        assert calls == [f"tpuseg_conv3d_small{suffix}", f"tpuseg_conv3d_small{suffix}",
+                         f"tpuseg_conv3d_small_dw{suffix}"], calls
+    xb = torch.zeros((1, 2, 2, 2, 8), device=cuda, dtype=torch.bfloat16)
+    wp = conv3d.pack_weight(torch.zeros((3, 3, 3, 8, 8), device=cuda), torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.tpuseg_conv3d_small(xb.data_ptr(), wp.data_ptr(), xb.data_ptr(), 1, 2, 2,
+                                   2, 8, 8, 8, 4, 1, stream) != 0
+    part = torch.zeros((1, 27, 8, 8), device=cuda)
+    dw = torch.zeros((27, 8, 8), device=cuda)
+    assert lib.tpuseg_conv3d_small_dw(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
+                                      dw.data_ptr(), 1, 2, 2, 2, 8, 8, 2, 1, 1,
+                                      stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_conv3d_small_backward_skips_dx(cuda):

@@ -60,14 +60,26 @@ def test_supported_takes_the_same_layers_as_the_tpu_kernel(x_shape, w_shape):
         x_shape, w_shape, (1, 1, 1), "SAME", (1, 1, 1), 1)
 
 
-def test_conv3d_small_pack_weight_pads_cout():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_small_pack_weight_pads_cout(dtype):
+    """float32 (the CUDA-core kernel): (27, Cin, cout_pad 8) fp32, Cout
+    zero-padded.  bfloat16 (the tensor-core kernel): the bf16-rounded
+    (27·cin_pad, cout_pad) matrix, Cin and Cout zero-padded to 16, in the
+    MMA layout (27·cin_pad/16, cout_pad/8, 2, 8, 8) whose [kc, j, h, r, c]
+    is row kc·16 + h·8 + c, column j·8 + r.  Both contiguous."""
     w = torch.randn(3, 3, 3, 8, 5)
-    packed = conv3d.pack_weight(w, torch.float32)
-    assert packed.shape == (27, 8, 8) and packed.is_contiguous()
-    torch.testing.assert_close(packed[:, :, :5], w.reshape(27, 8, 5))
-    assert packed[:, :, 5:].abs().max() == 0
-    bf = conv3d.pack_weight(w, torch.bfloat16)  # rounds through the x dtype
-    torch.testing.assert_close(bf[:, :, :5], w.to(torch.bfloat16).float().reshape(27, 8, 5))
+    packed = conv3d.pack_weight(w, dtype)  # rounds through the x dtype
+    assert packed.is_contiguous() and packed.dtype == dtype
+    assert tuple(packed.shape) == conv3d._packed_shape(8, 5, dtype)
+    if dtype == torch.float32:
+        assert packed.shape == (27, 8, 8)
+        torch.testing.assert_close(packed[:, :, :5], w.reshape(27, 8, 5))
+        assert packed[:, :, 5:].abs().max() == 0
+    else:
+        assert packed.shape == (27, 2, 2, 8, 8)
+        mat = packed.permute(0, 2, 4, 1, 3).reshape(27, 16, 16)
+        assert torch.equal(mat[:, :8, :5], w.to(torch.bfloat16).reshape(27, 8, 5))
+        assert mat[:, 8:].abs().max() == 0 and mat[:, :, 5:].abs().max() == 0
 
 
 @pytest.mark.parametrize("wd, cin, tile", [

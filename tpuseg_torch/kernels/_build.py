@@ -48,6 +48,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, w_packed, y, n, d, h, w, cin, cout, cout_pad, tile_w, dtype, stream
     "tpuseg_conv3d_small": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_packed, y, n, d, h, w, cin, cout, ty, tx, nt, mt, stages, stream
+    "tpuseg_conv3d_small_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
+    # x, g, partial, dw, n, d, h, w, cin, cout, ty, tx, stages, mtb,
+    # tap_splits, max_chunks, stream
+    "tpuseg_conv3d_small_dw_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, partial, stats, n, v, c, groups,
     # rows_per_chunk, n_chunks, eps, relu, dtype, stream
     "tpuseg_group_norm_relu": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,

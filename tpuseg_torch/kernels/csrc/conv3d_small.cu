@@ -143,7 +143,8 @@ __global__ void prefetch_l2_kernel(const char* __restrict__ p, int lines) {
 
 }  // namespace
 
-// x (n, d, h, w, cin) and y (n, d, h, w, cout) contiguous, of `dtype`;
+// x (n, d, h, w, cin) and y (n, d, h, w, cout) contiguous, of `dtype`
+// (float32 only: bf16 convs run csrc/conv3d_small_tc.cu);
 // w_packed (27, cin, cout_pad) fp32 contiguous and 16-byte aligned;
 // tw a multiple of 4 with (TY + 2) * (tw + 2) * cin staged floats fitting
 // SMEM_FLOATS.  Returns cudaGetLastError() after the launch.
@@ -173,16 +174,7 @@ extern "C" int tpuseg_conv3d_small(const void* x, const void* w_packed, void* y,
     else
       conv3d_small_kernel<float, 1><<<grid, threads, 0, s>>>(
           xf, wp, yf, d, h, w, cin, cout, cout_pad, tw);
-  } else if (dtype == tpuseg::kBFloat16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    if (vec4)
-      conv3d_small_kernel<__nv_bfloat16, 4><<<grid, threads, 0, s>>>(
-          xb, wp, yb, d, h, w, cin, cout, cout_pad, tw);
-    else
-      conv3d_small_kernel<__nv_bfloat16, 1><<<grid, threads, 0, s>>>(
-          xb, wp, yb, d, h, w, cin, cout, cout_pad, tw);
-  } else {
+  } else {  // bf16 runs on the tensor cores: csrc/conv3d_small_tc.cu
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -168,7 +168,8 @@ void launch_partial(const T* x, const T* g, float* partial, dim3 grid,
 
 }  // namespace
 
-// x (n, d, h, w, cin) and g (n, d, h, w, cout) contiguous, of `dtype`;
+// x (n, d, h, w, cin) and g (n, d, h, w, cout) contiguous, of `dtype`
+// (float32 only: bf16 runs csrc/conv3d_small_dw_tc.cu);
 // partial (n_chunks, 27, cin, cout) fp32 scratch; dw (27, cin, cout) fp32.
 // tw: x segment width, with 9 * (tw + 2) * cin_pad + tw * cout_pad staged
 // floats fitting SMEM_FLOATS (cin_pad = cin rounded up to 4, cout_pad = cout
@@ -196,12 +197,7 @@ extern "C" int tpuseg_conv3d_small_dw(const void* x, const void* g,
                           static_cast<const float*>(g), pa, grid, vec4, d, h,
                           w, cin, cout, cin_pad, cout_pad, tw, n_seg, n_groups,
                           per_chunk, s);
-  else if (dtype == tpuseg::kBFloat16)
-    launch_partial<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
-                                  static_cast<const __nv_bfloat16*>(g), pa,
-                                  grid, vec4, d, h, w, cin, cout, cin_pad,
-                                  cout_pad, tw, n_seg, n_groups, per_chunk, s);
-  else
+  else  // bf16 runs on the tensor cores: csrc/conv3d_small_dw_tc.cu
     return static_cast<int>(cudaErrorInvalidValue);
   const int m = 27 * cin * cout;
   conv3d_dw_reduce_kernel<<<(m + REDUCE_THREADS - 1) / REDUCE_THREADS,

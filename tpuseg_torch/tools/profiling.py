@@ -12,8 +12,10 @@ back, NIfTI write.  Device stages end with a synchronize; all times are
 host-clock ms.  It then traces ``--forwards`` served forwards at the served
 size with ``torch.profiler`` and sums the device time per kernel name.  Last it traces ``--train-steps`` UNet3d
 train steps at the reference KiPA setting (112x112x128, batch 1, 5
-classes, MutilDiceLoss, Adam at 1e-3, f32, seeded weights and a random
-batch) after one warmup step, and sums their device time per kernel name.
+classes, MutilDiceLoss, Adam at 1e-3, seeded weights and a random batch)
+after one warmup step, computed in f32 and again in bf16 over f32 master
+weights (``--train.compute_dtype bfloat16``), and sums their device time
+per kernel name (the bf16 keys carry a ``bf16_`` prefix).
 It also sums the device time under each ``aten::convolution_backward``
 call by its input shapes, which names the cuDNN convs (those outside the
 kernels' range) that cost the most.  It prints one JSON object, with the
@@ -138,10 +140,14 @@ def _device_split(prof, count: int) -> dict:
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
-def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE):
-    """Device ms per f32 UNet3d train step, by kernel name, from
-    ``torch.profiler`` over ``steps`` steps after a warmup step; and the
-    device ms per step under ``aten::convolution_backward``, by the call's
+def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
+                            dtype: torch.dtype = torch.float32):
+    """Device ms per UNet3d train step computed in ``dtype`` (bfloat16:
+    over f32 master weights, as ``--train.compute_dtype bfloat16``), by
+    kernel name, from ``torch.profiler`` over ``steps`` steps after a
+    warmup step; and the device ms per step under
+    ``aten::convolution_backward`` (the convs outside K2's range: the 1x1
+    head, the 1 -> 16 stem, the transpose convs), by the call's
     (grad_output, input, weight) shapes."""
     from tpuseg_torch.compat.weights import seeded_unet_params, unet_params_from_jax
     from tpuseg_torch.models.unet import UNet
@@ -153,7 +159,8 @@ def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE):
         seeded_unet_params(SEED, FEATURES, CLASSES, 1)), strict=True)
     trainer = make_segmentation_trainer(
         model, CLASSES, "MutilDiceLoss", alpha=[1.0] * CLASSES,
-        config=TrainerConfig(optimizer="adam", lr=1e-3), device="cuda")
+        config=TrainerConfig(optimizer="adam", lr=1e-3, compute_dtype=dtype),
+        device="cuda")
     x, y, z = new_size
     gen = torch.Generator("cuda").manual_seed(SEED)
     batch = {"image": torch.randn((1, z, y, x, 1), device="cuda", generator=gen),
@@ -216,14 +223,15 @@ def main(argv=None) -> int:
             stages[key] = [request_stages(model, src, os.path.join(tmp, "mask.nii.gz"))
                            for _ in range(args.passes)]
     split = forward_kernel_split(model, forwards=args.forwards)
-    train_split, conv_bwd = train_step_kernel_split(args.train_steps)
-    print(json.dumps({"card": smi, "torch": torch.__version__,
-                      "stages_ms": stages,
-                      "forward_device_ms_by_kernel": split,
-                      "forward_device_ms": sum(split.values()),
-                      "train_step_device_ms_by_kernel": train_split,
-                      "train_step_device_ms": sum(train_split.values()),
-                      "train_step_conv_backward_device_ms_by_shapes": conv_bwd}))
+    out = {"card": smi, "torch": torch.__version__, "stages_ms": stages,
+           "forward_device_ms_by_kernel": split,
+           "forward_device_ms": sum(split.values())}
+    for name, dtype in (("", torch.float32), ("bf16_", torch.bfloat16)):
+        train_split, conv_bwd = train_step_kernel_split(args.train_steps, dtype=dtype)
+        out.update({f"train_step_{name}device_ms_by_kernel": train_split,
+                    f"train_step_{name}device_ms": sum(train_split.values()),
+                    f"train_step_{name}conv_backward_device_ms_by_shapes": conv_bwd})
+    print(json.dumps(out))
     return 0
 
 
