@@ -11,7 +11,8 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
  3. holds each kernel against its plain PyTorch version on the card at
     every shape the serving and training paths hand it (UNet3d, features
     16, input 112x112x128), in float32 (TF32 off) and bfloat16 (where the
-    conv runs its tensor-core kernels), and times both: the conv's forward
+    conv runs its tensor-core kernels; K3 runs them in both, f32 by
+    3xTF32), and times both: the conv's forward
     at its 10 shapes of the plain net, the
     GroupNorm+ReLU forward at its 18 shapes (the 4 packed ones are the
     same maps viewed as (N, 8V', F)), the conv's dX (the forward kernel on
@@ -65,7 +66,9 @@ forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
 (for the conv's forward, dX and dW that call is the plain version itself;
-for K3, cuDNN's dense coarse conv of the concatenated parts; for the
+for K3, cuDNN's dense coarse conv of the concatenated parts; for K1,
+``F.group_norm`` on the same channels-last map, which lacks the ReLU, and
+its autograd backward; for the
 probe kernels, cuDNN's bf16 conv at the probe shape, beside their whole-conv
 variant), each probe kernel's variants with their own library call,
 and the card's ``nvidia-smi`` line; the last line is ``{"ok": true,
@@ -122,8 +125,11 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 GOLDEN_GRAD_TOL = 1e-4
 STEP_GRAD_TOL = 2e-2
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on
-# the tensor cores, HBM3
-PEAK_FLOPS, PEAK_BYTES_PER_S = {"float32": 67e12, "bfloat16": 989e12}, 3.35e12
+# the tensor cores, HBM3; "tf32x3" is the rate of fp32-accurate products on
+# the tensor cores by the 3xTF32 split (three TF32 passes at 495 TFLOP/s),
+# which bounds K3's f32 route
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+PEAK_BYTES_PER_S = 3.35e12
 TRAIN_DHW = (128, 112, 112)  # (z, y, x) of the training volumes
 
 
@@ -170,11 +176,12 @@ def level_shape(level: int):
     return (z >> level, y >> level, x >> level)
 
 
-def bound_ms(flops: float, nbytes: float, dtype_name: str):
-    """(least ms the card could take, "operations" or "bytes") for work on
-    inputs of ``dtype_name``."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(flops: float, nbytes: float, rate: str):
+    """(least ms the card could take, "operations" or "bytes", the peak
+    FLOP/s used) for work done at ``PEAK_FLOPS[rate]``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[rate], nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            PEAK_FLOPS[rate])
 
 
 def counts(mods) -> dict:
@@ -264,14 +271,15 @@ def time_ms(torch, fn, iters: int = 20) -> float:
 
 
 def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
-               uses, bound, library_ms):
-    results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err,
+               uses, bound, library_ms, library_note=""):
+    results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err, scale=scale,
                               ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                              bound_by=bound[1], library_ms=library_ms))
-    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+                              bound_by=bound[1], peak_flops=bound[2],
+                              library_ms=library_ms))
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms{library_note}"
     say(f"  {name} {dtype_name} {what}: max_abs_err {err:.3g} (scale {scale:.3g}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms "
-        f"({bound[1]})")
+        f"({bound[1]}, {bound[2] / 1e12:.0f} TFLOP/s)")
     if not err <= TOL[dtype_name] * scale:
         fail(f"{name} {dtype_name} {what}: error {err} > {TOL[dtype_name]} * {scale}")
 
@@ -349,10 +357,23 @@ def phase_kernels(torch, mods):
             ms, plain_ms = time_pair(
                 torch, lambda: fused_norm.fused_group_norm_relu(x, gamma, beta, 8, 1e-6),
                 lambda: fused_norm.fused_group_norm_relu_plain(x, gamma, beta, 8, 1e-6))
+            # library: F.group_norm (no ReLU) on the same map laid out as it
+            # takes it, a contiguous (N, C, D, H, W) copy made before the
+            # clock starts, and its backward through autograd
+            xl = x.permute(0, 4, 1, 2, 3).contiguous().requires_grad_()
+            gl, bl = (t.to(dtype).detach().requires_grad_() for t in (gamma, beta))
+            library_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+                xl.detach(), 8, gl.detach(), bl.detach(), 1e-6))
+            yl = torch.nn.functional.group_norm(xl, 8, gl, bl, 1e-6)
+            g_lib = g.permute(0, 4, 1, 2, 3).contiguous()
+            library_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                yl, (xl, gl, bl), g_lib, retain_graph=True))
+            del xl, gl, bl, yl, g_lib
             # about 10 flops per element (statistics, normalize, affine, ReLU)
             _check_row(results, "fused_group_norm_relu", dtype_name, what,
                        *rel_err(got, ref), ms, plain_ms, uses,
-                       bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name), None)
+                       bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name), library_ms,
+                       " (F.group_norm, no ReLU)")
             # backward: dx, dgamma, dbeta from the forward's statistics
             _, stats = fused_norm._launch(x, gamma, beta, 8, 1e-6, True)
             got = fused_norm._launch_backward(x, g, stats, gamma, beta, 8, True)
@@ -367,7 +388,8 @@ def phase_kernels(torch, mods):
             # about 20 flops per element over its two passes
             _check_row(results, "fused_group_norm_relu_bwd", dtype_name,
                        what + " (dx, dgamma, dbeta)", err, scale, ms, plain_ms, uses,
-                       bound_ms(20.0 * n_el, 3 * n_el * size, dtype_name), None)
+                       bound_ms(20.0 * n_el, 3 * n_el * size, dtype_name), library_bwd_ms,
+                       " (F.group_norm's autograd backward, no ReLU)")
         for c_fines, f, lvl, uses in packed_cases():
             d, h, w = level_shape(lvl)
             npos = d * h * w
@@ -380,7 +402,7 @@ def phase_kernels(torch, mods):
             # dense packed kernels on the CPU (exact), as the model makes them
             w3s = [mods["pack_k3_to_k3_coarse"](wf[..., a:b, :]).cuda()
                    for a, b in zip(splits, splits[1:])]
-            packed = packed_conv.pack_structured(w3s, dtype)  # once, as the model does
+            packed = packed_conv.pack_tc(w3s, dtype)  # once, as the model does
             got = packed_conv.packed_conv3d_structured(parts, w3s, packed=packed)
             ref = packed_conv.packed_conv3d_plain(parts, w3s)
             torch.cuda.synchronize()
@@ -400,8 +422,9 @@ def phase_kernels(torch, mods):
             what = (f"{' + '.join(str(8 * c) for c in c_fines)}->{8 * f} "
                     f"@{d}x{h}x{w} packed")
             _check_row(results, "packed_conv3d_structured", dtype_name, what,
-                       *rel_err(got, ref), ms, plain_ms, uses, bound_ms(flops, io, dtype_name),
-                       library_ms)
+                       *rel_err(got, ref), ms, plain_ms, uses,
+                       bound_ms(flops, io, "tf32x3" if dtype_name == "float32" else dtype_name),
+                       library_ms, " (cuDNN's dense coarse conv)")
     return results
 
 
@@ -980,7 +1003,7 @@ def main() -> int:
         ("fused_group_norm_relu_bwd", "fused_group_norm_relu_bwd", "float32",
          "fused_norm_bwd.cu", "fused_norm.py:136"),
         ("packed_conv3d_structured", "packed_conv3d_structured", "float32",
-         "packed_conv.cu", "packed_conv.py:184"),
+         "packed_conv_tc.cu", "packed_conv.py:184"),
     ]
 
     def per_pass(rows, field):
@@ -1009,12 +1032,22 @@ def main() -> int:
             "ms": per_pass(rows, "ms"), "plain_ms": per_pass(rows, "plain_ms"),
             "bound_ms": per_pass(rows, "bound_ms"),
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
+            "peak_tflops": rows[0]["peak_flops"] / 1e12,
             "library_ms": None if None in lib else per_pass(rows, "library_ms"),
         }
+        if key == "packed_conv3d_structured":
+            # the f32 route is 3xTF32 on the tensor cores: its error against
+            # the plain version beside the f32 gate
+            entry["tf32x3"] = {"max_err_over_scale": max(r["max_abs_err"] / r["scale"]
+                                                         for r in rows),
+                               "gate": TOL["float32"]}
         if not key.startswith("conv3d_small"):
             # the same kernel's bf16 instantiation, timed in phase 3
             bf = [r for r in kernels[key] if r["dtype"] == "bfloat16"]
             entry["bfloat16"] = {f: per_pass(bf, f) for f in ("ms", "plain_ms", "bound_ms")}
+            entry["bfloat16"]["bound_by"] = max(
+                bf, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"]
+            entry["bfloat16"]["peak_tflops"] = bf[0]["peak_flops"] / 1e12
             entry["bfloat16"]["library_ms"] = (
                 None if None in [r["library_ms"] for r in bf] else per_pass(bf, "library_ms"))
         summary.append(entry)

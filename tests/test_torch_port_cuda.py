@@ -293,6 +293,8 @@ def _coarse(w):
     ((2, 5, 7, 9), (8,), 8, True, True),        # positions not a multiple of 128
     ((1, 4, 6, 7), (8, 8), 8, False, True),     # two parts, the decoder's concat
     ((1, 3, 5, 6), (4, 12), 20, True, False),   # two parts of other C, 8F = 160
+    ((1, 6, 9, 11), (4,), 4, False, False),     # 594 positions: a ragged last block
+    ((2, 3, 7, 5), (2, 6), 16, True, True),     # two parts of other C, 8F = 128
 ])
 def test_packed_conv_kernel_matches_plain(cuda, dtype, grid, c_fines, f, bias, relu):
     """K3 against its plain version (the dense coarse conv), one launch."""
@@ -310,6 +312,109 @@ def test_packed_conv_kernel_matches_plain(cuda, dtype, grid, c_fines, f, bias, r
     assert packed_conv.LAUNCHES == before + 1
     assert got.dtype == dtype and got.shape == grid + (8 * f,)
     _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_conv_kernel_part_offset_by_one_element(cuda, dtype):
+    """Parts that start one element past an aligned address (contiguous
+    views of a larger buffer): the kernel narrows its copies to what the
+    addresses allow and still matches the plain version."""
+    gen = torch.Generator().manual_seed(6)
+    grid, c_fines, f = (1, 3, 4, 5), (4, 2), 8
+    parts = []
+    for c in c_fines:
+        size = 3 * 4 * 5 * 8 * c
+        buf = torch.randn(size + 1, generator=gen).to(cuda, dtype)
+        parts.append(buf[1:].view(grid + (8 * c,)))
+        assert parts[-1].is_contiguous() and parts[-1].data_ptr() % 16 != 0
+    w3s = [_coarse(torch.randn((3, 3, 3, c, f), generator=gen) * 0.2).to(cuda)
+           for c in c_fines]
+    with torch.inference_mode():
+        got = packed_conv.packed_conv3d_structured(parts, w3s, None, True)
+        torch.cuda.synchronize()
+        ref = packed_conv.packed_conv3d_plain(parts, w3s, None, True)
+    _close(got, ref, dtype)
+
+
+def test_packed_conv_routes_by_dtype(cuda, monkeypatch):
+    """A bf16 part reaches the bf16 wgmma entry and a float32 part the
+    3xTF32 one (the entries PERF.md names), each launch counted."""
+    from tpuseg_torch.kernels import _build
+
+    lib = _build.library()
+    calls = []
+    for name in ("tpuseg_packed_conv3d_bf16", "tpuseg_packed_conv3d_tf32x3"):
+        fn = getattr(lib, name)
+        monkeypatch.setattr(lib, name, lambda *a, fn=fn, name=name: (calls.append(name),
+                                                                       fn(*a))[1])
+    w3 = _coarse(torch.randn((3, 3, 3, 2, 2)) * 0.2).to(cuda)
+    for dtype, name in ((torch.bfloat16, "tpuseg_packed_conv3d_bf16"),
+                        (torch.float32, "tpuseg_packed_conv3d_tf32x3")):
+        calls.clear()
+        x = torch.randn((1, 3, 4, 5, 16), device=cuda).to(dtype)
+        before = packed_conv.LAUNCHES
+        with torch.inference_mode():
+            packed_conv.packed_conv3d_structured([x], [w3])
+        torch.cuda.synchronize()
+        assert packed_conv.LAUNCHES == before + 1 and calls == [name], calls
+    assert packed_conv.ENTRY == {torch.float32: "tpuseg_packed_conv3d_tf32x3",
+                                 torch.bfloat16: "tpuseg_packed_conv3d_bf16"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_and_k1_repeat_bit_identical(cuda, dtype):
+    """Both kernels sum in a fixed order: two calls give the same bits (K3;
+    K1 forward, its statistics, and its backward)."""
+    gen = torch.Generator().manual_seed(7)
+    parts = [torch.randn((1, 5, 6, 7, 8 * c), generator=gen).to(cuda, dtype) for c in (4, 4)]
+    w3s = [_coarse(torch.randn((3, 3, 3, 4, 4), generator=gen) * 0.2).to(cuda)
+           for _ in parts]
+    with torch.inference_mode():
+        a = packed_conv.packed_conv3d_structured(parts, w3s)
+        b = packed_conv.packed_conv3d_structured(parts, w3s)
+    assert torch.equal(a, b)
+    x = torch.randn((1, 60000, 32), generator=gen).to(cuda, dtype)
+    g = torch.randn((1, 60000, 32), generator=gen).to(cuda, dtype)
+    gamma, beta = torch.randn(32, device=cuda), torch.randn(32, device=cuda)
+    assert fused_norm._chunking(1, 60000, 32)[1] > 32  # lanes merge several chunks
+    y1, s1 = fused_norm._launch(x, gamma, beta, 8, 1e-6, True)
+    y2, s2 = fused_norm._launch(x, gamma, beta, 8, 1e-6, True)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    d1 = fused_norm._launch_backward(x, g, s1, gamma, beta, 8, True)
+    d2 = fused_norm._launch_backward(x, g, s1, gamma, beta, 8, True)
+    assert all(torch.equal(p, q) for p, q in zip(d1, d2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, groups", [
+    ((1, 7, 5, 6), 3),          # C 6: 2-element vectors
+    ((2, 9, 5), 5),             # C 5: one element
+    ((1, 50, 12), 4),           # C 12: 4-element vectors, bf16 too
+    ((2, 1, 16), 8),            # V = 1
+    ((1, 1, 1, 1, 40), 8),      # V = 1, C 40
+])
+def test_fused_gn_narrow_vectors_and_one_voxel(cuda, dtype, shape, groups):
+    """C that the 16-byte vector does not divide, and maps of one voxel:
+    forward and backward against the plain versions, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 1).to(dtype)
+    gamma = torch.randn(c, generator=gen, device=cuda)
+    beta = torch.randn(c, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = _off_the_kink(x, gamma, beta, g, groups, 1e-6)
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    before = fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES
+    y = fused_norm.fused_group_norm_relu(xr, gr, br, groups, 1e-6, True)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close(y, fused_norm.fused_group_norm_relu_plain(x, gamma, beta, groups, 1e-6), dtype)
+    dx, dgamma, dbeta = fused_norm.fused_group_norm_relu_backward_plain(
+        x, gamma, beta, g, groups, 1e-6, True)
+    _close(xr.grad, dx, dtype)
+    _close(gr.grad, dgamma, dtype)
+    _close(br.grad, dbeta, dtype)
 
 
 def test_packed_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):

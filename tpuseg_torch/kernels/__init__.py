@@ -3,11 +3,12 @@
 * ``conv3d``     — small-channel 3x3x3 SAME conv, forward, dX and dW
   (tpuseg/kernels/conv3d.py; ``csrc/conv3d_small.cu``,
   ``csrc/conv3d_small_dw.cu``)
-* ``fused_norm`` — fused GroupNorm+ReLU, forward and backward
-  (tpuseg/kernels/fused_norm.py; ``csrc/fused_norm.cu``,
-  ``csrc/fused_norm_bwd.cu``)
-* ``packed_conv`` — structured space-to-depth packed k3 conv, forward
-  (tpuseg/kernels/packed_conv.py; ``csrc/packed_conv.cu``)
+* ``fused_norm`` — fused GroupNorm+ReLU, forward and backward, two
+  launches each (tpuseg/kernels/fused_norm.py; ``csrc/fused_norm.cu``,
+  ``csrc/fused_norm_bwd.cu``, ``csrc/fused_norm.cuh``)
+* ``packed_conv`` — structured space-to-depth packed k3 conv, forward, on
+  ``wgmma`` in bf16 and by 3xTF32 in f32 (tpuseg/kernels/packed_conv.py;
+  ``csrc/packed_conv_tc.cu``)
 * ``slab_conv``  — the slab-layout conv GEMM of K2's micro-benchmarks K4
   and K5, bf16 tensor cores (benchmarks/kmicro_r2.py, kmicro2_r2.py;
   ``csrc/slab_conv.cu``)

@@ -19,6 +19,7 @@ is not ``cudaSuccess``.  A failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,6 +28,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
@@ -56,21 +59,23 @@ _SIGNATURES = {
     "tpuseg_conv3d_small_dw_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, partial, stats, n, v, c, groups,
-    # rows_per_chunk, n_chunks, eps, relu, dtype, stream
+    # rows_per_chunk, n_chunks, eps, relu, ve, dtype, stream
     "tpuseg_group_norm_relu": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
-                               _I, _I, _F, _I, _I, _P],
+                               _I, _I, _F, _I, _I, _I, _P],
     # x, g, partial, dw, n, d, h, w, cin, cout, tile_w, n_chunks, dtype,
     # stream
     "tpuseg_conv3d_small_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
-    # x, grad_y, stats, gamma, beta, dx, dgamma, dbeta, partial, coef, n, v,
-    # c, groups, rows_per_chunk, n_chunks, relu, dtype, stream
-    "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _LL, _I, _I, _I, _I, _I, _I, _P],
-    # xa, xb, c8a, c8b, rows, wk, bias, y, n, d, h, w, k, n_pad, f8, relu,
-    # dtype, stream
-    "tpuseg_packed_conv3d": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _P],
+    # x, grad_y, stats, gamma, beta, dx, dgamma, dbeta, partial, n, v, c,
+    # groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream
+    "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xa, xb, c8a, c8b, rows, wt, bias, y, n, d, h, w, k, n_pad, f8, relu,
+    # stream (bf16, and float32 by 3xTF32)
+    "tpuseg_packed_conv3d_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P],
+    "tpuseg_packed_conv3d_tf32x3": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _P],
     # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream
     "tpuseg_slab_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],
@@ -139,6 +144,8 @@ def _compile(out: Path) -> str:
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this checkout."""
     global _lib, build_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             path = library_path()
@@ -153,6 +160,14 @@ def library() -> ctypes.CDLL:
             lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def on_device(t):
+    """A context in which ``t``'s CUDA device is the current one: nothing
+    to enter when it already is (the common case, and the cheap one)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def check(err: int, what: str) -> None:

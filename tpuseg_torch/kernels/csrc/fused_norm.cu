@@ -5,204 +5,228 @@
 // `fused_group_norm_relu_pallas` (`_stats_kernel`, `_apply_kernel`).
 // Python wrapper and design note: tpuseg_torch/kernels/fused_norm.py.
 //
-// Three launches on one stream:
-//  1. gn_partial_kernel: block (chunk, n) reduces `rows_per_chunk` rows of
-//     sample n.  Thread t owns channel t % C and every R-th row, so a block
-//     reads R whole contiguous rows per step.  Each thread keeps a Welford
-//     (count, mean, M2) triple; the block merges them per group (Chan's
-//     formula) and writes one partial per (n, chunk, group).  Blocks run in
-//     no order, so nothing carries from one block to the next.
-//  2. gn_finalize_kernel: block (g, n) merges the chunks' partials in fp64
-//     and writes mean and 1/sqrt(var + eps) per (n, group).
-//  3. gn_apply_kernel: one read and one write of the map:
-//     y = (x - mean) * (rstd * gamma[c]) + beta[c], then max(y, 0).
-// Welford/Chan keep the variance exact for inputs with a large mean, where
-// the Pallas formula s2/count - mean^2 cancels.
+// Two launches on one stream, both over blocks (chunk, n) of
+// `rows_per_chunk` rows of sample n.  A thread owns one vector of VE
+// consecutive channels (16 bytes where C allows, else 8, 4 or one element:
+// VE divides C, so no vector crosses a row) and every R-th row, R = the
+// block's threads / (C / VE): the block reads R whole rows per step, and a
+// thread's channels, groups and affine are fixed, with no division per
+// element.
+//  1. gn_partial_kernel: per element, fp32 sums of d = x - shift and d^2,
+//     shift the sample's first value of the group (x[n, 0, g C/G]), so
+//     that the sums do not cancel for a large mean; the block adds its
+//     threads' sums per group in a fixed order (one warp per group, lanes
+//     strided, then a butterfly) and writes one (sum d, sum d^2) per
+//     (n, chunk, group).
+//  2. gn_apply_kernel: each block first merges its sample's partials in
+//     float64 in one fixed order (column_sums: all threads read the
+//     partials coalesced, then each group's sums are added in order), so
+//     that every block, and the statistics
+//     that chunk 0's block writes for the backward, agree to the bit), then
+//     y = (x - mean) * (rstd * gamma[c]) + beta[c], max(y, 0), one vector
+//     read and one written per step.  Its blocks take the chunks in
+//     reverse, so that the first read what pass 1 read last, still in L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "fused_norm.cuh"
 
 namespace {
 
-constexpr int FINALIZE_THREADS = 256;
-constexpr int APPLY_THREADS = 256;
-constexpr int MAX_C = 1024;
+using namespace tpuseg;
+using namespace tpuseg::gn;
 
-template <typename F>
-__device__ __forceinline__ void chan_merge(F& n, F& mean, F& m2, F nb, F meanb,
-                                           F m2b) {
-  if (nb == F(0)) return;
-  const F nt = n + nb;
-  const F delta = meanb - mean;
-  const F frac = nb / nt;
-  mean += delta * frac;
-  m2 += m2b + delta * delta * n * frac;
-  n = nt;
-}
-
-template <typename T>
-__global__ void gn_partial_kernel(const T* __restrict__ x,
-                                  float* __restrict__ partial, long long V,
-                                  int C, int G, int rows_per_chunk,
-                                  int n_chunks) {
-  extern __shared__ float sm[];  // 3 * blockDim.x: count, mean, M2
+template <typename T, int VE>
+__global__ void __launch_bounds__(max_threads(VE))
+    gn_partial_kernel(const T* __restrict__ x, float* __restrict__ partial, long long V,
+                      int C, int G, int rows_per_chunk, int n_chunks) {
+  extern __shared__ float2 red[];  // [R][C]: each element's (sum d, sum d^2)
   const int chunk = blockIdx.x;
   const int n = blockIdx.y;
-  const int R = blockDim.x / C;
-  const int c = threadIdx.x % C;
-  const int r0 = threadIdx.x / C;
+  const int nvec = C / VE;
+  const int R = blockDim.x / nvec;
+  const int v = threadIdx.x % nvec;
+  const int r0 = threadIdx.x / nvec;
+  const int cg = C / G;
+  const T* xs = x + (size_t)n * (size_t)V * C;
+  float shift[VE];
+#pragma unroll
+  for (int e = 0; e < VE; ++e) shift[e] = to_float(xs[(v * VE + e) / cg * cg]);
   const long long v0 = (long long)chunk * rows_per_chunk;
   const long long v1 = v0 + rows_per_chunk < V ? v0 + rows_per_chunk : V;
-  const T* xs = x + (size_t)n * (size_t)V * C;
 
-  float cnt = 0.f, mean = 0.f, m2 = 0.f;
-  if (r0 < R) {
-    for (long long v = v0 + r0; v < v1; v += R) {
-      const float val = tpuseg::to_float(xs[v * C + c]);
-      cnt += 1.f;
-      const float d = val - mean;
-      mean += d / cnt;
-      m2 += d * (val - mean);
+  float s1[VE], s2[VE];
+#pragma unroll
+  for (int e = 0; e < VE; ++e) s1[e] = s2[e] = 0.f;
+  auto add = [&](const float (&val)[VE]) {
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      const float d = val[e] - shift[e];
+      s1[e] += d;
+      s2[e] = fmaf(d, d, s2[e]);
     }
+  };
+  long long row = v0 + r0;
+  for (; row + (U - 1) * (long long)R < v1; row += U * (long long)R) {
+    float val[U][VE];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_vec_f<T, VE>(xs + (row + u * R) * C + v * VE, val[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) add(val[u]);
   }
-  const int bd = blockDim.x;
-  sm[threadIdx.x] = cnt;
-  sm[bd + threadIdx.x] = mean;
-  sm[2 * bd + threadIdx.x] = m2;
+  for (; row < v1; row += R) {
+    float val[VE];
+    load_vec_f<T, VE>(xs + row * C + v * VE, val);
+    add(val);
+  }
+#pragma unroll
+  for (int e = 0; e < VE; ++e) red[r0 * C + v * VE + e] = make_float2(s1[e], s2[e]);
   __syncthreads();
-  const int cg = C / G;
-  for (int g = threadIdx.x; g < G; g += bd) {
-    float gn = 0.f, gmean = 0.f, gm2 = 0.f;
-    for (int rr = 0; rr < R; ++rr)
-      for (int cc = g * cg; cc < (g + 1) * cg; ++cc) {
-        const int t = rr * C + cc;
-        chan_merge(gn, gmean, gm2, sm[t], sm[bd + t], sm[2 * bd + t]);
-      }
-    float* p = partial + (((size_t)n * n_chunks + chunk) * G + g) * 3;
-    p[0] = gn;
-    p[1] = gmean;
-    p[2] = gm2;
+  // group g: entries rr * C + g cg .. + cg of every row slot rr
+  // full warps only: a block of whole rows may end in a partial one
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int g = warp; warp < nwarps && g < G; g += nwarps) {
+    float a = 0.f, b = 0.f;
+    for (int i = lane; i < R * cg; i += 32) {
+      const float2 q = red[(i / cg) * C + g * cg + i % cg];
+      a += q.x;
+      b += q.y;
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0)
+      reinterpret_cast<float2*>(partial)[((size_t)n * n_chunks + chunk) * G + g] =
+          make_float2(a, b);
   }
 }
 
-__global__ void __launch_bounds__(FINALIZE_THREADS)
-    gn_finalize_kernel(const float* __restrict__ partial,
-                       float* __restrict__ stats, int n_chunks, int G,
-                       float eps) {
-  __shared__ double sn[FINALIZE_THREADS], smu[FINALIZE_THREADS],
-      sq[FINALIZE_THREADS];
-  const int g = blockIdx.x;
+template <typename T, int VE>
+__global__ void __launch_bounds__(max_threads(VE))
+    gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ partial,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    T* __restrict__ y, float* __restrict__ stats, long long V, int C, int G,
+                    int rows_per_chunk, int n_chunks, float eps, int relu) {
+  // [blockDim.x] double2 for column_sums, then [G] double2: the sample's
+  // (sum d, sum d^2) per group, then [G] float2: each group's (mean, rstd)
+  extern __shared__ double2 sm2[];
+  double2* gsum = sm2 + blockDim.x;
+  float2* mr = reinterpret_cast<float2*>(gsum + G);
+  const int chunk = gridDim.x - 1 - blockIdx.x;  // last chunks of pass 1 first
   const int n = blockIdx.y;
-  const int t = threadIdx.x;
-  double cnt = 0.0, mean = 0.0, m2 = 0.0;
-  for (int k = t; k < n_chunks; k += FINALIZE_THREADS) {
-    const float* p = partial + (((size_t)n * n_chunks + k) * G + g) * 3;
-    chan_merge<double>(cnt, mean, m2, p[0], p[1], p[2]);
+  const int cg = C / G;
+  const T* xs = x + (size_t)n * (size_t)V * C;
+  column_sums(reinterpret_cast<const float2*>(partial) + (size_t)n * n_chunks * G, n_chunks,
+              G, sm2, gsum);
+  const double count = (double)V * cg;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const double m1 = gsum[g].x / count;
+    const double var = fmax(gsum[g].y / count - m1 * m1, 0.0);
+    const float2 s = make_float2((float)((double)to_float(xs[g * cg]) + m1),
+                                 (float)(1.0 / sqrt(var + (double)eps)));
+    mr[g] = s;
+    if (chunk == 0) reinterpret_cast<float2*>(stats)[(size_t)n * G + g] = s;
   }
-  sn[t] = cnt;
-  smu[t] = mean;
-  sq[t] = m2;
   __syncthreads();
-  for (int s = FINALIZE_THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      double a = sn[t], b = smu[t], q = sq[t];
-      chan_merge<double>(a, b, q, sn[t + s], smu[t + s], sq[t + s]);
-      sn[t] = a;
-      smu[t] = b;
-      sq[t] = q;
+
+  const int nvec = C / VE;
+  const int R = blockDim.x / nvec;
+  const int v = threadIdx.x % nvec;
+  const int r0 = threadIdx.x / nvec;
+  float mean[VE], scale[VE], bias[VE];
+#pragma unroll
+  for (int e = 0; e < VE; ++e) {
+    const int c = v * VE + e;
+    const float2 s = mr[c / cg];
+    mean[e] = s.x;
+    scale[e] = s.y * __ldg(gamma + c);
+    bias[e] = __ldg(beta + c);
+  }
+  const long long v0 = (long long)chunk * rows_per_chunk;
+  const long long v1 = v0 + rows_per_chunk < V ? v0 + rows_per_chunk : V;
+  T* ys = y + (size_t)n * (size_t)V * C;
+  auto apply = [&](float (&val)[VE]) {
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      const float o = fmaf(val[e] - mean[e], scale[e], bias[e]);
+      val[e] = relu ? fmaxf(o, 0.f) : o;
     }
-    __syncthreads();
+  };
+  long long row = v0 + r0;
+  for (; row + (U - 1) * (long long)R < v1; row += U * (long long)R) {
+    float val[U][VE];
+#pragma unroll
+    for (int u = 0; u < U; ++u) load_vec_f<T, VE>(xs + (row + u * R) * C + v * VE, val[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      apply(val[u]);
+      store_vec_f<T, VE>(ys + (row + u * R) * C + v * VE, val[u]);
+    }
   }
-  if (t == 0) {
-    const double var = sn[0] > 0.0 ? fmax(sq[0] / sn[0], 0.0) : 0.0;
-    stats[((size_t)n * G + g) * 2] = static_cast<float>(smu[0]);
-    stats[((size_t)n * G + g) * 2 + 1] =
-        static_cast<float>(1.0 / sqrt(var + (double)eps));
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(APPLY_THREADS)
-    gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta, T* __restrict__ y,
-                    long long total, long long VC, int C, int cg, int G,
-                    int relu) {
-  const long long stride = (long long)gridDim.x * APPLY_THREADS;
-  for (long long e = (long long)blockIdx.x * APPLY_THREADS + threadIdx.x;
-       e < total; e += stride) {
-    const int c = (int)(e % C);
-    const long long n = e / VC;
-    const size_t s = ((size_t)n * G + c / cg) * 2;
-    const float mean = __ldg(stats + s);
-    const float rstd = __ldg(stats + s + 1);
-    float v = (tpuseg::to_float(x[e]) - mean) * (rstd * __ldg(gamma + c)) +
-              __ldg(beta + c);
-    if (relu) v = fmaxf(v, 0.f);
-    tpuseg::store_float(y + e, v);
+  for (; row < v1; row += R) {
+    float val[VE];
+    load_vec_f<T, VE>(xs + row * C + v * VE, val);
+    apply(val);
+    store_vec_f<T, VE>(ys + row * C + v * VE, val);
   }
 }
 
-template <typename T>
-int launch(const T* x, const float* gamma, const float* beta, T* y,
-           float* partial, float* stats, int n, long long v, int c, int groups,
-           int rows_per_chunk, int n_chunks, float eps, int relu,
-           cudaStream_t s) {
-  // the apply pass is grid-stride, with at most 16 blocks per SM of the
-  // current device
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int R = c >= 256 ? 1 : 256 / c;
-  const int threads = c * R;
-  gn_partial_kernel<T><<<dim3(n_chunks, n), threads, 3 * threads * sizeof(float),
-                         s>>>(x, partial, v, c, groups, rows_per_chunk,
-                              n_chunks);
-  gn_finalize_kernel<<<dim3(groups, n), FINALIZE_THREADS, 0, s>>>(
-      partial, stats, n_chunks, groups, eps);
-  const long long total = (long long)n * v * c;
-  const long long want = (total + APPLY_THREADS - 1) / APPLY_THREADS;
-  const long long most = 16LL * sms;
-  const int blocks = (int)(want < most ? want : most);
-  gn_apply_kernel<T><<<blocks, APPLY_THREADS, 0, s>>>(
-      x, stats, gamma, beta, y, total, v * c, c, c / groups, groups, relu);
+template <typename T, int VE>
+int launch(const T* x, const float* gamma, const float* beta, T* y, float* partial,
+           float* stats, int n, long long v, int c, int groups, int rows_per_chunk,
+           int n_chunks, float eps, int relu, cudaStream_t s) {
+  const int threads = block_threads(c / VE);
+  const dim3 grid(n_chunks, n);
+  const int r = threads / (c / VE);
+  gn_partial_kernel<T, VE><<<grid, threads, (size_t)r * c * sizeof(float2), s>>>(
+      x, partial, v, c, groups, rows_per_chunk, n_chunks);
+  gn_apply_kernel<T, VE><<<grid, threads,
+                           (threads + groups) * sizeof(double2) + groups * sizeof(float2), s>>>(
+      x, partial, gamma, beta, y, stats, v, c, groups, rows_per_chunk, n_chunks, eps, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(int ve, const void* x, const float* gamma, const float* beta, void* y,
+             float* partial, float* stats, int n, long long v, int c, int groups,
+             int rows_per_chunk, int n_chunks, float eps, int relu, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  switch (ve) {
+    case 1: return launch<T, 1>(xp, gamma, beta, yp, partial, stats, n, v, c, groups,
+                                rows_per_chunk, n_chunks, eps, relu, s);
+    case 2: return launch<T, 2>(xp, gamma, beta, yp, partial, stats, n, v, c, groups,
+                                rows_per_chunk, n_chunks, eps, relu, s);
+    case 4: return launch<T, 4>(xp, gamma, beta, yp, partial, stats, n, v, c, groups,
+                                rows_per_chunk, n_chunks, eps, relu, s);
+    default: return launch<T, 16 / sizeof(T)>(xp, gamma, beta, yp, partial, stats, n, v, c,
+                                              groups, rows_per_chunk, n_chunks, eps, relu, s);
+  }
 }
 
 }  // namespace
 
-// x, y (n, v, c) contiguous of `dtype`; gamma, beta (c,) fp32;
-// partial (n, n_chunks, groups, 3) and stats (n, groups, 2) fp32 scratch.
+// x, y (n, v, c) contiguous of `dtype`, both aligned to `ve` elements (1, 2,
+// 4, or 16 bytes' worth; ve divides c); gamma, beta (c,) fp32; partial
+// (n, n_chunks, groups, 2) fp32 scratch; stats (n, groups, 2) fp32, where
+// each (sample, group)'s mean and rstd are written for the backward.
 // Returns cudaGetLastError() after the launches.
-extern "C" int tpuseg_group_norm_relu(const void* x, const void* gamma,
-                                      const void* beta, void* y, void* partial,
-                                      void* stats, int n, long long v, int c,
-                                      int groups, int rows_per_chunk,
-                                      int n_chunks, float eps, int relu,
-                                      int dtype, void* stream) {
-  if (n < 1 || n > 65535 || v < 1 || c < 1 || c > MAX_C || groups < 1 ||
-      groups > 65535 || c % groups != 0 || rows_per_chunk < 1 ||
-      n_chunks < 1 || (long long)n_chunks * rows_per_chunk < v ||
-      n_chunks > 2147483647)
+extern "C" int tpuseg_group_norm_relu(const void* x, const void* gamma, const void* beta,
+                                      void* y, void* partial, void* stats, int n, long long v,
+                                      int c, int groups, int rows_per_chunk, int n_chunks,
+                                      float eps, int relu, int ve, int dtype, void* stream) {
+  if (!valid_args(x, y, n, v, c, groups, rows_per_chunk, n_chunks, ve, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ga = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   float* pa = static_cast<float*>(partial);
   float* st = static_cast<float*>(stats);
-  if (dtype == tpuseg::kFloat32)
-    return launch<float>(static_cast<const float*>(x), ga, be,
-                         static_cast<float*>(y), pa, st, n, v, c, groups,
-                         rows_per_chunk, n_chunks, eps, relu, s);
-  if (dtype == tpuseg::kBFloat16)
-    return launch<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), ga, be,
-                                 static_cast<__nv_bfloat16*>(y), pa, st, n, v,
-                                 c, groups, rows_per_chunk, n_chunks, eps, relu,
-                                 s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kFloat32)
+    return dispatch<float>(ve, x, ga, be, y, pa, st, n, v, c, groups, rows_per_chunk,
+                           n_chunks, eps, relu, s);
+  return dispatch<__nv_bfloat16>(ve, x, ga, be, y, pa, st, n, v, c, groups, rows_per_chunk,
+                                 n_chunks, eps, relu, s);
 }

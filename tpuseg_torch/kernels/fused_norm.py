@@ -9,25 +9,32 @@ ReLU.
 
 What bounds it on the card: memory.  It does a handful of flops per element
 against 2 reads and 1 write of the map, far below the card's balance point,
-so the only lever is the bytes moved.  The TPU version carried its Σx and
-Σx² from one grid step to the next; CUDA blocks run in no order, so the
-design (``csrc/fused_norm.cu``) splits V into chunks, writes a Welford
-partial per (sample, chunk, group) and merges them in a tiny second launch.
-The apply pass then normalizes, applies the affine and the ReLU in one read
-and one write.  Welford/Chan merging keeps the variance exact where the
-Pallas formula ``s2 / count - mean**2`` (fused_norm.py:62) cancels (large
-mean).  Folding the statistics into the preceding conv's epilogue, which
-would save the stats pass's read, is later work.
+so the only lever is the bytes moved, and at the small maps of the deep
+levels the launches.  The TPU version carried its sums from one grid step
+to the next; CUDA blocks run in no order, so the design
+(``csrc/fused_norm.cu``) is two launches over the same chunks of rows.  A
+thread owns a 16-byte vector of channels (narrower where C needs it) and
+every R-th row, so its channels, groups and affine are fixed and no
+element needs a division.  Pass 1 sums x - shift and its square in fp32,
+the shift being the sample's first value of the group, so that the sums do
+not cancel where the Pallas formula ``s2 / count - mean**2``
+(fused_norm.py:62) does (large mean); each block writes one partial per
+(sample, chunk, group).  Pass 2 merges its sample's partials in float64 in
+a fixed order at its start, so no launch of its own finalizes them, and
+applies the normalization, the affine and the ReLU in one read and one
+write.  Folding the statistics into the preceding conv's epilogue,
+which would save the stats pass's read, is later work.
 
 The backward (``csrc/fused_norm_bwd.cu``, replacing the JAX recompute
 through ``_gn_relu_reference`` in ``fused_group_norm_relu_vjp``) is
 memory-bound too: it reads x and the output gradient twice and writes dx
-once.  It takes the per-(sample, group) mean and rstd that the forward's
-finalize launch wrote, recomputes the normalized map and the ReLU mask
-from x (nothing of the forward's size is saved but x itself), sums
-g·mask and g·mask·x̂ per (sample, channel) in split-V partials merged in
-fp64, and writes dx = rstd·(γĝ − mean_grp(γĝ) − x̂·mean_grp(γĝx̂)) in one
-elementwise pass; dγ and dβ come from the same sums.
+once.  It takes the per-(sample, group) mean and rstd that the forward
+wrote, recomputes the normalized map and the ReLU mask from x (nothing of
+the forward's size is saved but x itself), sums g·mask and g·mask·x̂ per
+(sample, chunk, channel) in its first launch, and its second merges them in
+float64 (dγ and dβ too) and writes dx = rstd·(γĝ − mean_grp(γĝ) −
+x̂·mean_grp(γĝx̂)) in one elementwise pass.  Both merges run in a fixed
+order, so two calls give the same bits.
 
 ``eps`` is an argument: flax ``nn.GroupNorm``, the default path of the JAX
 model, uses 1e-6, while the JAX fused path runs at 1e-5.
@@ -48,7 +55,8 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_C = 1024  # must match csrc/fused_norm.cu
+_SIZES = {torch.float32: 4, torch.bfloat16: 2}
+_MAX_C = 1024  # must match csrc/fused_norm.cuh
 
 
 def fused_group_norm_relu_plain(x, gamma, beta, groups: int = 8,
@@ -89,12 +97,40 @@ def fused_group_norm_relu_backward_plain(x, gamma, beta, grad_y,
             dbeta.to(beta.dtype))
 
 
-def _chunking(v: int, c: int):
-    """Rows per stats block (~16K elements, at least one row per thread
-    group) and the number of chunks."""
-    rows_per_thread_step = 1 if c >= 256 else 256 // c
-    rows = max(rows_per_thread_step, 16384 // c)
+# blocks to aim for over all samples (2 per SM of the H100: every block of
+# the second launch merges all its sample's partials first, so fewer and
+# longer chunks), and the fewest elements a block takes
+_TARGET_BLOCKS = 264
+_MIN_ELEMS = 8192
+
+
+def _chunking(n: int, v: int, c: int):
+    """Rows per chunk and the number of chunks of each sample: about
+    ``_TARGET_BLOCKS`` blocks over the n samples, none under ``_MIN_ELEMS``
+    elements unless the map is smaller.  Both launches of a call use the
+    same chunks."""
+    chunks = max(1, min(-(-_TARGET_BLOCKS // n), -(-(v * c) // _MIN_ELEMS)))
+    rows = -(-v // chunks)
     return rows, -(-v // rows)
+
+
+def _vec_elems(c: int, dtype: torch.dtype) -> int:
+    """Channels per vector: the widest of 16 bytes and its halves that
+    divides C (a C the width does not divide takes a narrower vector, down
+    to one element)."""
+    ve = 16 // _SIZES[dtype]
+    while c % ve:
+        ve //= 2
+    return ve
+
+
+def _vec_for(c: int, *tensors) -> int:
+    """``_vec_elems``, narrowed until every tensor's address is aligned to it."""
+    ve = _vec_elems(c, tensors[0].dtype)
+    size = tensors[0].element_size()
+    while ve > 1 and any(t.data_ptr() % (ve * size) for t in tensors):
+        ve //= 2
+    return ve
 
 
 def _launch(x, gamma32, beta32, groups: int, eps: float, relu: bool):
@@ -103,18 +139,21 @@ def _launch(x, gamma32, beta32, groups: int, eps: float, relu: bool):
     global LAUNCHES
     n, c = x.shape[0], x.shape[-1]
     v = x.numel() // (n * c)
-    rows, n_chunks = _chunking(v, c)
+    rows, n_chunks = _chunking(n, v, c)
     y = torch.empty_like(x)
-    partial = torch.empty((n, n_chunks, groups, 3), dtype=torch.float32,
+    # one allocation: each (sample, group)'s mean and rstd, then the partials
+    scratch = torch.empty(n * (n_chunks + 1) * groups * 2, dtype=torch.float32,
                           device=x.device)
-    stats = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    stats = scratch[:n * groups * 2].view(n, groups, 2)
+    partial = scratch.data_ptr() + stats.numel() * 4
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_group_norm_relu(
             x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(), n, v, c, groups, rows,
-            n_chunks, float(eps), int(bool(relu)), _DTYPES[x.dtype], stream,
+            partial, stats.data_ptr(), n, v, c, groups, rows,
+            n_chunks, float(eps), int(bool(relu)), _vec_for(c, x, y),
+            _DTYPES[x.dtype], stream,
         )
     _build.check(err, "fused_group_norm_relu")
     LAUNCHES += 1
@@ -127,22 +166,21 @@ def _launch_backward(x, grad_y, stats, gamma32, beta32, groups: int,
     global BWD_LAUNCHES
     n, c = x.shape[0], x.shape[-1]
     v = x.numel() // (n * c)
-    rows, n_chunks = _chunking(v, c)
+    rows, n_chunks = _chunking(n, v, c)
     dx = torch.empty_like(x)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
     partial = torch.empty((n, n_chunks, c, 2), dtype=torch.float32,
                           device=x.device)
-    coef = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tpuseg_group_norm_relu_bwd(
             x.data_ptr(), grad_y.data_ptr(), stats.data_ptr(),
             gamma32.data_ptr(), beta32.data_ptr(), dx.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(),
-            coef.data_ptr(), n, v, c, groups, rows, n_chunks,
-            int(bool(relu)), _DTYPES[x.dtype], stream,
+            dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(), n, v, c,
+            groups, rows, n_chunks, int(bool(relu)), _vec_for(c, x, grad_y, dx),
+            _DTYPES[x.dtype], stream,
         )
     _build.check(err, "fused_group_norm_relu backward")
     BWD_LAUNCHES += 1
@@ -160,8 +198,8 @@ class _FusedGroupNormReLU(torch.autograd.Function):
         if x.device.type == "cpu":
             ctx.save_for_backward(x, gamma, beta)
             return fused_group_norm_relu_plain(x, gamma, beta, groups, eps, relu)
-        gamma32 = gamma.detach().float().contiguous()
-        beta32 = beta.detach().float().contiguous()
+        gamma32 = gamma.float().contiguous()  # no graph inside forward
+        beta32 = beta.float().contiguous()
         y, stats = _launch(x, gamma32, beta32, groups, eps, relu)
         ctx.save_for_backward(x, gamma, beta, stats, gamma32, beta32)
         return y

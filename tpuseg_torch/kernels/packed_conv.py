@@ -14,31 +14,36 @@ multiply-adds per output channel; the structural conv 64 * C.
 
 What bounds it on the card: arithmetic.  Each output position costs 64C x
 8F multiply-adds (128 x 1024 at C = F = 16) against 8C values read and 8F
-written, so in fp32 on CUDA cores it is compute-bound many times over.
+written, far above the card's balance point, so only the tensor cores
+move it.
 
-The design (``csrc/packed_conv.cu``) is an implicit GEMM on CUDA cores in
-fp32, not the TPU design (a rolling 4-slot VMEM plane buffer fed by DMA,
-an im2col scratch and one MXU GEMM per plane).  The structural weight is a
+The design (``csrc/packed_conv_tc.cu``) is an implicit GEMM on ``wgmma``,
+not the TPU design (a rolling 4-slot VMEM plane buffer fed by DMA, an
+im2col scratch and one MXU GEMM per plane).  The structural weight is a
 (K, 8F) matrix whose rows are, tap by tap, only the valid input-delta
 channel runs (``_taps``), with an int32 table naming each row's part, tap
-and channel.  A block owns 128 consecutive output positions and 128 output
-channels; per step of 32 rows it gathers the shifted input values those
-rows name into shared memory (zero outside the volume), copies the weight
-rows, and each of 256 threads accumulates an 8 x 8 register tile.  bf16
-inputs are widened on the gather; sums and the bias/ReLU epilogue are fp32.
+and channel.  A block owns 128 (bf16) or 256 (f32) consecutive output
+positions and 128 output channels; per stage of 128 bytes of K it gathers
+the shifted input rows into shared memory with ``cp.async`` (the tap is an
+address, zero-filled outside the volume) and copies the weight tile,
+which ``pack_tc`` lays out once in wgmma's K-major core-matrix layout,
+through a ring of 6 (bf16) or 3 (f32) slots.  bf16 runs ``wgmma`` m64n128k16 with both
+operands in shared memory.  f32 runs 3xTF32: the weight's tf32 hi/lo pair
+is split once in ``pack_tc``, the input's per stage in registers
+(``cvt.rna.tf32``), and ``wgmma`` m64n128k8 sums a_lo·b_hi + a_hi·b_lo +
+a_hi·b_hi, fp32 throughout; the bias/ReLU epilogue is fp32.  Why a gather
+through L2 and not planes staged once: the source's note.
 
 Two input parts.  The decoder's first conv reads the concat [up; skip] of
 two packed tensors.  Rather than materialise it, the kernel takes both
-parts, each with its own C, and sums both in one launch: the table's rows
-cover part 0's schedule and then part 1's, and
+parts, each with its own C, and sums both into one accumulator: the
+table's rows cover part 0's schedule and then part 1's, and
 ``conv(concat) = conv_up(up; w[..., :f, :]) + conv_skip(skip; w[..., f:, :])``.
 
-A bf16 ``wgmma`` version with TMA-staged halos (each plane an M = H'W',
-N = 128, K = 1024 GEMM, an ideal tensor-core shape) is later work.  There
-is no backward: the packed twin is served, not trained, in this port.
-
-``packed_conv3d_structured`` runs the plain version on CPU tensors and the
-kernel on CUDA tensors, or raises.
+There is no backward: the packed twin is served, not trained, in this
+port.  ``packed_conv3d_structured`` runs the plain version on CPU tensors
+and the kernel on CUDA tensors (bf16 -> ``tpuseg_packed_conv3d_bf16``,
+float32 -> ``tpuseg_packed_conv3d_tf32x3``), or raises.
 """
 from __future__ import annotations
 
@@ -53,9 +58,33 @@ from tpuseg_torch.kernels import _build
 # calls not counted)
 LAUNCHES = 0
 
-# must match csrc/packed_conv.cu
-_BN, _MAX_C8 = 128, 1 << 16
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# must match csrc/packed_conv_tc.cu: output channels per block, bytes of K
+# per stage and row, the block's two warpgroups; per dtype the m64 tiles a
+# warpgroup holds and the ring slots
+_BN, _BKB, _THREADS = 128, 128, 256
+_MT = {torch.bfloat16: 1, torch.float32: 2}
+_STAGES = {torch.bfloat16: 6, torch.float32: 3}
+_MAX_C8 = 1 << 16
+# the C entry point of each dtype
+ENTRY = {torch.float32: "tpuseg_packed_conv3d_tf32x3",
+         torch.bfloat16: "tpuseg_packed_conv3d_bf16"}
+SMEM_LIMIT = 232448  # dynamic shared memory of one block on the H100
+
+
+def plan(dtype: torch.dtype) -> dict:
+    """The kernel's tiling for parts of ``dtype`` (``Cfg`` in the source):
+    positions per block (two warpgroups of ``mt`` m64 tiles), K per stage,
+    ring slots, shared memory per block, and 32-bit registers per thread
+    that the accumulators (m64 x n128 fp32 over a warpgroup, per tile) and,
+    for 3xTF32, the A hi/lo fragments of two k8 steps hold."""
+    tf32 = dtype == torch.float32
+    es = 4 if tf32 else 2
+    mt, stages = _MT[dtype], _STAGES[dtype]
+    bm = 128 * mt
+    stage = bm * _BKB + _BN * _BKB * (2 if tf32 else 1)
+    return dict(bm=bm, mt=mt, bk=_BKB // es, stages=stages,
+                smem=stages * stage + bm * 16, acc_regs=mt * 64,
+                frag_regs=2 * mt * 8 if tf32 else 0)
 
 
 def _axis_valid(u):
@@ -127,11 +156,11 @@ def row_table(c_fines: Sequence[int]) -> torch.Tensor:
 
 
 def pack_structured(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
-    """Dense per-part kernels -> ``(wk, rows)`` for the kernel: wk the
-    (K, n_pad) fp32 structural weight of all parts, rounded through
-    ``dtype`` (the JAX kernel casts its weight to the activation dtype),
-    its 8F columns zero-padded to a multiple of 128; rows the int32 table.
-    Both on the weights' device; a caller makes them once per weight."""
+    """Dense per-part kernels -> ``(wk, rows)``: wk the (K, n_pad) fp32
+    structural weight of all parts, rounded through ``dtype`` (the JAX
+    kernel casts its weight to the activation dtype), its 8F columns
+    zero-padded to a multiple of 128; rows the kernel's int32 table.  Both
+    on the weights' device."""
     c_fines = [w3.shape[3] // 8 for w3 in w3s]
     f8 = w3s[0].shape[4]
     stacked = torch.cat([pack_weight_structured(w3.detach().to(dtype), c)
@@ -141,6 +170,43 @@ def pack_structured(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
                      device=stacked.device)
     wk[:, :f8] = stacked
     return wk, row_table(c_fines).to(stacked.device)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest tf32 (10 mantissa bits, ties away from zero),
+    as ``cvt.rna.tf32.f32`` rounds: the 13 low bits cleared after adding
+    half of their range to the magnitude."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """float32 -> (hi, lo), each a tf32 value, hi + lo ~ t to ~2**-22."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def _mma_tiles(w_nk: torch.Tensor, e: int) -> torch.Tensor:
+    """(n_pad, K) -> (n_pad / 128, K / 8e, 16, 8, 8, e): per (N slice,
+    stage) the B tile in wgmma's K-major core-matrix layout, [n8 group][k
+    chunk of e elements (16 bytes)][8 rows of n][e]."""
+    n_pad, k = w_nk.shape
+    t = w_nk.reshape(n_pad // _BN, _BN // 8, 8, k // (8 * e), 8, e)
+    return t.permute(0, 3, 1, 4, 2, 5).contiguous()
+
+
+def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
+    """Dense per-part kernels -> ``(wt, rows)`` for the kernel of ``dtype``:
+    the structural weight of ``pack_structured``, transposed to N x K and
+    laid out per stage (``_mma_tiles``).  bf16: (n_pad/128, K/64, 16, 8, 8,
+    8) bf16.  float32: its tf32 hi/lo pair, (n_pad/128, K/32, 2, 16, 8, 8,
+    4) fp32, hi then lo in each stage.  A caller makes it once per weight."""
+    wk, rows = pack_structured(w3s, dtype)
+    w_nk = wk.t()
+    if dtype == torch.bfloat16:
+        return _mma_tiles(w_nk.to(torch.bfloat16), 8), rows
+    hi, lo = tf32_split(w_nk)
+    return torch.stack([_mma_tiles(hi, 4), _mma_tiles(lo, 4)], dim=2).contiguous(), rows
 
 
 def packed_conv3d_plain(parts: Sequence[torch.Tensor], w3s: Sequence[torch.Tensor],
@@ -165,7 +231,7 @@ def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int) -> bool:
     """Whether the kernel takes parts of these shapes with 8F output
     channels: one or two 5-D parts over the same (N, D', H', W'), each with
     8C <= 65536 channels (C >= 1), 8F >= 8, and N·D'·H'·W' < 2**31 (the
-    positions are one flat grid dimension of 128 per block)."""
+    positions are one flat grid dimension of 128 or 256 per block)."""
     if not 1 <= len(part_shapes) <= 2 or f8 < 8 or f8 % 8:
         return False
     grid = tuple(part_shapes[0][:4])
@@ -180,21 +246,20 @@ def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int) -> bool:
 
 def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
     global LAUNCHES
-    wk, rows = packed
+    wt, rows = packed
     xa = parts[0]
     xb = parts[1] if len(parts) == 2 else None
     n, d, h, w = xa.shape[:4]
     y = torch.empty((n, d, h, w, f8), dtype=xa.dtype, device=xa.device)
     b32 = None if bias is None else bias.detach().to(xa.dtype).float().contiguous()
-    lib = _build.library()
-    with torch.cuda.device(xa.device):
+    fn = getattr(_build.library(), ENTRY[xa.dtype])
+    with _build.on_device(xa):
         stream = torch.cuda.current_stream(xa.device).cuda_stream
-        err = lib.tpuseg_packed_conv3d(
+        err = fn(
             xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[4],
-            0 if xb is None else xb.shape[4], rows.data_ptr(), wk.data_ptr(),
+            0 if xb is None else xb.shape[4], rows.data_ptr(), wt.data_ptr(),
             None if b32 is None else b32.data_ptr(), y.data_ptr(), n, d, h, w,
-            wk.shape[0], wk.shape[1], f8, int(bool(relu)), _DTYPES[xa.dtype],
-            stream,
+            rows.shape[0], wt.shape[0] * _BN, f8, int(bool(relu)), stream,
         )
     _build.check(err, "packed_conv3d_structured")
     LAUNCHES += 1
@@ -202,17 +267,20 @@ def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
 
 
 def _check_packed(packed, parts, f8: int) -> None:
-    wk, rows = packed
+    wt, rows = packed
     k = sum(8 * p.shape[4] for p in parts)
-    dev = parts[0].device
-    if (wk.device != dev or rows.device != dev or wk.dtype != torch.float32
+    dev, dtype = parts[0].device, parts[0].dtype
+    e = 16 // parts[0].element_size()
+    tile = (16, 8, 8, e) if dtype == torch.bfloat16 else (2, 16, 8, 8, e)
+    want = (-(-f8 // _BN), k // (8 * e)) + tile
+    if (wt.device != dev or rows.device != dev or wt.dtype != dtype
             or rows.dtype != torch.int32 or tuple(rows.shape) != (k,)
-            or tuple(wk.shape) != (k, -(-f8 // _BN) * _BN)
-            or not wk.is_contiguous() or not rows.is_contiguous()):
+            or tuple(wt.shape) != want
+            or not wt.is_contiguous() or not rows.is_contiguous()):
         raise ValueError(
-            f"packed_conv3d_structured: packed weight {tuple(wk.shape)} "
-            f"{wk.dtype} / rows {tuple(rows.shape)} {rows.dtype} on {wk.device} "
-            "is not pack_structured of these parts' kernels"
+            f"packed_conv3d_structured: packed weight {tuple(wt.shape)} "
+            f"{wt.dtype} / rows {tuple(rows.shape)} {rows.dtype} on {wt.device} "
+            "is not pack_tc of these parts' kernels"
         )
 
 
@@ -226,7 +294,7 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
     dtype; ``w3s``: each part's dense packed kernel (3, 3, 3, 8C_i, 8F)
     (``pack_k3_to_k3_coarse`` of its slice of the fine kernel's input
     channels); ``bias`` (8F,) optional; ``packed`` optional, the
-    ``pack_structured(w3s, x.dtype)`` a caller made once.  Returns
+    ``pack_tc(w3s, x.dtype)`` a caller made once.  Returns
     (N, D', H', W', 8F) in the parts' dtype.  CPU tensors take the plain
     version (differentiable); CUDA tensors the kernel, which has no
     backward, so it raises when a gradient would be asked for."""
@@ -242,10 +310,10 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
             "CUDA device (or all on the CPU)"
         )
     dtype = parts[0].dtype
-    if dtype not in _DTYPES or any(p.dtype != dtype for p in parts):
+    if dtype not in ENTRY or any(p.dtype != dtype for p in parts):
         raise TypeError(
             f"packed_conv3d_structured: part dtypes {[p.dtype for p in parts]} "
-            f"must be one of {list(_DTYPES)}"
+            f"must be one of {list(ENTRY)}"
         )
     f8 = w3s[0].shape[-1] if w3s else 0
     if (len(w3s) != len(parts)
@@ -267,7 +335,7 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
             "it under torch.no_grad() or torch.inference_mode()"
         )
     if packed is None:
-        packed = pack_structured(w3s, dtype)
+        packed = pack_tc(w3s, dtype)
     else:
         _check_packed(packed, parts, f8)
     return _launch(parts, packed, bias, relu, f8)

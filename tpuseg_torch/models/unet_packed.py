@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpuseg_torch.kernels.packed_conv import pack_structured, packed_conv3d_structured
+from tpuseg_torch.kernels.packed_conv import pack_tc, packed_conv3d_structured
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.vnet_packed import (
     channel_dropout,
@@ -75,7 +75,7 @@ class _K3:
 
     def __init__(self, w_parts, dtype: torch.dtype, device: torch.device):
         self.w3s = tuple(pack_k3_to_k3_coarse(w).to(device) for w in w_parts)
-        self.packed = pack_structured(self.w3s, dtype) if device.type == "cuda" else None
+        self.packed = pack_tc(self.w3s, dtype) if device.type == "cuda" else None
 
     def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
         return packed_conv3d_structured(parts, self.w3s, packed=self.packed)
