@@ -10,9 +10,9 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
  2. builds the hand-written kernels from ``tpuseg_torch/kernels/csrc``;
  3. holds each kernel against its plain PyTorch version on the card at
     every shape the serving and training paths hand it (UNet3d, features
-    16, input 112x112x128), in float32 (TF32 off) and bfloat16 (where the
-    conv runs its tensor-core kernels; K3 runs them in both, f32 by
-    3xTF32), and times both: the conv's forward
+    16, input 112x112x128), in float32 (TF32 off) and bfloat16 (the convs
+    K2 and K3 run tensor-core kernels in both, f32 by 3xTF32), and times
+    both: the conv's forward
     at its 10 shapes of the plain net, the
     GroupNorm+ReLU forward at its 18 shapes (the 4 packed ones are the
     same maps viewed as (N, 8V', F)), the conv's dX (the forward kernel on
@@ -20,7 +20,9 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     swapped, its dW at the 10 conv shapes, the GroupNorm+ReLU backward at
     the 18 GroupNorm shapes, and the packed k3 conv (K3) at the packed
     twin's three shapes: one part of 8*16 channels, two parts of 128, and
-    the packed_levels=2 shape (one part of 8*32 channels on 32x28x28);
+    the packed_levels=2 shape (one part of 8*32 channels on 32x28x28); then
+    K2's f32 times by level (forward, dX, dW) and its worst dW error at
+    level 0 beside the gate;
  4. runs the port's UNet at the golden file's sizes in float32 and holds
     it against what the JAX package produced
     (``tests/data/torch_port_golden.npz``): the probabilities of a 32^3
@@ -127,7 +129,7 @@ STEP_GRAD_TOL = 2e-2
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 dense on
 # the tensor cores, HBM3; "tf32x3" is the rate of fp32-accurate products on
 # the tensor cores by the 3xTF32 split (three TF32 passes at 495 TFLOP/s),
-# which bounds K3's f32 route
+# which bounds the f32 routes of K2 and K3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
 TRAIN_DHW = (128, 112, 112)  # (z, y, x) of the training volumes
@@ -271,11 +273,11 @@ def time_ms(torch, fn, iters: int = 20) -> float:
 
 
 def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
-               uses, bound, library_ms, library_note=""):
+               uses, bound, library_ms, library_note="", level=None):
     results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err, scale=scale,
                               ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                               bound_by=bound[1], peak_flops=bound[2],
-                              library_ms=library_ms))
+                              library_ms=library_ms, level=level))
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms{library_note}"
     say(f"  {name} {dtype_name} {what}: max_abs_err {err:.3g} (scale {scale:.3g}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms "
@@ -304,6 +306,8 @@ def phase_kernels(torch, mods):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         size = torch.tensor([], dtype=dtype).element_size()
+        # K2 runs f32 by 3xTF32 on the tensor cores
+        k2_rate = "tf32x3" if dtype_name == "float32" else dtype_name
         for cin, cout, lvl, uses in conv_cases():
             d, h, w = level_shape(lvl)
             vox = d * h * w
@@ -322,7 +326,7 @@ def phase_kernels(torch, mods):
             ms, plain_ms = time_pair(torch, lambda: conv3d.conv3d_small(x, wt, packed),
                                      lambda: conv3d.conv3d_small_plain(x, wt))
             _check_row(results, "conv3d_small", dtype_name, what, *rel_err(got, ref),
-                       ms, plain_ms, uses, bound_ms(flops, io, dtype_name), plain_ms)
+                       ms, plain_ms, uses, bound_ms(flops, io, k2_rate), plain_ms, level=lvl)
             # dX: the forward kernel on the transposed weight, channels swapped
             packed_t = conv3d.pack_weight_t(wt, dtype)
             got = conv3d._launch_dx(g, packed_t, cin)
@@ -332,7 +336,7 @@ def phase_kernels(torch, mods):
                                      lambda: conv3d.conv3d_small_dx_plain(g, wt))
             _check_row(results, "conv3d_small_dx", dtype_name, f"{cout}->{cin} @{d}x{h}x{w}",
                        *rel_err(got, ref), ms, plain_ms, uses,
-                       bound_ms(flops, io, dtype_name), plain_ms)
+                       bound_ms(flops, io, k2_rate), plain_ms, level=lvl)
             # dW
             got = conv3d._launch_dw(x, g)
             ref = conv3d.conv3d_small_dw_plain(x, g)
@@ -340,7 +344,7 @@ def phase_kernels(torch, mods):
             ms, plain_ms = time_pair(torch, lambda: conv3d._launch_dw(x, g),
                                      lambda: conv3d.conv3d_small_dw_plain(x, g))
             _check_row(results, "conv3d_small_dw", dtype_name, what, *rel_err(got, ref),
-                       ms, plain_ms, uses, bound_ms(flops, io, dtype_name), plain_ms)
+                       ms, plain_ms, uses, bound_ms(flops, io, k2_rate), plain_ms, level=lvl)
         for c, lvl, uses in norm_cases():
             d, h, w = level_shape(lvl)
             n_el = d * h * w * c
@@ -425,6 +429,20 @@ def phase_kernels(torch, mods):
                        *rel_err(got, ref), ms, plain_ms, uses,
                        bound_ms(flops, io, "tf32x3" if dtype_name == "float32" else dtype_name),
                        library_ms, " (cuDNN's dense coarse conv)")
+    # K2's f32 route by level: one forward's (or step's) calls at each
+    # level, and the worst error over the scale (dW's at level 0 among them)
+    by_level = {}
+    for name in ("conv3d_small", "conv3d_small_dx", "conv3d_small_dw"):
+        for r in results[name]:
+            if r["dtype"] == "float32":
+                cell = by_level.setdefault(r["level"], {}).setdefault(
+                    name, {"ms": 0.0, "bound_ms": 0.0, "max_err_over_scale": 0.0})
+                cell["ms"] += r["ms"] * r["uses"]
+                cell["bound_ms"] += r["bound_ms"] * r["uses"]
+                cell["max_err_over_scale"] = max(cell["max_err_over_scale"],
+                                                 r["max_abs_err"] / r["scale"])
+    say(f"  K2 f32 (3xTF32) by level, ms per forward's or step's calls: "
+        f"{json.dumps(by_level)}; gate {TOL['float32']}")
     return results
 
 
@@ -984,13 +1002,14 @@ def main() -> int:
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, the TPU kernel): the
-    # f32 conv runs the CUDA-core kernels on the served and f32 training
-    # paths, the bf16 conv the tensor-core kernels on the mixed-precision
-    # training path and the bench path (kbench's chains)
+    # f32 conv runs the 3xTF32 kernels on the served and f32 training
+    # paths, the bf16 conv the bf16 kernels on the mixed-precision training
+    # path and the bench path (kbench's chains)
     entries = [
-        ("conv3d_small", "conv3d_small", "float32", "conv3d_small.cu", "conv3d.py:100"),
-        ("conv3d_small_dx", "conv3d_small_dx", "float32", "conv3d_small.cu", "conv3d.py:161"),
-        ("conv3d_small_dw", "conv3d_small_dw", "float32", "conv3d_small_dw.cu",
+        ("conv3d_small", "conv3d_small", "float32", "conv3d_small_tf32.cu", "conv3d.py:100"),
+        ("conv3d_small_dx", "conv3d_small_dx", "float32", "conv3d_small_tf32.cu",
+         "conv3d.py:161"),
+        ("conv3d_small_dw", "conv3d_small_dw", "float32", "conv3d_small_dw_tf32.cu",
          "conv3d.py:161"),
         ("conv3d_small_tc", "conv3d_small", "bfloat16", "conv3d_small_tc.cu",
          "conv3d.py:100"),
@@ -1035,7 +1054,8 @@ def main() -> int:
             "peak_tflops": rows[0]["peak_flops"] / 1e12,
             "library_ms": None if None in lib else per_pass(rows, "library_ms"),
         }
-        if key == "packed_conv3d_structured":
+        if dtype_name == "float32" and (key == "packed_conv3d_structured"
+                                        or key.startswith("conv3d_small")):
             # the f32 route is 3xTF32 on the tensor cores: its error against
             # the plain version beside the f32 gate
             entry["tf32x3"] = {"max_err_over_scale": max(r["max_abs_err"] / r["scale"]

@@ -53,10 +53,13 @@ def _off_the_kink(x, gamma, beta, g, groups, eps):
     return g * (v.abs() > 1e-3).reshape(g.shape).to(g.dtype)
 
 
-# the bf16 tensor-core kernels tile H and W by up to 128 voxels and take
-# Cin and Cout in 16s: H = 1, W not a multiple of the tile, several
-# samples, Cin 8, 12 (8-byte copies), 10 (2-byte copies), 16, 64 and Cout 2,
-# 5, 16, 64, and dX (the conv with Cin and Cout swapped) of each
+# the tensor-core kernels tile H and W by up to 256 voxels and take Cin
+# and Cout in 8s (f32) or 16s (bf16): H = 1, W not a multiple of the tile,
+# several samples, Cin 8, 12 (8-byte copies), 10 (2-byte bf16 copies, 8-byte
+# f32), 16, 64 and Cout 2, 5, 16, 64, and dX (the conv with Cin and Cout
+# swapped) of each.  In f32 the 3xTF32 forward holds its weight resident
+# where it fits and streams it in chunks where it does not (Cin 64, and
+# 16 -> 64)
 CONV_CASES = [
     ((1, 5, 6, 7, 8), 2),
     ((2, 3, 9, 70, 16), 16),
@@ -164,6 +167,24 @@ def test_conv3d_small_backward_matches_plain(cuda, dtype, x_shape, cout):
     _close(wr.grad, dw, dtype)
 
 
+@pytest.mark.parametrize("x_shape, cout", [((2, 9, 13, 40, 32), 16), ((1, 6, 9, 11, 64), 64),
+                                           ((1, 24, 60, 60, 16), 16)])
+def test_conv3d_small_f32_dw_is_deterministic(cuda, x_shape, cout):
+    """Two f32 (3xTF32) dW calls on the same inputs are bit-identical, and
+    within the f32 gate of the plain version: each block sums a fixed range
+    in a fixed order, the partials in fp64 in order."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(x_shape, generator=gen, device=cuda)
+    g = torch.randn(x_shape[:4] + (cout,), generator=gen, device=cuda)
+    before = conv3d.DW_LAUNCHES
+    a = conv3d._launch_dw(x, g)
+    b = conv3d._launch_dw(x, g)
+    torch.cuda.synchronize()
+    assert conv3d.DW_LAUNCHES == before + 2
+    assert torch.equal(a, b)
+    _close(a, conv3d.conv3d_small_dw_plain(x, g), torch.float32)
+
+
 @pytest.mark.parametrize("x_shape, cout", [((2, 9, 13, 40, 32), 16), ((1, 6, 9, 11, 64), 64)])
 def test_conv3d_small_bf16_dw_is_deterministic(cuda, x_shape, cout):
     """Two bf16 dW calls on the same inputs are bit-identical: each block
@@ -181,19 +202,25 @@ def test_conv3d_small_bf16_dw_is_deterministic(cuda, x_shape, cout):
 
 
 def test_conv3d_small_routes_by_dtype(cuda, monkeypatch):
-    """A bf16 tensor reaches the tensor-core entries and an f32 tensor the
-    CUDA-core ones, forward, dX and dW, each launch counted; the f32
-    entries refuse bf16 outright."""
+    """A bf16 tensor reaches the bf16 tensor-core entries and an f32 tensor
+    the 3xTF32 ones, forward, dX and dW, each launch counted; no f32 route
+    is left on the CUDA cores.  The f32 entries refuse a plan they cannot
+    run (a weight chunk that does not divide the k8 steps, a ring of 3
+    planes)."""
     from tpuseg_torch.kernels import _build
 
+    assert conv3d.ENTRY == {
+        torch.float32: ("tpuseg_conv3d_small_tf32x3", "tpuseg_conv3d_small_dw_tf32x3"),
+        torch.bfloat16: ("tpuseg_conv3d_small_tc", "tpuseg_conv3d_small_dw_tc")}
     lib = _build.library()
+    assert not hasattr(lib, "tpuseg_conv3d_small") and not hasattr(lib, "tpuseg_conv3d_small_dw")
     calls = []
-    for name in ("tpuseg_conv3d_small", "tpuseg_conv3d_small_tc",
-                 "tpuseg_conv3d_small_dw", "tpuseg_conv3d_small_dw_tc"):
-        fn = getattr(lib, name)
-        monkeypatch.setattr(lib, name, lambda *a, fn=fn, name=name: (calls.append(name),
-                                                                       fn(*a))[1])
-    for dtype, suffix in ((torch.bfloat16, "_tc"), (torch.float32, "")):
+    for fwd, dw in conv3d.ENTRY.values():
+        for name in (fwd, dw):
+            fn = getattr(lib, name)
+            monkeypatch.setattr(lib, name, lambda *a, fn=fn, name=name: (calls.append(name),
+                                                                           fn(*a))[1])
+    for dtype, (fwd, dw) in conv3d.ENTRY.items():
         calls.clear()
         x = torch.randn((1, 4, 5, 6, 16), device=cuda).to(dtype).requires_grad_()
         w = (torch.randn((3, 3, 3, 16, 8), device=cuda) * 0.1).to(dtype).requires_grad_()
@@ -202,18 +229,20 @@ def test_conv3d_small_routes_by_dtype(cuda, monkeypatch):
         torch.cuda.synchronize()
         assert (conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES) == \
             (before[0] + 1, before[1] + 1, before[2] + 1)
-        assert calls == [f"tpuseg_conv3d_small{suffix}", f"tpuseg_conv3d_small{suffix}",
-                         f"tpuseg_conv3d_small_dw{suffix}"], calls
-    xb = torch.zeros((1, 2, 2, 2, 8), device=cuda, dtype=torch.bfloat16)
+        assert calls == [fwd, fwd, dw], calls
+    x = torch.zeros((1, 2, 2, 2, 8), device=cuda)
     wp = conv3d.pack_weight(torch.zeros((3, 3, 3, 8, 8), device=cuda), torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
-    assert lib.tpuseg_conv3d_small(xb.data_ptr(), wp.data_ptr(), xb.data_ptr(), 1, 2, 2,
-                                   2, 8, 8, 8, 4, 1, stream) != 0
+    ty, mt, stages, kpc = conv3d._tf32_plan(tuple(x.shape), 8)
+    assert kpc == 9  # all 9 k8 steps: the weight resident
+    for bad in ((ty, mt, stages, 8), (ty, mt, 3, kpc)):
+        assert lib.tpuseg_conv3d_small_tf32x3(x.data_ptr(), wp.data_ptr(), x.data_ptr(), 1, 2,
+                                              2, 2, 8, 8, *bad, stream) != 0
     part = torch.zeros((1, 27, 8, 8), device=cuda)
-    dw = torch.zeros((27, 8, 8), device=cuda)
-    assert lib.tpuseg_conv3d_small_dw(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
-                                      dw.data_ptr(), 1, 2, 2, 2, 8, 8, 2, 1, 1,
-                                      stream) != 0
+    dwt = torch.zeros((27, 8, 8), device=cuda)
+    assert lib.tpuseg_conv3d_small_dw_tf32x3(x.data_ptr(), x.data_ptr(), part.data_ptr(),
+                                             dwt.data_ptr(), 1, 2, 2, 2, 8, 8, 2, 2, 3, 1, 1,
+                                             1, stream) != 0
     torch.cuda.synchronize()
 
 

@@ -62,35 +62,30 @@ def test_supported_takes_the_same_layers_as_the_tpu_kernel(x_shape, w_shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3d_small_pack_weight_pads_cout(dtype):
-    """float32 (the CUDA-core kernel): (27, Cin, cout_pad 8) fp32, Cout
-    zero-padded.  bfloat16 (the tensor-core kernel): the bf16-rounded
-    (27·cin_pad, cout_pad) matrix, Cin and Cout zero-padded to 16, in the
-    MMA layout (27·cin_pad/16, cout_pad/8, 2, 8, 8) whose [kc, j, h, r, c]
-    is row kc·16 + h·8 + c, column j·8 + r.  Both contiguous."""
+    """float32 (the 3xTF32 kernel): the tf32 hi/lo pair of the (9·cin_pad,
+    3·cout_pad) matrix, rows (dz, dy, ci), columns (dx, co), Cin
+    zero-padded to 8 and Cout to 8, in the MMA layout (9·cin_pad/8, 2,
+    3·cout_pad/8, 2, 8, 4) whose [s, p, j, h, r, c] is part p of row
+    s·8 + h·4 + c, column j·8 + r.  bfloat16 (the
+    tensor-core kernel): the bf16-rounded (27·cin_pad, cout_pad) matrix,
+    Cin and Cout zero-padded to 16, in the MMA layout (27·cin_pad/16,
+    cout_pad/8, 2, 8, 8) whose [kc, j, h, r, c] is row kc·16 + h·8 + c,
+    column j·8 + r.  Both contiguous."""
     w = torch.randn(3, 3, 3, 8, 5)
     packed = conv3d.pack_weight(w, dtype)  # rounds through the x dtype
     assert packed.is_contiguous() and packed.dtype == dtype
     assert tuple(packed.shape) == conv3d._packed_shape(8, 5, dtype)
     if dtype == torch.float32:
-        assert packed.shape == (27, 8, 8)
-        torch.testing.assert_close(packed[:, :, :5], w.reshape(27, 8, 5))
-        assert packed[:, :, 5:].abs().max() == 0
+        assert packed.shape == (9, 2, 3, 2, 8, 4)
+        hi, lo = (packed[:, p].permute(0, 2, 4, 1, 3).reshape(3, 3, 8, 3, 8) for p in (0, 1))
+        torch.testing.assert_close((hi + lo)[..., :5].permute(0, 1, 3, 2, 4), w,
+                                   rtol=2.0 ** -21, atol=0)
+        assert hi[..., 5:].abs().max() == 0 and lo[..., 5:].abs().max() == 0
     else:
         assert packed.shape == (27, 2, 2, 8, 8)
         mat = packed.permute(0, 2, 4, 1, 3).reshape(27, 16, 16)
         assert torch.equal(mat[:, :8, :5], w.to(torch.bfloat16).reshape(27, 8, 5))
         assert mat[:, 8:].abs().max() == 0 and mat[:, :, 5:].abs().max() == 0
-
-
-@pytest.mark.parametrize("wd, cin, tile", [
-    (112, 16, 56), (112, 32, 56), (56, 64, 28), (28, 64, 28), (7, 8, 8),
-    (130, 16, 44), (130, 48, 36),
-])
-def test_conv3d_small_tile_width(wd, cin, tile):
-    """Blocks cover W in equal segments, a multiple of 4, at most 64 wide,
-    with 6 staged rows of (tile + 2) x Cin floats in 48 KB."""
-    assert conv3d._tile_w(wd, cin) == tile
-    assert 6 * (tile + 2) * cin <= 12 * 1024
 
 
 def test_wrappers_refuse_non_cpu_tensors_without_a_kernel():

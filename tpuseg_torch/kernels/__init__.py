@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
-* ``conv3d``     — small-channel 3x3x3 SAME conv, forward, dX and dW
-  (tpuseg/kernels/conv3d.py; ``csrc/conv3d_small.cu``,
-  ``csrc/conv3d_small_dw.cu``)
+* ``conv3d``     — small-channel 3x3x3 SAME conv, forward, dX and dW, on
+  the tensor cores: bf16, and f32 by 3xTF32 (tpuseg/kernels/conv3d.py;
+  ``csrc/conv3d_small_tc.cu``, ``csrc/conv3d_small_dw_tc.cu``,
+  ``csrc/conv3d_small_tf32.cu``, ``csrc/conv3d_small_dw_tf32.cu``,
+  ``csrc/conv3d_tc.cuh``)
 * ``fused_norm`` — fused GroupNorm+ReLU, forward and backward, two
   launches each (tpuseg/kernels/fused_norm.py; ``csrc/fused_norm.cu``,
   ``csrc/fused_norm_bwd.cu``, ``csrc/fused_norm.cuh``)

@@ -49,23 +49,23 @@ _F = ctypes.c_float
 # C signatures of the entry points in csrc/ (argtypes, so that ctypes
 # passes 64-bit pointers and 64-bit sizes, not 32-bit ints)
 _SIGNATURES = {
-    # x, w_packed, y, n, d, h, w, cin, cout, cout_pad, tile_w, dtype, stream
-    "tpuseg_conv3d_small": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_packed, y, n, d, h, w, cin, cout, ty, mt, stages, kpc, stream
+    # (float32 by 3xTF32)
+    "tpuseg_conv3d_small_tf32x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P],
     # x, w_packed, y, n, d, h, w, cin, cout, ty, tx, nt, mt, stages, stream
     "tpuseg_conv3d_small_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
     # x, g, partial, dw, n, d, h, w, cin, cout, ty, tx, stages, mtb,
-    # tap_splits, max_chunks, stream
+    # tap_splits, max_chunks, stream (bf16, and float32 by 3xTF32)
     "tpuseg_conv3d_small_dw_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P],
+    "tpuseg_conv3d_small_dw_tf32x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, partial, stats, n, v, c, groups,
     # rows_per_chunk, n_chunks, eps, relu, ve, dtype, stream
     "tpuseg_group_norm_relu": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                                _I, _I, _F, _I, _I, _I, _P],
-    # x, g, partial, dw, n, d, h, w, cin, cout, tile_w, n_chunks, dtype,
-    # stream
-    "tpuseg_conv3d_small_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
     # x, grad_y, stats, gamma, beta, dx, dgamma, dbeta, partial, n, v, c,
     # groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream
     "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -12,62 +12,71 @@ matrix unit (128-lane relayout, dx taps by lane rolls).  Those tricks are
 TPU artefacts and are not carried over; neither is the W + 2 <= 512 lane
 limit of ``supported``.
 
-Two designs, chosen by the dtype of x.
-
-**float32** (``csrc/conv3d_small.cu``, ``csrc/conv3d_small_dw.cu``) runs
-on the CUDA cores: on the tensor cores f32 would mean TF32, whose ~3
-digits break the 1e-4 gate against the plain version.  One block takes 4
-output rows of one (n, z) plane over an x segment; per dz tap it stages
-the 6 input rows those outputs touch in shared memory, and every thread
-keeps a 4 x 8 (x positions x output channels) fp32 accumulator tile in
-registers.  The weight is a (27, Cin, cout_pad) fp32 array that a layer
-packs once (``pack_weight``); the C entry first prefetches it into L2 (a
-weight packed long before the launch has left L2; without the prefetch
-the served forward's 10 calls ran 0.65 ms slower on an H100).  dW is a
-reduction over all N·D·H·W positions into 27·Cin·Cout sums: blocks walk
-ranges of output rows, stage the 9 input rows and the gradient row each
-needs, keep a 4 x 8 (ci x co) tile of one tap in registers, and write one
-fp32 partial per block range.
-
-**bfloat16** (``csrc/conv3d_small_tc.cu``, ``csrc/conv3d_small_dw_tc.cu``,
-their shared walk in ``csrc/conv3d_tc.cuh``) runs on the tensor cores with
-fp32 accumulation.  What bounds the conv there: at 16 -> 16 channels an
-output voxel costs 27·16·16 MACs against 64 bytes in and out, about 216
-FLOP per byte, below the H100's ~295 in bf16, so the 10 convs of a UNet3d
-step are as close to bytes-bound as to compute-bound (~0.15 ms each way
-for forward, dX or dW).  The CUDA-core design ran them at 20-24 TFLOP/s;
-the simple tensor-core probes of K4-K6 waited on their synchronous
-staging.  So the design is:
+Both dtypes run on the tensor cores, with fp32 accumulation; the kernel is
+picked by the dtype of x (``ENTRY``).  bfloat16 (``csrc/conv3d_small_tc.cu``,
+``csrc/conv3d_small_dw_tc.cu``) computes on bf16 operands.  float32
+(``csrc/conv3d_small_tf32.cu``, ``csrc/conv3d_small_dw_tf32.cu``) splits
+each operand into two tf32 values, v = hi + lo to about 2**-22 (rounded to
+nearest, ties away from zero, as ``cvt.rna.tf32`` rounds), and sums
+a_hi·b_hi + a_lo·b_hi + a_hi·b_lo (3xTF32), which keeps about fp32's
+accuracy: within ~1e-5 of the plain version's scale at K = 27·64, where
+one tf32 pass misses the 1e-4 gate.  The shared walk of all four is in
+``csrc/conv3d_tc.cuh``.  What bounds the conv there: at 16 -> 16 channels
+an output voxel costs 27·16·16 MACs against 64 bytes in and out (128 in
+f32), about 216 FLOP per byte in bf16, below the H100's ~295, so the 10
+convs of a UNet3d step are as close to bytes-bound as to compute-bound in
+bf16 (~0.15 ms each way for forward, dX or dW); in f32 the three tf32
+passes make them compute-bound (~0.9 ms each way at 495/3 TFLOP/s).  The
+design:
 
 - an implicit GEMM whose shifts are addresses: M = an output tile of
   ``ty`` x ``tx`` voxels (8 warps of one or two m16 tiles), N = output
-  channels, K = 27·cin_pad in (dz, dy, dx, ci) order.  Input planes are
-  staged halo'd as [row][x][ci] with a voxel stride of cin_pad + 8 bf16
-  (an odd number of 16-byte units, so an ldmatrix's 8 voxels hit 8 bank
-  groups); the A fragment of tap (dy, dx) is an ldmatrix at the shifted
-  voxel.  No im2col, no relayout: the NDHWC activations feed it as they
-  are;
+  channels, K = 27·cin_pad in (dz, dy, dx, ci) order (f32 folds dx into
+  N, below).  Input planes are
+  staged halo'd as [row][x][ci] with a voxel stride of an odd number of
+  16-byte units (cin_pad + 8 bf16, cin_pad + 4 floats), so an ldmatrix's
+  8 voxels hit 8 bank groups; the A fragment of tap (dy, dx) is an
+  ldmatrix at the shifted voxel (in f32 four 8-voxel x 4-float sub-tiles,
+  the tf32 m16k8 fragment).  No im2col, no relayout: the NDHWC activations
+  feed it as they are;
 - persistent blocks, as many as are resident, walk stacks of output tiles
   along z: each input plane is staged once per stack, through a ring of 4
   to 8 plane slots filled by ``cp.async`` (16 bytes a copy, zero-filled
   outside the volume; 8, 4 or 2 bytes where x is less aligned or Cin odd),
   1 to 5 planes ahead of the tensor cores;
-- forward and dX: one ``wgmma`` m64nNk16 per k16 step and m64 tile (the
-  m16 tiles of a warpgroup's 4 warps), A from the ldmatrix'd registers, B
-  from the weight resident in shared memory through a descriptor.  The
-  weight (``pack_weight(w, torch.bfloat16)``) is bf16 in wgmma's canonical
-  K-major layout without swizzle, (27·cin_pad/16, cout_pad/8, 2, 8, 8):
-  core matrices of 8 n rows by 8 k, 128 bytes each.  Where all of it does
-  not fit beside the ring, grid.y splits Cout (``_tc_plan``);
+- forward and dX on ``wgmma``, A from the ldmatrix'd registers, B from the
+  packed weight in shared memory through a descriptor, in wgmma's
+  canonical K-major layout without swizzle (``pack_weight``).  bf16: one
+  ``wgmma`` m64nNk16 per k16 step and m64 tile, the weight resident, and
+  where all of it does not fit beside the ring grid.y splits Cout
+  (``_tc_plan``).  f32: a tf32 ``wgmma`` at N = Cout = 16 runs at about a
+  fifth of the TF32 rate on an H100, and one three times wider costs
+  little more, so the three dx taps' weights sit side by side: N =
+  3·cout_pad, K = 9·cin_pad in (dz, dy, ci) order, M = the 16 staged
+  columns of a tile row (a tile is ``ty`` rows by 14 output columns), and
+  the epilogue adds each output column's three products from columns c,
+  c + 1 and c + 2 with warp shuffles.  Per k8 step the A fragment is
+  split in registers and three ``wgmma`` m64n(3·cout_pad)k8 run per m64
+  tile (a_hi·b_hi into one accumulator, the two corrections into another
+  up to Cout 16).  The weight's hi/lo pair takes 27·cin_pad·cout_pad·8
+  bytes (55 KB at 16 -> 16, 885 KB at 64 -> 64): where it fits beside
+  the ring it is copied once and stays resident; else it streams from L2
+  in chunks of k8 steps through a 2-slot ring filled by
+  ``cp.async.bulk`` on mbarriers, once per output plane (``_tf32_plan``);
 - dW is a GEMM per tap (M = ci, N = co, K = voxels): the same walk stages
-  each x plane and the gradient tile, A is an ldmatrix.trans of the
-  shifted x plane, B one of the [voxel][co] gradient tile, on m16n8k16
-  ``mma.sync``; each warp keeps its units' (tap, ci tile) fp32 sums in
-  registers over the block's whole walk, and grid.y gives blocks one ci
-  tile each (staging those 16 channels only) when the sums outgrow one
-  block's registers.  Each block writes one partial; a second launch sums
-  the partials in fp64 in a fixed order, so dW is deterministic.  dW on
-  ``wgmma`` (the gradient staged as 8 x 8 core matrices, read MN-major)
+  each x plane and the gradient tile, both MN-major for this GEMM.  bf16:
+  A is an ldmatrix.trans of the shifted x plane, B one of the [voxel][co]
+  gradient tile, on m16n8k16 ``mma.sync``.  f32: ``wgmma`` reads tf32
+  operands from shared memory only K-major and ldmatrix.trans moves
+  16-bit halves, so both fragments are built from 32-bit shared loads
+  (bank-conflict-free strides), split, and run on m16n8k8 ``mma.sync``,
+  three per product.  Each warp keeps its units' (tap, ci tile) fp32 sums
+  in registers over the block's whole walk (f32: summed per tile-plane,
+  then over the walk, which keeps the tensor cores' fp32 sums short), and
+  grid.y gives blocks one ci tile each (staging those 16 channels only)
+  when the sums outgrow one block's registers.  Each block writes one
+  partial; a second launch sums the partials in fp64 in a fixed order, so
+  dW is deterministic.  dW on ``wgmma`` (the gradient staged transposed)
   is a later step (``PERF.md``).
 
 The backward replaces the XLA conv VJP of ``conv3d_small_vjp``
@@ -91,6 +100,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.kernels import _build
+from tpuseg_torch.kernels.packed_conv import tf32_split
 
 # kernel launches by `conv3d_small` in this process: forward, the backward's
 # dX conv and the backward's dW reduction (plain calls not counted)
@@ -98,13 +108,16 @@ LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
 
-# must match csrc/conv3d_small.cu
-_XT, _CO, _TY, _MAX_TW, _SMEM_FLOATS = 4, 8, 4, 64, 12 * 1024
-# must match csrc/conv3d_small_dw.cu
-_DW_CIT, _DW_COT, _DW_THREADS = 4, 8, 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# must match csrc/conv3d_tc.cuh and csrc/conv3d_small_dw_tc.cu (bf16)
+# the C entry points of each dtype: (forward and dX, dW)
+ENTRY = {torch.float32: ("tpuseg_conv3d_small_tf32x3", "tpuseg_conv3d_small_dw_tf32x3"),
+         torch.bfloat16: ("tpuseg_conv3d_small_tc", "tpuseg_conv3d_small_dw_tc")}
+# must match csrc/conv3d_tc.cuh and csrc/conv3d_small_dw_tc.cu (bf16; dW
+# in f32 too)
 _TC_CPAD, _TC_SMEM, _TC_WARPS, _TC_ACC_TILES, _TC_MAX_STAGES = 8, 232448, 8, 16, 8
+# must match csrc/conv3d_small_tf32.cu: floats of padding per staged voxel,
+# bytes before the weight ring (its mbarriers), slots of a streamed weight,
+# output columns of a tile (16 staged)
+_F32_CPAD, _F32_BAR, _F32_WSLOTS, _F32_TXO = 4, 128, 2, 14
 _SM_SMEM = 233472  # shared memory of one H100 SM; each block reserves 1 KB
 
 
@@ -229,20 +242,61 @@ def _tc_plan(x_shape, cout: int) -> Tuple[int, int, int, int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _dw_tc_plan(x_shape, cout: int, sms: int) -> Tuple[int, int, int, int, int, int]:
-    """(ty, tx, stages, mtb, tap_splits, max_chunks) of the bf16 dW kernel.
-    Its work units are (tap, m16 tile of ci): 27·cin_pad/16 of them, of
-    which a block of 8 warps holds at most 8·(16 / (cout_pad / 8)) (16 n8
-    tiles of fp32 sums a warp).  When all fit, a block takes them all
-    (``mtb`` = cin_pad/16 ci tiles); else each block takes one ci tile
-    (``mtb`` 1), staging those 16 x channels only, and ``tap_splits``
-    blocks share the taps.  A ring of 4 to 8 slots of one staged x plane
-    and one gradient tile, the deepest that leaves room for two blocks on
-    an SM (else one), and the tile of up to 256 voxels when that leaves
-    two blocks on an SM, else of up to 128; ``max_chunks`` bounds the
-    blocks of one split that shared memory lets be resident."""
+def _tf32_plan(x_shape, cout: int) -> Tuple[int, int, int, int]:
+    """(ty, mt, stages, kpc) of the float32 (3xTF32) forward / dX kernel.
+    A tile is ``ty`` rows (up to 8·mt: 8 warps of mt m16 tiles, one tile
+    row each; mt 2 only for cout_pad <= 32, for the registers) by 14
+    output columns, 16 staged; H is split evenly.  A ring of ``stages`` (4
+    to 8) staged planes of cin_pad + 4 floats a voxel.  The weight's tf32
+    hi/lo pair (9·cin_pad/8 k8 steps of 3·cout_pad·64 bytes, the three dx
+    taps side by side) sits in shared memory beside the ring when it fits
+    (``kpc`` every step: copied once, resident); else it streams in chunks
+    of ``kpc`` steps (a divisor of the step count) through 2 slots, the
+    largest chunk that fits beside 4 planes.  Order: mt 2 resident, mt 2
+    streamed, mt 1 resident, mt 1 streamed, then fewer rows.  The ring
+    takes the room left, up to 8 slots."""
+    _, _, h, _, cin = x_shape
+    cin_pad, cout_pad = _pad8(cin), _f32_cout_pad(cout)
+    steps = 9 * cin_pad // 8
+    step_bytes = 3 * cout_pad * 64
+    room = _TC_SMEM - _F32_BAR
+    max_rows = 8
+    while True:
+        for mt in ((2, 1) if cout_pad <= 32 else (1,)):
+            rows = max_rows * mt
+            ty = -(-h // -(-h // min(h, rows)))
+            patch = (ty + 2) * (_F32_TXO + 2) * (cin_pad + _F32_CPAD) * 4
+            stages = min(_TC_MAX_STAGES, (room - steps * step_bytes) // patch)
+            if stages >= 4:
+                return ty, mt, stages, steps
+            fits = [k for k in range(1, steps)
+                    if steps % k == 0 and _F32_WSLOTS * k * step_bytes + 4 * patch <= room]
+            if fits:
+                kpc = max(fits)
+                stages = min(_TC_MAX_STAGES,
+                             (room - _F32_WSLOTS * kpc * step_bytes) // patch)
+                return ty, mt, stages, kpc
+        max_rows //= 2
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_tc_plan(x_shape, cout: int, sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int, int, int, int, int]:
+    """(ty, tx, stages, mtb, tap_splits, max_chunks) of the dW kernel of
+    ``dtype`` (bf16, or float32 by 3xTF32: the same walk, with fp32 staged
+    tiles and k8 voxel groups).  Its work units are (tap, m16 tile of ci):
+    27·cin_pad/16 of them, of which a block of 8 warps holds at most
+    8·(16 / (cout_pad / 8)) (16 n8 tiles of fp32 sums a warp).  When all
+    fit, a block takes them all (``mtb`` = cin_pad/16 ci tiles); else each
+    block takes one ci tile (``mtb`` 1), staging those 16 x channels only,
+    and ``tap_splits`` blocks share the taps.  A ring of 4 to 8 slots of
+    one staged x plane and one gradient tile, the deepest that leaves room
+    for two blocks on an SM (else one), and the tile of up to 256 voxels
+    when that leaves two blocks on an SM, else of up to 128; ``max_chunks``
+    bounds the blocks of one split that shared memory lets be resident."""
     _, _, h, w, cin = x_shape
     mts, cout_pad = _pad16(cin) // 16, _pad16(cout)
+    esize, m_align = (2, 16) if dtype == torch.bfloat16 else (4, 8)  # k16 or k8 groups
     per_block = _TC_WARPS * (_TC_ACC_TILES // (cout_pad // 8))
     if 27 * mts <= per_block:
         mtb, tap_splits = mts, 1
@@ -252,7 +306,7 @@ def _dw_tc_plan(x_shape, cout: int, sms: int) -> Tuple[int, int, int, int, int, 
     while True:
         ty, tx = _tc_tile(h, w, max_m, False)
         slot = ((ty + 2) * (tx + 2) * (16 * mtb + _TC_CPAD)
-                + _pad16(ty * tx) * (cout_pad + _TC_CPAD)) * 2
+                + -(-ty * tx // m_align) * m_align * (cout_pad + _TC_CPAD)) * esize
         stages, per_sm = _ring(0, slot)
         if stages and (per_sm >= 2 or max_m <= 16 * _TC_WARPS):
             break
@@ -261,40 +315,8 @@ def _dw_tc_plan(x_shape, cout: int, sms: int) -> Tuple[int, int, int, int, int, 
     return ty, tx, stages, mtb, tap_splits, -(-per_sm * sms // splits)
 
 
-def _tile_w(w: int, cin: int) -> int:
-    """Block x-segment: a multiple of 4, at most 64 wide and as wide as the
-    staged rows (TY + 2 rows of (tw + 2) x Cin floats) fit in 48 KB, with W
-    split evenly."""
-    widest = min(_MAX_TW, (_SMEM_FLOATS // ((_TY + 2) * cin) - 2) // _XT * _XT)
-    tiles = -(-w // widest)
-    per = -(-w // tiles)
-    return -(-per // _XT) * _XT
-
-
-def _dw_tile_w(w: int, cin: int, cout: int) -> int:
-    """dW's x segment: as wide as 9 staged rows of (tw + 2) x cin_pad
-    floats and one gradient row of tw x cout_pad floats fit in 48 KB, with
-    W split evenly."""
-    cin_pad = -(-cin // _DW_CIT) * _DW_CIT
-    cout_pad = -(-cout // _DW_COT) * _DW_COT
-    widest = (_SMEM_FLOATS - 18 * cin_pad) // (9 * cin_pad + cout_pad)
-    segments = -(-w // widest)
-    return -(-w // segments)
-
-
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _dw_chunks(x_shape, cout: int, device) -> int:
-    """Row-group ranges of the dW kernel: about 8 blocks per SM in all, and
-    never more ranges than row groups."""
-    n, d, h, w, cin = x_shape
-    tiles = 27 * (-(-cin // _DW_CIT)) * (-(-cout // _DW_COT))
-    parts = -(-tiles // _DW_THREADS)
-    groups = n * d * h * -(-w // _dw_tile_w(w, cin, cout))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(groups, 8 * sms // parts))
 
 
 def flip_weight(w: torch.Tensor) -> torch.Tensor:
@@ -308,18 +330,37 @@ def _pad16(c: int) -> int:
     return -(-c // 16) * 16
 
 
-def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """DHWIO kernel -> the kernels' packed weight for x of ``dtype``.
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
 
-    float32: a (27, Cin, cout_pad) fp32 array, Cout zero-padded to a
-    multiple of 8.  bfloat16: the (27·Cin, Cout) matrix, zero-padded to
-    (27·cin_pad, cout_pad) with both rounded up to 16, in the MMA's layout
-    (27·cin_pad/16, cout_pad/8, 2, 8, 8): element [kc, j, h, r, c] is
-    K row kc·16 + h·8 + c ((tap, ci) = divmod(row, cin_pad)), N column
-    j·8 + r.  Rounds through ``dtype`` first (the JAX kernel casts the
-    weight to the activation dtype).  A fresh contiguous allocation, so
-    its 16-byte reads are aligned.  A layer packs its weight once and
-    passes the result to every call."""
+
+def _f32_cout_pad(c: int) -> int:
+    """Output channels of the float32 kernel's GEMM (its wgmma N): 8, or a
+    multiple of 16."""
+    return 8 if c <= 8 else _pad16(c)
+
+
+def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """DHWIO kernel -> the kernels' packed weight for x of ``dtype``: the
+    (27·Cin, Cout) matrix, K row (tap, ci) = tap·cin_pad + ci, zero-padded,
+    in the MMA's K-major core-matrix layout.
+
+    bfloat16: (27·cin_pad, cout_pad), both rounded up to 16, as
+    (27·cin_pad/16, cout_pad/8, 2, 8, 8): element [kc, j, h, r, c] is K row
+    kc·16 + h·8 + c, N column j·8 + r (8 x 8 core matrices of 128 bytes).
+    float32: the matrix with the three dx taps side by side, (9·cin_pad,
+    3·cout_pad), K row (dz, dy, ci) = (dz·3 + dy)·cin_pad + ci, N column
+    (dx, co) = dx·cout_pad + co, cin_pad rounded up to 8, cout_pad 8 or a
+    multiple of 16 (``_f32_cout_pad``); its tf32 hi/lo pair
+    (``tf32_split``: hi + lo is the weight to about 2**-22), as
+    (9·cin_pad/8, 2, 3·cout_pad/8, 2, 8, 4): element [s, p, j, h, r, c] is
+    part p (0 hi, 1 lo) of K row s·8 + h·4 + c, N column j·8 + r (8 x 4
+    core matrices of 128 bytes); each k8 step's hi and lo tiles are
+    contiguous, so a range of steps is one copy.  Rounds
+    through ``dtype`` first (the JAX kernel casts the weight to the
+    activation dtype).  A fresh contiguous allocation, so its 16-byte reads
+    are aligned.  A layer packs its weight once and passes the result to
+    every call."""
     cin, cout = w.shape[3], w.shape[4]
     if dtype == torch.bfloat16:
         cin_pad, cout_pad = _pad16(cin), _pad16(cout)
@@ -327,11 +368,13 @@ def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         k[:, :cin, :cout] = w.detach().to(dtype).reshape(27, cin, cout)
         return k.reshape(27 * cin_pad // 16, 2, 8, cout_pad // 8, 8).permute(
             0, 3, 1, 4, 2).contiguous()
-    cout_pad = -(-cout // _CO) * _CO
-    packed = torch.zeros((27, cin, cout_pad), dtype=torch.float32,
-                         device=w.device)
-    packed[:, :, :cout] = w.detach().to(dtype).reshape(27, cin, cout)
-    return packed
+    cin_pad, cout_pad = _pad8(cin), _f32_cout_pad(cout)
+    k = torch.zeros((3, 3, cin_pad, 3, cout_pad), dtype=torch.float32, device=w.device)
+    k[:, :, :cin, :, :cout] = w.detach().to(dtype).permute(0, 1, 3, 2, 4)
+    steps = 9 * cin_pad // 8
+    parts = [p.reshape(steps, 2, 4, 3 * cout_pad // 8, 8).permute(0, 3, 1, 4, 2)
+             for p in tf32_split(k)]
+    return torch.stack(parts, dim=1).contiguous()
 
 
 def pack_weight_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -343,19 +386,12 @@ def pack_weight_t(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def _conv(x: torch.Tensor, packed: torch.Tensor, cout: int, what: str) -> torch.Tensor:
     n, d, h, wd, cin = x.shape
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _build.library()
+    plan = (_tc_plan if x.dtype == torch.bfloat16 else _tf32_plan)(tuple(x.shape), cout)
+    fn = getattr(_build.library(), ENTRY[x.dtype][0])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            err = lib.tpuseg_conv3d_small_tc(
-                x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, d, h, wd, cin,
-                cout, *_tc_plan(tuple(x.shape), cout), stream,
-            )
-        else:
-            err = lib.tpuseg_conv3d_small(
-                x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, d, h, wd, cin,
-                cout, packed.shape[2], _tile_w(wd, cin), _DTYPES[x.dtype], stream,
-            )
+        err = fn(x.data_ptr(), packed.data_ptr(), y.data_ptr(), n, d, h, wd, cin, cout,
+                 *plan, stream)
     _build.check(err, what)
     return y
 
@@ -379,28 +415,15 @@ def _launch_dw(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
     global DW_LAUNCHES
     n, d, h, wd, cin = x.shape
     cout = grad_y.shape[-1]
-    if x.dtype == torch.bfloat16:
-        plan = _dw_tc_plan(tuple(x.shape), cout, _sm_count(x.device))
-        chunks = plan[-1]
-    else:
-        chunks = _dw_chunks(tuple(x.shape), cout, x.device)
-    partial = torch.empty((chunks, 27, cin, cout), dtype=torch.float32,
+    plan = _dw_tc_plan(tuple(x.shape), cout, _sm_count(x.device), x.dtype)
+    partial = torch.empty((plan[-1], 27, cin, cout), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
-    lib = _build.library()
+    fn = getattr(_build.library(), ENTRY[x.dtype][1])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            err = lib.tpuseg_conv3d_small_dw_tc(
-                x.data_ptr(), grad_y.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                n, d, h, wd, cin, cout, *plan, stream,
-            )
-        else:
-            err = lib.tpuseg_conv3d_small_dw(
-                x.data_ptr(), grad_y.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                n, d, h, wd, cin, cout, _dw_tile_w(wd, cin, cout), chunks,
-                _DTYPES[x.dtype], stream,
-            )
+        err = fn(x.data_ptr(), grad_y.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                 n, d, h, wd, cin, cout, *plan, stream)
     _build.check(err, "conv3d_small dW")
     DW_LAUNCHES += 1
     return dw
@@ -443,7 +466,7 @@ def _packed_shape(rows: int, cols: int, dtype: torch.dtype) -> Tuple[int, ...]:
     ``dtype``."""
     if dtype == torch.bfloat16:
         return (27 * _pad16(rows) // 16, _pad16(cols) // 8, 2, 8, 8)
-    return (27, rows, -(-cols // _CO) * _CO)
+    return (9 * _pad8(rows) // 8, 2, 3 * _f32_cout_pad(cols) // 8, 2, 8, 4)
 
 
 def _check_packed(packed, x, rows: int, cols: int, what: str) -> None:
@@ -476,8 +499,8 @@ def conv3d_small(x: torch.Tensor, w: torch.Tensor,
             f"conv3d_small: x on {x.device}, w on {w.device}; both must be "
             "on one CUDA device (or both on the CPU)"
         )
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv3d_small: x dtype {x.dtype} not in {list(_DTYPES)}")
+    if x.dtype not in ENTRY:
+        raise TypeError(f"conv3d_small: x dtype {x.dtype} not in {list(ENTRY)}")
     if not w.dtype.is_floating_point:
         raise TypeError(f"conv3d_small: w dtype {w.dtype} is not floating")
     if not supported(tuple(x.shape), tuple(w.shape)) or x.shape[-1] != w.shape[3]:

@@ -4,7 +4,7 @@
 // flipped, transposed weight, so it runs this kernel too.
 //
 // Replaces the Pallas kernel tpuseg/kernels/conv3d.py `conv3d_small` for
-// bf16 (the f32 path keeps csrc/conv3d_small.cu).  Python wrapper, packing
+// bf16 (f32 runs csrc/conv3d_small_tf32.cu).  Python wrapper, packing
 // and design note: tpuseg_torch/kernels/conv3d.py.
 //
 // An implicit GEMM whose shifts are addresses: M = the TY x TX output

@@ -1,7 +1,8 @@
-// What the bf16 tensor-core kernels of the 3x3x3 conv share
-// (csrc/conv3d_small_tc.cu, forward and dX; csrc/conv3d_small_dw_tc.cu,
-// dW): the output tiling, the walk of a persistent block over its tiles,
-// and the asynchronous staging of one halo'd input plane.
+// What the tensor-core kernels of the 3x3x3 conv share (bf16:
+// csrc/conv3d_small_tc.cu, forward and dX, csrc/conv3d_small_dw_tc.cu, dW;
+// float32 by 3xTF32: csrc/conv3d_small_tf32.cu, csrc/conv3d_small_dw_tf32.cu):
+// the output tiling, the walk of a persistent block over its tiles, the
+// asynchronous staging of one halo'd input plane, and the tf32 split.
 //
 // An output tile is TY rows x TX columns of one (n, z) plane, at most 256
 // voxels (8 warps x 2 m16 tiles).  A "column" is the stack of such tiles over z;
@@ -30,30 +31,34 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_M = 32 * WARPS;   // output voxels per tile (two m16 tiles a warp)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one block
-constexpr int CPAD = 8;             // bf16 of padding per staged voxel
+constexpr int CPAD = 8;             // bf16 of padding per staged voxel (bf16)
 
 struct Tiles {
   int D, H, W;
   int cstride, c0;   // channels of an input voxel, first one staged
-  int cin, cin_pad;  // staged channels, and them rounded up to 16
-  int vs;            // staged voxel stride (cin_pad + CPAD): an odd number
-                     // of 16-byte units, so the 8 rows of an ldmatrix
-                     // (8 neighbouring voxels) fall in 8 bank groups
+  int cin, cin_pad;  // staged channels, and them rounded up (to 16 in bf16)
+  int vs;            // staged voxel stride in elements (cin_pad + padding;
+                     // for an ldmatrix an odd number of 16-byte units, so
+                     // its 8 rows (8 neighbouring voxels) fall in 8 bank
+                     // groups)
   int ty, tx, nty, ntx, zc, nzc;
   long long items;   // N * nzc * nty * ntx
   int stages;        // ring slots (4 to 8): stages - 3 steps in flight
-  int patch;         // bf16 of one staged plane, (ty + 2) x (tx + 2) x vs
+  int patch;         // elements of one staged plane, (ty + 2) x (tx + 2) x vs
 };
 
+// cin rounded up to a multiple of `calign`, `cpad` elements of padding per
+// staged voxel (bf16: 16 and CPAD)
 __host__ inline Tiles make_tiles(int n, int d, int h, int w, int cin, int ty,
-                                 int tx, int zc, int stages) {
+                                 int tx, int zc, int stages, int calign = 16,
+                                 int cpad = CPAD) {
   Tiles t;
   t.D = d; t.H = h; t.W = w;
   t.cstride = cin;
   t.c0 = 0;
   t.cin = cin;
-  t.cin_pad = (cin + 15) / 16 * 16;
-  t.vs = t.cin_pad + CPAD;
+  t.cin_pad = (cin + calign - 1) / calign * calign;
+  t.vs = t.cin_pad + cpad;
   t.ty = ty; t.tx = tx;
   t.nty = (h + ty - 1) / ty;
   t.ntx = (w + tx - 1) / tx;
@@ -113,8 +118,16 @@ struct Step {
 
 // `vec` bytes of channels from global to shared memory: cp.async for 4, 8
 // and 16 (zero-filled outside the volume), a plain load and store for 2
-// (x only 2-byte aligned, or an odd channel count).  `vec` is the same for
-// the whole block, so the switch does not diverge.
+// (bf16 x only 2-byte aligned, or an odd channel count).  `vec` is the same
+// for the whole block, so the switch does not diverge.
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src, bool ok, int vec) {
+  switch (vec) {
+    case 16: cp_async_zfill<16>(dst, src, ok); break;
+    case 8: cp_async_zfill<8>(dst, src, ok); break;
+    default: cp_async_zfill<4>(dst, src, ok);
+  }
+}
+
 __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, bool ok, int vec) {
   switch (vec) {
     case 16: cp_async_zfill<16>(dst, src, ok); break;
@@ -130,10 +143,11 @@ __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, bool ok, 
 // (tx + 2) voxels, channels c0 .. c0 + cin of each, into `slot` as
 // [row][x][vs], zero outside the volume, in copies of `vec` bytes.  Channels cin .. cin_pad
 // of every voxel are left as they are (zeroed once when the block starts).
-__device__ __forceinline__ void stage_plane(bf16* slot, const bf16* __restrict__ x,
+template <typename T>
+__device__ __forceinline__ void stage_plane(T* slot, const T* __restrict__ x,
                                             const Tiles& t, int vec, int n, int z, int y0,
                                             int x0) {
-  const int e = vec / 2;  // channels per copy
+  const int e = vec / (int)sizeof(T);  // channels per copy
   const int per_vox = t.cin / e;
   const int w2 = t.tx + 2;
   const int total = (t.ty + 2) * w2 * per_vox;
@@ -146,7 +160,7 @@ __device__ __forceinline__ void stage_plane(bf16* slot, const bf16* __restrict__
     const int yy = y0 - 1 + r;
     const int xx = x0 - 1 + lx;
     const bool ok = z_ok && yy >= 0 && yy < t.H && xx >= 0 && xx < t.W;
-    const bf16* src =
+    const T* src =
         ok ? x + ((((size_t)n * t.D + z) * t.H + yy) * (size_t)t.W + xx) * t.cstride + t.c0 + c
            : x;
     copy_chunk(slot + v * t.vs + c, src, ok, vec);
@@ -171,13 +185,33 @@ __device__ __forceinline__ void zero_smem(void* p, int bytes) {
   for (int i = threadIdx.x; i < bytes / 16; i += THREADS) q[i] = make_uint4(0, 0, 0, 0);
 }
 
-// widest copy (16, 8, 4 or 2 bytes) that c channels at `p` allow
-__host__ inline int copy_bytes(const void* p, int c) {
+// widest copy (16, 8, 4, or for bf16 2 bytes) that c channels of `es`
+// bytes each at `p` allow
+__host__ inline int copy_bytes(const void* p, int c, int es = 2) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if (c % 8 == 0 && a % 16 == 0) return 16;
-  if (c % 4 == 0 && a % 8 == 0) return 8;
-  if (c % 2 == 0 && a % 4 == 0) return 4;
-  return 2;
+  for (int v = 16; v > es; v >>= 1)
+    if ((c * es) % v == 0 && a % v == 0) return v;
+  return es;
+}
+
+// float32 -> the nearest tf32 (10 mantissa bits, ties away from zero), as
+// the 32-bit pattern the tf32 MMAs read: the rounding of cvt.rna.tf32.f32,
+// bit for bit, in two integer operations (half of the 13 dropped bits'
+// range added to the magnitude, then cleared), which the H100 runs faster
+// than the conversion
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// the 3xTF32 split of one fragment: v = hi + lo to about 2**-22, each a tf32
+__device__ __forceinline__ void tf32_split(const uint32_t (&v)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float f = __uint_as_float(v[i]);
+    hi[i] = tf32_rna(f);
+    lo[i] = tf32_rna(f - __uint_as_float(hi[i]));
+  }
 }
 
 }  // namespace tc
