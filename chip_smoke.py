@@ -969,7 +969,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     say(f"  built {_build.library_path().name} in {build_s:.2f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill", "C75")):
             say(f"  ptxas {line.strip()}")
 
     mods = dict(

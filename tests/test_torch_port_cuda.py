@@ -514,6 +514,69 @@ def test_flat_conv_kernel_matches_plain(cuda, size, prebuilt):
     _close(got, ref, torch.bfloat16)
 
 
+# the persistent walks: D = 30 (z chunks of the walk longer than a ring of
+# 7 or 8 slots, which wraps, and D no multiple of it), N = 2, LV = 640
+# (every kind's last strip ragged, full's wrap group inside it), LV = 1008
+# = 2 x 504 (full's last strip ending on a strip edge)
+SLAB_WALK_SHAPES = {
+    "d30": dict(N=1, D=30, H=96, W=96, C=16, COUT=16, WP=128, BD=2),
+    "n2_lv640": dict(N=2, D=10, H=10, W=6, C=16, COUT=16, WP=64, BD=2),
+    "lv1008": dict(N=2, D=4, H=9, W=6, C=16, COUT=16, WP=112, BD=2),
+}
+
+
+@pytest.mark.parametrize("size", list(SLAB_WALK_SHAPES))
+@pytest.mark.parametrize("probe, variant", SLAB_VARIANTS)
+def test_slab_conv_walk_matches_plain(cuda, size, probe, variant):
+    """Every K4/K5 variant over strip splits, ring wraps and ragged strips
+    against its plain version, one bf16 step."""
+    mod = kmicro if probe == "kmicro" else kmicro2
+    s = SLAB_WALK_SHAPES[size]
+    inputs = mod.make_inputs(cuda, **s)
+    got = mod.kernel(inputs, variant, s)
+    ref = mod.plain(inputs, variant, s)
+    assert got.shape == ref.shape
+    _close(got, ref, torch.bfloat16)
+
+
+FLAT_WALK_SHAPES = {
+    # 24 row ranges of 448 a plane, z chunks longer than the ring
+    "d30": dict(N=1, D=30, H=96, W=96, C=16, COUT=16, WS=112, ROWS=1792, HALO=256),
+    # SV 560: row ranges of 448 and 112, the second's window clipped at S
+    "n2_ragged": dict(N=2, D=10, H=5, W=6, C=16, COUT=16, WS=112, ROWS=560, HALO=280),
+}
+
+
+@pytest.mark.parametrize("size", list(FLAT_WALK_SHAPES))
+@pytest.mark.parametrize("prebuilt", [True, False])
+def test_flat_conv_walk_matches_plain(cuda, size, prebuilt):
+    s = FLAT_WALK_SHAPES[size]
+    inputs = kmicro3.make_inputs(cuda, **s)
+    x = flat_conv.build_xcat(inputs["xflat"]) if prebuilt else inputs["xflat"]
+    got = kmicro3.kernel(x, inputs["w2"], s, prebuilt)
+    ref = kmicro3.plain(x, inputs["w2"], s, prebuilt)
+    assert got.shape == ref.shape
+    _close(got, ref, torch.bfloat16)
+
+
+def test_probe_kernels_repeat_bit_identical(cuda):
+    """Every K4-K6 variant gives the same bits on a second call (each
+    output is summed in one fixed order, whatever the walk's timing)."""
+    s = SLAB_WALK_SHAPES["n2_lv640"]
+    in4 = kmicro.make_inputs(cuda, **s)
+    in5 = kmicro2.make_inputs(cuda, k4_inputs=in4, **s)
+    calls = [lambda kind=kind: kmicro.kernel(in4, kind, s) for kind in kmicro.KINDS]
+    calls += [lambda tag=tag: kmicro2.kernel(in5, tag, s) for tag in kmicro2.VARIANTS]
+    s6 = FLAT_WALK_SHAPES["n2_ragged"]
+    in6 = kmicro3.make_inputs(cuda, **s6)
+    xcat = flat_conv.build_xcat(in6["xflat"])
+    calls += [lambda: kmicro3.kernel(xcat, in6["w2"], s6, True),
+              lambda: kmicro3.kernel(in6["xflat"], in6["w2"], s6, False)]
+    for call in calls:
+        first = call()
+        assert torch.equal(first, call())
+
+
 def test_probe_kernels_count_launches(cuda):
     """Each wrapper counts its kernel's launches, and only those."""
     s = SLAB_SHAPES["small"]
@@ -546,3 +609,14 @@ def test_probe_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flat_conv.flat_conv(in6["xflat"].float(), in6["w2"].float(), ws=8, rows=24, halo=24)
     with pytest.raises(ValueError, match="CUDA"):
         flat_conv.flat_conv(in6["xflat"], in6["w2"].cpu(), ws=8, rows=24, halo=24)
+    # a slab ring (WP 4096: 8.7K lanes a channel row) or a weight (C 512)
+    # past a block's shared memory
+    wide = torch.zeros((1, 4, 16, 3 * 4096), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        slab_conv.slab_conv(wide, wm, "full", wp=4096, bd=2)
+    big = torch.zeros((1, 4, 64, 512), dtype=torch.bfloat16, device=cuda)
+    w512 = torch.zeros((3 * 512, 144), dtype=torch.bfloat16, device=cuda)
+    for prebuilt in (False, True):
+        x = flat_conv.build_xcat(big) if prebuilt else big
+        with pytest.raises(ValueError, match="unsupported"):
+            flat_conv.flat_conv(x, w512, ws=8, rows=24, halo=24, prebuilt=prebuilt)

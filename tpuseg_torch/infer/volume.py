@@ -31,7 +31,7 @@ def infer_volume(
     new_size_xyz: Sequence[int],
     normalizer: Callable = percentile_zscore,
     threshold: float = 0.5,
-    device="cpu",
+    device="cuda",
 ) -> Volume:
     """Fixed-size resample -> normalize -> forward -> mask -> resample back
     (nearest) -> original geometry.  ``forward_fn`` runs on ``device``;

@@ -26,16 +26,26 @@ the probe's GEMM over ROWS + HALO rows per chunk does 130.5); ``pre``
 moves xcat 809 MB + out 264 MB (0.32 ms at 3.35 TB/s), ``cat`` xflat 275
 MB + out 264 MB (0.16 ms).
 
-The design (``csrc/flat_conv.cu``): a block owns 112 output rows of one
-plane.  It stages w2 and the 112 + 2·WS + 16 input rows its outputs read
-in shared memory (16-byte loads; for ``cat`` each row's three C-channel
-pieces from the three planes), then for each dy computes that dy group's
-48 columns of Y on the 128 rows starting dy·WS further down (8 warps, one
-m16 tile each, m16n8k16 bf16 ``mma.sync``, fp32 accumulators), parks them
-in shared memory and adds each output row's three dx terms in registers.
-So Y is computed only on the rows the assembly reads (plus 16 rows of tile
-padding, 14 % more GEMM), not on the whole ROWS + HALO window of a TPU
-chunk, whose fp32 Y would not fit in shared memory.
+The design (``csrc/flat_conv.cu``, ``csrc/probe_walk.cuh``): a persistent
+walk.  About one block per SM; a block owns ``TM`` = 448 output rows of one
+sample and walks its planes d along a z chunk (items (n, z chunk, row
+range), row range fastest).  One warp of a producer warpgroup fills a ring
+of plane windows with ``cp.async.bulk`` on full/empty mbarriers ahead of
+the compute: rows [s0, s0 + TM + 2·WS + 16) of one plane, clipped at S, a
+contiguous run of ``xflat`` (``cat``: each plane staged once per row range
+and read by three output planes) or of ``xcat`` (``pre``: one window per
+plane).  The weight is resident in ``wgmma``'s K-major layout without
+swizzle.  One accumulator takes all nine (dz, dy) taps: Z[s, (dx, co)] =
+Σ_{dz,dy,ci} X_{d+dz}[s + dy·WS, ci] · w2[dz·C + ci, dy·48 + (dx, co)], K =
+9C in (dz, dy, ci) order, N = 48: dz is a slot (an xcat channel offset for
+``pre``), dy a row offset.  M tiles are m16 tiles of 16 rows that keep 14
+outputs (tile j starts at row 14·j; WS = 112 is 8 × 14), four to a
+warpgroup's m64 tile, four m64 tiles a warpgroup, two warpgroups; A is an
+``ldmatrix`` of the staged rows (rows at or past S from a zero word), B the
+weight.  Then out[s, co] = Z[s, co] + Z[s+1, 16+co] + Z[s+2, 32+co] by warp
+shuffles inside the tile, stored from registers.  The GEMM does 16/14 of
+the output's 27·C multiply-adds per value, not the probe's ROWS + HALO
+window per chunk.
 
 ``flat_conv`` runs ``flat_conv_plain`` on CPU tensors and the kernel on
 CUDA tensors, or raises.
@@ -51,12 +61,35 @@ from tpuseg_torch.kernels import _build
 LAUNCHES = 0
 
 COUT = 16  # output channels the kernel writes (the probe's)
+# the kernel's tiling and shared memory; must match csrc/flat_conv.cu
+TILE_OUT = 14          # output rows of an m16 tile (16 computed)
+MT = 4                 # m64 tiles a warpgroup, two warpgroups
+TM = TILE_OUT * 4 * MT * 2  # output rows of a strip: 448
+HALO = 16              # window rows past TM + 2·WS
+BAR_BYTES = 128        # full / empty mbarriers of MAX_STAGES slots
+ZERO_BYTES = 128       # the zero word rows past S read
+MAX_STAGES = 8
+SMEM_LIMIT = 232448    # dynamic shared memory of one block on an H100
 
 
 def build_xcat(xflat: torch.Tensor) -> torch.Tensor:
     """(N, D+2, S, C) -> the dz lane-concat (N, D, S, 3C) (``build_xcat``)."""
     d = xflat.shape[1] - 2
     return torch.cat([xflat[:, i:i + d] for i in range(3)], dim=-1)
+
+
+def plan(prebuilt: bool, c: int, s: int, ws: int) -> dict:
+    """The kernel's launch plan (``make_plan`` in the source): elements of a
+    staged row ``rowe``, rows of a slot ``slot_rows``, ring slots
+    ``stages``, shared memory ``smem`` in bytes, and the walk's ``span``
+    (planes an output plane reads)."""
+    rowe = 3 * c if prebuilt else c
+    slot_rows = min(TM + 2 * ws + HALO, s)
+    fixed = BAR_BYTES + ZERO_BYTES + 9 * c * 3 * COUT * 2
+    slot = slot_rows * rowe * 2
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+    return dict(rowe=rowe, slot_rows=slot_rows, stages=stages, smem=fixed + stages * slot,
+                span=1 if prebuilt else 3)
 
 
 def _geometry(x_shape, w2_shape, prebuilt: bool):
@@ -98,12 +131,13 @@ def _check(x, w2, ws, rows, halo, prebuilt) -> None:
     sv = s - 2 * ws
     if (tuple(w2.shape) != (3 * c, 9 * COUT) or x.shape[3] != width or d < 1
             or c < 16 or c % 16 or ws < 1 or s % ws or sv < rows or sv % rows
-            or rows % halo or halo < 2 * ws + 2 or n * d > 65535):
+            or rows % halo or halo < 2 * ws + 2
+            or plan(prebuilt, c, s, ws)["stages"] < (2 if prebuilt else 4)):
         raise ValueError(
             f"flat_conv: unsupported shapes x {tuple(x.shape)} (prebuilt "
             f"{prebuilt}), w2 {tuple(w2.shape)}, ws {ws}, rows {rows}, halo {halo}: "
             "C a multiple of 16, COUT 16, S = (H+2)·WS, ROWS dividing SV = H·WS, "
-            "HALO dividing ROWS and >= 2·WS + 2")
+            "HALO dividing ROWS and >= 2·WS + 2, the window ring in shared memory")
 
 
 def flat_conv(x: torch.Tensor, w2: torch.Tensor, *, ws: int, rows: int,

@@ -32,18 +32,29 @@ are not work the output needs.  ``dot_only`` reads one slab per block,
 by three dy taps, so the design stages every A tile from L2-resident
 slabs rather than building A in device memory.
 
-The design (``csrc/slab_conv.cu``): a block owns 128 output lanes of one
-plane (of ``fuse`` consecutive planes for ``v3``, which share its staged
-weight) and all M rows.  The weight is staged in shared memory once per
-block; per plane the Kp x 136 A tile (128 lanes + 8 for the ``full``
-epilogue's shifts across the tile edge, lane columns taken mod LV) is
-staged with 16-byte loads; warps of 48 rows x 32 lanes run m16n8k16 bf16
-``mma.sync`` with fp32 accumulators from ``ldmatrix`` fragments (the A
-tile through ``.trans``, since it is [k][lane] in memory).  M is the
-probe's own, 48 or 144: the probe exists to time that GEMM, so rows the
-epilogue drops are computed all the same.  The fp32 tile goes through
-shared memory to 16-byte bf16 stores.  No software pipelining, TMA or
-``wgmma`` yet: right and simple first.
+The design (``csrc/slab_conv.cu``, ``csrc/probe_walk.cuh``): a persistent
+walk.  About one block per SM; a block owns a strip of ``BN`` = 128·MT
+lanes of one sample (MT = 4, or 2 for M = 144) and walks its planes d along
+a z chunk (items (n, z chunk, strip), strip fastest, so that the blocks in
+flight share their halos in L2).  One warp of a producer warpgroup fills a
+ring of slab slots with ``cp.async.bulk``, one copy per channel row of the
+window [l0, l0 + BN + 2·WP) (BN for ``dot_only`` and ``dy0``), on
+full/empty mbarriers ahead of the compute: each slab is staged once per
+strip.  The dz taps are slots, the dy taps lane offsets 0, WP, 2·WP into a
+slot; ``dot_only`` reads one slab, (d // bd)·bd, for all nine groups.  The
+weight is resident, copied once per block, in ``wgmma``'s K-major layout
+without swizzle.  The GEMM is transposed, Y^T(lanes × M) = A^T(lanes ×
+Kp)·wm^T: two consumer warpgroups of MT m64 lane tiles, one ``wgmma``
+m64nMk16 per tile and k16 step with A from an ``ldmatrix.trans`` of the
+slot ([ci][lane]) and B from the weight; rows past the built K (v5's zero
+padding) are zero registers and the ``wgmma`` still runs: M and Kp are the
+probe's own.  ``full`` computes BN lanes and outputs BO = BN - 8 (strips
+overlap by 8): out[l] = y0[l] + y1[l+1] + y2[l+2] by warp shuffles inside
+an m16 tile and shared memory across tiles; in the last strip the 8-lane
+group at LV reads lanes 0..7 of the three dy rows, staged beside the
+window, which is the wrap mod LV.  The bf16 tile is staged transposed and
+written with 16-byte stores.  ``fuse`` is checked (it divides D) and leaves
+the walk as it is.
 
 ``slab_conv`` runs ``slab_conv_plain`` on CPU tensors and the kernel on
 CUDA tensors, or raises.
@@ -61,12 +72,40 @@ LAUNCHES = 0
 # A builds and epilogues; codes must match csrc/slab_conv.cu
 KINDS = {"dot_only": 0, "abuild": 1, "dy0": 2, "full": 3}
 COUT = 16  # output channels the kernel writes (the probes')
+# the kernel's tiling and shared memory; must match csrc/slab_conv.cu
+CONSUMERS = 8          # consumer warps (two warpgroups), plus a producer warpgroup
+WRAP = 24              # slot lanes of full's wrap: the first 8 of each dy row
+OPAD = 8               # bf16 of padding per staged output row
+BAR_BYTES = 128        # full / empty mbarriers of MAX_STAGES slots
+MAX_STAGES = 8
+SMEM_LIMIT = 232448    # dynamic shared memory of one block on an H100
 
 
 def geometry(xf_shape, wp: int):
     """(N, D, C, LFULL, LV) of a (N, D+2, C, LFULL) slab input."""
     n, dp2, c, lfull = xf_shape
     return n, dp2 - 2, c, lfull, lfull - 2 * wp
+
+
+def plan(kind: str, m: int, kp: int, c: int, wp: int) -> dict:
+    """The kernel's launch plan (``make_plan`` in the source): m64 tiles a
+    warpgroup ``mt``, lanes computed ``bn`` and output ``bo`` per strip,
+    slab lanes staged from the strip start ``win``, slot row stride ``rs``
+    (an odd number of 16-byte units), ring slots ``stages``, shared memory
+    ``smem`` in bytes, and the walk's ``span`` (slabs a plane reads)."""
+    full = kind == "full"
+    mt = 2 if m == 144 else 4
+    bn = 128 * mt
+    win = bn + (2 * wp if kind in ("abuild", "full") else 0)
+    rs = win + (WRAP if full else 0)
+    if (rs // 8) % 2 == 0:
+        rs += 8
+    # the weight, the staged output and (full) each m16 tile's first rows
+    fixed = BAR_BYTES + kp * m * 2 + COUT * (bn + OPAD) * 2 + (8 * mt * 96 * 4 if full else 0)
+    slot = c * rs * 2
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+    return dict(mt=mt, bn=bn, bo=bn - (8 if full else 0), win=win, rs=rs, stages=stages,
+                smem=fixed + stages * slot, span=1 if kind == "dot_only" else 3)
 
 
 def build_a(xf: torch.Tensor, kind: str, wp: int, bd: int) -> torch.Tensor:
@@ -108,13 +147,15 @@ def _check(xf, wm, kind, wp, bd, fuse) -> None:
     k = (3 if kind == "dy0" else 9) * c
     if (d < 1 or c < 8 or c % 8 or wp % 8 or lfull % 8 or lv < 8 or lv % 8
             or lfull % wp or kp < k or kp % 16 or bd < 2 or bd % 2 or d % bd
-            or fuse < 1 or d % fuse or n * d // fuse > 65535
-            or m not in ((48,) if kind == "full" else (48, 144))):
+            or fuse < 1 or d % fuse
+            or m not in ((48,) if kind == "full" else (48, 144))
+            or plan(kind, m, kp, c, wp)["stages"] < (2 if kind == "dot_only" else 4)):
         raise ValueError(
             f"slab_conv: unsupported {kind} shapes xf {tuple(xf.shape)}, wm "
             f"{tuple(wm.shape)}, wp {wp}, bd {bd}, fuse {fuse}: C and WP multiples "
             "of 8, LFULL = (H+2)·WP, M 48 (or 144 except for full), Kp >= the "
-            "built K and a multiple of 16, BD even dividing D, fuse dividing D")
+            "built K and a multiple of 16, BD even dividing D, fuse dividing D, "
+            "the slab ring in shared memory")
 
 
 def slab_conv(xf: torch.Tensor, wm: torch.Tensor, kind: str, *, wp: int,
@@ -122,8 +163,9 @@ def slab_conv(xf: torch.Tensor, wm: torch.Tensor, kind: str, *, wp: int,
     """The probe's conv GEMM: ``xf`` (N, D+2, C, LFULL) and ``wm`` (M, Kp)
     bf16 -> (N, D, 16, LV) bf16, LV = LFULL - 2·WP.  ``bd`` is the probe's
     BD (even, the block of planes whose first slab ``dot_only`` reads);
-    ``fuse`` planes share one block's staged weight (K5 ``v3``: 2).  CPU
-    tensors take the plain version; CUDA tensors the kernel, or raise."""
+    ``fuse`` is the probe's planes per block sharing its weight (K5 ``v3``:
+    2), checked to divide D; the kernel's walk is the same for every value.
+    CPU tensors take the plain version; CUDA tensors the kernel, or raise."""
     _check(xf, wm, kind, wp, bd, fuse)
     if xf.device.type == "cpu" and wm.device.type == "cpu":
         return slab_conv_plain(xf, wm, kind, wp=wp, bd=bd)
