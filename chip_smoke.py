@@ -27,7 +27,10 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     it against what the JAX package produced
     (``tests/data/torch_port_golden.npz``): the probabilities of a 32^3
     forward, plain and through the packed twin at packed_levels 1 and 2,
-    and the loss and every parameter gradient of one 16^3 train step;
+    and the loss and every parameter gradient of one 16^3 train step; and
+    the port's VNet3d against ``tests/data/torch_port_vnet_golden.npz``:
+    a 32^3 forward's probabilities and one small sliding-window mask
+    (uint8 HU codes, two batches, the mask bit-packed on the card);
  5. starts the port's ``SegServer`` through ``tpuseg_torch.serve``'s code
     path on a local port (seeded weights, 5 classes), sends three CT-like
     NIfTI volumes to ``POST /predict`` (served by the packed twin, the
@@ -60,10 +63,28 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     ``kmicro``, ``kmicro2``, ``kmicro3`` and ``kbench`` run as a user runs
     them (the bench path: the probes' lines, whose times are the kernels',
     and the 6-conv bf16 chains through K2 against cuDNN, whose one-layer
-    difference is checked).
+    difference is checked);
+ 8. sliding-window inference (``tpuseg_torch.infer.sliding_window``):
+    VNet3d (features 16, 2 classes, seeded weights) over bench.py's
+    primary, a 160x160x192 integer-HU CT, all 27 patches of 96^3 of the
+    50 % grid in one batch: from a host-normalized f32 upload, from uint8
+    HU codes normalized on the card with the mask bit-packed (the primary,
+    path ``swin_vnet``), in bf16 from a bf16 upload (``swin_vnet_bf16``),
+    and at 25 % overlap (12 patches); the f32 mask against the same call
+    through the plain versions and the uint8 mask against the f32 one (each
+    >= 0.999), one forward's launches per volume (K1 34, K2 11), volume wall
+    times (interleaved), the forward's and the merge's device ms, the
+    upload and fetch, peak memory, three volumes pipelined; one
+    ``MutilVNet3dModel.inference``; ``MutilUNet3dModel.inference_patch``
+    (features 16, 5 classes, patch 128x112x112, batch 8, 8 patches) through
+    the packed twin and the packed merge (``swin_unet``: K3 3 a forward),
+    against the plain, unpacked net through the plain versions (>= 0.999);
+    and K2 and K1 at the VNet3d's shapes at 27 patches against their plain
+    versions, timed.
 
 Before its last line it prints one JSON object with each kernel's launches
-on the served, f32 and bf16 training and bench paths, error, times (one
+on the served, f32 and bf16 training, bench and sliding-window paths,
+error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
@@ -133,6 +154,23 @@ STEP_GRAD_TOL = 2e-2
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
 TRAIN_DHW = (128, 112, 112)  # (z, y, x) of the training volumes
+# phase 8, the VNet3d sliding window of bench.py's primary: a 160x160x192
+# (d, h, w) integer-HU CT, 96^3 patches, all 27 of the 50 % grid in one
+# batch (12 in one batch at 25 %), VNet3d features 16, 2 classes
+SWIN_VOL, SWIN_PATCH, SWIN_CLASSES, SWIN_BATCH = (160, 160, 192), (96, 96, 96), 2, 27
+SWIN_HU_WINDOW = (100.0, -100.0)  # (upper, lower), "meanstd", as bench.py
+# per 27-patch VNet3d forward: K2 takes the 3^3 LUConvs at 16-64 channels
+# (down_tr32 2, down_tr64 3, up_tr128 3, up_tr64 2, up_tr32 1; the 128- and
+# 256-channel levels and the Cin = 1 stem go to cuDNN), K1 every GroupNorm
+# (in_tr 2, the DownTransitions 15, the UpTransitions 17)
+SWIN_VNET_LAUNCHES = {k: 0 for k in EXPECTED_LAUNCHES}
+SWIN_VNET_LAUNCHES.update(conv3d_small=11, fused_group_norm_relu=34)
+# the UNet3d inference_patch: the reference KiPA net (features 16, 5
+# classes) on patches of its image size (d, h, w) in batches of 8, a CT of
+# (x, y, z) size and spacing that the 0.5 mm resample makes 168x168x192,
+# two patches a side; one forward of the packed twin
+SWIN_UNET_PATCH, SWIN_UNET_BATCH = (128, 112, 112), 8
+SWIN_UNET_SIZE, SWIN_UNET_SPACING = (105, 105, 96), (0.8, 0.8, 1.0)
 
 
 def fail(msg: str) -> None:
@@ -485,6 +523,38 @@ def phase_golden(torch, mods):
         if launches["packed_conv3d_structured"] != 3 * lv:
             fail(f"packed_levels {lv} forward launched K3 "
                  f"{launches['packed_conv3d_structured']} times, not {3 * lv}")
+
+    # the VNet3d golden file: the plain forward and one sliding-window mask
+    # (uint8 HU codes, dequant and bit packing on the card, two batches)
+    gv = np.load(os.path.join(ROOT, "tests", "data", "torch_port_vnet_golden.npz"))
+    vnet = mods["VNet"](int(gv["num_classes"]), int(gv["features"]),
+                        in_channels=int(gv["in_ch"])).cuda().eval()
+    vnet.load_state_dict(mods["vnet_params_from_jax"](mods["seeded_vnet_params"](
+        int(gv["seed"]), int(gv["features"]), int(gv["num_classes"]), int(gv["in_ch"]))),
+        strict=True)
+    with torch.inference_mode():
+        _, probs = vnet(torch.from_numpy(gv["x"]).cuda())
+    probs = probs.cpu().numpy()
+    err = float(np.abs(probs - gv["probs"]).max())
+    top2 = np.sort(gv["probs"], axis=-1)[..., -2:]
+    bad = int(((probs.argmax(-1) != gv["mask"]) & ((top2[..., 1] - top2[..., 0]) >= 1e-4)).sum())
+    codes, dq = mods["hu_code_volume"](gv["sw_hu"].astype(np.float32), *gv["sw_window"],
+                                       "meanstd")
+    c0 = counts(mods)
+    sw_mask = mods["sliding_window_inference"](
+        codes, tuple(int(v) for v in gv["sw_patch"]), lambda x: vnet(x)[1],
+        int(gv["num_classes"]), batch_size=int(gv["sw_batch"]), return_mask=True,
+        pack_mask=True, dequant=dq)
+    launches = delta(counts(mods), c0)
+    sw_bad = int(((sw_mask != gv["sw_mask"]) & ~gv["sw_near_tie"]).sum())
+    say(f"  golden VNet3d {gv['x'].shape[1:4]} features {int(gv['features'])}: probs "
+        f"max_abs_err {err:.3g} (tol 1e-4), mask mismatches outside near-ties {bad}; "
+        f"sliding window {gv['sw_hu'].shape} (uint8 codes, 2 batches): mask mismatches "
+        f"outside near-ties {sw_bad}; launches {launches}")
+    if not err <= 1e-4 or bad or sw_bad:
+        fail("VNet3d golden mismatch")
+    if not launches["conv3d_small"] or not launches["fused_group_norm_relu"]:
+        fail(f"the VNet3d golden sliding window missed a kernel: {launches}")
 
     # one train step (MutilDiceLoss, dropout 0) against the JAX grads
     net = UNet(classes, features, dropout=0.0, in_channels=in_ch)
@@ -930,6 +1000,361 @@ def phase_bench(torch, mods):
     return results, path_launches
 
 
+def vnet_conv_cases():
+    """(cin, cout, side, uses per forward) of the convs that take
+    conv3d_small in VNet3d(features=16) at 96^3 patches."""
+    f = FEATURES
+    return [(f, f, 96, 1), (2 * f, 2 * f, 48, 4), (4 * f, 4 * f, 24, 6)]
+
+
+def vnet_norm_cases():
+    """(channels, side, uses per forward) of the VNet3d's 34 GroupNorms."""
+    f = FEATURES
+    return [(f, 96, 5), (2 * f, 48, 7), (4 * f, 24, 9), (8 * f, 12, 9), (16 * f, 6, 4)]
+
+
+def unet_batch_cases():
+    """The packed UNet3d forward's kernel shapes ((d, h, w) per sample):
+    K2's convs at levels 1-2 (level 0 runs packed, through K3), K1's 18
+    GroupNorms (level 0's on the packed maps, the same rows as the fine
+    map's), K3's packed convs on the level-1 grid."""
+    convs = [(cin, cout, level_shape(lvl), uses) for cin, cout, lvl, uses in conv_cases()
+             if lvl > 0]
+    norms = [(c, level_shape(lvl), uses) for c, lvl, uses in norm_cases()]
+    packs = [(c_fines, f, level_shape(lvl), uses) for c_fines, f, lvl, uses in packed_cases()]
+    return convs, norms, packs
+
+
+def vnet_batch_cases():
+    """The VNet3d forward's K2 and K1 shapes at 96^3 patches."""
+    return ([(cin, cout, (side,) * 3, uses) for cin, cout, side, uses in vnet_conv_cases()],
+            [(c, (side,) * 3, uses) for c, side, uses in vnet_norm_cases()], [])
+
+
+def batch_kernel_rows(torch, mods, n: int, cases, dtypes, tag: str):
+    """K2, K1 and K3 at one forward's shapes at a batch of ``n`` patches,
+    each held to its plain version and timed (a, b, b, a): {(kernel,
+    dtype): one forward's calls summed}.  ``cases`` is (convs (cin, cout,
+    (d, h, w), uses), norms (c, (d, h, w), uses), packs (c_fines, f,
+    packed (d, h, w), uses))."""
+    conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
+    convs, norms, packs = cases
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype_name in dtypes:
+        dtype = getattr(torch, dtype_name)
+        size = torch.tensor([], dtype=dtype).element_size()
+        rate = "tf32x3" if dtype_name == "float32" else dtype_name
+        rows = {"conv3d_small": [], "fused_group_norm_relu": [],
+                "packed_conv3d_structured": []}
+        for cin, cout, (d, h, w), uses in convs:
+            x = torch.randn((n, d, h, w, cin), generator=gen, device="cuda").to(dtype)
+            wt = torch.randn((3, 3, 3, cin, cout), generator=gen, device="cuda") \
+                * (2.0 / (27 * cin)) ** 0.5
+            packed = conv3d.pack_weight(wt, dtype)
+            err, scale = rel_err(conv3d.conv3d_small(x, wt, packed),
+                                 conv3d.conv3d_small_plain(x, wt))
+            ms, plain_ms = time_pair(torch, lambda: conv3d.conv3d_small(x, wt, packed),
+                                     lambda: conv3d.conv3d_small_plain(x, wt), iters=5)
+            vox = n * d * h * w
+            bound = bound_ms(2.0 * 27 * cin * cout * vox,
+                             (cin + cout) * vox * size + 27 * cin * cout * 4, rate)
+            _check_row({"c": rows["conv3d_small"]}, "c", dtype_name,
+                       f"{tag} {cin}->{cout} @{n}x{d}x{h}x{w}", err, scale, ms, plain_ms,
+                       uses, bound, plain_ms)
+            del x
+        for c, (d, h, w), uses in norms:
+            x = (torch.randn((n, d, h, w, c), generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda")
+            err, scale = rel_err(fused_norm.fused_group_norm_relu(x, gamma, beta, 8, 1e-6),
+                                 fused_norm.fused_group_norm_relu_plain(x, gamma, beta, 8, 1e-6))
+            ms, plain_ms = time_pair(
+                torch, lambda: fused_norm.fused_group_norm_relu(x, gamma, beta, 8, 1e-6),
+                lambda: fused_norm.fused_group_norm_relu_plain(x, gamma, beta, 8, 1e-6),
+                iters=5)
+            xl = x.permute(0, 4, 1, 2, 3).contiguous()
+            library_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+                xl, 8, gamma.to(dtype), beta.to(dtype), 1e-6), iters=5)
+            del xl
+            n_el = x.numel()
+            _check_row({"c": rows["fused_group_norm_relu"]}, "c", dtype_name,
+                       f"{tag} C{c} @{n}x{d}x{h}x{w}", err, scale, ms, plain_ms, uses,
+                       bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name), library_ms,
+                       " (F.group_norm, no ReLU)")
+            del x
+        for c_fines, f, (d, h, w), uses in packs:
+            npos = n * d * h * w
+            parts = [torch.randn((n, d, h, w, 8 * c), generator=gen, device="cuda").to(dtype)
+                     for c in c_fines]
+            cin = sum(c_fines)
+            wf = (torch.randn((3, 3, 3, cin, f), generator=gen, device="cuda")
+                  * (2.0 / (27 * cin)) ** 0.5).cpu()
+            splits = [sum(c_fines[:i]) for i in range(len(c_fines) + 1)]
+            w3s = [mods["pack_k3_to_k3_coarse"](wf[..., a:b, :]).cuda()
+                   for a, b in zip(splits, splits[1:])]
+            packed = packed_conv.pack_tc(w3s, dtype)
+            err, scale = rel_err(packed_conv.packed_conv3d_structured(parts, w3s, packed=packed),
+                                 packed_conv.packed_conv3d_plain(parts, w3s))
+            ms, plain_ms = time_pair(
+                torch, lambda: packed_conv.packed_conv3d_structured(parts, w3s, packed=packed),
+                lambda: packed_conv.packed_conv3d_plain(parts, w3s), iters=5)
+            x_cat = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
+            w_cat = torch.cat(w3s, dim=3).to(dtype).permute(4, 3, 0, 1, 2)
+            library_ms = time_ms(
+                torch, lambda: torch.nn.functional.conv3d(x_cat, w_cat, padding=1), iters=5)
+            del x_cat
+            # as phase 3: 27 fine taps of cin channels per fine output
+            flops = 2.0 * npos * 8 * f * 27 * cin
+            io = (8 * cin + 8 * f) * npos * size + 64 * cin * 8 * f * 4
+            _check_row({"c": rows["packed_conv3d_structured"]}, "c", dtype_name,
+                       f"{tag} {' + '.join(str(8 * c) for c in c_fines)}->{8 * f} "
+                       f"@{n}x{d}x{h}x{w} packed", err, scale, ms, plain_ms, uses,
+                       bound_ms(flops, io, rate), library_ms, " (cuDNN's dense coarse conv)")
+            del parts
+        for name, r in rows.items():
+            if not r:
+                continue
+            out[(name, dtype_name)] = {
+                f: sum(row[f] * row["uses"] for row in r)
+                for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            out[(name, dtype_name)]["max_abs_err"] = max(row["max_abs_err"] for row in r)
+            out[(name, dtype_name)]["max_err_over_scale"] = max(
+                row["max_abs_err"] / row["scale"] for row in r)
+            out[(name, dtype_name)]["calls"] = sum(row["uses"] for row in r)
+    return out
+
+
+def swin_volume_hu(rng) -> np.ndarray:
+    """bench.py's primary volume (``bench.py:248-251``), drawn from ``rng``
+    in its order: integer HU, soft tissue with noise and a brighter box."""
+    hu = rng.normal(0.0, 120.0, size=SWIN_VOL)
+    hu[40:120, 40:120, 48:144] += rng.normal(60.0, 30.0, size=(80, 80, 96))
+    return np.round(hu).astype(np.float32)
+
+
+def interleaved(torch, fns: dict, reps: int):
+    """Host-clock seconds of each variant, round-robin over ``reps``, each
+    call ended by ``torch.cuda.synchronize()``: ({name: min}, {name:
+    median})."""
+    ts = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts[k].append(time.perf_counter() - t0)
+    return ({k: float(np.min(v)) for k, v in ts.items()},
+            {k: float(np.median(v)) for k, v in ts.items()})
+
+
+def phase_swin(torch, mods):
+    """Sliding-window inference: VNet3d at bench.py's primary (f32 from a
+    host-normalized or a uint8 HU-coded upload, bf16 compute from a bf16
+    upload, 25 % overlap), and MutilUNet3dModel.inference_patch through the
+    packed twin and the packed merge; gates, launch counts, times.
+    Returns ({path: launches}, {path: batch_kernel_rows})."""
+    import copy
+
+    swi = mods["sliding_window_inference"]
+    psw = mods["sliding_window"]
+    rng = np.random.default_rng(SEED)
+    vol_hu = swin_volume_hu(rng)
+    vol = mods["truncate_and_normalize"](vol_hu, *SWIN_HU_WINDOW, "meanstd")
+    codes, dq = mods["hu_code_volume"](vol_hu, *SWIN_HU_WINDOW, "meanstd")
+
+    net = mods["VNet"](SWIN_CLASSES, FEATURES).cuda().eval()
+    net.load_state_dict(mods["vnet_params_from_jax"](
+        mods["seeded_vnet_params"](SEED, FEATURES, SWIN_CLASSES, 1)), strict=True)
+    # its own copy for bf16, so that each keeps one dtype's packed weights
+    net_bf16 = copy.deepcopy(net)
+
+    def apply_f32(p):
+        return net(p)[1]
+
+    def apply_bf16(p):
+        return net_bf16(p.to(torch.bfloat16))[1]
+
+    opts = dict(return_mask=True, pack_mask=True)
+    runs = {
+        "f32": lambda: swi(vol, SWIN_PATCH, apply_f32, SWIN_CLASSES, SWIN_BATCH, **opts),
+        "u8": lambda: swi(codes, SWIN_PATCH, apply_f32, SWIN_CLASSES, SWIN_BATCH,
+                          dequant=dq, **opts),
+        "bf16": lambda: swi(vol, SWIN_PATCH, apply_bf16, SWIN_CLASSES, SWIN_BATCH,
+                            transfer_dtype="bfloat16", **opts),
+        "u8_overlap25": lambda: swi(codes, SWIN_PATCH, apply_f32, SWIN_CLASSES, 12,
+                                    overlap=0.25, dequant=dq, **opts),
+    }
+    t0 = time.perf_counter()
+    masks = {k: fn() for k, fn in runs.items()}  # builds each path's packed weights
+    say(f"  first volumes (one each) in {time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for path, run in (("swin_vnet", "u8"), ("swin_vnet_bf16", "bf16")):
+        reset_counts(mods)
+        masks[run] = runs[run]()
+        launches[path] = counts(mods)
+        if launches[path] != SWIN_VNET_LAUNCHES:
+            fail(f"{path}: launches {launches[path]} != {SWIN_VNET_LAUNCHES} "
+                 "(one 27-patch forward)")
+    with plain_kernels(mods):
+        mask_plain = runs["f32"]()
+    n_vox = float(np.prod(SWIN_VOL))
+    agree = {
+        "f32_kernels_vs_plain": float((masks["f32"] == mask_plain).mean()),
+        "u8_vs_f32": float((masks["u8"] == masks["f32"]).mean()),
+        "bf16_vs_f32": float((masks["bf16"] == masks["f32"]).mean()),
+        "overlap25_vs_50": float((masks["u8_overlap25"] == masks["u8"]).mean()),
+    }
+    say(f"  VNet3d {SWIN_VOL} patch {SWIN_PATCH} batch {SWIN_BATCH}: launches per volume "
+        f"{launches['swin_vnet']}; mask agreement {json.dumps(agree)} (gates: f32 kernels "
+        f"vs plain and u8 vs f32 >= 0.999; bf16 and 25 % overlap not gated); foreground "
+        f"{float(masks['u8'].sum()) / n_vox:.4f}")
+    for m in masks.values():
+        if m.shape != SWIN_VOL or m.max() > 1:
+            fail(f"VNet3d mask shape {m.shape} / labels {np.unique(m)}")
+    if not agree["f32_kernels_vs_plain"] >= 0.999 or not agree["u8_vs_f32"] >= 0.999:
+        fail(f"VNet3d sliding-window agreement {agree}")
+
+    # volume wall time, interleaved; peak memory of the primary
+    best, med = interleaved(torch, runs, reps=3)
+    torch.cuda.reset_peak_memory_stats()
+    runs["u8"]()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # device ms: one 27-patch forward (f32, bf16), and the merge alone (the
+    # forward replaced by its stored output): patches, dequant, accumulate,
+    # argmax, bit packing
+    positions = psw.grid_positions(SWIN_VOL, SWIN_PATCH, 0.5)
+    x_codes = torch.from_numpy(codes[..., None]).cuda()
+    pd, ph, pw = SWIN_PATCH
+    batch = torch.stack([x_codes[z:z + pd, y:y + ph, w:w + pw]
+                         for z, y, w in positions.tolist()]).float() * dq[0] + dq[1]
+    with torch.inference_mode():
+        fwd_ms = time_ms(torch, lambda: apply_f32(batch), iters=3)
+        fwd_bf16_ms = time_ms(torch, lambda: apply_bf16(batch), iters=3)
+        stored = apply_f32(batch)
+        merge_ms = time_ms(torch, lambda: psw._merge(
+            x_codes, positions, lambda p: stored, SWIN_PATCH, SWIN_BATCH, SWIN_CLASSES,
+            False, True, True, dq, False, "delta"), iters=5)
+        del stored
+    # host: pad, pin and upload (the codes need no pad here), fetch
+    t0 = time.perf_counter()
+    for _ in range(3):
+        psw._upload(codes[..., None], False, "cuda")
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) / 3 * 1e3
+    dev_mask = torch.zeros(int(n_vox) // 8, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        psw._fetched(psw._fetch(dev_mask))
+    fetch_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del x_codes, batch, dev_mask
+    # the device's busy share within one volume's own run: a torch.profiler
+    # trace of one u8 volume, its kernels' and copies' device time over
+    # its host-clock time
+    busy = {k: mods["traced_busy"](runs[k]) for k in ("u8", "bf16")}
+    times = {k: {"min_ms": best[k] * 1e3, "median_ms": med[k] * 1e3} for k in runs}
+    say(f"  VNet3d volume wall ms (host clock, min / median of 3 interleaved): "
+        f"{json.dumps(times)}; device ms: forward f32 {fwd_ms:.3f}, bf16 {fwd_bf16_ms:.3f}, "
+        f"merge {merge_ms:.3f}; host ms: pin + upload of the uint8 codes {upload_ms:.3f}, "
+        f"fetch of the packed mask {fetch_ms:.3f}; traced volume (device ms, host ms, "
+        f"busy share): " + ", ".join(f"{k} {d:.3f} / {w:.3f} / {d / w:.4f}"
+                                     for k, (d, w) in busy.items())
+        + f"; peak memory {peak_gb:.2f} GB")
+
+    # the pipelined stream: 3 coded volumes, masks as one by one
+    t0 = time.perf_counter()
+    piped = mods["sliding_window_inference_pipelined"](
+        [codes] * 3, SWIN_PATCH, apply_f32, SWIN_CLASSES, SWIN_BATCH, dequants=dq)
+    piped_ms = (time.perf_counter() - t0) * 1e3
+    piped_agree = min(float((m == masks["u8"]).mean()) for m in piped)
+    say(f"  pipelined: 3 uint8 volumes in {piped_ms:.1f} ms ({piped_ms / 3:.1f} a volume); "
+        f"least agreement with the one-volume call's mask {piped_agree:.6f}")
+    if len(piped) != 3 or not piped_agree >= 0.999:
+        fail("the pipelined masks differ from the one-volume call's")
+
+    # whole-volume VNet3d inference through the compat class, once
+    model_v = mods["MutilVNet3dModel"](96, 96, 96, 1, SWIN_CLASSES, features=FEATURES,
+                                       device="cuda")
+    model_v.load_jax_params(mods["seeded_vnet_params"](SEED, FEATURES, SWIN_CLASSES, 1))
+    ct = mods["synthetic_ct"]((140, 120, 90), rng)
+    reset_counts(mods)
+    whole = model_v.inference(ct, (96, 96, 96)).array
+    whole_launches = counts(mods)
+    say(f"  MutilVNet3dModel.inference {ct.array.shape} at 96^3: labels "
+        f"{sorted(int(v) for v in np.unique(whole))}; launches {whole_launches}")
+    if whole.shape != ct.array.shape or whole.max() > 1 or whole_launches != SWIN_VNET_LAUNCHES:
+        fail("MutilVNet3dModel.inference")
+    del model_v
+
+    # UNet3d inference_patch: the packed twin and the packed merge
+    model_u = mods["MutilUNet3dModel"](*SWIN_UNET_PATCH, 1, CLASSES, features=FEATURES,
+                                       device="cuda")
+    model_u.load_jax_params(mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1))
+    ct = mods["synthetic_ct"](SWIN_UNET_SIZE, rng)
+    ct.spacing = SWIN_UNET_SPACING
+
+    def unet_patch():
+        return model_u.inference_patch(ct, (0.5, 0.5, 0.5), batch_size=SWIN_UNET_BATCH).array
+
+    unet_patch()
+    reset_counts(mods)
+    mask_u = unet_patch()
+    launches["swin_unet"] = counts(mods)
+    with plain_kernels(mods), unpacked(model_u):
+        ref_u = unet_patch()
+    agree_u = float((mask_u == ref_u).mean())
+    u_best, u_med = interleaved(torch, {"unet": unet_patch}, reps=3)
+    work = mods["resample_to_spacing"](ct, (0.5, 0.5, 0.5))
+    positions_u = psw.grid_positions(work.array.shape, SWIN_UNET_PATCH, 0.5)
+    n_fwd = -(-len(positions_u) // SWIN_UNET_BATCH)
+    # device ms of one batch-8 forward of the packed twin (as
+    # inference_patch calls it) and of the packed merge alone (its forward
+    # replaced by the stored output); the traced volume's busy share
+    layout = model_u.packed_probs_layout
+    batch_u = torch.randn((SWIN_UNET_BATCH, *SWIN_UNET_PATCH, 1), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(SEED))
+    x_work = torch.randn((*work.array.shape, 1), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.inference_mode():
+        def fwd_u():
+            return mods["packed_unet3d_apply"](model_u.model, batch_u, return_packed=True,
+                                               packed_layout=layout)[1]
+        fwd_u_ms = time_ms(torch, fwd_u, iters=3)
+        stored_u = fwd_u()
+        merge_u_ms = time_ms(torch, lambda: psw._merge(
+            x_work, positions_u, lambda p: stored_u, SWIN_UNET_PATCH, SWIN_UNET_BATCH,
+            CLASSES, False, True, False, None, True, layout), iters=5)
+        del stored_u
+    del batch_u, x_work
+    dev_u, wall_u = mods["traced_busy"](unet_patch)
+    say(f"  MutilUNet3dModel.inference_patch {ct.array.shape} -> {work.array.shape} at "
+        f"0.5 mm, patch {SWIN_UNET_PATCH} batch {SWIN_UNET_BATCH} ({n_fwd} forward): "
+        f"launches {launches['swin_unet']}; labels {sorted(int(v) for v in np.unique(mask_u))}; "
+        f"agreement with the plain, unpacked net through the plain versions {agree_u:.6f}; "
+        f"wall ms min {u_best['unet'] * 1e3:.1f}, median {u_med['unet'] * 1e3:.1f}; "
+        f"device ms: batch-{SWIN_UNET_BATCH} packed forward {fwd_u_ms:.3f}, packed merge "
+        f"{merge_u_ms:.3f}; traced volume: device {dev_u:.3f} ms of {wall_u:.3f} ms host "
+        f"(busy share {dev_u / wall_u:.4f})")
+    if mask_u.shape != ct.array.shape or mask_u.max() > CLASSES - 1:
+        fail(f"UNet3d inference_patch mask {mask_u.shape}")
+    if launches["swin_unet"]["packed_conv3d_structured"] != 3 * n_fwd:
+        fail(f"UNet3d inference_patch launched K3 "
+             f"{launches['swin_unet']['packed_conv3d_structured']} times, not {3 * n_fwd}")
+    if not agree_u >= 0.999:
+        fail(f"UNet3d inference_patch agreement {agree_u} < 0.999")
+    del model_u
+
+    # K2 and K1 at the VNet3d's shapes at 27 patches (f32, bf16), and K2,
+    # K1 and K3 at the packed UNet3d's at 8 (f32), against plain, timed
+    rows = {"swin_vnet": batch_kernel_rows(torch, mods, SWIN_BATCH, vnet_batch_cases(),
+                                           ("float32", "bfloat16"), "VNet"),
+            "swin_unet": batch_kernel_rows(torch, mods, SWIN_UNET_BATCH, unet_batch_cases(),
+                                           ("float32",), "UNet packed")}
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -938,20 +1363,27 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from tpuseg_torch import serve, train
     from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
-    from tpuseg_torch.compat.seg_models import disable_tf32
-    from tpuseg_torch.compat.weights import seeded_unet_params, unet_params_from_jax
+    from tpuseg_torch.compat.seg_models import (MutilUNet3dModel, MutilVNet3dModel,
+                                                disable_tf32)
+    from tpuseg_torch.compat.weights import (seeded_unet_params, seeded_vnet_params,
+                                             unet_params_from_jax, vnet_params_from_jax)
     from tpuseg_torch.config import parse_cli
     from tpuseg_torch.core.prng import step_generator
+    from tpuseg_torch.data.geometry import resample_to_spacing
     from tpuseg_torch.data.nifti import read_nifti, write_nifti
+    from tpuseg_torch.data.normalize import truncate_and_normalize
+    from tpuseg_torch.infer import sliding_window
     from tpuseg_torch.infer.serving import SegServer
+    from tpuseg_torch.infer.volume import hu_code_volume
     from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
                                       slab_conv)
     from tpuseg_torch.losses import build_loss
     from tpuseg_torch.models import unet_packed, vnet_packed
     from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
-    from tpuseg_torch.tools.profiling import synthetic_ct
+    from tpuseg_torch.tools.profiling import synthetic_ct, traced_busy
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -982,7 +1414,14 @@ def main() -> int:
         seeded_unet_params=seeded_unet_params, unet_params_from_jax=unet_params_from_jax,
         make_segmentation_trainer=make_segmentation_trainer, build_loss=build_loss,
         step_generator=step_generator, slab_conv=slab_conv, flat_conv=flat_conv,
-        kmicro=kmicro, kmicro2=kmicro2, kmicro3=kmicro3, kbench=kbench)
+        kmicro=kmicro, kmicro2=kmicro2, kmicro3=kmicro3, kbench=kbench, VNet=VNet,
+        seeded_vnet_params=seeded_vnet_params, vnet_params_from_jax=vnet_params_from_jax,
+        hu_code_volume=hu_code_volume, truncate_and_normalize=truncate_and_normalize,
+        resample_to_spacing=resample_to_spacing, sliding_window=sliding_window,
+        sliding_window_inference=sliding_window.sliding_window_inference,
+        sliding_window_inference_pipelined=sliding_window.sliding_window_inference_pipelined,
+        MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
+        traced_busy=traced_busy)
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -999,6 +1438,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"phase 7: K2 micro-benchmarks ({smi})")
     bench_rows, bench_launches = phase_bench(torch, mods)
+    say(f"phase 8: sliding window ({smi})")
+    swin_launches, swin_rows = phase_swin(torch, mods)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, the TPU kernel): the
@@ -1031,13 +1472,18 @@ def main() -> int:
 
     for name, key, dtype_name, source, replaces in entries:
         rows = [r for r in kernels[key] if r["dtype"] == dtype_name]
+        # the sliding-window paths: the f32 VNet3d and the UNet3d through
+        # the packed twin run the f32 kernels, the bf16 VNet3d the bf16 ones
+        swin = {path: swin_launches[path][key] for path in swin_launches}
         if key.startswith("conv3d_small"):
-            by_path = ({"serve": serve_launches[key], "train": train_launches[key]}
+            by_path = ({"serve": serve_launches[key], "train": train_launches[key],
+                        **swin, "swin_vnet_bf16": 0}
                        if dtype_name == "float32" else
-                       {"train_bf16": bf16_launches[key], "bench": bench_launches[key]})
+                       {"train_bf16": bf16_launches[key], "bench": bench_launches[key],
+                        **swin, "swin_vnet": 0, "swin_unet": 0})
         else:
             by_path = {"serve": serve_launches[key], "train": train_launches[key],
-                       "train_bf16": bf16_launches[key]}
+                       "train_bf16": bf16_launches[key], **swin}
         launches = sum(by_path.values())
         if launches == 0:
             fail(f"{name} was not launched on the serving, training or bench path")
@@ -1061,6 +1507,14 @@ def main() -> int:
             entry["tf32x3"] = {"max_err_over_scale": max(r["max_abs_err"] / r["scale"]
                                                          for r in rows),
                                "gate": TOL["float32"]}
+        for path, path_rows in swin_rows.items():
+            # one sliding-window forward's calls at its batch (phase 8): 27
+            # VNet3d patches, 8 packed UNet3d ones; the bf16 instantiation's
+            # beside K1's
+            if (key, dtype_name) in path_rows:
+                entry[path] = path_rows[(key, dtype_name)]
+                if (key, "bfloat16") in path_rows and key == "fused_group_norm_relu":
+                    entry[path]["bfloat16"] = path_rows[(key, "bfloat16")]
         if not key.startswith("conv3d_small"):
             # the same kernel's bf16 instantiation, timed in phase 3
             bf = [r for r in kernels[key] if r["dtype"] == "bfloat16"]
@@ -1075,7 +1529,7 @@ def main() -> int:
     # K6 with the concat built in the kernel), every variant beside it
     for name, replaces, main_tag in (
             ("slab_conv", "benchmarks/kmicro_r2.py:65, benchmarks/kmicro2_r2.py:88", "K4 full"),
-            ("flat_conv", "benchmarks/kmicro3_r2.py:99,112", "K6 cat")):
+            ("flat_conv", "benchmarks/kmicro3_r2.py:100,113", "K6 cat")):
         rows = bench_rows[name]
         launches = bench_launches[name]
         if launches == 0:
@@ -1085,7 +1539,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"tpuseg_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name],
-                                 "train_bf16": bf16_launches[name], "bench": launches},
+                                 "train_bf16": bf16_launches[name], "bench": launches,
+                                 **{path: c[name] for path, c in swin_launches.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],

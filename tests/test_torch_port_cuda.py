@@ -620,3 +620,91 @@ def test_probe_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         x = flat_conv.build_xcat(big) if prebuilt else big
         with pytest.raises(ValueError, match="unsupported"):
             flat_conv.flat_conv(x, w512, ws=8, rows=24, halo=24, prebuilt=prebuilt)
+
+
+# ------------------------------------------------- the sliding-window slice
+
+def _seeded_vnet(device, features=16, classes=2):
+    from tpuseg_torch.compat.weights import seeded_vnet_params, vnet_params_from_jax
+    from tpuseg_torch.models.vnet import VNet
+
+    net = VNet(classes, features).to(device).eval()
+    net.load_state_dict(vnet_params_from_jax(seeded_vnet_params(0, features, classes, 1)),
+                        strict=True)
+    return net
+
+
+def _plain_layers(monkeypatch):
+    """Route the layers' K2 and K1 calls to their plain versions."""
+    from tpuseg_torch.nn import layers
+
+    monkeypatch.setattr(layers, "conv3d_small",
+                        lambda x, w, packed, packed_t: conv3d.conv3d_small_plain(x, w))
+    monkeypatch.setattr(layers, "fused_group_norm_relu",
+                        fused_norm.fused_group_norm_relu_plain)
+
+
+# the VNet3d at the sliding window's batch of 96^3 patches: 27 in f32 (the
+# bench primary's one forward), 4 in bf16.  f32: probabilities within 1e-3
+# and argmax agreement >= 0.999 (3xTF32 against cuDNN's fp32 through 34
+# layers); bf16: agreement >= 0.99 (two bf16 convolutions summed in other
+# orders, rounded at every layer)
+@pytest.mark.parametrize("dtype, n", [(torch.float32, 27), (torch.bfloat16, 4)])
+def test_vnet3d_forward_kernels_match_plain(cuda, monkeypatch, dtype, n):
+    net = _seeded_vnet(cuda)
+    x = torch.randn((n, 96, 96, 96, 1), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0)).to(dtype)
+    before = (conv3d.LAUNCHES, fused_norm.LAUNCHES)
+    with torch.inference_mode():
+        got = net(x)[1].float()
+    assert (conv3d.LAUNCHES - before[0], fused_norm.LAUNCHES - before[1]) == (11, 34)
+    _plain_layers(monkeypatch)
+    with torch.inference_mode():
+        ref = net(x)[1].float()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-3
+        assert agree >= 0.999, agree
+    else:
+        assert agree >= 0.99, agree
+
+
+def test_sliding_window_mask_kernels_match_plain(cuda, monkeypatch):
+    """A gaussian-weighted, bit-packed VNet3d mask over two batches of
+    64^3 patches: kernels against plain, agreement >= 0.999."""
+    from tpuseg_torch.infer.sliding_window import sliding_window_inference
+
+    net = _seeded_vnet(cuda)
+    vol = torch.randn((100, 90, 110), generator=torch.Generator().manual_seed(1)).numpy()
+
+    def run():
+        return sliding_window_inference(vol, (64, 64, 64), lambda p: net(p)[1], 2,
+                                        batch_size=6, gaussian=True, return_mask=True,
+                                        pack_mask=True)
+
+    got = run()
+    _plain_layers(monkeypatch)
+    ref = run()
+    assert got.shape == vol.shape
+    assert (got == ref).mean() >= 0.999
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("transfer", [None, "bfloat16", "uint8"])
+def test_sliding_window_merge_on_card_matches_cpu(cuda, packed, transfer):
+    """The merge on the card (pinned non-blocking upload, dequant, in-place
+    accumulate, normalization, packed merge) equals the CPU's within 1e-5
+    with an elementwise apply_fn."""
+    from tpuseg_torch.infer.sliding_window import sliding_window_inference
+    from tpuseg_torch.models.vnet_packed import space_to_depth3d
+
+    def apply_fn(x):
+        x = x[..., :1].float()
+        p = torch.softmax(torch.cat([0.9 * x, -0.7 * x + 0.2, 0.3 * x * x - 0.1], -1), -1)
+        return space_to_depth3d(p) if packed else p
+
+    vol = torch.randn((40, 34, 46), generator=torch.Generator().manual_seed(2)).numpy()
+    kw = dict(batch_size=5, gaussian=True, transfer_dtype=transfer, packed_apply=packed)
+    got = sliding_window_inference(vol, (16, 16, 16), apply_fn, 3, device=cuda, **kw)
+    ref = sliding_window_inference(vol, (16, 16, 16), apply_fn, 3, device="cpu", **kw)
+    assert abs(got - ref).max() <= 1e-5

@@ -1,17 +1,23 @@
-"""Reference-compatible 3D U-Net Model classes.
+"""Reference-compatible 3D Model classes (U-Net and V-Net).
 
-Counterpart of ``tpuseg/compat/seg_models.py`` for ``MutilUNet3dModel`` and
-``BinaryUNet3dModel``: the reference constructor signature, ``.pth``
-loading, ``trainprocess`` (Adam, the reference's per-class alpha/gamma,
-best/latest checkpoints with resume), ``inference(Volume, newSize)`` and
-``predict``.  The sliding-window ``inference_patch`` is a later slice.
+Counterpart of ``tpuseg/compat/seg_models.py`` for ``MutilUNet3dModel``,
+``BinaryUNet3dModel``, ``MutilVNet3dModel`` and ``BinaryVNet3dModel``: the
+reference constructor signature, ``.pth`` loading, ``trainprocess`` (Adam,
+the reference's per-class alpha/gamma, best/latest checkpoints with
+resume), ``inference(Volume, newSize)``, ``inference_patch(Volume,
+newSpacing, patch, batch_size, transfer_dtype)`` (batched sliding-window
+inference) and ``predict``.  ``network`` ("unet" or "vnet") picks the net.
 
-``inference`` serves the space-to-depth packed twin of the UNet3d
+The U-Net classes serve the space-to-depth packed twin of the UNet3d
 (``models/unet_packed.py``, the K3 kernel on the card) whenever every side
-of the resized volume divides by 2**levels, as the JAX class does
-(``packed_inference``, a class attribute, switches it off); it is an exact
-rewrite of the same net on the same parameters.  ``predict`` and training
-run the plain net, as in JAX.
+of the input (the resized volume, or the patch) divides by 2**levels, as
+the JAX classes do (``packed_inference``, a class attribute, switches it
+off); it is an exact rewrite of the same net on the same parameters, and
+in ``inference_patch`` its packed probabilities go to the packed
+sliding-window merge.  The V-Net classes serve the plain net: the packed
+VNet3d twin, which JAX serves at sides divisible by 32 (an exact rewrite
+too, so masks agree to rounding), is not ported yet.  ``predict`` and
+training run the plain net, as in JAX.
 """
 from __future__ import annotations
 
@@ -21,13 +27,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from tpuseg_torch.compat.weights import unet_params_from_jax
+from tpuseg_torch.compat.weights import (
+    unet_params_from_jax,
+    vnet_params_from_jax,
+    vnet_state_dict_from_reference,
+)
 from tpuseg_torch.data.dataset import DataLoader, SegDataset3D
 from tpuseg_torch.data.geometry import Volume
-from tpuseg_torch.data.normalize import percentile_zscore
-from tpuseg_torch.infer.volume import infer_volume, probs_to_mask
+from tpuseg_torch.data.normalize import percentile_zscore, truncate_and_normalize
+from tpuseg_torch.infer.volume import infer_volume, infer_volume_patched, probs_to_mask
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.unet_packed import packed_unet3d_apply
+from tpuseg_torch.models.vnet import VNet
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.summary import print_summary
@@ -63,6 +74,7 @@ def _checkpoint_file(model_path: str) -> str:
 class _SegModel3d:
     inference_normalizer = staticmethod(percentile_zscore)
     binary = False
+    network = "unet"
     optimizer = "adam"  # the reference's 3D models train with Adam
 
     def __init__(self, image_depth: int, image_height: int, image_width: int,
@@ -72,7 +84,8 @@ class _SegModel3d:
                  features: int = 16, device=None):
         """``device`` defaults to "cuda" if ``use_cuda`` else "cpu"; there
         is no fallback to the CPU.  Without a checkpoint the weights are
-        He-normal from ``torch.Generator().manual_seed(0)``."""
+        He-normal from ``torch.Generator().manual_seed(0)``.  The class's
+        ``network`` ("unet" or "vnet") picks the net."""
         self.image_depth = image_depth
         self.image_height = image_height
         self.image_width = image_width
@@ -91,9 +104,10 @@ class _SegModel3d:
         self.device = torch.device(
             device if device is not None else ("cuda" if use_cuda else "cpu"))
         disable_tf32()
-        net = UNet(num_classes=numclass, features=features,
-                   in_channels=image_channel,
-                   generator=torch.Generator().manual_seed(0))
+        net_cls = {"unet": UNet, "vnet": VNet}[self.network]
+        net = net_cls(num_classes=numclass, features=features,
+                      in_channels=image_channel,
+                      generator=torch.Generator().manual_seed(0))
         self.model = net.to(self.device).eval()
         if inference:
             print(f"Loading model {model_path}")
@@ -102,17 +116,25 @@ class _SegModel3d:
 
     def load_torch_checkpoint(self, path_or_state_dict) -> None:
         """Load a reference-named state_dict (path to a ``.pth``, a
-        directory holding one, or the dict itself) with ``strict=True``."""
+        directory holding one, or the dict itself) with ``strict=True``.
+        A reference VNet's one ``up_trX.bn`` fills both of the port's
+        UpTransition norms; a state_dict that has them both (the port's
+        own) loads as it is."""
         sd = path_or_state_dict
         if isinstance(sd, (str, os.PathLike)):
             sd = torch.load(_checkpoint_file(os.fspath(sd)), map_location="cpu",
                             weights_only=True)
+        if self.network == "vnet" and not any(".bn2." in k for k in sd):
+            sd = vnet_state_dict_from_reference(sd)
         self.model.load_state_dict(sd, strict=True)
 
     def load_jax_params(self, tree) -> None:
-        """Load a tpuseg UNet parameter tree (numpy leaves)."""
-        self.load_torch_checkpoint(
-            unet_params_from_jax(tree, levels=self.model.levels))
+        """Load a tpuseg UNet or VNet parameter tree (numpy leaves)."""
+        if self.network == "vnet":
+            self.load_torch_checkpoint(vnet_params_from_jax(tree))
+        else:
+            self.load_torch_checkpoint(
+                unet_params_from_jax(tree, levels=self.model.levels))
 
     def _dataloader(self, images, labels, shuffle: bool) -> DataLoader:
         return DataLoader(SegDataset3D(images, labels, binary=self.binary),
@@ -157,11 +179,17 @@ class _SegModel3d:
     # rewrite of the plain net's forward; set False on an instance or the
     # class to serve the plain net.
     packed_inference = True
+    # channel order of the packed probabilities handed to the packed
+    # sliding-window merge: "class" (k*8 + delta), as in JAX
+    packed_probs_layout = "class"
 
     def _supports_packed(self, spatial) -> bool:
-        """The JAX rule: packed when every side divides by 2**levels."""
+        """The JAX rule for the U-Net: packed when every side divides by
+        2**levels (the packed VNet twin is not ported)."""
+        if not self.packed_inference or self.network != "unet":
+            return False
         div = 2 ** self.model.levels
-        return self.packed_inference and all(s > 0 and s % div == 0 for s in spatial)
+        return all(s > 0 and s % div == 0 for s in spatial)
 
     def _inference_probs(self, batch: torch.Tensor) -> torch.Tensor:
         """The served forward: the packed twin (its derived weights made
@@ -176,6 +204,35 @@ class _SegModel3d:
         return infer_volume(imagesitk, self._inference_probs, newSize,
                             normalizer=self.inference_normalizer,
                             device=self.device)
+
+    def inference_patch(self, imagesitk: Volume, newSpacing=(0.5, 0.5, 0.5),
+                        patch=None, batch_size: int = 8,
+                        transfer_dtype=None) -> Volume:
+        """Batched sliding-window inference (the reference's
+        ``inference_patch``): resample to ``newSpacing`` (x, y, z), HU
+        window (-800, -1024) with "meanstd" for every class, as the JAX
+        classes do, patches of ``patch`` (d, h, w; the image size by
+        default) in batches of ``batch_size``, a 50 % overlap grid, the
+        mask resampled back.  ``transfer_dtype="uint8"`` uploads 1-byte HU
+        codes and normalizes on the device; "bfloat16" uploads the
+        normalized volume at half width (the net still computes in
+        float32, as the JAX classes' do)."""
+        patch = tuple(patch or (self.image_depth, self.image_height, self.image_width))
+        packed = self._supports_packed(patch)
+        layout = self.packed_probs_layout
+
+        def apply_fn(x):
+            x = x.float()
+            if packed:
+                return packed_unet3d_apply(self.model, x, return_packed=True,
+                                           packed_layout=layout)[1]
+            return self._forward_probs(x)
+
+        return infer_volume_patched(
+            imagesitk, apply_fn, patch, self.numclass, new_spacing_xyz=newSpacing,
+            hu_window=(-800, -1024, "meanstd"), batch_size=batch_size,
+            transfer_dtype=transfer_dtype, packed_apply=packed, packed_layout=layout,
+            device=self.device)
 
     def predict(self, full_img: np.ndarray, out_threshold: float = 0.5) -> np.ndarray:
         """Channel-first (C, D, H, W) in -> uint8 (D, H, W) label map out;
@@ -199,3 +256,28 @@ class BinaryUNet3dModel(_SegModel3d):
 
 class MutilUNet3dModel(_SegModel3d):
     """``numclass`` output classes, softmax and argmax."""
+
+
+class BinaryVNet3dModel(_SegModel3d):
+    """The 3D V-Net, one output class, sigmoid and threshold.  Whole-volume
+    ``inference`` uses the reference's HU window (-100, 100) with
+    "meanstd".  Serves the plain net: the packed VNet3d twin comes with a
+    later slice."""
+
+    binary = True
+    network = "vnet"
+    packed_inference = False
+    inference_normalizer = staticmethod(
+        lambda a: truncate_and_normalize(a, 100, -100, "meanstd"))
+
+
+class MutilVNet3dModel(_SegModel3d):
+    """The 3D V-Net, ``numclass`` output classes, softmax and argmax.
+    Whole-volume ``inference`` uses the reference's HU window (-100, 100)
+    with "meanstd".  Serves the plain net: the packed VNet3d twin comes
+    with a later slice."""
+
+    network = "vnet"
+    packed_inference = False
+    inference_normalizer = staticmethod(
+        lambda a: truncate_and_normalize(a, 100, -100, "meanstd"))

@@ -1,7 +1,7 @@
 """ITK-equivalent volume geometry: the Volume type and resampling to a size.
 
 Host-side counterpart of ``tpuseg/data/geometry.py`` (``Volume``,
-``resample_to_size``), with ITK conventions:
+``resample_to_size``, ``resample_to_spacing``), with ITK conventions:
 
  * ``Volume.array`` is (z, y, x) indexed (the GetArrayFromImage order);
  * ``origin`` / ``spacing`` are (x, y, z); ``direction`` is the row-major
@@ -94,3 +94,19 @@ def resample_to_size(
         spacing=tuple(new_spacing),
         direction=tuple(vol.direction),
     )
+
+
+def resample_to_spacing(
+    vol: Volume, new_spacing_xyz: Sequence[float], interp: str = LINEAR
+) -> Volume:
+    """Resample to a target (x, y, z) spacing (``resize_image_itk``
+    semantics): size' = round(size * spacing / spacing'), then
+    ``resample_to_size``, then the spacing is stamped to exactly
+    ``new_spacing_xyz``."""
+    old_size = np.asarray(vol.GetSize(), np.float64)
+    old_sp = np.asarray(vol.spacing, np.float64)
+    new_sp = np.asarray(new_spacing_xyz, np.float64)
+    new_size = np.round(old_size * old_sp / new_sp).astype(int)
+    out = resample_to_size(vol, new_size, interp)
+    out.spacing = tuple(new_sp)
+    return out

@@ -21,3 +21,19 @@ def percentile_zscore(
         std = 1.0
     out = (x - mean) / std
     return out.astype(np.float32)
+
+
+def truncate_and_normalize(
+    image: np.ndarray, upper: float, lower: float, method: str = "meanstd"
+) -> np.ndarray:
+    """The reference's ConvertitkTrunctedValue: clip to the HU window
+    [lower, upper] (either order), then normalize by "maxmin" (to [0, 1])
+    or "meanstd" (z-score)."""
+    x = np.clip(image.astype(np.float32), min(lower, upper), max(lower, upper))
+    if method == "maxmin":
+        rng = x.max() - x.min()
+        return ((x - x.min()) / (rng if rng > 0 else 1.0)).astype(np.float32)
+    if method == "meanstd":
+        std = x.std()
+        return ((x - x.mean()) / (std if std > 0 else 1.0)).astype(np.float32)
+    raise ValueError(f"method must be 'maxmin' or 'meanstd': {method!r}")

@@ -39,6 +39,7 @@ from tpuseg_torch.models.vnet_packed import (
     pack_k3_to_k4s2,
     pack_transpose_k2s2_to_1x1,
     packed_softmax,
+    space_to_depth3d,
     tile_channel_packed,
 )
 from tpuseg_torch.nn.layers import max_pool_nd
@@ -243,6 +244,4 @@ def packed_unet3d_apply(net: UNet, x: torch.Tensor, *,
 def space_to_depth_labels(labels: torch.Tensor) -> torch.Tensor:
     """(N, D, H, W) labels -> (N, D/2, H/2, W/2, 8) delta-major, the
     label-side twin of the packed logits layout."""
-    n, d, h, w = labels.shape
-    y = labels.reshape(n, d // 2, 2, h // 2, 2, w // 2, 2)
-    return y.permute(0, 1, 3, 5, 2, 4, 6).reshape(n, d // 2, h // 2, w // 2, 8)
+    return space_to_depth3d(labels[..., None])

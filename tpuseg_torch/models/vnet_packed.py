@@ -1,8 +1,10 @@
 """Space-to-depth packed execution: the vocabulary the packed twins share.
 
 Counterpart of the parts of ``tpuseg/models/vnet_packed.py`` that the
-packed UNet3d (``models/unet_packed.py``) uses; the packed VNet3d apply
-comes with the VNet slice.  A packed activation is (N, D/2, H/2, W/2, 8C)
+packed UNet3d (``models/unet_packed.py``) and the packed sliding-window
+merge (``infer/sliding_window.py``) use; the packed VNet3d twin
+(``packed_vnet3d_probs`` / ``packed_vnet3d_apply``) is not ported yet and
+raises.  A packed activation is (N, D/2, H/2, W/2, 8C)
 with delta-major channels ``delta * C + c``, ``delta = (dd * 2 + dh) * 2 +
 dw``.  The plain net's parameters map exactly onto packed execution:
 
@@ -154,6 +156,14 @@ def conv_k4s2_fine2packed(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def space_to_depth3d(x: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W, C) -> (N, D/2, H/2, W/2, 8C), delta-major channels; the
+    inverse of ``depth_to_space3d``."""
+    n, d, h, w, c = x.shape
+    x = x.reshape(n, d // 2, 2, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(n, d // 2, h // 2, w // 2, 8 * c)
+
+
 def depth_to_space3d(x: torch.Tensor) -> torch.Tensor:
     """(N, D', H', W', 8C) -> (N, 2D', 2H', 2W', C), delta-major channels."""
     n, d, h, w, c8 = x.shape
@@ -226,3 +236,17 @@ def packed_argmax(probs: torch.Tensor, num_classes: int, p: int = 8,
     if num_classes == 1:
         return (grouped[..., 0] > 0.5).to(torch.uint8)
     return torch.argmax(grouped, dim=-1).to(torch.uint8)
+
+
+def packed_vnet3d_apply(*args, **kwargs):
+    """The packed VNet3d twin (``tpuseg/models/vnet_packed.py:858``) is not
+    ported yet: the VNet serves the plain net."""
+    raise NotImplementedError("packed_vnet3d_apply is not ported yet; serve the plain "
+                              "VNet (models/vnet.py)")
+
+
+def packed_vnet3d_probs(*args, **kwargs):
+    """The packed VNet3d twin (``tpuseg/models/vnet_packed.py:846``) is not
+    ported yet: the VNet serves the plain net."""
+    raise NotImplementedError("packed_vnet3d_probs is not ported yet; serve the plain "
+                              "VNet (models/vnet.py)")

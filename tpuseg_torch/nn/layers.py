@@ -2,9 +2,11 @@
 
 The PyTorch counterparts of ``tpuseg/nn/layers.py`` (``ConvND``,
 ``ConvTransposeND``, ``ChannelDropout``, ``max_pool_nd``, ``ConvBlock``,
-``OutputHead``), in the 3D modes the UNet3d serving path calls: stride-1
-SAME convs, kernel-2 stride-2 transpose convs and 2-window max pools.  The
-2D, strided and VALID modes come with the slices that use them.
+``OutputHead`` and the V-Net vocabulary ``LUConv``, ``InputTransition``,
+``DownTransition``, ``UpTransition``), in the 3D modes the UNet3d and VNet3d
+paths call: stride-1 SAME convs, the kernel-2 stride-2 VALID down conv,
+kernel-2 stride-2 transpose convs and 2-window max pools.  The 2D modes
+come with the slice that uses them.
 Activations are channels-last (N, D, H, W, C) at every ``forward``, as in
 tpuseg.  Parameters carry the reference PyTorch framework's names and
 layouts (conv ``weight`` (O, I, *k), transpose-conv ``weight`` (I, O, *k),
@@ -53,9 +55,11 @@ def to_channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvND(nn.Module):
-    """Channels-last stride-1 SAME 3D conv with an odd cubic kernel.
+    """Channels-last 3D conv with a cubic kernel: stride-1 SAME with an odd
+    kernel, or VALID with the stride equal to the kernel (the V-Net's k2 s2
+    down conv).
 
-    A 3x3x3 conv inside ``conv3d_small``'s supported range goes to the
+    A stride-1 3x3x3 conv inside ``conv3d_small``'s supported range goes to the
     hand-written kernel (the convs the TPU kernel took); every other conv
     goes to ``F.conv3d``, as XLA took them outside Pallas.  On the card the
     kernel's packed weights (the forward's, and the transposed one of the
@@ -65,11 +69,15 @@ class ConvND(nn.Module):
     ``weight.data`` is not seen."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 use_bias: bool = True):
+                 use_bias: bool = True, stride: int = 1):
         super().__init__()
-        if kernel_size % 2 == 0:
+        if stride == 1 and kernel_size % 2 == 0:
             raise ValueError("SAME padding needs an odd kernel")
-        self.pad = kernel_size // 2
+        if stride not in (1, kernel_size):
+            raise ValueError(f"stride {stride} with kernel {kernel_size}: a conv is "
+                             "stride-1 SAME or VALID with the stride equal to the kernel")
+        self.stride = stride
+        self.pad = kernel_size // 2 if stride == 1 else 0
         self.weight = nn.Parameter(
             torch.empty(features, in_features, *(kernel_size,) * 3))
         if use_bias:
@@ -96,7 +104,7 @@ class ConvND(nn.Module):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0)  # view
-        if supported(tuple(x.shape), tuple(w_dhwio.shape)):
+        if self.stride == 1 and supported(tuple(x.shape), tuple(w_dhwio.shape)):
             packed = packed_t = None
             if x.is_cuda:
                 packed = self._packed_weight(w_dhwio, x.dtype)
@@ -104,7 +112,7 @@ class ConvND(nn.Module):
                     packed_t = self._packed_weight_t(w_dhwio, x.dtype)
             y = conv3d_small(x, w_dhwio, packed, packed_t)
             return y if bias is None else y + bias
-        y = F.conv3d(to_channels_first(x), w, bias, padding=self.pad)
+        y = F.conv3d(to_channels_first(x), w, bias, stride=self.stride, padding=self.pad)
         return to_channels_last(y)
 
 
@@ -200,6 +208,93 @@ class ConvBlock(nn.Module):
         for conv, norm in self.names:
             x = self.drop(getattr(self, norm)(getattr(self, conv)(x)), generator)
         return x
+
+
+class LUConv(nn.Module):
+    """V-Net unit conv: conv k3 with bias -> GroupNorm(8) -> channel-dropout
+    -> ReLU, the GroupNorm and ReLU fused (exact: dropout commutes with
+    ReLU).  Reference names ``conv1`` / ``bn1``."""
+
+    def __init__(self, features: int, dropout: float = 0.2):
+        super().__init__()
+        self.conv1 = ConvND(features, features, 3)
+        self.bn1 = FusedGNReLU(features)
+        self.drop = ChannelDropout(dropout)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.drop(self.bn1(self.conv1(x)), generator)
+
+
+class InputTransition(nn.Module):
+    """V-Net stem: a 3^3 conv path and a 1^3 conv path from the input, each
+    through ONE GroupNorm's parameters with its own statistics, summed.
+    Reference names ``conv1`` (3^3), ``conv2`` (1^3), ``bn1``."""
+
+    def __init__(self, in_features: int, features: int, dropout: float = 0.2):
+        super().__init__()
+        self.conv1 = ConvND(in_features, features, 3)
+        self.conv2 = ConvND(in_features, features, 1)
+        self.bn1 = FusedGNReLU(features)
+        self.drop = ChannelDropout(dropout)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        a = self.drop(self.bn1(self.conv1(x)), generator)
+        b = self.drop(self.bn1(self.conv2(x)), generator)
+        return a + b
+
+
+class DownTransition(nn.Module):
+    """V-Net down stage: k2 s2 VALID conv -> GroupNorm -> dropout -> ReLU,
+    ``n_convs`` LUConvs, residual add.  Reference names ``down_conv``,
+    ``bn1``, ``ops.{j}``."""
+
+    def __init__(self, in_features: int, features: int, n_convs: int,
+                 dropout: float = 0.2):
+        super().__init__()
+        self.down_conv = ConvND(in_features, features, 2, stride=2)
+        self.bn1 = FusedGNReLU(features)
+        self.drop = ChannelDropout(dropout)
+        self.ops = nn.ModuleList(LUConv(features, dropout) for _ in range(n_convs))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        down = self.drop(self.bn1(self.down_conv(x)), generator)
+        out = down
+        for op in self.ops:
+            out = op(out, generator)
+        return out + down
+
+
+class UpTransition(nn.Module):
+    """V-Net up stage: k2 s2 transpose conv -> GroupNorm -> ReLU, concat the
+    skip (``features`` channels, as the up path), 1^3 conv -> GroupNorm -> ReLU, ``n_convs`` LUConvs, residual add
+    (dropout after each GroupNorm).  Reference names ``up_conv``, ``bn``,
+    ``conv``, ``ops.{j}``.  The reference uses its one ``bn`` for both
+    norms; tpuseg has two (``GroupNorm_0``, ``GroupNorm_1``), and so has
+    the port: ``bn`` and ``bn2``, which a reference ``.pth`` fills with the
+    same tensors (``compat/weights.py``)."""
+
+    def __init__(self, in_features: int, features: int, n_convs: int,
+                 dropout: float = 0.2):
+        super().__init__()
+        self.up_conv = ConvTransposeND(in_features, features)
+        self.bn = FusedGNReLU(features)
+        self.conv = ConvND(2 * features, features, 1)
+        self.bn2 = FusedGNReLU(features)
+        self.drop = ChannelDropout(dropout)
+        self.ops = nn.ModuleList(LUConv(features, dropout) for _ in range(n_convs))
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        up = self.drop(self.bn(self.up_conv(x)), generator)
+        cat = torch.cat([up, skip], dim=-1)
+        cat = self.drop(self.bn2(self.conv(cat)), generator)
+        out = cat
+        for op in self.ops:
+            out = op(out, generator)
+        return out + cat
 
 
 class OutputHead(ConvND):

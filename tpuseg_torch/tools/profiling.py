@@ -1,6 +1,7 @@
 """Where a served request's and a train step's time goes, on one CUDA card.
 
     python -m tpuseg_torch.tools.profiling [--passes 2] [--forwards 5] [--train-steps 3]
+        [--swin-forwards 2]
 
 Builds the served model as ``tpuseg_torch.serve`` does (UNet3d, features
 16, 5 classes, new_size 112x112x128, seeded weights), then for each of
@@ -18,8 +19,13 @@ weights (``--train.compute_dtype bfloat16``), and sums their device time
 per kernel name (the bf16 keys carry a ``bf16_`` prefix).
 It also sums the device time under each ``aten::convolution_backward``
 call by its input shapes, which names the cuDNN convs (those outside the
-kernels' range) that cost the most.  It prints one JSON object, with the
-card's ``nvidia-smi`` name and power limit.
+kernels' range) that cost the most.  Last it traces ``--swin-forwards``
+forwards of the sliding window's VNet3d (features 16, 2 classes, seeded
+weights) on bench.py's batch of 27 patches of 96^3, in f32 and in bf16
+(``swin_`` and ``swin_bf16_`` keys), and sums their device time by kernel
+name and by the PyTorch op that launched it (the kernels of this package
+launch outside any op).  It prints one JSON object, with the card's
+``nvidia-smi`` name and power limit.
 
 ``synthetic_ct`` makes the request volumes; ``chip_smoke.py`` sends the
 same ones.
@@ -140,6 +146,20 @@ def _device_split(prof, count: int) -> dict:
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
+def traced_busy(fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler``: (the device ms of its
+    kernels and copies, summed, and its host-clock ms from a synchronize
+    before to one after).  On one stream the first over the second is the
+    device's busy share of the call."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return sum(_device_split(prof, 1).values()), wall_ms
+
+
 def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
                             dtype: torch.dtype = torch.float32):
     """Device ms per UNet3d train step computed in ``dtype`` (bfloat16:
@@ -191,11 +211,50 @@ def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
     return kernels, dict(sorted(conv_bwd.items(), key=lambda kv: -kv[1]))
 
 
+def swin_forward_split(dtype: torch.dtype = torch.float32, batch: int = 27,
+                       patch: int = 96, forwards: int = 2):
+    """Device ms per sliding-window VNet3d forward (``batch`` patches of
+    ``patch``^3, computed in ``dtype``) by kernel name, and by the op that
+    launched each kernel (its self device time; ours have none), from
+    ``torch.profiler`` after a warmup forward."""
+    from tpuseg_torch.compat.weights import seeded_vnet_params, vnet_params_from_jax
+    from tpuseg_torch.models.vnet import VNet
+
+    net = VNet(2, FEATURES).cuda().eval()
+    net.load_state_dict(vnet_params_from_jax(seeded_vnet_params(SEED, FEATURES, 2, 1)),
+                        strict=True)
+    x = torch.randn((batch, patch, patch, patch, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED)).to(dtype)
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                net(x)
+            torch.cuda.synchronize()
+        kernels = _device_split(prof, forwards)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                net(x)
+            torch.cuda.synchronize()
+    ops = {}
+    for event in prof.key_averages():
+        if event.key.startswith("aten::"):
+            us = _device_us(event)
+            if us > 0:
+                ops[event.key] = us / forwards / 1e3
+    return kernels, dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--passes", type=int, default=2)
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--train-steps", type=int, default=3)
+    ap.add_argument("--swin-forwards", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -231,6 +290,11 @@ def main(argv=None) -> int:
         out.update({f"train_step_{name}device_ms_by_kernel": train_split,
                     f"train_step_{name}device_ms": sum(train_split.values()),
                     f"train_step_{name}conv_backward_device_ms_by_shapes": conv_bwd})
+    for name, dtype in (("swin_", torch.float32), ("swin_bf16_", torch.bfloat16)):
+        kernels, ops = swin_forward_split(dtype, forwards=args.swin_forwards)
+        out.update({f"{name}forward_device_ms_by_kernel": kernels,
+                    f"{name}forward_device_ms_by_op": ops,
+                    f"{name}forward_device_ms": sum(kernels.values())})
     print(json.dumps(out))
     return 0
 
