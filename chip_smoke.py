@@ -70,17 +70,26 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     50 % grid in one batch: from a host-normalized f32 upload, from uint8
     HU codes normalized on the card with the mask bit-packed (the primary,
     path ``swin_vnet``), in bf16 from a bf16 upload (``swin_vnet_bf16``),
-    and at 25 % overlap (12 patches); the f32 mask against the same call
-    through the plain versions and the uint8 mask against the f32 one (each
-    >= 0.999), one forward's launches per volume (K1 34, K2 11), volume wall
-    times (interleaved), the forward's and the merge's device ms, the
-    upload and fetch, peak memory, three volumes pipelined; one
-    ``MutilVNet3dModel.inference``; ``MutilUNet3dModel.inference_patch``
-    (features 16, 5 classes, patch 128x112x112, batch 8, 8 patches) through
-    the packed twin and the packed merge (``swin_unet``: K3 3 a forward),
-    against the plain, unpacked net through the plain versions (>= 0.999);
-    and K2 and K1 at the VNet3d's shapes at 27 patches against their plain
-    versions, timed.
+    and at 25 % overlap (12 patches); the packed VNet3d twin (packed_levels
+    2, class-major packed probabilities into the packed merge) from the
+    uint8 upload in f32 (``swin_vnet_packed``) and with the patches cast to
+    bf16 on the bf16 copy (``swin_vnet_packed_bf16``, bench.py's
+    ``run_primary``), and at packed_levels 1 in f32; the f32 mask against
+    the same call through the plain versions and the uint8 mask against
+    the f32 one (each >= 0.999), the packed twin's masks against the plain
+    net's in the same dtype (>= 0.9999 f32, >= 0.99 bf16), one forward's
+    launches per volume (plain K1 34, K2 11; packed K3 5, K2 6, K1 34, at
+    packed_levels 1 K3 1, K2 10), volume wall times (interleaved), the
+    forwards' and the merges' device ms, the packed forward's device ms by
+    kernel, the upload and fetch, peak memory, busy shares, three volumes
+    pipelined; one ``MutilVNet3dModel.inference`` (the packed twin);
+    ``MutilUNet3dModel.inference_patch`` (features 16, 5 classes, patch
+    128x112x112, batch 8, 8 patches) through the packed twin and the packed
+    merge (``swin_unet``: K3 3 a forward), against the plain, unpacked net
+    through the plain versions (>= 0.999); and K2 and K1 at the VNet3d's
+    shapes at 27 patches, K3 at the packed VNet3d's two grids (fully packed
+    and (H, W)) at 27 patches, and K1-K3 at the packed UNet3d's at 8, in
+    f32 and bf16, against their plain versions, timed.
 
 Before its last line it prints one JSON object with each kernel's launches
 on the served, f32 and bf16 training, bench and sliding-window paths,
@@ -165,6 +174,21 @@ SWIN_HU_WINDOW = (100.0, -100.0)  # (upper, lower), "meanstd", as bench.py
 # (in_tr 2, the DownTransitions 15, the UpTransitions 17)
 SWIN_VNET_LAUNCHES = {k: 0 for k in EXPECTED_LAUNCHES}
 SWIN_VNET_LAUNCHES.update(conv3d_small=11, fused_group_norm_relu=34)
+# per 27-patch forward of the packed VNet3d twin at packed_levels 2: K3 the
+# packed k3 convs (up_tr32's LUConv on the fully packed grid; down_tr32's
+# and up_tr64's two each on the (H, W) grid), K2 the 24^3 level's 64-channel
+# LUConvs (down_tr64 3, up_tr128 3), K1 every GroupNorm; at packed_levels 1
+# K3 up_tr32's LUConv alone and K2 the 48^3 level's four besides
+SWIN_VNET_PACKED_LAUNCHES = {k: 0 for k in EXPECTED_LAUNCHES}
+SWIN_VNET_PACKED_LAUNCHES.update(packed_conv3d_structured=5, conv3d_small=6,
+                                 fused_group_norm_relu=34)
+SWIN_VNET_PACKED1_LAUNCHES = dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=1,
+                                  conv3d_small=10)
+# the packed twin's mask against the plain net's in the same dtype: f32
+# sums in other orders; bf16 rounds every layer of two different programs
+PACKED_AGREE = {"float32": 0.9999, "bfloat16": 0.99}
+# K3's grids: fully packed, and the packed VNet's level B (H and W packed)
+FULL_AXES, HW_AXES = (True, True, True), (False, True, True)
 # the UNet3d inference_patch: the reference KiPA net (features 16, 5
 # classes) on patches of its image size (d, h, w) in batches of 8, a CT of
 # (x, y, z) size and spacing that the 0.5 mm resample makes 168x168x192,
@@ -589,8 +613,8 @@ def plain_kernels(mods):
          lambda x, w, packed, packed_t: conv3d.conv3d_small_plain(x, w)),
         (mods["layers"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
         (mods["vnet_packed"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
-        (mods["unet_packed"], "packed_conv3d_structured",
-         lambda parts, w3s, bias=None, relu=False, packed=None:
+        (mods["vnet_packed"], "packed_conv3d_structured",
+         lambda parts, w3s, bias=None, relu=False, packed=None, axes=None:
              packed_conv.packed_conv3d_plain(parts, w3s, bias, relu)),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
@@ -1021,7 +1045,8 @@ def unet_batch_cases():
     convs = [(cin, cout, level_shape(lvl), uses) for cin, cout, lvl, uses in conv_cases()
              if lvl > 0]
     norms = [(c, level_shape(lvl), uses) for c, lvl, uses in norm_cases()]
-    packs = [(c_fines, f, level_shape(lvl), uses) for c_fines, f, lvl, uses in packed_cases()]
+    packs = [(c_fines, f, level_shape(lvl), uses, FULL_AXES)
+             for c_fines, f, lvl, uses in packed_cases()]
     return convs, norms, packs
 
 
@@ -1031,12 +1056,22 @@ def vnet_batch_cases():
             [(c, (side,) * 3, uses) for c, side, uses in vnet_norm_cases()], [])
 
 
+def vnet_packed_batch_cases():
+    """The packed VNet3d twin's K3 shapes at 96^3 patches (its K2 and K1
+    shapes are the plain net's, held and timed for ``swin_vnet``): up_tr32's
+    LUConv on the fully packed 48^3 grid, 8 x 16 channels, and level B's
+    four LUConvs on the (H, W) grid (48, 24, 24), 4 x 32 channels."""
+    f = FEATURES
+    return ([], [], [((f,), f, (48, 48, 48), 1, FULL_AXES),
+                     ((2 * f,), 2 * f, (48, 24, 24), 4, HW_AXES)])
+
+
 def batch_kernel_rows(torch, mods, n: int, cases, dtypes, tag: str):
     """K2, K1 and K3 at one forward's shapes at a batch of ``n`` patches,
     each held to its plain version and timed (a, b, b, a): {(kernel,
     dtype): one forward's calls summed}.  ``cases`` is (convs (cin, cout,
     (d, h, w), uses), norms (c, (d, h, w), uses), packs (c_fines, f,
-    packed (d, h, w), uses))."""
+    packed (d, h, w), uses, the grid's packed axes))."""
     conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
     convs, norms, packs = cases
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1084,33 +1119,40 @@ def batch_kernel_rows(torch, mods, n: int, cases, dtypes, tag: str):
                        bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name), library_ms,
                        " (F.group_norm, no ReLU)")
             del x
-        for c_fines, f, (d, h, w), uses in packs:
+        for c_fines, f, (d, h, w), uses, axes in packs:
             npos = n * d * h * w
-            parts = [torch.randn((n, d, h, w, 8 * c), generator=gen, device="cuda").to(dtype)
+            p = 2 ** sum(axes)
+            parts = [torch.randn((n, d, h, w, p * c), generator=gen, device="cuda").to(dtype)
                      for c in c_fines]
             cin = sum(c_fines)
             wf = (torch.randn((3, 3, 3, cin, f), generator=gen, device="cuda")
                   * (2.0 / (27 * cin)) ** 0.5).cpu()
             splits = [sum(c_fines[:i]) for i in range(len(c_fines) + 1)]
-            w3s = [mods["pack_k3_to_k3_coarse"](wf[..., a:b, :]).cuda()
+            w3s = [mods["pack_k3_axes"](wf[..., a:b, :], axes).cuda()
                    for a, b in zip(splits, splits[1:])]
-            packed = packed_conv.pack_tc(w3s, dtype)
-            err, scale = rel_err(packed_conv.packed_conv3d_structured(parts, w3s, packed=packed),
-                                 packed_conv.packed_conv3d_plain(parts, w3s))
+            packed = packed_conv.pack_tc(w3s, dtype, axes)
+
+            def k3(parts=parts, w3s=w3s, packed=packed, axes=axes):
+                return packed_conv.packed_conv3d_structured(parts, w3s, packed=packed,
+                                                            axes=axes)
+
+            err, scale = rel_err(k3(), packed_conv.packed_conv3d_plain(parts, w3s))
             ms, plain_ms = time_pair(
-                torch, lambda: packed_conv.packed_conv3d_structured(parts, w3s, packed=packed),
-                lambda: packed_conv.packed_conv3d_plain(parts, w3s), iters=5)
+                torch, k3, lambda: packed_conv.packed_conv3d_plain(parts, w3s), iters=5)
             x_cat = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
             w_cat = torch.cat(w3s, dim=3).to(dtype).permute(4, 3, 0, 1, 2)
             library_ms = time_ms(
                 torch, lambda: torch.nn.functional.conv3d(x_cat, w_cat, padding=1), iters=5)
             del x_cat
-            # as phase 3: 27 fine taps of cin channels per fine output
-            flops = 2.0 * npos * 8 * f * 27 * cin
-            io = (8 * cin + 8 * f) * npos * size + 64 * cin * 8 * f * 4
+            # as phase 3: 27 fine taps of cin channels per fine output, p
+            # fine outputs a position; the structural weight read once
+            flops = 2.0 * npos * p * f * 27 * cin
+            k = packed_conv.k_rows([p * c for c in c_fines], axes)
+            io = (p * cin + p * f) * npos * size + k * p * f * 4
+            grid = "packed" if all(axes) else "packed (H, W)"
             _check_row({"c": rows["packed_conv3d_structured"]}, "c", dtype_name,
-                       f"{tag} {' + '.join(str(8 * c) for c in c_fines)}->{8 * f} "
-                       f"@{n}x{d}x{h}x{w} packed", err, scale, ms, plain_ms, uses,
+                       f"{tag} {' + '.join(str(p * c) for c in c_fines)}->{p * f} "
+                       f"@{n}x{d}x{h}x{w} {grid}", err, scale, ms, plain_ms, uses,
                        bound_ms(flops, io, rate), library_ms, " (cuDNN's dense coarse conv)")
             del parts
         for name, r in rows.items():
@@ -1153,9 +1195,11 @@ def interleaved(torch, fns: dict, reps: int):
 def phase_swin(torch, mods):
     """Sliding-window inference: VNet3d at bench.py's primary (f32 from a
     host-normalized or a uint8 HU-coded upload, bf16 compute from a bf16
-    upload, 25 % overlap), and MutilUNet3dModel.inference_patch through the
-    packed twin and the packed merge; gates, launch counts, times.
-    Returns ({path: launches}, {path: batch_kernel_rows})."""
+    upload, 25 % overlap), its packed twin from the uint8 upload in f32 and
+    bf16 (bench.py's ``run_primary``) and at packed_levels 1, and
+    MutilUNet3dModel.inference_patch through the packed twin and the
+    packed merge; gates, launch counts, times.  Returns ({path: launches},
+    {path: batch_kernel_rows})."""
     import copy
 
     swi = mods["sliding_window_inference"]
@@ -1177,7 +1221,20 @@ def phase_swin(torch, mods):
     def apply_bf16(p):
         return net_bf16(p.to(torch.bfloat16))[1]
 
+    # the packed twin as inference_patch serves it: class-major packed
+    # probabilities into the packed merge; bf16 on the bf16 copy
+    pvp = mods["vnet_packed"]
+
+    def apply_packed(p, levels=2):
+        return pvp.packed_vnet3d_apply(net, p, packed_levels=levels, return_packed=True,
+                                       packed_layout="class")[1]
+
+    def apply_packed_bf16(p):
+        return pvp.packed_vnet3d_apply(net_bf16, p.to(torch.bfloat16), return_packed=True,
+                                       packed_layout="class")[1]
+
     opts = dict(return_mask=True, pack_mask=True)
+    packed_opts = dict(opts, dequant=dq, packed_apply=True, packed_layout="class")
     runs = {
         "f32": lambda: swi(vol, SWIN_PATCH, apply_f32, SWIN_CLASSES, SWIN_BATCH, **opts),
         "u8": lambda: swi(codes, SWIN_PATCH, apply_f32, SWIN_CLASSES, SWIN_BATCH,
@@ -1186,18 +1243,36 @@ def phase_swin(torch, mods):
                             transfer_dtype="bfloat16", **opts),
         "u8_overlap25": lambda: swi(codes, SWIN_PATCH, apply_f32, SWIN_CLASSES, 12,
                                     overlap=0.25, dequant=dq, **opts),
+        # the plain bf16 net from the uint8 upload, the packed bf16 twin's
+        # reference
+        "u8_bf16": lambda: swi(codes, SWIN_PATCH, apply_bf16, SWIN_CLASSES, SWIN_BATCH,
+                               dequant=dq, **opts),
+        "u8_packed": lambda: swi(codes, SWIN_PATCH, apply_packed, SWIN_CLASSES, SWIN_BATCH,
+                                 **packed_opts),
+        "u8_packed_bf16": lambda: swi(codes, SWIN_PATCH, apply_packed_bf16, SWIN_CLASSES,
+                                      SWIN_BATCH, **packed_opts),
+        "u8_packed_lv1": lambda: swi(codes, SWIN_PATCH, lambda p: apply_packed(p, 1),
+                                     SWIN_CLASSES, SWIN_BATCH, **packed_opts),
     }
     t0 = time.perf_counter()
     masks = {k: fn() for k, fn in runs.items()}  # builds each path's packed weights
     say(f"  first volumes (one each) in {time.perf_counter() - t0:.2f} s")
     launches = {}
-    for path, run in (("swin_vnet", "u8"), ("swin_vnet_bf16", "bf16")):
+    for path, run, want in (("swin_vnet", "u8", SWIN_VNET_LAUNCHES),
+                            ("swin_vnet_bf16", "bf16", SWIN_VNET_LAUNCHES),
+                            ("swin_vnet_packed", "u8_packed", SWIN_VNET_PACKED_LAUNCHES),
+                            ("swin_vnet_packed_bf16", "u8_packed_bf16",
+                             SWIN_VNET_PACKED_LAUNCHES),
+                            ("swin_vnet_packed_lv1", "u8_packed_lv1",
+                             SWIN_VNET_PACKED1_LAUNCHES)):
         reset_counts(mods)
         masks[run] = runs[run]()
         launches[path] = counts(mods)
-        if launches[path] != SWIN_VNET_LAUNCHES:
-            fail(f"{path}: launches {launches[path]} != {SWIN_VNET_LAUNCHES} "
-                 "(one 27-patch forward)")
+        if launches[path] != want:
+            fail(f"{path}: launches {launches[path]} != {want} (one 27-patch forward)")
+    # packed_levels 1 is a variant timed beside the primary, not a path of
+    # the kernels line
+    launches_lv1 = launches.pop("swin_vnet_packed_lv1")
     with plain_kernels(mods):
         mask_plain = runs["f32"]()
     n_vox = float(np.prod(SWIN_VOL))
@@ -1206,22 +1281,33 @@ def phase_swin(torch, mods):
         "u8_vs_f32": float((masks["u8"] == masks["f32"]).mean()),
         "bf16_vs_f32": float((masks["bf16"] == masks["f32"]).mean()),
         "overlap25_vs_50": float((masks["u8_overlap25"] == masks["u8"]).mean()),
+        "packed_vs_plain_f32": float((masks["u8_packed"] == masks["u8"]).mean()),
+        "packed_vs_plain_bf16": float((masks["u8_packed_bf16"] == masks["u8_bf16"]).mean()),
+        "packed_lv1_vs_plain_f32": float((masks["u8_packed_lv1"] == masks["u8"]).mean()),
     }
     say(f"  VNet3d {SWIN_VOL} patch {SWIN_PATCH} batch {SWIN_BATCH}: launches per volume "
-        f"{launches['swin_vnet']}; mask agreement {json.dumps(agree)} (gates: f32 kernels "
-        f"vs plain and u8 vs f32 >= 0.999; bf16 and 25 % overlap not gated); foreground "
-        f"{float(masks['u8'].sum()) / n_vox:.4f}")
+        f"{json.dumps(launches)}, packed_levels 1 {json.dumps(launches_lv1)}; mask agreement "
+        f"{json.dumps(agree)} (gates: f32 kernels vs plain and u8 vs f32 >= 0.999, the "
+        f"packed twin vs the plain net >= {PACKED_AGREE['float32']} in f32 (both levels) "
+        f"and >= {PACKED_AGREE['bfloat16']} in bf16; bf16 vs f32 and 25 % overlap not "
+        f"gated); foreground {float(masks['u8'].sum()) / n_vox:.4f}")
     for m in masks.values():
         if m.shape != SWIN_VOL or m.max() > 1:
             fail(f"VNet3d mask shape {m.shape} / labels {np.unique(m)}")
     if not agree["f32_kernels_vs_plain"] >= 0.999 or not agree["u8_vs_f32"] >= 0.999:
         fail(f"VNet3d sliding-window agreement {agree}")
+    if (not agree["packed_vs_plain_f32"] >= PACKED_AGREE["float32"]
+            or not agree["packed_lv1_vs_plain_f32"] >= PACKED_AGREE["float32"]
+            or not agree["packed_vs_plain_bf16"] >= PACKED_AGREE["bfloat16"]):
+        fail(f"packed VNet3d twin against the plain net: {agree}")
 
     # volume wall time, interleaved; peak memory of the primary
     best, med = interleaved(torch, runs, reps=3)
-    torch.cuda.reset_peak_memory_stats()
-    runs["u8"]()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = {}
+    for k in ("u8", "u8_packed", "u8_packed_bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        runs[k]()
+        peak_gb[k] = torch.cuda.max_memory_allocated() / 1e9
     # device ms: one 27-patch forward (f32, bf16), and the merge alone (the
     # forward replaced by its stored output): patches, dequant, accumulate,
     # argmax, bit packing
@@ -1233,10 +1319,22 @@ def phase_swin(torch, mods):
     with torch.inference_mode():
         fwd_ms = time_ms(torch, lambda: apply_f32(batch), iters=3)
         fwd_bf16_ms = time_ms(torch, lambda: apply_bf16(batch), iters=3)
+        # the packed twin's forward, packed_levels 2 and 1, f32 and bf16
+        fwd_packed_ms = {
+            "f32_lv2": time_ms(torch, lambda: apply_packed(batch), iters=3),
+            "bf16_lv2": time_ms(torch, lambda: apply_packed_bf16(batch), iters=3),
+            "f32_lv1": time_ms(torch, lambda: apply_packed(batch, 1), iters=3),
+            "bf16_lv1": time_ms(torch, lambda: pvp.packed_vnet3d_apply(
+                net_bf16, batch.to(torch.bfloat16), packed_levels=1, return_packed=True,
+                packed_layout="class")[1], iters=3)}
         stored = apply_f32(batch)
         merge_ms = time_ms(torch, lambda: psw._merge(
             x_codes, positions, lambda p: stored, SWIN_PATCH, SWIN_BATCH, SWIN_CLASSES,
             False, True, True, dq, False, "delta"), iters=5)
+        stored = apply_packed(batch)
+        merge_packed_ms = time_ms(torch, lambda: psw._merge(
+            x_codes, positions, lambda p: stored, SWIN_PATCH, SWIN_BATCH, SWIN_CLASSES,
+            False, True, True, dq, True, "class"), iters=5)
         del stored
     # host: pad, pin and upload (the codes need no pad here), fetch
     t0 = time.perf_counter()
@@ -1253,15 +1351,26 @@ def phase_swin(torch, mods):
     # the device's busy share within one volume's own run: a torch.profiler
     # trace of one u8 volume, its kernels' and copies' device time over
     # its host-clock time
-    busy = {k: mods["traced_busy"](runs[k]) for k in ("u8", "bf16")}
+    busy = {k: mods["traced_busy"](runs[k]) for k in ("u8", "bf16", "u8_packed",
+                                                      "u8_packed_bf16")}
     times = {k: {"min_ms": best[k] * 1e3, "median_ms": med[k] * 1e3} for k in runs}
     say(f"  VNet3d volume wall ms (host clock, min / median of 3 interleaved): "
         f"{json.dumps(times)}; device ms: forward f32 {fwd_ms:.3f}, bf16 {fwd_bf16_ms:.3f}, "
-        f"merge {merge_ms:.3f}; host ms: pin + upload of the uint8 codes {upload_ms:.3f}, "
-        f"fetch of the packed mask {fetch_ms:.3f}; traced volume (device ms, host ms, "
-        f"busy share): " + ", ".join(f"{k} {d:.3f} / {w:.3f} / {d / w:.4f}"
-                                     for k, (d, w) in busy.items())
-        + f"; peak memory {peak_gb:.2f} GB")
+        f"packed twin " + ", ".join(f"{k} {v:.3f}" for k, v in fwd_packed_ms.items())
+        + f", merge {merge_ms:.3f}, packed merge {merge_packed_ms:.3f}; host ms: pin + "
+        f"upload of the uint8 codes {upload_ms:.3f}, fetch of the packed mask "
+        f"{fetch_ms:.3f}; traced volume (device ms, host ms, busy share): "
+        + ", ".join(f"{k} {d:.3f} / {w:.3f} / {d / w:.4f}" for k, (d, w) in busy.items())
+        + "; peak memory " + ", ".join(f"{k} {v:.2f} GB" for k, v in peak_gb.items()))
+    # the packed twin's forward by kernel (torch.profiler, one 27-patch
+    # forward after a warmup, seeded weights as above)
+    for dtype_name in ("float32", "bfloat16"):
+        split, _ = mods["swin_forward_split"](getattr(torch, dtype_name), forwards=1,
+                                              packed_levels=2)
+        top = list(split.items())[:12]
+        say(f"  packed VNet3d forward {dtype_name} device ms by kernel (sum "
+            f"{sum(split.values()):.3f} over {len(split)} kernels): "
+            + "; ".join(f"{k[:70]} {v:.3f}" for k, v in top))
 
     # the pipelined stream: 3 coded volumes, masks as one by one
     t0 = time.perf_counter()
@@ -1282,9 +1391,11 @@ def phase_swin(torch, mods):
     reset_counts(mods)
     whole = model_v.inference(ct, (96, 96, 96)).array
     whole_launches = counts(mods)
-    say(f"  MutilVNet3dModel.inference {ct.array.shape} at 96^3: labels "
+    say(f"  MutilVNet3dModel.inference {ct.array.shape} at 96^3 (the packed twin, as "
+        f"JAX serves a side that 32 divides): labels "
         f"{sorted(int(v) for v in np.unique(whole))}; launches {whole_launches}")
-    if whole.shape != ct.array.shape or whole.max() > 1 or whole_launches != SWIN_VNET_LAUNCHES:
+    if (whole.shape != ct.array.shape or whole.max() > 1
+            or whole_launches != SWIN_VNET_PACKED_LAUNCHES):
         fail("MutilVNet3dModel.inference")
     del model_v
 
@@ -1350,6 +1461,9 @@ def phase_swin(torch, mods):
     # K1 and K3 at the packed UNet3d's at 8 (f32), against plain, timed
     rows = {"swin_vnet": batch_kernel_rows(torch, mods, SWIN_BATCH, vnet_batch_cases(),
                                            ("float32", "bfloat16"), "VNet"),
+            "swin_vnet_packed": batch_kernel_rows(torch, mods, SWIN_BATCH,
+                                                  vnet_packed_batch_cases(),
+                                                  ("float32", "bfloat16"), "VNet packed"),
             "swin_unet": batch_kernel_rows(torch, mods, SWIN_UNET_BATCH, unet_batch_cases(),
                                            ("float32",), "UNet packed")}
     return launches, rows
@@ -1383,7 +1497,7 @@ def main() -> int:
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
-    from tpuseg_torch.tools.profiling import synthetic_ct, traced_busy
+    from tpuseg_torch.tools.profiling import swin_forward_split, synthetic_ct, traced_busy
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1409,7 +1523,8 @@ def main() -> int:
         conv3d=conv3d, fused_norm=fused_norm, packed_conv=packed_conv, layers=layers,
         unet_packed=unet_packed, vnet_packed=vnet_packed,
         packed_unet3d_apply=unet_packed.packed_unet3d_apply,
-        pack_k3_to_k3_coarse=vnet_packed.pack_k3_to_k3_coarse, read_nifti=read_nifti,
+        pack_k3_to_k3_coarse=vnet_packed.pack_k3_to_k3_coarse,
+        pack_k3_axes=vnet_packed.pack_k3_axes, read_nifti=read_nifti,
         write_nifti=write_nifti, synthetic_ct=synthetic_ct, UNet=UNet,
         seeded_unet_params=seeded_unet_params, unet_params_from_jax=unet_params_from_jax,
         make_segmentation_trainer=make_segmentation_trainer, build_loss=build_loss,
@@ -1421,7 +1536,7 @@ def main() -> int:
         sliding_window_inference=sliding_window.sliding_window_inference,
         sliding_window_inference_pipelined=sliding_window.sliding_window_inference_pipelined,
         MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
-        traced_busy=traced_busy)
+        traced_busy=traced_busy, swin_forward_split=swin_forward_split)
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -1472,15 +1587,17 @@ def main() -> int:
 
     for name, key, dtype_name, source, replaces in entries:
         rows = [r for r in kernels[key] if r["dtype"] == dtype_name]
-        # the sliding-window paths: the f32 VNet3d and the UNet3d through
-        # the packed twin run the f32 kernels, the bf16 VNet3d the bf16 ones
+        # the sliding-window paths: the f32 VNet3d (plain and packed) and
+        # the UNet3d through the packed twin run the f32 kernels, the bf16
+        # VNet3d (plain and packed) the bf16 ones
         swin = {path: swin_launches[path][key] for path in swin_launches}
         if key.startswith("conv3d_small"):
-            by_path = ({"serve": serve_launches[key], "train": train_launches[key],
-                        **swin, "swin_vnet_bf16": 0}
+            swin = {path: n if path.endswith("_bf16") == (dtype_name == "bfloat16") else 0
+                    for path, n in swin.items()}
+            by_path = ({"serve": serve_launches[key], "train": train_launches[key], **swin}
                        if dtype_name == "float32" else
                        {"train_bf16": bf16_launches[key], "bench": bench_launches[key],
-                        **swin, "swin_vnet": 0, "swin_unet": 0})
+                        **swin})
         else:
             by_path = {"serve": serve_launches[key], "train": train_launches[key],
                        "train_bf16": bf16_launches[key], **swin}
@@ -1509,11 +1626,12 @@ def main() -> int:
                                "gate": TOL["float32"]}
         for path, path_rows in swin_rows.items():
             # one sliding-window forward's calls at its batch (phase 8): 27
-            # VNet3d patches, 8 packed UNet3d ones; the bf16 instantiation's
-            # beside K1's
+            # VNet3d patches (plain, and the packed twin's K3), 8 packed
+            # UNet3d ones; the bf16 instantiation's beside K1's and K3's
             if (key, dtype_name) in path_rows:
                 entry[path] = path_rows[(key, dtype_name)]
-                if (key, "bfloat16") in path_rows and key == "fused_group_norm_relu":
+                if (key, "bfloat16") in path_rows and key in ("fused_group_norm_relu",
+                                                              "packed_conv3d_structured"):
                     entry[path]["bfloat16"] = path_rows[(key, "bfloat16")]
         if not key.startswith("conv3d_small"):
             # the same kernel's bf16 instantiation, timed in phase 3

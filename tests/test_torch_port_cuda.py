@@ -343,6 +343,54 @@ def test_packed_conv_kernel_matches_plain(cuda, dtype, grid, c_fines, f, bias, r
     _close(got, ref, dtype)
 
 
+def _coarse_axes(w, axes):
+    from tpuseg_torch.models.vnet_packed import pack_k3_axes
+
+    return pack_k3_axes(w.cpu(), axes)
+
+
+HW = (False, True, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid, c_fines, f, bias, relu", [
+    ((1, 3, 4, 5), (4,), 4, False, False),       # P·F = 16: one padded N tile
+    ((2, 5, 7, 9), (8,), 8, True, True),         # positions not a multiple of 128
+    ((1, 4, 3, 6), (4, 8), 8, True, False),      # two parts of other C
+    ((2, 6, 5, 7), (32,), 32, True, True),       # level B's widths: C 32 -> 4C = 128
+])
+def test_packed_conv_hw_grid_matches_plain(cuda, dtype, grid, c_fines, f, bias, relu):
+    """K3 on the grid packed along H and W only (the packed VNet's level B,
+    P = 4, K = 48 C a part) against its plain version, one launch."""
+    gen = torch.Generator().manual_seed(9)
+    parts = [torch.randn(grid + (4 * c,), generator=gen).to(cuda, dtype) for c in c_fines]
+    w3s = [_coarse_axes(torch.randn((3, 3, 3, c, f), generator=gen) * 0.2, HW).to(cuda)
+           for c in c_fines]
+    b = torch.randn(4 * f, generator=gen).to(cuda) if bias else None
+    before = packed_conv.LAUNCHES
+    with torch.inference_mode():
+        got = packed_conv.packed_conv3d_structured(parts, w3s, b, relu, axes=HW)
+        torch.cuda.synchronize()
+        ref = packed_conv.packed_conv3d_plain(parts, w3s, b, relu)
+    assert packed_conv.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == grid + (4 * f,)
+    _close(got, ref, dtype)
+
+
+def test_packed_conv_hw_grid_rejects_a_partial_stage(cuda):
+    """On the (H, W) grid K = 48 C: at C = 2 it is 96, a whole number of f32
+    stages (32) but not of bf16 ones (64); the bf16 call raises and nothing
+    goes to another route."""
+    x = torch.randn((1, 3, 4, 5, 8), device=cuda)
+    w3 = _coarse_axes(torch.randn((3, 3, 3, 2, 2)) * 0.2, HW).to(cuda)
+    before = packed_conv.LAUNCHES
+    with torch.inference_mode():
+        packed_conv.packed_conv3d_structured([x], [w3], axes=HW)
+        with pytest.raises(ValueError, match="unsupported"):
+            packed_conv.packed_conv3d_structured([x.bfloat16()], [w3], axes=HW)
+    assert packed_conv.LAUNCHES == before + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_conv_kernel_part_offset_by_one_element(cuda, dtype):
     """Parts that start one element past an aligned address (contiguous
@@ -708,3 +756,31 @@ def test_sliding_window_merge_on_card_matches_cpu(cuda, packed, transfer):
     got = sliding_window_inference(vol, (16, 16, 16), apply_fn, 3, device=cuda, **kw)
     ref = sliding_window_inference(vol, (16, 16, 16), apply_fn, 3, device="cpu", **kw)
     assert abs(got - ref).max() <= 1e-5
+
+
+# the packed VNet3d twin on 4 patches of 96^3 against the plain net (both
+# through the kernels; the plain net is held to its plain versions above):
+# f32 probabilities within 1e-3 and argmax agreement >= 0.9999, bf16
+# agreement >= 0.99; a forward's launches: levels 2 K3 5 (one fully packed,
+# four on the (H, W) grid), K2 6, K1 34; levels 1 K3 1, K2 10, K1 34
+@pytest.mark.parametrize("dtype, levels, want", [
+    (torch.float32, 2, (5, 6, 34)), (torch.float32, 1, (1, 10, 34)),
+    (torch.bfloat16, 2, (5, 6, 34))])
+def test_packed_vnet3d_forward_matches_plain_net(cuda, dtype, levels, want):
+    from tpuseg_torch.models.vnet_packed import packed_vnet3d_apply
+
+    net = _seeded_vnet(cuda)
+    x = torch.randn((4, 96, 96, 96, 1), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3)).to(dtype)
+    with torch.inference_mode():
+        ref = net(x)[1].float()
+        before = (packed_conv.LAUNCHES, conv3d.LAUNCHES, fused_norm.LAUNCHES)
+        got = packed_vnet3d_apply(net, x, packed_levels=levels)[1].float()
+        after = (packed_conv.LAUNCHES, conv3d.LAUNCHES, fused_norm.LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-3
+        assert agree >= 0.9999, agree
+    else:
+        assert agree >= 0.99, agree

@@ -71,12 +71,12 @@ def _gather(parts, rows):
     return torch.cat(cols, dim=1)
 
 
-def _emulate(parts, w3s, dtype, bias=None, relu=False):
+def _emulate(parts, w3s, dtype, bias=None, relu=False, axes=packed_conv.FULL):
     """What the kernel computes, from pack_tc's layout: bf16 operands with
     fp32 sums; or 3xTF32, a_lo b_hi + a_hi b_lo + a_hi b_hi on tf32 halves
-    with fp32 sums.  Returns (N, D', H', W', 8F) in ``dtype``."""
+    with fp32 sums.  Returns (N, D', H', W', PF) in ``dtype``."""
     f8 = w3s[0].shape[-1]
-    wt, rows = packed_conv.pack_tc(w3s, dtype)
+    wt, rows = packed_conv.pack_tc(w3s, dtype, axes)
     n_pad = wt.shape[0] * 128
     mats = _unpack(wt, rows.shape[0], n_pad)
     a = _gather([p.to(dtype) for p in parts], rows)
@@ -204,6 +204,48 @@ def test_tc_gemm_matches_jax_packed_k3_conv(n_parts, dtype):
         assert np.abs(one - want).max() > 10 * err
 
 
+HW = (False, True, True)
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tc_gemm_on_the_hw_grid_matches_dense_conv(n_parts, dtype):
+    """The grid packed along H and W only (the packed VNet's level B, P =
+    4): the row table (K = 48 C a part; on the fine D axis each coarse tap
+    reads the one delta of its fine tap) and the emulated GEMM against
+    JAX's dense coarse conv (``packed_k3_conv`` with these axes) and the
+    port's plain version; bias and ReLU as the LUConv takes them.  float32
+    (3xTF32) within 1e-5, bf16 (inputs and weights rounded to bf16 for
+    both) within one bf16 step of the largest value."""
+    rng = np.random.default_rng(5)
+    cf = 8
+    parts = [_rand(rng, (2, 4, 3, 5, 4 * cf)) for _ in range(n_parts)]
+    wf = _rand(rng, (3, 3, 3, n_parts * cf, cf), 0.2)
+    bias = _rand(rng, (4 * cf,))
+    if dtype == torch.bfloat16:
+        parts = [_t(p).to(torch.bfloat16).float().numpy() for p in parts]
+        wf = _t(wf).to(torch.bfloat16).float().numpy()
+    w3s = [vnet_packed.pack_k3_axes(_t(wf[..., i * cf:(i + 1) * cf, :]), HW)
+           for i in range(n_parts)]
+    wt, rows = packed_conv.pack_tc(w3s, dtype, HW)
+    assert rows.shape == (n_parts * 48 * cf,)
+    assert packed_conv.k_rows([4 * cf] * n_parts, HW) == n_parts * 48 * cf
+    # one delta on D: every row's tap reads deltas (dh, dw) only
+    _, k_part = packed_conv._taps(cf, HW)
+    assert k_part == 48 * cf and ((rows.numpy() & 0xFFFF) < 4 * cf).all()
+    # the two parts' convs summed: the conv of their concat
+    want = sum(np.asarray(jvp.packed_k3_conv(
+        (jnp.asarray(p),), jnp.asarray(wf[..., i * cf:(i + 1) * cf, :]), HW))
+        for i, p in enumerate(parts))
+    want = np.maximum(want + bias, 0)
+    plain = packed_conv.packed_conv3d_plain([_t(p) for p in parts], w3s, _t(bias), True)
+    got = _emulate([_t(p) for p in parts], w3s, dtype, _t(bias), True, HW).float().numpy()
+    scale = max(1.0, np.abs(want).max())
+    tol = BF16_STEP if dtype == torch.bfloat16 else 1e-5
+    assert np.abs(got - want).max() <= tol * scale
+    np.testing.assert_allclose(plain.numpy(), want, atol=1e-5 * scale)
+
+
 def _source_constant(name, text):
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
@@ -240,6 +282,22 @@ def test_tc_plan_fits_the_card(c_fines, f, grid, dtype):
     blocks = -(-int(np.prod(grid)) // p["bm"]) * -(-8 * f // 128)
     assert blocks >= 132  # at least one block per SM of the H100
     assert p["bm"] == 128 * p["mt"] and p["stages"] >= 3  # a stage in flight at least
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tc_plan_tiles_the_hw_grid(dtype):
+    """The packed VNet's level-B K3 at the bench primary's batch: parts of
+    4 x 32 channels on (27, 48, 24, 24), K = 48 x 32 = 1536 whole stages of
+    either dtype, and a CUDA-side refusal where K is not (C 2 in bf16)."""
+    p = packed_conv.plan(dtype)
+    shape = (27, 48, 24, 24, 128)
+    assert packed_conv.k_rows([128], HW) == 1536 and 1536 % p["bk"] == 0
+    assert packed_conv.supported([shape], 128, HW, dtype)
+    assert packed_conv.supported([(1, 3, 4, 5, 8)], 8, HW, torch.float32)
+    assert not packed_conv.supported([(1, 3, 4, 5, 8)], 8, HW, torch.bfloat16)
+    assert not packed_conv.supported([(1, 3, 4, 5, 6)], 8, HW)  # 4 does not divide 6
+    blocks = -(-int(np.prod(shape[:4])) // p["bm"])
+    assert blocks >= 132
 
 
 # ---- K1 ------------------------------------------------------------------

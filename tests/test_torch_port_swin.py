@@ -394,10 +394,17 @@ def test_packed_merge_rejects_odd_patches_and_positions():
 
 
 def test_packed_vnet_twin_is_not_ported():
-    for fn in (vnet_packed.packed_vnet3d_apply, vnet_packed.packed_vnet3d_probs):
-        with pytest.raises(NotImplementedError):
-            fn(None, None)
-    assert MutilVNet3dModel.packed_inference is False
+    """The packed VNet3d twin serves (tests/test_torch_port_vnet_packed.py
+    holds it to JAX); its training is what is not ported: ``train=True``,
+    or a net in training mode, raises NotImplementedError naming the
+    packed-training slice."""
+    net = VNet(K, F)
+    x = torch.zeros((1, 32, 32, 32, 1))
+    for kw, mode in (({"train": True}, net.eval), ({}, net.train)):
+        mode()
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="packed-training"):
+            vnet_packed.packed_vnet3d_apply(net, x, **kw)
+    assert MutilVNet3dModel.packed_inference is True
 
 
 # -------------------------------------------------------- end to end

@@ -256,13 +256,20 @@ def test_dropout_follows_the_step_generator():
     assert torch.equal(a, b) and not torch.equal(a, c) and torch.equal(d, e)
 
 
-@pytest.mark.parametrize("name", ["MutilDiceLoss", "MutilCrossEntropyLoss",
-                                  "MutilFocalLoss", "MutilTverskyLoss",
-                                  "BinaryDiceLoss", "BinaryCrossEntropyDiceLoss"])
+@pytest.mark.parametrize("name", [
+    "MutilDiceLoss", "MutilCrossEntropyLoss", "MutilFocalLoss", "MutilTverskyLoss",
+    "BinaryDiceLoss", "BinaryCrossEntropyDiceLoss",
+    "MutilCrossEntropyDiceLoss", "MutilELDiceLoss", "MutilSSLoss",
+    "BinaryJaccardLoss", "BinaryELDiceLoss", "BinarySSLoss", "BinaryTverskyLoss",
+    "BinaryCrossEntropyLoss", "BinaryFocalLoss", "MCCLoss"])
 def test_losses_match_jax(name):
-    """Loss values within 1e-5 on seeded logits and labels."""
+    """Loss values within 1e-5 on seeded logits and labels, for every name
+    the port's ``build_loss`` takes.  ``MCCLoss`` is fed the logits by both
+    trainers, which its square root does not survive (ROADMAP §3, an
+    inherited defect): it passes when both packages agree within 1e-5 or
+    both give NaN."""
     rng = np.random.default_rng(6)
-    binary = name.startswith("Binary")
+    binary = name.startswith("Binary") or name == "MCCLoss"
     c = 1 if binary else K
     logits = (rng.standard_normal((2, 6, 5, 4, c)) * 2).astype(np.float32)
     labels = (rng.integers(0, 2, (2, 6, 5, 4, 1)).astype(np.float32) if binary
@@ -271,7 +278,10 @@ def test_losses_match_jax(name):
     ref = jax_build_loss(name, c, alpha=alpha)(jnp.asarray(logits), jnp.asarray(labels))
     got = port_losses.build_loss(name, c, alpha=alpha)(torch.from_numpy(logits),
                                                        torch.from_numpy(labels))
-    assert abs(float(got) - float(ref)) <= 1e-5
+    if name == "MCCLoss" and np.isnan(float(ref)):
+        assert np.isnan(float(got))
+    else:
+        assert abs(float(got) - float(ref)) <= 1e-5
 
 
 def test_unported_losses_raise():

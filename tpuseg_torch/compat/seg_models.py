@@ -8,16 +8,16 @@ resume), ``inference(Volume, newSize)``, ``inference_patch(Volume,
 newSpacing, patch, batch_size, transfer_dtype)`` (batched sliding-window
 inference) and ``predict``.  ``network`` ("unet" or "vnet") picks the net.
 
-The U-Net classes serve the space-to-depth packed twin of the UNet3d
-(``models/unet_packed.py``, the K3 kernel on the card) whenever every side
-of the input (the resized volume, or the patch) divides by 2**levels, as
-the JAX classes do (``packed_inference``, a class attribute, switches it
-off); it is an exact rewrite of the same net on the same parameters, and
-in ``inference_patch`` its packed probabilities go to the packed
-sliding-window merge.  The V-Net classes serve the plain net: the packed
-VNet3d twin, which JAX serves at sides divisible by 32 (an exact rewrite
-too, so masks agree to rounding), is not ported yet.  ``predict`` and
-training run the plain net, as in JAX.
+The 3D classes serve the space-to-depth packed twin of their net, as the
+JAX classes do (``packed_inference``, a class attribute, switches it off):
+the U-Net's (``models/unet_packed.py``) whenever every side of the input
+(the resized volume, or the patch) divides by 2**levels, the V-Net's
+(``models/vnet_packed.py``, packed_levels 2) whenever every side divides
+by 32; other shapes serve the plain net, as in JAX.  Each twin is an exact
+rewrite of the same net on the same parameters (the K3 kernel on the
+card), and in ``inference_patch`` its packed probabilities go to the
+packed sliding-window merge.  ``predict`` and training run the plain net,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from tpuseg_torch.infer.volume import infer_volume, infer_volume_patched, probs_
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.unet_packed import packed_unet3d_apply
 from tpuseg_torch.models.vnet import VNet
+from tpuseg_torch.models.vnet_packed import packed_vnet3d_apply
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.summary import print_summary
@@ -184,19 +185,24 @@ class _SegModel3d:
     packed_probs_layout = "class"
 
     def _supports_packed(self, spatial) -> bool:
-        """The JAX rule for the U-Net: packed when every side divides by
-        2**levels (the packed VNet twin is not ported)."""
-        if not self.packed_inference or self.network != "unet":
+        """The JAX rule: packed when every side is positive and divides by
+        2**levels (U-Net) or by 32 (V-Net)."""
+        if not self.packed_inference:
             return False
-        div = 2 ** self.model.levels
+        div = 32 if self.network == "vnet" else 2 ** self.model.levels
         return all(s > 0 and s % div == 0 for s in spatial)
 
+    def _packed_probs(self, batch: torch.Tensor, **kw) -> torch.Tensor:
+        """The packed twin's probabilities (its derived weights made once
+        per weight version, dtype and device)."""
+        apply = packed_vnet3d_apply if self.network == "vnet" else packed_unet3d_apply
+        return apply(self.model, batch, **kw)[1]
+
     def _inference_probs(self, batch: torch.Tensor) -> torch.Tensor:
-        """The served forward: the packed twin (its derived weights made
-        once per weight version, ``unet_packed.packed_weights``) or the
-        plain net, by the batch's shape."""
+        """The served forward: the packed twin or the plain net, by the
+        batch's shape."""
         if self._supports_packed(tuple(batch.shape[1:4])):
-            return packed_unet3d_apply(self.model, batch)[1]
+            return self._packed_probs(batch)
         return self._forward_probs(batch)
 
     def inference(self, imagesitk: Volume, newSize=(96, 96, 96)) -> Volume:
@@ -224,8 +230,7 @@ class _SegModel3d:
         def apply_fn(x):
             x = x.float()
             if packed:
-                return packed_unet3d_apply(self.model, x, return_packed=True,
-                                           packed_layout=layout)[1]
+                return self._packed_probs(x, return_packed=True, packed_layout=layout)
             return self._forward_probs(x)
 
         return infer_volume_patched(
@@ -261,12 +266,10 @@ class MutilUNet3dModel(_SegModel3d):
 class BinaryVNet3dModel(_SegModel3d):
     """The 3D V-Net, one output class, sigmoid and threshold.  Whole-volume
     ``inference`` uses the reference's HU window (-100, 100) with
-    "meanstd".  Serves the plain net: the packed VNet3d twin comes with a
-    later slice."""
+    "meanstd"."""
 
     binary = True
     network = "vnet"
-    packed_inference = False
     inference_normalizer = staticmethod(
         lambda a: truncate_and_normalize(a, 100, -100, "meanstd"))
 
@@ -274,10 +277,8 @@ class BinaryVNet3dModel(_SegModel3d):
 class MutilVNet3dModel(_SegModel3d):
     """The 3D V-Net, ``numclass`` output classes, softmax and argmax.
     Whole-volume ``inference`` uses the reference's HU window (-100, 100)
-    with "meanstd".  Serves the plain net: the packed VNet3d twin comes
-    with a later slice."""
+    with "meanstd"."""
 
     network = "vnet"
-    packed_inference = False
     inference_normalizer = staticmethod(
         lambda a: truncate_and_normalize(a, 100, -100, "meanstd"))

@@ -70,12 +70,12 @@ _SIGNATURES = {
     # groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream
     "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
-    # xa, xb, c8a, c8b, rows, wt, bias, y, n, d, h, w, k, n_pad, f8, relu,
-    # stream (bf16, and float32 by 3xTF32)
-    "tpuseg_packed_conv3d_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P],
-    "tpuseg_packed_conv3d_tf32x3": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _P],
+    # xa, xb, c8a, c8b, p, rows, wt, bias, y, n, d, h, w, k, n_pad, f8,
+    # relu, stream (bf16, and float32 by 3xTF32)
+    "tpuseg_packed_conv3d_bf16": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P],
+    "tpuseg_packed_conv3d_tf32x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
     # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream
     "tpuseg_slab_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],

@@ -1,6 +1,7 @@
 // Structured space-to-depth packed k3 conv on the tensor cores: the SAME
 // coarse 3x3x3 conv of one or two delta-major packed NDHWC tensors with a
-// 1/8-dense kernel, paying only the structural multiply-adds, fp32
+// 1/P-dense kernel (P = 8 fully packed, 4 on a grid packed along H and W
+// only), paying only the structural multiply-adds, fp32
 // accumulation, optional bias and ReLU.  bf16 runs wgmma m64n128k16 with
 // both operands in shared memory; f32 runs wgmma m64n128k8 in tf32 three
 // times per step (3xTF32: a_hi b_hi + a_hi b_lo + a_lo b_hi, each half
@@ -14,6 +15,9 @@
 // positions p (n, z, y, x flattened) and the structural rows k.  Row k is
 // one valid (tap, input channel) pair of one part, named by `rows[k]`, so
 // A[p, k] is the part at p shifted by the tap (zero outside the volume).
+// A tap is a -1/0/+1 shift per axis of the coarse grid whether that axis is
+// packed or fine; which deltas it reads is the table's, so one kernel serves
+// every packing: K = (4 per packed axis x 3 per fine axis) C per part.
 // A block owns BM = 128 MT consecutive positions (two warpgroups of MT m64
 // tiles each) and one 128-channel slice of 8F.  Per stage of 128 bytes of K it
 // gathers the A tile with cp.async (each copy names its rows' tap and
@@ -55,6 +59,18 @@ constexpr int MT_TF32 = 2;
 constexpr int STAGES_BF16 = 6;
 constexpr int STAGES_TF32 = 3;
 constexpr int MAX_C8 = 1 << 16;
+
+// valid (tap, delta) pairs per fine channel on a grid with p deltas:
+// 4 per packed axis, 3 per fine one (p = 8: 64, p = 4: 48, p = 2: 36, 1: 27)
+int k_per_channel(int p) {
+  switch (p) {
+    case 8: return 64;
+    case 4: return 48;
+    case 2: return 36;
+    case 1: return 27;
+    default: return 0;
+  }
+}
 
 template <bool TF32>
 struct Cfg {
@@ -368,24 +384,26 @@ __global__ void __launch_bounds__(THREADS, 1) packed_conv_tc_kernel(const Args a
 }
 
 template <bool TF32>
-int launch(const void* xa, const void* xb, int c8a, int c8b, const void* rows,
+int launch(const void* xa, const void* xb, int c8a, int c8b, int p, const void* rows,
            const void* wt, const void* bias, void* y, int n, int d, int h, int w, int k,
            int n_pad, int f8, int relu, void* stream) {
   using C = Cfg<TF32>;
   const long long npos = (long long)n * d * h * w;
   const long long blocks = (npos + C::BM - 1) / C::BM;
-  if (n < 1 || d < 1 || h < 1 || w < 1 || c8a < 8 || c8a % 8 != 0 || c8a > MAX_C8 ||
-      c8b < 0 || c8b % 8 != 0 || c8b > MAX_C8 || (c8b > 0) != (xb != nullptr) ||
-      k != 8 * (c8a + c8b) || k % C::BK != 0 || n_pad < BN || n_pad % BN != 0 ||
+  if (k_per_channel(p) == 0 || n < 1 || d < 1 || h < 1 || w < 1 || c8a < p ||
+      c8a % p != 0 || c8a > MAX_C8 || c8b < 0 || c8b % p != 0 || c8b > MAX_C8 ||
+      (c8b > 0) != (xb != nullptr) || k != k_per_channel(p) * ((c8a + c8b) / p) ||
+      k % C::BK != 0 || n_pad < BN || n_pad % BN != 0 ||
       n_pad / BN > 65535 || f8 < 8 || f8 % 8 != 0 || f8 > n_pad || npos >= (1LL << 31) ||
       (long long)d * h * w >= (1LL << 31) || blocks > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(wt) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // widest copy that every part's channel runs (multiples of C = c8 / 8
+  // widest copy that every part's channel runs (multiples of C = c8 / p
   // channels) and base pointers allow
   int vec = 16;
-  auto fits = [&](const void* p, int c8) {
-    return c8 == 0 || ((c8 / 8) * C::ES % vec == 0 && reinterpret_cast<uintptr_t>(p) % vec == 0);
+  auto fits = [&](const void* ptr, int c8) {
+    return c8 == 0 ||
+           ((c8 / p) * C::ES % vec == 0 && reinterpret_cast<uintptr_t>(ptr) % vec == 0);
   };
   while (vec > C::ES && !(fits(xa, c8a) && fits(xb, c8b))) vec >>= 1;
   if (!(fits(xa, c8a) && fits(xb, c8b))) return static_cast<int>(cudaErrorInvalidValue);
@@ -419,25 +437,29 @@ int launch(const void* xa, const void* xb, int c8a, int c8b, const void* rows,
 }  // namespace
 
 // xa (n, d, h, w, c8a) and, when c8b > 0, xb (n, d, h, w, c8b) contiguous
-// bf16 (c8 multiples of 8); rows (k,) int32 with k = 8 (c8a + c8b); wt the
+// bf16 on a grid with p deltas a channel group (8 fully packed, 4 packed
+// along H and W; c8 multiples of p); rows (k,) int32 with k = 64 (c8a +
+// c8b) / 8 fully packed, 48 (c8a + c8b) / 4 on the (H, W) grid; wt the
 // bf16 weight in the layout of kernels/packed_conv.py `pack_tc`, 16-byte
 // aligned; bias (f8,) fp32 or null; y (n, d, h, w, f8) bf16, f8 a multiple
 // of 8 and at most n_pad (a multiple of 128).  Returns cudaGetLastError()
 // after the launch.
 extern "C" int tpuseg_packed_conv3d_bf16(const void* xa, const void* xb, int c8a, int c8b,
-                                         const void* rows, const void* wt, const void* bias,
-                                         void* y, int n, int d, int h, int w, int k, int n_pad,
-                                         int f8, int relu, void* stream) {
-  return launch<false>(xa, xb, c8a, c8b, rows, wt, bias, y, n, d, h, w, k, n_pad, f8, relu,
-                       stream);
+                                         int p, const void* rows, const void* wt,
+                                         const void* bias, void* y, int n, int d, int h,
+                                         int w, int k, int n_pad, int f8, int relu,
+                                         void* stream) {
+  return launch<false>(xa, xb, c8a, c8b, p, rows, wt, bias, y, n, d, h, w, k, n_pad, f8,
+                       relu, stream);
 }
 
 // The same for float32 parts and output; wt the tf32 hi/lo weight pair of
 // `pack_tc` (fp32 storage).
 extern "C" int tpuseg_packed_conv3d_tf32x3(const void* xa, const void* xb, int c8a, int c8b,
-                                           const void* rows, const void* wt, const void* bias,
-                                           void* y, int n, int d, int h, int w, int k,
-                                           int n_pad, int f8, int relu, void* stream) {
-  return launch<true>(xa, xb, c8a, c8b, rows, wt, bias, y, n, d, h, w, k, n_pad, f8, relu,
-                      stream);
+                                           int p, const void* rows, const void* wt,
+                                           const void* bias, void* y, int n, int d, int h,
+                                           int w, int k, int n_pad, int f8, int relu,
+                                           void* stream) {
+  return launch<true>(xa, xb, c8a, c8b, p, rows, wt, bias, y, n, d, h, w, k, n_pad, f8,
+                      relu, stream);
 }

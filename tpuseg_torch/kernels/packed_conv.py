@@ -40,6 +40,15 @@ parts, each with its own C, and sums both into one accumulator: the
 table's rows cover part 0's schedule and then part 1's, and
 ``conv(concat) = conv_up(up; w[..., :f, :]) + conv_skip(skip; w[..., f:, :])``.
 
+Partly packed grids.  The packed VNet's level B is packed along H and W
+only (``axes = (False, True, True)``, P = 4 deltas, delta = dh * 2 + dw):
+on the fine D axis each coarse tap is one fine tap.  The kernel is the
+same: a row's tap is a -1/0/+1 shift on the coarse grid whichever axes are
+packed, and which input deltas a tap reads is the table's business
+(``_taps(c, axes)``), so K is 48C per part there (3 fine x 4 x 4 valid
+(tap, delta) pairs) against 64C fully packed.  The C entry takes P to
+check K and the copy width (runs of C = PC / P channels).
+
 There is no backward: the packed twin is served, not trained, in this
 port.  ``packed_conv3d_structured`` runs the plain version on CPU tensors
 and the kernel on CUDA tensors (bf16 -> ``tpuseg_packed_conv3d_bf16``,
@@ -47,6 +56,8 @@ float32 -> ``tpuseg_packed_conv3d_tf32x3``), or raises.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -65,18 +76,23 @@ _BN, _BKB, _THREADS = 128, 128, 256
 _MT = {torch.bfloat16: 1, torch.float32: 2}
 _STAGES = {torch.bfloat16: 6, torch.float32: 3}
 _MAX_C8 = 1 << 16
+# a fully packed grid (pack_d, pack_h, pack_w); the packed VNet's level B is
+# (False, True, True)
+FULL = (True, True, True)
 # the C entry point of each dtype
 ENTRY = {torch.float32: "tpuseg_packed_conv3d_tf32x3",
          torch.bfloat16: "tpuseg_packed_conv3d_bf16"}
 SMEM_LIMIT = 232448  # dynamic shared memory of one block on the H100
 
 
+@functools.lru_cache(maxsize=None)
 def plan(dtype: torch.dtype) -> dict:
     """The kernel's tiling for parts of ``dtype`` (``Cfg`` in the source):
     positions per block (two warpgroups of ``mt`` m64 tiles), K per stage,
     ring slots, shared memory per block, and 32-bit registers per thread
     that the accumulators (m64 x n128 fp32 over a warpgroup, per tile) and,
-    for 3xTF32, the A hi/lo fragments of two k8 steps hold."""
+    for 3xTF32, the A hi/lo fragments of two k8 steps hold.  Cached (the
+    wrapper reads it on every call): read it, do not change it."""
     tf32 = dtype == torch.float32
     es = 4 if tf32 else 2
     mt, stages = _MT[dtype], _STAGES[dtype]
@@ -87,10 +103,19 @@ def plan(dtype: torch.dtype) -> dict:
                 frag_regs=2 * mt * 8 if tf32 else 0)
 
 
-def _axis_valid(u):
-    """Valid (din, dout) pairs of one axis at coarse tap u (0/1/2), from
-    t = 2(u-1) + din - dout + 1 in [0, 3): u=0 -> {(1,0)}, u=1 -> all four,
-    u=2 -> {(0,1)}."""
+def deltas(axes: Sequence[bool] = FULL) -> int:
+    """P, the sub-positions (deltas) a packed channel group holds on a grid
+    packed along ``axes`` (pack_d, pack_h, pack_w): 2**(packed axes)."""
+    return 2 ** sum(bool(a) for a in axes)
+
+
+def _axis_valid(u, packed: bool = True):
+    """Valid (din, dout) pairs of one axis at coarse tap u (0/1/2).  A packed
+    axis: t = 2(u-1) + din - dout + 1 in [0, 3), so u=0 -> {(1,0)}, u=1 ->
+    all four, u=2 -> {(0,1)}.  A fine axis carries one fine tap per coarse
+    tap and no sub-position (JAX ``_axis_select_fine``): {(0,0)}."""
+    if not packed:
+        return [(0, 0)]
     pairs = []
     for din in range(2):
         for dout in range(2):
@@ -99,20 +124,21 @@ def _axis_valid(u):
     return pairs
 
 
-def _tap_chunks(tap, c_fine):
+def _tap_chunks(tap, c_fine, axes=FULL):
     """For coarse tap (a, b, c): the valid input-delta set as contiguous
     channel runs [(lo, hi), ...] of the delta-major packed channel dim,
-    with delta = (dd*2+dh)*2+dw and c_fine channels per delta."""
-    din_sets = []
-    for u in tap:
-        dins = sorted({din for din, _ in _axis_valid(u)})
-        din_sets.append(dins)
-    deltas = sorted(
-        (dd * 2 + dh) * 2 + dw
-        for dd in din_sets[0] for dh in din_sets[1] for dw in din_sets[2]
-    )
+    delta composed d-major over the packed axes (``(dd*2+dh)*2+dw`` fully
+    packed, ``dh*2+dw`` on the (H, W) grid), c_fine channels per delta."""
+    din_sets = [sorted({din for din, _ in _axis_valid(u, p)}) for u, p in zip(tap, axes)]
+    deltas_in = []
+    for dins in itertools.product(*din_sets):
+        delta = 0
+        for din, p in zip(dins, axes):
+            if p:
+                delta = delta * 2 + din
+        deltas_in.append(delta)
     runs = []
-    for d in deltas:
+    for d in sorted(deltas_in):
         lo, hi = d * c_fine, (d + 1) * c_fine
         if runs and runs[-1][1] == lo:
             runs[-1] = (runs[-1][0], hi)
@@ -121,55 +147,65 @@ def _tap_chunks(tap, c_fine):
     return runs
 
 
-def _taps(c_fine):
+def _taps(c_fine, axes=FULL):
     """Static schedule: [(tap(a,b,c), (lo,hi), k_offset), ...] and the
-    total structural K."""
+    total structural K: per axis 4 valid (u, din) pairs when packed, 3 when
+    fine, multiplied over the axes, times c_fine (64C fully packed, 48C on
+    the (H, W) grid)."""
+    sched, k = _schedule(c_fine, tuple(axes))
+    return list(sched), k
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(c_fine, axes):
+    """``_taps``, cached as a tuple: the wrapper checks K on every call."""
     sched = []
     k_off = 0
     for a in range(3):
         for b in range(3):
             for c in range(3):
-                for lo, hi in _tap_chunks((a, b, c), c_fine):
+                for lo, hi in _tap_chunks((a, b, c), c_fine, axes):
                     sched.append(((a, b, c), (lo, hi), k_off))
                     k_off += hi - lo
-    return sched, k_off
+    return tuple(sched), k_off
 
 
-def pack_weight_structured(w3: torch.Tensor, c_fine: int) -> torch.Tensor:
-    """Dense packed kernel (3, 3, 3, 8C, 8F) -> the stacked structural
-    weight (64C, 8F): the valid input-channel rows of each tap, in
-    ``_taps`` order (the JAX function without its K padding)."""
-    sched, _ = _taps(c_fine)
+def pack_weight_structured(w3: torch.Tensor, c_fine: int, axes=FULL) -> torch.Tensor:
+    """Dense packed kernel (3, 3, 3, PC, PF) -> the stacked structural
+    weight (K, PF): the valid input-channel rows of each tap, in ``_taps``
+    order (the JAX function without its K padding)."""
+    sched, _ = _taps(c_fine, axes)
     return torch.cat([w3[a, b, c, lo:hi, :] for (a, b, c), (lo, hi), _ in sched])
 
 
-def row_table(c_fines: Sequence[int]) -> torch.Tensor:
+def row_table(c_fines: Sequence[int], axes=FULL) -> torch.Tensor:
     """The kernel's int32 row table for parts of these C: row k of the
     structural weight reads channel ``code & 0xffff`` of part ``code >>
-    24`` at tap ``(code >> 16) & 0xff`` (= (a * 3 + b) * 3 + c)."""
+    24`` at tap ``(code >> 16) & 0xff`` (= (a * 3 + b) * 3 + c), a -1/0/+1
+    shift per axis on the coarse grid whichever axes are packed."""
     codes = []
     for part, c_fine in enumerate(c_fines):
-        for (a, b, c), (lo, hi), _ in _taps(c_fine)[0]:
+        for (a, b, c), (lo, hi), _ in _taps(c_fine, axes)[0]:
             tap = (a * 3 + b) * 3 + c
             codes.extend((part << 24) | (tap << 16) | ch for ch in range(lo, hi))
     return torch.tensor(codes, dtype=torch.int32)
 
 
-def pack_structured(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
+def pack_structured(w3s: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
     """Dense per-part kernels -> ``(wk, rows)``: wk the (K, n_pad) fp32
     structural weight of all parts, rounded through ``dtype`` (the JAX
-    kernel casts its weight to the activation dtype), its 8F columns
+    kernel casts its weight to the activation dtype), its PF columns
     zero-padded to a multiple of 128; rows the kernel's int32 table.  Both
     on the weights' device."""
-    c_fines = [w3.shape[3] // 8 for w3 in w3s]
+    c_fines = [w3.shape[3] // deltas(axes) for w3 in w3s]
     f8 = w3s[0].shape[4]
-    stacked = torch.cat([pack_weight_structured(w3.detach().to(dtype), c)
+    stacked = torch.cat([pack_weight_structured(w3.detach().to(dtype), c, axes)
                          for w3, c in zip(w3s, c_fines)])
     n_pad = -(-f8 // _BN) * _BN
     wk = torch.zeros((stacked.shape[0], n_pad), dtype=torch.float32,
                      device=stacked.device)
     wk[:, :f8] = stacked
-    return wk, row_table(c_fines).to(stacked.device)
+    return wk, row_table(c_fines, axes).to(stacked.device)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -195,13 +231,13 @@ def _mma_tiles(w_nk: torch.Tensor, e: int) -> torch.Tensor:
     return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
-def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype):
+def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
     """Dense per-part kernels -> ``(wt, rows)`` for the kernel of ``dtype``:
     the structural weight of ``pack_structured``, transposed to N x K and
     laid out per stage (``_mma_tiles``).  bf16: (n_pad/128, K/64, 16, 8, 8,
     8) bf16.  float32: its tf32 hi/lo pair, (n_pad/128, K/32, 2, 16, 8, 8,
     4) fp32, hi then lo in each stage.  A caller makes it once per weight."""
-    wk, rows = pack_structured(w3s, dtype)
+    wk, rows = pack_structured(w3s, dtype, axes)
     w_nk = wk.t()
     if dtype == torch.bfloat16:
         return _mma_tiles(w_nk.to(torch.bfloat16), 8), rows
@@ -227,24 +263,41 @@ def packed_conv3d_plain(parts: Sequence[torch.Tensor], w3s: Sequence[torch.Tenso
     return y.contiguous()
 
 
-def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int) -> bool:
-    """Whether the kernel takes parts of these shapes with 8F output
-    channels: one or two 5-D parts over the same (N, D', H', W'), each with
-    8C <= 65536 channels (C >= 1), 8F >= 8, and N·D'·H'·W' < 2**31 (the
-    positions are one flat grid dimension of 128 or 256 per block)."""
-    if not 1 <= len(part_shapes) <= 2 or f8 < 8 or f8 % 8:
+def k_rows(c8s: Sequence[int], axes=FULL) -> int:
+    """The structural K of parts of ``c8s`` packed channels: per part
+    (4 per packed axis x 3 per fine axis) x C, C = c8 / P."""
+    axes = tuple(axes)
+    p = deltas(axes)
+    return sum(_schedule(c8 // p, axes)[1] for c8 in c8s)
+
+
+def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int, axes=FULL,
+              dtype: Optional[torch.dtype] = None) -> bool:
+    """Whether the kernel takes parts of these shapes with ``f8`` output
+    channels on a grid packed along ``axes``: one or two 5-D parts over the
+    same (N, D', H', W'), each with PC <= 65536 channels (C >= 1), f8 >= 8
+    and a multiple of 8, a structural K that fills whole stages of
+    ``dtype`` (both dtypes' when None: 64 bf16 or 32 f32 elements), and
+    N·D'·H'·W' < 2**31 (the positions are one flat grid dimension of 128 or
+    256 per block)."""
+    if len(axes) != 3 or not 1 <= len(part_shapes) <= 2 or f8 < 8 or f8 % 8:
         return False
+    p = deltas(axes)
     grid = tuple(part_shapes[0][:4])
     for shape in part_shapes:
         if len(shape) != 5 or tuple(shape[:4]) != grid:
             return False
-        if shape[4] < 8 or shape[4] % 8 or shape[4] > _MAX_C8:
+        if shape[4] < p or shape[4] % p or shape[4] > _MAX_C8:
             return False
+    dtypes = (torch.bfloat16, torch.float32) if dtype is None else (dtype,)
+    k = k_rows([s[4] for s in part_shapes], axes)
+    if any(dt not in _MT or k % plan(dt)["bk"] for dt in dtypes):
+        return False
     npos = grid[0] * grid[1] * grid[2] * grid[3]
     return 1 <= npos < 2 ** 31
 
 
-def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
+def _launch(parts, packed, bias, relu: bool, f8: int, p: int) -> torch.Tensor:
     global LAUNCHES
     wt, rows = packed
     xa = parts[0]
@@ -257,7 +310,7 @@ def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(xa.device).cuda_stream
         err = fn(
             xa.data_ptr(), None if xb is None else xb.data_ptr(), xa.shape[4],
-            0 if xb is None else xb.shape[4], rows.data_ptr(), wt.data_ptr(),
+            0 if xb is None else xb.shape[4], p, rows.data_ptr(), wt.data_ptr(),
             None if b32 is None else b32.data_ptr(), y.data_ptr(), n, d, h, w,
             rows.shape[0], wt.shape[0] * _BN, f8, int(bool(relu)), stream,
         )
@@ -266,9 +319,9 @@ def _launch(parts, packed, bias, relu: bool, f8: int) -> torch.Tensor:
     return y
 
 
-def _check_packed(packed, parts, f8: int) -> None:
+def _check_packed(packed, parts, f8: int, axes) -> None:
     wt, rows = packed
-    k = sum(8 * p.shape[4] for p in parts)
+    k = k_rows([p.shape[4] for p in parts], axes)
     dev, dtype = parts[0].device, parts[0].dtype
     e = 16 // parts[0].element_size()
     tile = (16, 8, 8, e) if dtype == torch.bfloat16 else (2, 16, 8, 8, e)
@@ -287,18 +340,22 @@ def _check_packed(packed, parts, f8: int) -> None:
 def packed_conv3d_structured(parts: Sequence[torch.Tensor],
                              w3s: Sequence[torch.Tensor],
                              bias: Optional[torch.Tensor] = None,
-                             relu: bool = False, packed=None) -> torch.Tensor:
+                             relu: bool = False, packed=None,
+                             axes: Sequence[bool] = FULL) -> torch.Tensor:
     """SAME coarse k3 conv of one or two delta-major packed parts, summed.
 
-    ``parts``: (N, D', H', W', 8C_i) contiguous, float32 or bfloat16, one
-    dtype; ``w3s``: each part's dense packed kernel (3, 3, 3, 8C_i, 8F)
-    (``pack_k3_to_k3_coarse`` of its slice of the fine kernel's input
-    channels); ``bias`` (8F,) optional; ``packed`` optional, the
-    ``pack_tc(w3s, x.dtype)`` a caller made once.  Returns
-    (N, D', H', W', 8F) in the parts' dtype.  CPU tensors take the plain
-    version (differentiable); CUDA tensors the kernel, which has no
+    ``axes`` (pack_d, pack_h, pack_w): the axes the grid is packed along,
+    P = 2**(packed axes) deltas a channel group; fully packed by default
+    (the UNet twin and the VNet's finest level), (False, True, True) on the
+    packed VNet's level B.  ``parts``: (N, D', H', W', P·C_i) contiguous,
+    float32 or bfloat16, one dtype; ``w3s``: each part's dense packed kernel
+    (3, 3, 3, P·C_i, P·F) (``pack_k3_axes`` of its slice of the fine
+    kernel's input channels); ``bias`` (P·F,) optional; ``packed``
+    optional, the ``pack_tc(w3s, x.dtype, axes)`` a caller made once.
+    Returns (N, D', H', W', P·F) in the parts' dtype.  CPU tensors take the
+    plain version (differentiable); CUDA tensors the kernel, which has no
     backward, so it raises when a gradient would be asked for."""
-    parts, w3s = tuple(parts), tuple(w3s)
+    parts, w3s, axes = tuple(parts), tuple(w3s), tuple(axes)
     tensors = parts + w3s + (() if bias is None else (bias,))
     if all(t.device.type == "cpu" for t in tensors):
         return packed_conv3d_plain(parts, w3s, bias, relu)
@@ -317,7 +374,7 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
         )
     f8 = w3s[0].shape[-1] if w3s else 0
     if (len(w3s) != len(parts)
-            or not supported([tuple(p.shape) for p in parts], f8)
+            or not supported([tuple(p.shape) for p in parts], f8, axes, dtype)
             or any(tuple(w.shape) != (3, 3, 3, p.shape[4], f8)
                    for p, w in zip(parts, w3s))
             or (bias is not None and tuple(bias.shape) != (f8,))):
@@ -335,7 +392,7 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
             "it under torch.no_grad() or torch.inference_mode()"
         )
     if packed is None:
-        packed = pack_tc(w3s, dtype)
+        packed = pack_tc(w3s, dtype, axes)
     else:
-        _check_packed(packed, parts, f8)
-    return _launch(parts, packed, bias, relu, f8)
+        _check_packed(packed, parts, f8, axes)
+    return _launch(parts, packed, bias, relu, f8, deltas(axes))

@@ -27,15 +27,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpuseg_torch.kernels.packed_conv import pack_tc, packed_conv3d_structured
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.vnet_packed import (
+    PackedHead,
+    PackedK3,
+    _dhwio,
+    cached_weights,
     channel_dropout,
     conv_k4s2_fine2packed,
     depth_to_space3d,
     gn_packed,
-    pack_head_1x1,
-    pack_k3_to_k3_coarse,
     pack_k3_to_k4s2,
     pack_transpose_k2s2_to_1x1,
     packed_softmax,
@@ -64,24 +65,6 @@ def _concat_perm(f: int) -> np.ndarray:
     return idx
 
 
-def _dhwio(conv_weight: torch.Tensor) -> torch.Tensor:
-    """torch conv weight (O, I, 3, 3, 3) -> float32 DHWIO on the CPU."""
-    return conv_weight.detach().float().cpu().permute(2, 3, 4, 1, 0)
-
-
-class _K3:
-    """One packed -> packed conv: each part's dense coarse kernel (the
-    plain version's) and, on the card, the structural weight and row
-    table (the kernel's)."""
-
-    def __init__(self, w_parts, dtype: torch.dtype, device: torch.device):
-        self.w3s = tuple(pack_k3_to_k3_coarse(w).to(device) for w in w_parts)
-        self.packed = pack_tc(self.w3s, dtype) if device.type == "cuda" else None
-
-    def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
-        return packed_conv3d_structured(parts, self.w3s, packed=self.packed)
-
-
 class _PackedWeights:
     """Every derived weight of one packed forward, per packed level."""
 
@@ -95,7 +78,7 @@ class _PackedWeights:
             enc = getattr(net, f"encoder{lvl + 1}")
             (c0, _), (c1, _) = enc.names
             self.enc.append((to(pack_k3_to_k4s2(_dhwio(getattr(enc, c0).weight))),
-                             _K3([_dhwio(getattr(enc, c1).weight)], dtype, device)))
+                             PackedK3([_dhwio(getattr(enc, c1).weight)], dtype, device)))
             up = getattr(net, f"upconv{lvl + 1}")
             dec = getattr(net, f"decoder{lvl + 1}")
             (c0, _), (c1, _) = dec.names
@@ -104,23 +87,9 @@ class _PackedWeights:
             self.dec.append((
                 to(pack_transpose_k2s2_to_1x1(up.weight.detach().float().cpu())),
                 to(tile_channel_packed(up.bias.detach().float().cpu())),
-                _K3([w0[..., :f, :], w0[..., f:, :]], dtype, device),
-                _K3([_dhwio(getattr(dec, c1).weight)], dtype, device)))
-        # a copy of the fine head, not the net: the cache below is weakly
-        # keyed by the net, so no value may refer to it
-        conv = net.conv
-        self._head_src = (conv.weight.detach().float().cpu()[:, :, 0, 0, 0].t().clone(),
-                          conv.bias.detach().float().cpu().clone(),
-                          net.num_classes, net.features)
-        self._to, self._head = to, {}
-
-    def head(self, layout: str):
-        """The packed 1x1 head (weight, bias) in ``layout``, made on first
-        use ("class" only for ``return_packed`` callers)."""
-        if layout not in self._head:
-            self._head[layout] = tuple(self._to(t) for t in pack_head_1x1(
-                *self._head_src, layout=layout))
-        return self._head[layout]
+                PackedK3([w0[..., :f, :], w0[..., f:, :]], dtype, device),
+                PackedK3([_dhwio(getattr(dec, c1).weight)], dtype, device)))
+        self.head = PackedHead(net.conv, net.num_classes, net.features, to)
 
 
 # net -> {(dtype, device, packed_levels): (weight version, _PackedWeights)}
@@ -134,15 +103,8 @@ def packed_weights(net: UNet, dtype: torch.dtype, device,
     optimizer step makes them anew; a write through ``.data`` is not
     seen), dtype, device and ``packed_levels``."""
     device = torch.device(device)
-    version = tuple((p._version, p.data_ptr()) for p in net.parameters())
-    key = (dtype, device, packed_levels)
-    per_net = _CACHE.setdefault(net, {})
-    hit = per_net.get(key)
-    if hit is None or hit[0] != version:
-        with torch.no_grad():
-            hit = (version, _PackedWeights(net, dtype, device, packed_levels))
-        per_net[key] = hit
-    return hit[1]
+    return cached_weights(_CACHE, net, (dtype, device, packed_levels),
+                          lambda: _PackedWeights(net, dtype, device, packed_levels))
 
 
 def _block_packed(x, blk, stem, k3, rate, generator):

@@ -1,38 +1,56 @@
-"""Space-to-depth packed execution: the vocabulary the packed twins share.
+"""Space-to-depth packed execution: the packed VNet3d twin and the
+vocabulary the packed twins share.
 
-Counterpart of the parts of ``tpuseg/models/vnet_packed.py`` that the
-packed UNet3d (``models/unet_packed.py``) and the packed sliding-window
-merge (``infer/sliding_window.py``) use; the packed VNet3d twin
-(``packed_vnet3d_probs`` / ``packed_vnet3d_apply``) is not ported yet and
-raises.  A packed activation is (N, D/2, H/2, W/2, 8C)
-with delta-major channels ``delta * C + c``, ``delta = (dd * 2 + dh) * 2 +
-dw``.  The plain net's parameters map exactly onto packed execution:
+Counterpart of ``tpuseg/models/vnet_packed.py``: the packed VNet3d
+forward (``packed_vnet3d_apply`` / ``packed_vnet3d_probs``, inference), and
+the transforms and ops that it, the packed UNet3d (``models/unet_packed.py``)
+and the packed sliding-window merge (``infer/sliding_window.py``) use.  A
+fully packed activation is (N, D/2, H/2, W/2, 8C) with delta-major channels
+``delta * C + c``, ``delta = (dd * 2 + dh) * 2 + dw``; the packed VNet's
+level B is packed along H and W only, (N, D, H/2, W/2, 4C) with ``delta =
+dh * 2 + dw`` ("part4").  The plain net's parameters map exactly onto
+packed execution:
 
  * k3s1 SAME conv, fine -> packed   == k4 stride-2 conv (``pack_k3_to_k4s2``)
- * k3s1 SAME conv, packed -> packed == coarse k3 conv, 1/8 dense
-   (``pack_k3_to_k3_coarse``; the K3 kernel pays only the structural part)
- * k2s2 transpose conv              == 1x1 conv onto packed
-   (``pack_transpose_k2s2_to_1x1``)
+ * k1 conv, fine -> packed          == k2 stride-2 conv (``pack_k1_to_k2s2``)
+ * k3s1 SAME conv, packed -> packed == coarse k3 conv, 1/P dense
+   (``pack_k3_axes``; the K3 kernel pays only the structural part)
+ * k2s2 down conv, packed input     == 1x1 (``pack_down_k2s2_to_1x1``), or
+   (1,2,2) s(1,2,2) onto part4 (``pack_down_k2s2_full8_to_part4``), or
+   (2,1,1) s(2,1,1) from part4 (``pack_down_k2s2_part4_to_fine``)
+ * k2s2 transpose conv              == 1x1 onto packed
+   (``pack_transpose_k2s2_to_1x1``), or a (2,1,1) s(2,1,1) transpose onto
+   part4, or a (1,2,2) s(1,2,2) one from part4 onto full8
  * max pool k2s2                    == max over the 8 delta channel groups
- * GroupNorm / ChannelDropout / ReLU / concat / 1x1 head / softmax: exact in
-   the packed channel layout.
+ * GroupNorm / ChannelDropout / ReLU / concat / 1x1 convs (block diagonal,
+   ``block_diag_1x1_packed``) / head / softmax: exact in the packed layout.
 
-Weights are in the JAX package's DHWIO layout (``w.permute(2, 3, 4, 1, 0)``
-of a torch conv weight), except ``pack_transpose_k2s2_to_1x1``, which takes
-torch's (I, O, 2, 2, 2) transpose-conv weight.  Activations are
-channels-last.  The transforms are exact (each output is one weight or a
-sum of zeros and one weight), so callers run them once per weight version.
+Conv weights are in the JAX package's DHWIO layout (``w.permute(2, 3, 4,
+1, 0)`` of a torch conv weight).  The transpose-conv transforms take and
+return torch's (I, O, kd, kh, kw) transpose-conv weight, which torch places
+unflipped where flax places the flipped kernel (``compat/weights.py``
+converts between the two), so they need none of the JAX functions' flips.
+Activations are channels-last.  The transforms are exact (each output is
+one weight or a sum of zeros and one weight), so callers run them once per
+weight version.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import weakref
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
-from tpuseg_torch.kernels.packed_conv import packed_conv3d_plain
+from tpuseg_torch.kernels.packed_conv import (
+    FULL,
+    pack_tc,
+    packed_conv3d_plain,
+    packed_conv3d_structured,
+)
+from tpuseg_torch.models.vnet import VNet
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's default, as the plain net
 GROUPS = 8
@@ -64,6 +82,105 @@ def pack_transpose_k2s2_to_1x1(wt: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 2, 3, 4, 1).reshape(wt.shape[0], 8 * wt.shape[1])
 
 
+def pack_k1_to_k2s2(w1: torch.Tensor) -> torch.Tensor:
+    """(1, 1, 1, C, F) -> (2, 2, 2, C, 8F): the fine 1^3 conv as a k2
+    stride-2 conv onto packed output, each delta's output from that delta's
+    own fine voxel."""
+    c, f = w1.shape[-2:]
+    w2 = w1.new_zeros((2, 2, 2, c, 8 * f))
+    for dd, dh, dw, delta in _deltas():
+        w2[dd, dh, dw, :, delta * f:(delta + 1) * f] = w1[0, 0, 0]
+    return w2
+
+
+def pack_down_k2s2_to_1x1(w: torch.Tensor) -> torch.Tensor:
+    """k2s2 VALID down conv (2, 2, 2, C, F) reading fully packed input ->
+    the 1x1 conv (1, 1, 1, 8C, F) with W1[(delta, c), f] = W[delta, c, f]."""
+    c, f = w.shape[-2:]
+    w1 = w.new_zeros((1, 1, 1, 8 * c, f))
+    for dd, dh, dw, delta in _deltas():
+        w1[0, 0, 0, delta * c:(delta + 1) * c] = w[dd, dh, dw]
+    return w1
+
+
+def pack_down_k2s2_full8_to_part4(w: torch.Tensor) -> torch.Tensor:
+    """k2s2 VALID down conv (2, 2, 2, C, F), fully packed input (level A)
+    -> (H, W)-packed output (level B): a (1, 2, 2) stride-(1, 2, 2) conv,
+    (1, 2, 2, 8C, 4F).  Along D the input delta is the fine tap; along H
+    and W the coarse tap (dh, dw) is the output delta and the input delta
+    the fine tap."""
+    c, f = w.shape[-2:]
+    w2 = w.new_zeros((1, 2, 2, 8 * c, 4 * f))
+    for dh in range(2):
+        for dw in range(2):
+            dout = dh * 2 + dw
+            for sd, sh, sw, sflat in _deltas():
+                w2[0, dh, dw, sflat * c:(sflat + 1) * c, dout * f:(dout + 1) * f] = \
+                    w[sd, sh, sw]
+    return w2
+
+
+def pack_down_k2s2_part4_to_fine(w: torch.Tensor) -> torch.Tensor:
+    """k2s2 VALID down conv (2, 2, 2, C, F), (H, W)-packed input -> fine
+    output (level C): a (2, 1, 1) stride-(2, 1, 1) conv, (2, 1, 1, 4C, F),
+    the H and W taps read from the input's delta channels."""
+    c, f = w.shape[-2:]
+    w2 = w.new_zeros((2, 1, 1, 4 * c, f))
+    for sd, sh, sw, _ in _deltas():
+        sflat = sh * 2 + sw
+        w2[sd, 0, 0, sflat * c:(sflat + 1) * c] = w[sd, sh, sw]
+    return w2
+
+
+def pack_transpose_k2s2_fine_to_part4(wt: torch.Tensor) -> torch.Tensor:
+    """Torch's k2s2 transpose-conv weight (I, O, 2, 2, 2), fine input ->
+    (H, W)-packed output: a (2, 1, 1) stride-(2, 1, 1) transpose conv,
+    weight (I, 4O, 2, 1, 1).  out[2q + td, 2y + dh, 2x + dw] = x[q, y, x] @
+    W[:, :, td, dh, dw] puts (dh, dw) into the output delta dh * 2 + dw;
+    the JAX function's flips (flax's own along D, the delta's along H and
+    W) are the unflipped torch placement here."""
+    i, o = wt.shape[:2]
+    return wt.permute(0, 3, 4, 1, 2).reshape(i, 4 * o, 2, 1, 1)
+
+
+def pack_transpose_k2s2_part4_to_full8(wt: torch.Tensor) -> torch.Tensor:
+    """Torch's k2s2 transpose-conv weight (I, O, 2, 2, 2), (H, W)-packed
+    input (level B) -> fully packed output (level A): a (1, 2, 2)
+    stride-(1, 2, 2) transpose conv, weight (4I, 8O, 1, 2, 2).  The input
+    delta (eh, ew) sits at fine (2y + eh, 2x + ew) of level B, whose k2s2
+    output lands at coarse (2y + eh, 2x + ew) of level A with the fine tap
+    as its delta: the transpose tap (a, b) reads input delta (a, b) only."""
+    i, o = wt.shape[:2]
+    w2 = wt.new_zeros((4 * i, 8 * o, 1, 2, 2))
+    full = wt.permute(0, 2, 3, 4, 1).reshape(i, 8 * o)  # (c, (td, th, tw, o))
+    for a in range(2):
+        for b in range(2):
+            e = a * 2 + b
+            w2[e * i:(e + 1) * i, :, 0, a, b] = full
+    return w2
+
+
+def block_diag_1x1_packed(w1: Optional[torch.Tensor],
+                          extra_in_blocks: Sequence[torch.Tensor] = (),
+                          p: int = 8) -> torch.Tensor:
+    """Fine 1x1 conv (Cin, F) -> the (p·Cin, p·F) matrix of the same conv
+    on p-delta packed maps (block diagonal over the deltas).  With
+    ``extra_in_blocks`` = (w_a, w_b, ...), the rows of the fine weight that
+    read each part of a concat, the rows follow the packed concat [x_a;
+    x_b; ...] (each delta-major) instead: (p·sum(Cin_i), p·F).  The JAX
+    function returns the same as a (1, 1, 1, ...) kernel."""
+    blocks = tuple(extra_in_blocks) or (w1,)
+    f = blocks[0].shape[-1]
+    wp = blocks[0].new_zeros((p * sum(b.shape[0] for b in blocks), p * f))
+    off = 0
+    for b in blocks:
+        c = b.shape[0]
+        for delta in range(p):
+            wp[off + delta * c:off + (delta + 1) * c, delta * f:(delta + 1) * f] = b
+        off += p * c
+    return wp
+
+
 def tile_channel_packed(v: torch.Tensor, p: int = 8) -> torch.Tensor:
     """Per-channel vector (F,) -> packed (p*F,) by delta-major tiling."""
     return v.repeat(p)
@@ -81,6 +198,14 @@ def gn_packed(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = fused_group_norm_relu(x.reshape(n, -1, f), scale.to(x.dtype),
                               bias.to(x.dtype), GROUPS, GN_EPS, relu)
     return y.reshape(x.shape)
+
+
+def gn_fine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            relu: bool = False) -> torch.Tensor:
+    """GroupNorm(8) on a fine channels-last map through K1, as the plain
+    net's ``FusedGNReLU``; ``relu`` fuses the ReLU that follows."""
+    return fused_group_norm_relu(x, scale.to(x.dtype), bias.to(x.dtype), GROUPS,
+                                 GN_EPS, relu)
 
 
 def channel_dropout(x: torch.Tensor, rate: float,
@@ -111,49 +236,70 @@ def _axis_select_packed() -> np.ndarray:
     return a
 
 
+def _axis_select_fine() -> np.ndarray:
+    """Identity: on a fine axis coarse tap u is fine tap t, no sub-position."""
+    a = np.zeros((3, 1, 1, 3), np.float32)
+    for u in range(3):
+        a[u, 0, 0, u] = 1.0
+    return a
+
+
 _AXIS_PACKED = _axis_select_packed()
+_AXIS_FINE = _axis_select_fine()
+# the packed VNet's level B: packed along H and W, fine along D
+B_AXES = (False, True, True)
+
+
+def pack_k3_axes(w: torch.Tensor, axes: Sequence[bool]) -> torch.Tensor:
+    """(3, 3, 3, C, F) fine k3 SAME conv -> the k3 conv on the grid packed
+    along ``axes`` (pack_d, pack_h, pack_w), P = 2**(packed axes): (3, 3,
+    3, PC, PF), delta-major (the axis deltas composed d-major over the
+    packed axes), f-minor, 1/P dense.  W3[u, (delta', c), (delta, f)] =
+    W[t, c, f] where per packed axis t = 2(u-1) + delta' - delta lands in
+    [0, 3) and per fine axis t = u.  Each entry is one weight or zero (a
+    sum of one product by 1), so the einsum is exact on the CPU; on the
+    card TF32 matmuls would round it."""
+    sel = [torch.as_tensor(_AXIS_PACKED if p else _AXIS_FINE, dtype=w.dtype,
+                           device=w.device) for p in axes]
+    c, f = w.shape[-2:]
+    w3 = torch.einsum("aAdt,bBeu,cCgv,tuvxy->abcABCxdegy", *sel, w)
+    p = int(np.prod([s.shape[1] for s in sel]))
+    return w3.reshape(3, 3, 3, p * c, p * f)
 
 
 def pack_k3_to_k3_coarse(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, C, F) -> (3, 3, 3, 8C, 8F), the fully packed -> packed k3
-    conv (1/8 dense): W3[u, (delta', c), (delta, f)] = W[t, c, f] where
-    t = 2(u-1) + delta' - delta lands in [0, 3).  The JAX ``pack_k3_axes``
-    with all three axes packed (the partly packed grids are the packed
-    VNet's).  Each entry is one weight or zero (a sum of one product by 1),
-    so the einsum is exact on the CPU; on the card TF32 matmuls would round
-    it."""
-    a = torch.as_tensor(_AXIS_PACKED, dtype=w.dtype, device=w.device)
-    c, f = w.shape[-2:]
-    w3 = torch.einsum("aAdt,bBeu,cCgv,tuvxy->abcABCxdegy", a, a, a, w)
-    return w3.reshape(3, 3, 3, 8 * c, 8 * f)
+    conv (1/8 dense): ``pack_k3_axes`` with all three axes packed."""
+    return pack_k3_axes(w, FULL)
 
 
 def packed_k3_conv(parts: Sequence[torch.Tensor], w_fine: torch.Tensor,
+                   axes: Sequence[bool] = FULL,
                    in_perm: Optional[np.ndarray] = None) -> torch.Tensor:
     """The packed k3 conv in its dense form (the JAX function with
     ``USE_SHIFT_PACKED_K3`` off): K3's plain version on the channel concat
-    of ``parts`` with ``pack_k3_to_k3_coarse(w_fine)``, whose input rows
+    of ``parts`` with ``pack_k3_axes(w_fine, axes)``, whose input rows
     ``in_perm`` (optional) permutes from (delta, c) order onto the concat
-    layout.  The packed UNet runs the K3 kernel instead, with each part's
+    layout.  The packed twins run the K3 kernel instead, with each part's
     own kernel (``kernels/packed_conv.py``)."""
-    w3 = pack_k3_to_k3_coarse(w_fine)
+    w3 = pack_k3_axes(w_fine, axes)
     if in_perm is not None:
         w3 = w3[:, :, :, torch.as_tensor(in_perm, dtype=torch.long, device=w3.device)]
     return packed_conv3d_plain(parts, [w3])
 
 
-def conv_k4s2_fine2packed(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
+def conv_k4s2_fine2packed(x: torch.Tensor, w4: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fine (N, D, H, W, C) -> packed (N, D/2, H/2, W/2, 8F) k4 stride-2
-    conv with the ``pack_k3_to_k4s2`` kernel (4, 4, 4, C, 8F); forward only.
+    conv with the ``pack_k3_to_k4s2`` kernel (4, 4, 4, C, 8F), plus the
+    packed ``bias`` (8F,); forward only.
 
     The JAX function pads (1, 2) per axis.  For even sides the second high
     pad is never read (the last window ends at padded index D + 1), so this
     is ``F.conv3d`` with padding 1 and no padded copy of the input."""
     if any(s % 2 for s in x.shape[1:4]):
         raise ValueError(f"conv_k4s2_fine2packed: odd spatial shape {tuple(x.shape)}")
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w4.to(x.dtype).permute(4, 3, 0, 1, 2),
-                 stride=2, padding=1)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return _conv(x, w4.to(x.dtype).permute(4, 3, 0, 1, 2), bias, stride=2, padding=1)
 
 
 def space_to_depth3d(x: torch.Tensor) -> torch.Tensor:
@@ -238,15 +384,287 @@ def packed_argmax(probs: torch.Tensor, num_classes: int, p: int = 8,
     return torch.argmax(grouped, dim=-1).to(torch.uint8)
 
 
-def packed_vnet3d_apply(*args, **kwargs):
-    """The packed VNet3d twin (``tpuseg/models/vnet_packed.py:858``) is not
-    ported yet: the VNet serves the plain net."""
-    raise NotImplementedError("packed_vnet3d_apply is not ported yet; serve the plain "
-                              "VNet (models/vnet.py)")
+# ---------------------------------------------------------------------------
+# derived weights, made once per weight version
+# ---------------------------------------------------------------------------
 
 
-def packed_vnet3d_probs(*args, **kwargs):
-    """The packed VNet3d twin (``tpuseg/models/vnet_packed.py:846``) is not
-    ported yet: the VNet serves the plain net."""
-    raise NotImplementedError("packed_vnet3d_probs is not ported yet; serve the plain "
-                              "VNet (models/vnet.py)")
+def _dhwio(conv_weight: torch.Tensor) -> torch.Tensor:
+    """torch conv weight (O, I, k, k, k) -> float32 DHWIO on the CPU."""
+    return _cpu(conv_weight).permute(2, 3, 4, 1, 0)
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().cpu()
+
+
+class PackedHead:
+    """A net's 1x1 head conv as the packed head, (weight, bias) per channel
+    layout, each made on first use ("class" only for ``return_packed``
+    callers).  Holds a copy of the fine head, not the net: the derived
+    weights are cached weakly keyed by the net, so no value may refer to
+    it."""
+
+    def __init__(self, conv: torch.nn.Module, num_classes: int, features: int, to):
+        self._src = (_cpu(conv.weight)[:, :, 0, 0, 0].t().clone(), _cpu(conv.bias).clone(),
+                     num_classes, features)
+        self._to, self._made = to, {}
+
+    def __call__(self, layout: str):
+        if layout not in self._made:
+            self._made[layout] = tuple(self._to(t) for t in pack_head_1x1(*self._src,
+                                                                          layout=layout))
+        return self._made[layout]
+
+
+class PackedK3:
+    """One packed -> packed k3 conv on a grid packed along ``axes``: each
+    part's dense coarse kernel (the plain version's), the packed bias, and
+    on the card the structural weight and row table (the kernel's)."""
+
+    def __init__(self, w_parts, dtype: torch.dtype, device: torch.device,
+                 axes: Sequence[bool] = FULL, bias: Optional[torch.Tensor] = None):
+        self.axes = tuple(axes)
+        self.w3s = tuple(pack_k3_axes(w, self.axes).to(device) for w in w_parts)
+        self.bias = None if bias is None else bias.to(device=device, dtype=dtype)
+        self.packed = (pack_tc(self.w3s, dtype, self.axes) if device.type == "cuda"
+                       else None)
+
+    def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
+        return packed_conv3d_structured(parts, self.w3s, self.bias, packed=self.packed,
+                                        axes=self.axes)
+
+
+def cached_weights(cache: "weakref.WeakKeyDictionary", net: torch.nn.Module, key,
+                   build: Callable[[], object]):
+    """``build()`` for ``net``'s current parameters, made once per weight
+    version (an in-place change, ``load_state_dict`` or an optimizer step
+    makes it anew; a write through ``.data`` is not seen) and ``key``.
+    ``cache`` is weakly keyed by the net, so what ``build`` returns must
+    not refer to it."""
+    version = tuple((p._version, p.data_ptr()) for p in net.parameters())
+    per_net = cache.setdefault(net, {})
+    hit = per_net.get(key)
+    if hit is None or hit[0] != version:
+        with torch.no_grad():
+            hit = (version, build())
+        per_net[key] = hit
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
+# the packed VNet3d twin
+# ---------------------------------------------------------------------------
+
+# how many finest levels run packed by default (1: the 96^3-scale level, 2:
+# also the 48^3-scale one on the (H, W) grid), as in tpuseg
+PACKED_LEVELS_DEFAULT = 2
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+          stride, padding=0) -> torch.Tensor:
+    """Channels-last conv with a torch (O, I, kd, kh, kw) weight (cuDNN, as
+    XLA ran these convs outside any Pallas kernel)."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _conv_t(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor, stride) -> torch.Tensor:
+    """Channels-last transpose conv, kernel = stride, torch weight."""
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wt, bias, stride=stride)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+            x2: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None):
+    """A 1x1 conv of channels-last ``x`` as one matrix product plus bias;
+    with ``x2``/``w2`` the conv of the channel concat [x; x2] as two
+    products into one sum, without the concat."""
+    y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), w)
+    if x2 is not None:
+        y.addmm_(x2.reshape(-1, x2.shape[-1]), w2)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+class _VNetWeights:
+    """Every derived weight of one packed VNet3d forward."""
+
+    def __init__(self, net: VNet, dtype: torch.dtype, device: torch.device,
+                 packed_levels: int):
+        def to(t):
+            return t.to(device=device, dtype=dtype)
+
+        def conv(w_dhwio):  # DHWIO -> torch (O, I, k...)
+            return to(w_dhwio.permute(4, 3, 0, 1, 2).contiguous())
+
+        def bias(mod, p=1):
+            return to(tile_channel_packed(_cpu(mod.bias), p))
+
+        def lus(stage, p, axes):
+            return [PackedK3([_dhwio(op.conv1.weight)], dtype, device, axes,
+                             tile_channel_packed(_cpu(op.conv1.bias), p))
+                    for op in stage.ops]
+
+        def squeeze(stage, p):  # the 1x1 after the concat, per part
+            w = _dhwio(stage.conv.weight)[0, 0, 0]  # (2F, F)
+            f = w.shape[-1]
+            return (to(block_diag_1x1_packed(w[:f], p=p)),
+                    to(block_diag_1x1_packed(w[f:], p=p)), bias(stage.conv, p))
+
+        it, d32, u32 = net.in_tr, net.down_tr32, net.up_tr32
+        self.stem3 = (to(pack_k3_to_k4s2(_dhwio(it.conv1.weight))), bias(it.conv1, 8))
+        self.stem1 = (conv(pack_k1_to_k2s2(_dhwio(it.conv2.weight))), bias(it.conv2, 8))
+        wd = _dhwio(d32.down_conv.weight)
+        if packed_levels >= 2:
+            d64, u64 = net.down_tr64, net.up_tr64
+            self.down32 = (conv(pack_down_k2s2_full8_to_part4(wd)), bias(d32.down_conv, 4))
+            self.lu32 = lus(d32, 4, B_AXES)
+            self.down64 = (conv(pack_down_k2s2_part4_to_fine(_dhwio(d64.down_conv.weight))),
+                           bias(d64.down_conv))
+            self.up64 = (to(pack_transpose_k2s2_fine_to_part4(_cpu(u64.up_conv.weight))),
+                         bias(u64.up_conv, 4))
+            self.sq64 = squeeze(u64, 4)
+            self.lu64 = lus(u64, 4, B_AXES)
+            self.up32 = (to(pack_transpose_k2s2_part4_to_full8(_cpu(u32.up_conv.weight))),
+                         bias(u32.up_conv, 8))
+        else:
+            self.down32 = (to(pack_down_k2s2_to_1x1(wd)[0, 0, 0]), bias(d32.down_conv))
+            self.up32 = (to(pack_transpose_k2s2_to_1x1(_cpu(u32.up_conv.weight))),
+                         bias(u32.up_conv, 8))
+        self.sq32 = squeeze(u32, 8)
+        self.lu32_up = lus(u32, 8, FULL)
+        self.head = PackedHead(net.out_tr.conv, net.num_classes, net.features, to)
+
+
+# net -> {(dtype, device, packed_levels): (weight version, _VNetWeights)}
+_CACHE: "weakref.WeakKeyDictionary[VNet, dict]" = weakref.WeakKeyDictionary()
+
+
+def packed_vnet_weights(net: VNet, dtype: torch.dtype, device,
+                        packed_levels: int) -> _VNetWeights:
+    """The packed VNet3d's derived weights for ``net``'s current
+    parameters, made on the CPU in float32 (where the transforms are exact)
+    once per weight version, dtype, device and ``packed_levels``."""
+    device = torch.device(device)
+    return cached_weights(_CACHE, net, (dtype, device, packed_levels),
+                          lambda: _VNetWeights(net, dtype, device, packed_levels))
+
+
+def _packed_lus(x, k3s, stage, p):
+    """A stage's LUConvs on a packed map: K3 (bias in its epilogue), then
+    GroupNorm + ReLU on the packed view."""
+    for k3, op in zip(k3s, stage.ops):
+        x = gn_packed(k3(x), op.bn1.weight, op.bn1.bias, relu=True, p=p)
+    return x
+
+
+def _fine_lus(x, stage):
+    """A stage's LUConvs on a fine map: the plain net's own modules (K2 and
+    K1 as in the plain forward)."""
+    for op in stage.ops:
+        x = op(x)
+    return x
+
+
+def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
+                        packed_levels: Optional[int] = None,
+                        return_packed: bool = False, packed_layout: str = "delta",
+                        train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of ``net`` (the port's ``VNet``, i.e. the plain
+    parameters) with its finest ``packed_levels`` run packed: 1 packs the
+    96^3-scale level (16 channels) fully, 2 (the default) also the
+    48^3-scale level (32 channels) along H and W.  Counterpart of
+    ``tpuseg/models/vnet_packed.py`` ``packed_vnet3d_apply``, inference
+    only.
+
+    ``x`` (N, D, H, W, 1), every side divisible by 32.  Returns (logits,
+    probs) (N, D, H, W, K), or with ``return_packed`` the packed (N, D/2,
+    H/2, W/2, 8K) maps in ``packed_layout`` ("delta": delta-major; "class":
+    class-major ``k * 8 + delta``, so the per-delta softmax is slice
+    arithmetic).  The packed levels run K3 for their k3 convs and K1 for
+    every GroupNorm; the levels below call the plain net's own stages (K2
+    and K1 as in the plain forward).  Derived weights are made once per
+    weight version, dtype and device (``packed_vnet_weights``)."""
+    if train or net.training:
+        raise NotImplementedError(
+            "packed_vnet3d_apply runs inference only: packed VNet training (its "
+            "dropout sites, the GEMM stem dW, the packed losses) is the packed-training "
+            "slice, not ported yet; call net.eval() with train=False")
+    if packed_levels is None:
+        packed_levels = PACKED_LEVELS_DEFAULT
+    if packed_levels not in (1, 2):
+        raise ValueError(f"packed_levels must be 1 or 2, got {packed_levels}")
+    if packed_layout not in ("delta", "class"):
+        raise ValueError(f"packed_layout must be 'delta' or 'class', got {packed_layout!r}")
+    if x.dim() != 5 or any(s <= 0 or s % 32 for s in x.shape[1:4]):
+        raise ValueError(f"packed VNet: input {tuple(x.shape)} is not (N, D, H, W, C) "
+                         "with every side divisible by 32")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in net.parameters()):
+        raise RuntimeError("packed_vnet3d_apply is inference only: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    wts = packed_vnet_weights(net, x.dtype, x.device, packed_levels)
+
+    # InputTransition, fine -> packed: the k3 path as a k4 stride-2 conv, the
+    # 1^3 path as a k2 stride-2 one, each normalized with the one GroupNorm
+    it = net.in_tr
+    a = gn_packed(conv_k4s2_fine2packed(x, *wts.stem3), it.bn1.weight, it.bn1.bias,
+                  relu=True)
+    b = gn_packed(_conv(x, *wts.stem1, stride=2), it.bn1.weight, it.bn1.bias, relu=True)
+    out16p = a + b  # (N, D/2, H/2, W/2, 8f): the packed skip
+
+    d32, d64 = net.down_tr32, net.down_tr64
+    if packed_levels >= 2:
+        # DownTransition 32 onto the (H, W) grid, its LUConvs on K3 there
+        down = gn_packed(_conv(out16p, *wts.down32, stride=(1, 2, 2)), d32.bn1.weight,
+                         d32.bn1.bias, relu=True, p=4)
+        out32p = _packed_lus(down, wts.lu32, d32, 4) + down
+        # DownTransition 64's entry reads the (H, W)-packed map
+        down = gn_fine(_conv(out32p, *wts.down64, stride=(2, 1, 1)), d64.bn1.weight,
+                       d64.bn1.bias, relu=True)
+        out64 = _fine_lus(down, d64) + down
+    else:
+        down = gn_fine(_matmul(out16p, *wts.down32), d32.bn1.weight, d32.bn1.bias, relu=True)
+        out32 = _fine_lus(down, d32) + down
+        out64 = d64(out32)
+
+    out128 = net.down_tr128(out64)
+    out256 = net.down_tr256(out128)
+    up = net.up_tr256(out256, out128)
+    up = net.up_tr128(up, out64)
+
+    if packed_levels >= 2:
+        u64 = net.up_tr64
+        up48p = gn_packed(_conv_t(up, *wts.up64, stride=(2, 1, 1)), u64.bn.weight,
+                          u64.bn.bias, relu=True, p=4)
+        w_up, w_skip, b_sq = wts.sq64
+        cat = gn_packed(_matmul(up48p, w_up, b_sq, out32p, w_skip), u64.bn2.weight,
+                        u64.bn2.bias, relu=True, p=4)
+        up48p = _packed_lus(cat, wts.lu64, u64, 4) + cat
+        upp = _conv_t(up48p, *wts.up32, stride=(1, 2, 2))
+    else:
+        upp = _matmul(net.up_tr64(up, out32), *wts.up32)
+
+    # UpTransition 32, packed: the concat's 1x1 squeeze as two products, the
+    # LUConv on K3
+    u32 = net.up_tr32
+    upp = gn_packed(upp, u32.bn.weight, u32.bn.bias, relu=True)
+    w_up, w_skip, b_sq = wts.sq32
+    catp = gn_packed(_matmul(upp, w_up, b_sq, out16p, w_skip), u32.bn2.weight,
+                     u32.bn2.bias, relu=True)
+    outp = _packed_lus(catp, wts.lu32_up, u32, 8) + catp
+
+    layout = packed_layout if return_packed else "delta"
+    wp, bp = wts.head(layout)
+    logitsp = _matmul(outp, wp, bp)
+    probsp = packed_softmax(logitsp, net.num_classes, layout=layout)
+    if return_packed:
+        return logitsp, probsp
+    return depth_to_space3d(logitsp), depth_to_space3d(probsp)
+
+
+def packed_vnet3d_probs(net: VNet, x: torch.Tensor, *, packed_levels: Optional[int] = None,
+                        return_packed: bool = False,
+                        packed_layout: str = "delta") -> torch.Tensor:
+    """``packed_vnet3d_apply``'s probabilities only."""
+    return packed_vnet3d_apply(net, x, packed_levels=packed_levels,
+                               return_packed=return_packed, packed_layout=packed_layout)[1]

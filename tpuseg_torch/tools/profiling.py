@@ -22,7 +22,9 @@ call by its input shapes, which names the cuDNN convs (those outside the
 kernels' range) that cost the most.  Last it traces ``--swin-forwards``
 forwards of the sliding window's VNet3d (features 16, 2 classes, seeded
 weights) on bench.py's batch of 27 patches of 96^3, in f32 and in bf16
-(``swin_`` and ``swin_bf16_`` keys), and sums their device time by kernel
+(``swin_`` and ``swin_bf16_`` keys), and of its packed twin at
+packed_levels 2 as ``inference_patch`` serves it (``swin_vnet_packed_`` and
+``swin_vnet_packed_bf16_`` keys), and sums their device time by kernel
 name and by the PyTorch op that launched it (the kernels of this package
 launch outside any op).  It prints one JSON object, with the card's
 ``nvidia-smi`` name and power limit.
@@ -38,6 +40,7 @@ import os
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -212,33 +215,44 @@ def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
 
 
 def swin_forward_split(dtype: torch.dtype = torch.float32, batch: int = 27,
-                       patch: int = 96, forwards: int = 2):
+                       patch: int = 96, forwards: int = 2,
+                       packed_levels: Optional[int] = None):
     """Device ms per sliding-window VNet3d forward (``batch`` patches of
     ``patch``^3, computed in ``dtype``) by kernel name, and by the op that
     launched each kernel (its self device time; ours have none), from
-    ``torch.profiler`` after a warmup forward."""
+    ``torch.profiler`` after a warmup forward.  With ``packed_levels`` the
+    forward is the packed twin's as ``inference_patch`` calls it
+    (class-major packed probabilities)."""
     from tpuseg_torch.compat.weights import seeded_vnet_params, vnet_params_from_jax
     from tpuseg_torch.models.vnet import VNet
+    from tpuseg_torch.models.vnet_packed import packed_vnet3d_apply
 
     net = VNet(2, FEATURES).cuda().eval()
     net.load_state_dict(vnet_params_from_jax(seeded_vnet_params(SEED, FEATURES, 2, 1)),
                         strict=True)
     x = torch.randn((batch, patch, patch, patch, 1), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(SEED)).to(dtype)
+
+    def forward():
+        if packed_levels is None:
+            return net(x)
+        return packed_vnet3d_apply(net, x, packed_levels=packed_levels, return_packed=True,
+                                   packed_layout="class")
+
     with torch.inference_mode():
-        net(x)
+        forward()
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(forwards):
-                net(x)
+                forward()
             torch.cuda.synchronize()
         kernels = _device_split(prof, forwards)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
                             torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(forwards):
-                net(x)
+                forward()
             torch.cuda.synchronize()
     ops = {}
     for event in prof.key_averages():
@@ -290,8 +304,12 @@ def main(argv=None) -> int:
         out.update({f"train_step_{name}device_ms_by_kernel": train_split,
                     f"train_step_{name}device_ms": sum(train_split.values()),
                     f"train_step_{name}conv_backward_device_ms_by_shapes": conv_bwd})
-    for name, dtype in (("swin_", torch.float32), ("swin_bf16_", torch.bfloat16)):
-        kernels, ops = swin_forward_split(dtype, forwards=args.swin_forwards)
+    for name, dtype, levels in (("swin_", torch.float32, None),
+                                ("swin_bf16_", torch.bfloat16, None),
+                                ("swin_vnet_packed_", torch.float32, 2),
+                                ("swin_vnet_packed_bf16_", torch.bfloat16, 2)):
+        kernels, ops = swin_forward_split(dtype, forwards=args.swin_forwards,
+                                          packed_levels=levels)
         out.update({f"{name}forward_device_ms_by_kernel": kernels,
                     f"{name}forward_device_ms_by_op": ops,
                     f"{name}forward_device_ms": sum(kernels.values())})
