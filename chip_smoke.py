@@ -20,9 +20,16 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     swapped, its dW at the 10 conv shapes, the GroupNorm+ReLU backward at
     the 18 GroupNorm shapes, and the packed k3 conv (K3) at the packed
     twin's three shapes: one part of 8*16 channels, two parts of 128, and
-    the packed_levels=2 shape (one part of 8*32 channels on 32x28x28); then
-    K2's f32 times by level (forward, dX, dW) and its worst dW error at
-    level 0 beside the gate;
+    the packed_levels=2 shape (one part of 8*32 channels on 32x28x28); K3's
+    backward in packed training, a part at a time: dX (K3 on dY with the
+    flip-transposed fine weight) and dW (K2's dW kernel on the fine
+    depth-to-space views) at the packed UNet3d's (1, 64, 56, 56) grid and
+    the packed VNet3d's fully packed (1, 48, 48, 48) and (H, W) (1, 48, 24,
+    24) grids, against autograd's plain versions and timed beside cuDNN's
+    dense coarse dgrad and wgrad (with the transform's adjoint); the k4
+    stride-2 stem's one-product weight gradient (``stem_dw_gemm``) beside
+    cuDNN's wgrad at both nets' stems; then K2's f32 times by level
+    (forward, dX, dW) and its worst dW error at level 0 beside the gate;
  4. runs the port's UNet at the golden file's sizes in float32 and holds
     it against what the JAX package produced
     (``tests/data/torch_port_golden.npz``): the probabilities of a 32^3
@@ -51,7 +58,19 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     (``--train.compute_dtype bfloat16``, the conv on its tensor-core
     kernels) for 1 epoch of 3 steps with counts from 0, checking every
     step's launches; and times the f32 and bf16 train steps, kernels
-    against plain;
+    against plain.  Then packed training (``--train.packed_stem true``):
+    the UNet3d at the same setting, 1 epoch of 3 steps in f32 and in bf16
+    (per step K3 3 forward, 4 dX, 4 dW; K2 7 each way; K1 18 and 18; one
+    stem GEMM; the eval step as the served forward), one packed f32 step
+    against the plain net's through the plain versions (same weights, batch
+    and generator: loss within 1e-5 relative, grads through phase 6's
+    gate), bench.py's three variants timed interleaved (packed bf16, packed
+    f32, plain f32; 10 steps a pass, min and median), the packed steps'
+    device ms by kernel (``tools/profiling.py``) and peak memory; and the
+    VNet3d at 96^3 (features 16, 2 classes): packed_levels 2 in f32 and
+    bf16 (K3 5, K2 6, K1 34 each way, one stem GEMM) and the plain net (K2
+    11, K1 34), 1 epoch of 3 steps each, with packed_levels 1 (K3 1, K2 10)
+    timed beside them;
  7. K2's micro-benchmarks (``tpuseg_torch.benchmarks``) at the probes' full
     shapes (N 8, 96^3, C 16): every variant of the slab conv GEMM (K4
     ``dot_only``/``abuild``/``full``, K5 ``v0``/``v2``/``v3``/``v5``) and
@@ -91,8 +110,10 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     and (H, W)) at 27 patches, and K1-K3 at the packed UNet3d's at 8, in
     f32 and bf16, against their plain versions, timed.
 
-Before its last line it prints one JSON object with each kernel's launches
-on the served, f32 and bf16 training, bench and sliding-window paths,
+Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
+not a kernel of the package) and one JSON object with each kernel's
+launches on the served, training (plain and packed, UNet3d and VNet3d, f32
+and bf16), bench and sliding-window paths (K3's dX and dW rows among them),
 error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
@@ -128,20 +149,44 @@ SEED = 0
 NEW_SIZE = (112, 112, 128)  # (x, y, z): the served UNet3d input
 FEATURES, CLASSES = 16, 5
 REQUEST_SIZES = ((160, 160, 96), (200, 180, 120), (112, 112, 128))  # (x, y, z)
+# the kernels' launch counters (K3's dX is K3 on dY, its dW K2's dW kernel
+# on the fine views, each counted apart from the forward's and K2's own)
 KERNELS = ("conv3d_small", "conv3d_small_dx", "conv3d_small_dw",
            "fused_group_norm_relu", "fused_group_norm_relu_bwd",
-           "packed_conv3d_structured")
+           "packed_conv3d_structured", "packed_conv3d_structured_dx",
+           "packed_conv3d_structured_dw")
 # per request through the packed twin (packed_levels 1): the k3 convs of
 # levels 1-2 inside conv3d_small's range, the ConvBlock GroupNorms (4 of
-# them packed), and the packed level's three packed -> packed k3 convs
+# them packed), and the packed level's three packed -> packed k3 convs;
+# stem_dw_gemm counts the packed stem's one-product weight gradients
 EXPECTED_LAUNCHES = {"conv3d_small": 7, "conv3d_small_dx": 0, "conv3d_small_dw": 0,
                      "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 0,
-                     "packed_conv3d_structured": 3, "slab_conv": 0, "flat_conv": 0}
+                     "packed_conv3d_structured": 3, "packed_conv3d_structured_dx": 0,
+                     "packed_conv3d_structured_dw": 0, "stem_dw_gemm": 0,
+                     "slab_conv": 0, "flat_conv": 0}
 # per train step (the plain net): K1 and K2 forward and backward
-TRAIN_LAUNCHES = {"conv3d_small": 10, "conv3d_small_dx": 10, "conv3d_small_dw": 10,
-                  "fused_group_norm_relu": 18, "fused_group_norm_relu_bwd": 18,
-                  "packed_conv3d_structured": 0, "slab_conv": 0, "flat_conv": 0}
+TRAIN_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES}, conv3d_small=10,
+                      conv3d_small_dx=10, conv3d_small_dw=10, fused_group_norm_relu=18,
+                      fused_group_norm_relu_bwd=18)
 TRAIN_KERNELS = tuple(k for k in KERNELS if TRAIN_LAUNCHES[k])
+# per packed UNet3d train step (packed_levels 1): the served forward's
+# launches, each backward too; K3's dX and dW once a part (the decoder's
+# two-part conv twice), the stem's dW one product
+TRAIN_PACKED_LAUNCHES = dict(EXPECTED_LAUNCHES, conv3d_small_dx=7, conv3d_small_dw=7,
+                             fused_group_norm_relu_bwd=18, packed_conv3d_structured_dx=4,
+                             packed_conv3d_structured_dw=4, stem_dw_gemm=1)
+# the VNet3d train step at 96^3: plain (K2 the 11 LUConvs at 16-64
+# channels, K1 34) and packed at packed_levels 2 (K3 5, K2 6, K1 34); an
+# eval step runs the forward's launches
+VNET_TRAIN_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES}, conv3d_small=11,
+                           conv3d_small_dx=11, conv3d_small_dw=11, fused_group_norm_relu=34,
+                           fused_group_norm_relu_bwd=34)
+VNET_TRAIN_PACKED_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES}, conv3d_small=6,
+                                  conv3d_small_dx=6, conv3d_small_dw=6,
+                                  fused_group_norm_relu=34, fused_group_norm_relu_bwd=34,
+                                  packed_conv3d_structured=5, packed_conv3d_structured_dx=5,
+                                  packed_conv3d_structured_dw=5, stem_dw_gemm=1)
+VNET_TRAIN_DHW, VNET_CLASSES = (96, 96, 96), 2
 # tolerance on max |kernel - plain|, relative to max(1, max |plain|):
 # float32 sums the same products in another order (1e-4 leaves two decades
 # over fp32 rounding of 27*64 terms); bfloat16 rounds the output to 8 bits,
@@ -249,20 +294,24 @@ def bound_ms(flops: float, nbytes: float, rate: str):
 
 
 def counts(mods) -> dict:
-    conv3d, fused_norm = mods["conv3d"], mods["fused_norm"]
+    conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
     return {"conv3d_small": conv3d.LAUNCHES, "conv3d_small_dx": conv3d.DX_LAUNCHES,
             "conv3d_small_dw": conv3d.DW_LAUNCHES,
             "fused_group_norm_relu": fused_norm.LAUNCHES,
             "fused_group_norm_relu_bwd": fused_norm.BWD_LAUNCHES,
-            "packed_conv3d_structured": mods["packed_conv"].LAUNCHES,
+            "packed_conv3d_structured": packed_conv.LAUNCHES,
+            "packed_conv3d_structured_dx": packed_conv.DX_LAUNCHES,
+            "packed_conv3d_structured_dw": packed_conv.DW_LAUNCHES,
+            "stem_dw_gemm": mods["vnet_packed"].STEM_DW_PRODUCTS,
             "slab_conv": mods["slab_conv"].LAUNCHES, "flat_conv": mods["flat_conv"].LAUNCHES}
 
 
 def reset_counts(mods) -> None:
-    conv3d, fused_norm = mods["conv3d"], mods["fused_norm"]
+    conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
     conv3d.LAUNCHES = conv3d.DX_LAUNCHES = conv3d.DW_LAUNCHES = 0
     fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
-    mods["packed_conv"].LAUNCHES = 0
+    packed_conv.LAUNCHES = packed_conv.DX_LAUNCHES = packed_conv.DW_LAUNCHES = 0
+    mods["vnet_packed"].STEM_DW_PRODUCTS = 0
     mods["slab_conv"].LAUNCHES = mods["flat_conv"].LAUNCHES = 0
 
 
@@ -320,6 +369,28 @@ def packed_cases():
     return [((f,), f, 1, 2), ((f, f), f, 1, 1), ((2 * f,), 2 * f, 2, 0)]
 
 
+def packed_train_cases():
+    """(path, c_fine, f, packed grid (N, D', H', W'), axes, uses per train
+    step) of K3's backward: each part's dX (K3 on dY) and dW (K2's dW on the
+    fine views).  The packed UNet3d (packed_levels 1, 112x112x128): the
+    finest level's 16 -> 16 parts, four a step (encoder conv 2, the
+    decoder's two-part conv 1, its conv 2); the packed VNet3d at 96^3
+    (packed_levels 2): up_tr32's LUConv fully packed, four 32 -> 32 LUConvs
+    on the (H, W) grid."""
+    f = FEATURES
+    d, h, w = level_shape(1)
+    return [("unet", f, f, (1, d, h, w), FULL_AXES, 4),
+            ("vnet", f, f, (1, 48, 48, 48), FULL_AXES, 1),
+            ("vnet", 2 * f, 2 * f, (1, 48, 24, 24), HW_AXES, 4)]
+
+
+def stem_cases():
+    """(path, fine input (N, D, H, W, 1), uses per train step) of the k4
+    stride-2 stem whose weight gradient is one product: the packed UNet3d
+    and the packed VNet3d."""
+    return [("unet", (1,) + TRAIN_DHW + (1,), 1), ("vnet", (1,) + VNET_TRAIN_DHW + (1,), 1)]
+
+
 def time_ms(torch, fn, iters: int = 20) -> float:
     """Mean ms per call of fn with CUDA events, after a warmup."""
     for _ in range(3):
@@ -335,11 +406,11 @@ def time_ms(torch, fn, iters: int = 20) -> float:
 
 
 def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
-               uses, bound, library_ms, library_note="", level=None):
+               uses, bound, library_ms, library_note="", level=None, path=None):
     results[name].append(dict(dtype=dtype_name, uses=uses, max_abs_err=err, scale=scale,
                               ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                               bound_by=bound[1], peak_flops=bound[2],
-                              library_ms=library_ms, level=level))
+                              library_ms=library_ms, level=level, path=path))
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms{library_note}"
     say(f"  {name} {dtype_name} {what}: max_abs_err {err:.3g} (scale {scale:.3g}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms "
@@ -364,7 +435,7 @@ def phase_kernels(torch, mods):
     """Each kernel against its plain version at the path shapes, timed."""
     conv3d, fused_norm, packed_conv = mods["conv3d"], mods["fused_norm"], mods["packed_conv"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = {name: [] for name in KERNELS}
+    results = {name: [] for name in KERNELS + ("stem_dw_gemm",)}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         size = torch.tensor([], dtype=dtype).element_size()
@@ -491,6 +562,86 @@ def phase_kernels(torch, mods):
                        *rel_err(got, ref), ms, plain_ms, uses,
                        bound_ms(flops, io, "tf32x3" if dtype_name == "float32" else dtype_name),
                        library_ms, " (cuDNN's dense coarse conv)")
+        # K3's backward in training: dX (K3 on dY with the flip-transposed
+        # fine weight) and dW (K2's dW kernel on the depth-to-space views),
+        # one part at a time, each against the plain version of the same
+        # function; the library call is cuDNN's dense coarse backward (dgrad,
+        # and wgrad followed by the transform's adjoint onto the fine weight)
+        pc = packed_conv
+        for path, c, f, grid, axes, uses in packed_train_cases():
+            p = pc.deltas(axes)
+            npos = grid[0] * grid[1] * grid[2] * grid[3] * p
+            x = torch.randn(grid + (p * c,), generator=gen, device="cuda").to(dtype)
+            g = torch.randn(grid + (p * f,), generator=gen, device="cuda").to(dtype)
+            wf = torch.randn((3, 3, 3, c, f), generator=gen, device="cuda") \
+                * (2.0 / (27 * c)) ** 0.5
+            w3 = pc.pack_k3_axes(wf, axes)
+            flops = 2.0 * npos * 27 * c * f
+            io = (c + f) * npos * size + 27 * c * f * 4
+            rate = "tf32x3" if dtype_name == "float32" else dtype_name
+            what = f"{p}x{c} -> {p}x{f} @{'x'.join(map(str, grid))} {'full' if all(axes) else 'HW'}"
+            packed_t = pc.pack_tc_fine([pc.flip_t(wf)], dtype, axes)  # as the node makes it
+            got = pc._launch_dx(g, packed_t, p * c, p)
+            w3t = pc.pack_k3_axes(pc.flip_t(wf), axes)
+            ref = pc.packed_conv3d_plain([g], [w3t])
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(torch, lambda: pc._launch_dx(g, packed_t, p * c, p),
+                                     lambda: pc.packed_conv3d_plain([g], [w3t]))
+            g_cf, w3_oi = g.permute(0, 4, 1, 2, 3), w3.to(dtype).permute(4, 3, 0, 1, 2)
+            x_shape = (grid[0], p * c) + grid[1:]
+            library_ms = time_ms(torch, lambda: torch.nn.grad.conv3d_input(
+                x_shape, w3_oi, g_cf, padding=1))
+            _check_row(results, "packed_conv3d_structured_dx", dtype_name, what,
+                       *rel_err(got, ref), ms, plain_ms, uses, bound_ms(flops, io, rate),
+                       library_ms, " (cuDNN's dense coarse dgrad)", path=path)
+            x_fine, g_fine = pc.unpack_axes(x, axes), pc.unpack_axes(g, axes)
+            got = pc._launch_dw(x_fine, g_fine)
+            ref = mods["conv3d"].conv3d_small_dw_plain(x_fine, g_fine)
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(
+                torch, lambda: pc._launch_dw(x_fine, g_fine),
+                lambda: mods["conv3d"].conv3d_small_dw_plain(x_fine, g_fine))
+            w_lib = wf.detach().requires_grad_()
+            w3_lib = pc.pack_k3_axes(w_lib, axes)
+            x_cf = x.permute(0, 4, 1, 2, 3)
+
+            def library(w_lib=w_lib, w3_lib=w3_lib, x_cf=x_cf, g_cf=g_cf):
+                dw3 = torch.nn.grad.conv3d_weight(x_cf, tuple(w3_oi.shape), g_cf, padding=1)
+                return torch.autograd.grad(w3_lib, w_lib, dw3.permute(2, 3, 4, 1, 0).float(),
+                                           retain_graph=True)[0]
+
+            lib_err = rel_err(library(), ref)[0]
+            library_ms = time_ms(torch, library)
+            _check_row(results, "packed_conv3d_structured_dw", dtype_name,
+                       what + f" (dW on the fine views, library error {lib_err:.3g})",
+                       *rel_err(got, ref), ms, plain_ms, uses, bound_ms(flops, io, rate),
+                       library_ms, " (cuDNN's dense coarse wgrad + the adjoint)", path=path)
+            del x, g, x_fine, g_fine, w3_lib, library
+        # the stem's weight gradient as one product against cuDNN's wgrad
+        # (the product sums in fp32: its bound is at the fp32 rate)
+        vp = mods["vnet_packed"]
+        for path, shape, uses in stem_cases():
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2, 8 * FEATURES)
+            g = torch.randn(out, generator=gen, device="cuda").to(dtype)
+            got = vp.stem_dw_gemm(x, g)
+            x_cf, g_cf = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+            wshape = (8 * FEATURES, shape[-1], 4, 4, 4)
+
+            def cudnn(x_cf=x_cf, g_cf=g_cf, wshape=wshape):
+                return torch.nn.grad.conv3d_weight(x_cf, wshape, g_cf, stride=2, padding=1)
+
+            ref = cudnn().permute(2, 3, 4, 1, 0)
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(torch, lambda: vp.stem_dw_gemm(x, g), cudnn)
+            npos = out[1] * out[2] * out[3]
+            _check_row(results, "stem_dw_gemm", dtype_name,
+                       f"{'x'.join(map(str, shape))} -> {8 * FEATURES} one product",
+                       *rel_err(got, ref), ms, plain_ms, uses,
+                       bound_ms(2.0 * npos * 64 * shape[-1] * 8 * FEATURES,
+                                (x.numel() + g.numel()) * size + 64 * 8 * FEATURES * 4,
+                                "float32"), plain_ms, " (cuDNN's wgrad)", path=path)
+            del x, g, x_cf, g_cf, cudnn
     # K2's f32 route by level: one forward's (or step's) calls at each
     # level, and the worst error over the scale (dW's at level 0 among them)
     by_level = {}
@@ -616,6 +767,12 @@ def plain_kernels(mods):
         (mods["vnet_packed"], "packed_conv3d_structured",
          lambda parts, w3s, bias=None, relu=False, packed=None, axes=None:
              packed_conv.packed_conv3d_plain(parts, w3s, bias, relu)),
+        # the trained K3: autograd through the plain version (cuDNN's dense
+        # coarse conv and its backward)
+        (mods["vnet_packed"], "packed_conv3d_train",
+         lambda parts, w_fines, bias=None, axes=FULL_AXES: packed_conv.packed_conv3d_plain(
+             parts, [packed_conv.pack_k3_axes(w, axes) for w in w_fines],
+             None if bias is None else bias.repeat(packed_conv.deltas(axes)))),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
     for mod, name, fn in routes:
@@ -918,7 +1075,213 @@ def phase_train(torch, mods, workdir):
                                  plain_step, iters=5)
         say(f"  train step {dtype_name} 1x{TRAIN_DHW[0]}x{TRAIN_DHW[1]}x{TRAIN_DHW[2]}: "
             f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms (loss {m['loss'].item():.5f})")
-    return path_launches, bf16_launches
+    ctx = dict(flags=flags, net=net, batch=batch, loss_fn=loss_fn, loss_p=loss_p,
+               grads_p=grads_p, plain_trainer=resumed)
+    return {"train": path_launches, "train_bf16": bf16_launches}, ctx
+
+
+def write_vnet_training_data(workdir: str, rng) -> tuple:
+    """3 training and 1 validation (image, label) .npy pairs of
+    VNET_TRAIN_DHW: a few ellipsoidal blobs of label 1, images the label
+    plus noise; returns the two CSV manifests."""
+    d, h, w = VNET_TRAIN_DHW
+    zz, yy, xx = np.ogrid[:d, :h, :w]
+    rows = []
+    for i in range(4):
+        label = np.zeros(VNET_TRAIN_DHW, np.uint8)
+        for _ in range(3):
+            cz, cy, cx = rng.uniform(0.2, 0.8, 3) * (d, h, w)
+            rz, ry, rx = rng.uniform(6, 18, 3)
+            label[((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2
+                  + ((xx - cx) / rx) ** 2 < 1] = 1
+        image = (label * 0.5 + rng.standard_normal(VNET_TRAIN_DHW)).astype(np.float32)
+        paths = (os.path.join(workdir, f"vimg{i}.npy"), os.path.join(workdir, f"vlab{i}.npy"))
+        np.save(paths[0], image)
+        np.save(paths[1], label)
+        rows.append(paths)
+    manifests = []
+    for name, part in (("vtrain.csv", rows[:3]), ("vval.csv", rows[3:])):
+        path = os.path.join(workdir, name)
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["Image", "Mask"])
+            writer.writerows(part)
+        manifests.append(path)
+    return tuple(manifests)
+
+
+# device kernels by family, by a name fragment (the first that matches)
+FAMILIES = (("K3", ("packed_conv_tc",)), ("K2", ("conv3d_",)), ("K1", ("gn_",)),
+            ("cuDNN", ("cudnn", "convolve", "implicit_gemm", "fprop", "dgrad", "wgrad")),
+            ("cuBLAS", ("gemm", "nvjet", "cutlass", "splitK")),
+            ("gather and scatter", ("index", "gather", "scatter")),
+            ("elementwise and reductions", ("elementwise", "reduce", "softmax", "cat")))
+
+
+def kernel_families(split: dict) -> dict:
+    """{kernel name: device ms} -> {family: device ms}, "other" for the rest."""
+    out = {}
+    for name, ms in split.items():
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        out[fam] = round(out.get(fam, 0.0) + ms, 4)
+    return out
+
+
+def _forward_only(launches: dict) -> dict:
+    """A train step's expected launches -> its eval step's (the forward's)."""
+    return {k: (v if k in ("conv3d_small", "fused_group_norm_relu",
+                           "packed_conv3d_structured") else 0) for k, v in launches.items()}
+
+
+def _run_training(torch, mods, cfg, expect: dict, tag: str):
+    """``train.build`` and ``train.run`` of ``cfg`` (one epoch of 3 steps
+    and a validation step) with counts from 0: every step's launches
+    checked, finite losses, both checkpoints written.  Returns (trainer,
+    the path's launches)."""
+    train = mods["train"]
+    trainer, train_loader, val_loader = train.build(cfg, device="cuda")
+    steps = []
+    _watch_steps(trainer, mods, steps)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    history = train.run(cfg, trainer, train_loader, val_loader)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts(mods)
+    for kind, got in steps:
+        want = expect if kind == "train_step" else _forward_only(expect)
+        if got != want:
+            fail(f"{tag} {kind} launches {got} != {want}")
+    kinds = [k for k, _ in steps]
+    if kinds.count("train_step") != 3 or kinds.count("eval_step") != 1:
+        fail(f"{tag} steps {kinds}")
+    if not all(np.isfinite(history["train_loss"] + history["valdation_loss"])):
+        fail(f"{tag} non-finite loss {history}")
+    for name in ("best", "latest"):
+        if sorted(os.listdir(os.path.join(cfg.train.model_dir, name))) != ["meta.json",
+                                                                         "state.pt"]:
+            fail(f"{tag}: {name}/ checkpoint not written")
+    del trainer.train_step, trainer.eval_step  # the class's steps again
+    say(f"  {tag}: 1 epoch x 3 steps + validation in {run_s:.2f} s, history {history}; "
+        f"launches per train step {expect}, per eval step as its forward's, on every step")
+    return trainer, launches
+
+
+def _train_passes(torch, trainers: dict, batch, steps: int = 10, reps: int = 3):
+    """ms per train step of each trainer, ``steps`` steps a pass, passes
+    round-robin over the trainers (bench.py's ``interleaved_times``): ({name:
+    min}, {name: median})."""
+    fns = {name: (lambda tr=tr: [tr.train_step(batch) for _ in range(steps)])
+           for name, tr in trainers.items()}
+    for fn in fns.values():
+        fn()
+    mins, meds = interleaved(torch, fns, reps)
+    return ({k: v * 1e3 / steps for k, v in mins.items()},
+            {k: v * 1e3 / steps for k, v in meds.items()})
+
+
+def phase_train_packed(torch, mods, workdir, ctx):
+    """Packed training (``--train.packed_stem true``): the UNet3d at the
+    reference KiPA setting in f32 and bf16, its f32 step against the plain
+    net's (same weights, batch and dropout generator), the three step
+    variants timed as bench.py times them, the packed step's device ms by
+    kernel; then VNet3d at 96^3 (packed_levels 2 in f32 and bf16, the plain
+    net, packed_levels 1 timed beside them).  Returns each path's
+    launches."""
+    parse_cli, vp = mods["parse_cli"], mods["vnet_packed"]
+    flags, paths, trainers = ctx["flags"], {}, {}
+    for tag, extra in (("train_packed", []),
+                       ("train_packed_bf16", ["--train.compute_dtype", "bfloat16"])):
+        cfg = parse_cli(flags[:-1] + [os.path.join(workdir, tag), "--train.epochs", "1",
+                                      "--train.packed_stem", "true"] + extra)
+        trainers[tag], paths[tag] = _run_training(torch, mods, cfg, TRAIN_PACKED_LAUNCHES,
+                                                  tag)
+
+    # one packed f32 step against the plain net's through the plain versions
+    net, batch, loss_fn = ctx["net"], ctx["batch"], ctx["loss_fn"]
+    net.zero_grad(set_to_none=True)
+    logits, _ = mods["packed_unet3d_apply"](net, batch["image"],
+                                            generator=mods["step_generator"](SEED, 0, "cuda"))
+    loss = loss_fn(logits.float(), batch["label"])
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+    loss_k, loss_p = loss.item(), ctx["loss_p"]
+    worst, worst_name, median, worst_abs = grad_errors(grads, ctx["grads_p"])
+    say(f"  packed f32 step vs the plain net's (plain versions): loss {loss_k:.7f} vs "
+        f"{loss_p:.7f} (relative {abs(loss_k - loss_p) / abs(loss_p):.3g}, tol 1e-5); worst "
+        f"grad error / its max |g| {worst:.3g} ({worst_name}, tol {STEP_GRAD_TOL}); / "
+        f"max(1, max |g|) {worst_abs:.3g} (tol 1e-3); median max |g| {median:.3g}")
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) or not worst <= STEP_GRAD_TOL \
+            or not worst_abs <= 1e-3:
+        fail("packed train step vs the plain step mismatch")
+
+    # bench.py's three variants, interleaved; the packed step's device ms
+    mins, meds = _train_passes(torch, {"packed_bf16": trainers["train_packed_bf16"],
+                                       "packed": trainers["train_packed"],
+                                       "plain": ctx["plain_trainer"]}, batch)
+    say(f"  UNet3d train step 1x{TRAIN_DHW[0]}x{TRAIN_DHW[1]}x{TRAIN_DHW[2]} ms, 10 steps a "
+        f"pass, 3 interleaved passes: min {json.dumps(mins)}, median {json.dumps(meds)}")
+    for name, dtype in (("packed f32", torch.float32), ("packed bf16", torch.bfloat16)):
+        split, _ = mods["train_step_kernel_split"](steps=2, dtype=dtype, packed_stem=True)
+        top = dict(list(split.items())[:10])
+        say(f"  {name} step device {sum(split.values()):.3f} ms by family "
+            f"{json.dumps(kernel_families(split))}; by kernel (top 10): "
+            f"{json.dumps({k[:60]: round(v, 4) for k, v in top.items()})}")
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("train_packed", "train_packed_bf16"):
+        trainers[name].train_step(batch)
+    torch.cuda.synchronize()
+    say(f"  peak memory of a packed f32 and a bf16 step: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del trainers
+
+    # VNet3d at 96^3: packed_levels 2 in f32 and bf16, the plain net
+    vtrain, vval = write_vnet_training_data(workdir, np.random.default_rng(SEED + 1))
+    vflags = ["--model.name", "vnet3d", "--model.num_classes", str(VNET_CLASSES),
+              "--model.features", str(FEATURES), "--model.dropout", "0.2",
+              "--data.image_size", json.dumps(list(VNET_TRAIN_DHW)),
+              "--data.train_csv", vtrain, "--data.val_csv", vval,
+              "--train.loss_name", "MutilDiceLoss", "--train.optimizer", "adam",
+              "--train.lr", "1e-3", "--train.epochs", "1"]
+    vtrainers = {}
+    for tag, extra, expect in (
+            ("train_vnet_packed", ["--train.packed_stem", "true"], VNET_TRAIN_PACKED_LAUNCHES),
+            ("train_vnet_packed_bf16", ["--train.packed_stem", "true",
+                                        "--train.compute_dtype", "bfloat16"],
+             VNET_TRAIN_PACKED_LAUNCHES),
+            ("train_vnet", [], VNET_TRAIN_LAUNCHES)):
+        cfg = parse_cli(vflags + ["--train.model_dir", os.path.join(workdir, tag)] + extra)
+        vtrainers[tag], paths[tag] = _run_training(torch, mods, cfg, expect, tag)
+    # packed_levels 1 beside them: the packed f32 trainer's model, another apply
+    lv1, _, _ = mods["train"].build(parse_cli(
+        vflags + ["--train.model_dir", os.path.join(workdir, "lv1"), "--train.packed_stem",
+                  "true"]), device="cuda")
+
+    def apply_lv1(model, image, train, generator):
+        logits, probs = vp.packed_vnet3d_apply(model, image, packed_levels=1,
+                                               generator=generator if train else None)
+        return {"logits": logits, "probs": probs}
+
+    lv1.apply_fn = apply_lv1
+    vbatch = lv1._put(next(iter(mods["train"].DataLoader(mods["train"].SegDataset3D(
+        *mods["train"].read_manifest_csv(vtrain), VNET_TRAIN_DHW, False), 1,
+        shuffle=False))))
+    c0 = counts(mods)
+    lv1.train_step(vbatch)
+    torch.cuda.synchronize()
+    got = delta(counts(mods), c0)
+    want = dict(VNET_TRAIN_PACKED_LAUNCHES, packed_conv3d_structured=1,
+                packed_conv3d_structured_dx=1, packed_conv3d_structured_dw=1,
+                conv3d_small=10, conv3d_small_dx=10, conv3d_small_dw=10)
+    if got != want:
+        fail(f"VNet3d packed_levels 1 train step launches {got} != {want}")
+    mins, meds = _train_passes(torch, {"packed": vtrainers["train_vnet_packed"],
+                                       "packed_bf16": vtrainers["train_vnet_packed_bf16"],
+                                       "plain": vtrainers["train_vnet"], "packed_lv1": lv1},
+                               vbatch)
+    say(f"  VNet3d train step 1x{VNET_TRAIN_DHW[0]}^3 ms, 10 steps a pass, 3 interleaved "
+        f"passes: min {json.dumps(mins)}, median {json.dumps(meds)}")
+    return paths
 
 
 def phase_bench(torch, mods):
@@ -1497,7 +1860,8 @@ def main() -> int:
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
-    from tpuseg_torch.tools.profiling import swin_forward_split, synthetic_ct, traced_busy
+    from tpuseg_torch.tools.profiling import (swin_forward_split, synthetic_ct,
+                                              traced_busy, train_step_kernel_split)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1536,7 +1900,8 @@ def main() -> int:
         sliding_window_inference=sliding_window.sliding_window_inference,
         sliding_window_inference_pipelined=sliding_window.sliding_window_inference_pipelined,
         MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
-        traced_busy=traced_busy, swin_forward_split=swin_forward_split)
+        traced_busy=traced_busy, swin_forward_split=swin_forward_split,
+        train_step_kernel_split=train_step_kernel_split)
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -1548,7 +1913,9 @@ def main() -> int:
         say(f"phase 5: serving ({smi})")
         serve_launches = phase_serve(torch, mods, workdir)
         say(f"phase 6: training ({smi})")
-        train_launches, bf16_launches = phase_train(torch, mods, workdir)
+        train_paths, ctx = phase_train(torch, mods, workdir)
+        train_paths.update(phase_train_packed(torch, mods, workdir, ctx))
+        del ctx
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"phase 7: K2 micro-benchmarks ({smi})")
@@ -1557,73 +1924,84 @@ def main() -> int:
     swin_launches, swin_rows = phase_swin(torch, mods)
 
     summary = []
-    # (name in the line, phase 3 rows, dtype, source, the TPU kernel): the
+    # (name in the line, phase 3 rows, dtype, source, what it replaces): the
     # f32 conv runs the 3xTF32 kernels on the served and f32 training
     # paths, the bf16 conv the bf16 kernels on the mixed-precision training
-    # path and the bench path (kbench's chains)
+    # paths and the bench path (kbench's chains).  K3's dX (K3 on the
+    # flip-transposed weight) and dW (K2's dW kernel on the fine views)
+    # replace XLA's VJP of the dense coarse conv JAX trains through
+    # (`packed_k3_conv`): its Pallas K3 has no VJP
+    k3_vjp = "tpuseg/models/vnet_packed.py:723 (XLA's VJP of packed_k3_conv)"
     entries = [
-        ("conv3d_small", "conv3d_small", "float32", "conv3d_small_tf32.cu", "conv3d.py:100"),
+        ("conv3d_small", "conv3d_small", "float32", "conv3d_small_tf32.cu",
+         "tpuseg/kernels/conv3d.py:100"),
         ("conv3d_small_dx", "conv3d_small_dx", "float32", "conv3d_small_tf32.cu",
-         "conv3d.py:161"),
+         "tpuseg/kernels/conv3d.py:161"),
         ("conv3d_small_dw", "conv3d_small_dw", "float32", "conv3d_small_dw_tf32.cu",
-         "conv3d.py:161"),
+         "tpuseg/kernels/conv3d.py:161"),
         ("conv3d_small_tc", "conv3d_small", "bfloat16", "conv3d_small_tc.cu",
-         "conv3d.py:100"),
+         "tpuseg/kernels/conv3d.py:100"),
         ("conv3d_small_tc_dx", "conv3d_small_dx", "bfloat16", "conv3d_small_tc.cu",
-         "conv3d.py:161"),
+         "tpuseg/kernels/conv3d.py:161"),
         ("conv3d_small_dw_tc", "conv3d_small_dw", "bfloat16", "conv3d_small_dw_tc.cu",
-         "conv3d.py:161"),
+         "tpuseg/kernels/conv3d.py:161"),
         ("fused_group_norm_relu", "fused_group_norm_relu", "float32", "fused_norm.cu",
-         "fused_norm.py:74"),
+         "tpuseg/kernels/fused_norm.py:74"),
         ("fused_group_norm_relu_bwd", "fused_group_norm_relu_bwd", "float32",
-         "fused_norm_bwd.cu", "fused_norm.py:136"),
+         "fused_norm_bwd.cu", "tpuseg/kernels/fused_norm.py:136"),
         ("packed_conv3d_structured", "packed_conv3d_structured", "float32",
-         "packed_conv_tc.cu", "packed_conv.py:184"),
+         "packed_conv_tc.cu", "tpuseg/kernels/packed_conv.py:184"),
+        ("packed_conv3d_structured_dx", "packed_conv3d_structured_dx", "float32",
+         "packed_conv_tc.cu", k3_vjp),
+        ("packed_conv3d_structured_dw", "packed_conv3d_structured_dw", "float32",
+         "conv3d_small_dw_tf32.cu", k3_vjp),
     ]
+    paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
+             **swin_launches}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""
         return sum(r[field] * r["uses"] for r in rows)
 
+    def pass_fields(rows):
+        return {f: per_pass(rows, f) for f in ("ms", "plain_ms", "bound_ms")}
+
     for name, key, dtype_name, source, replaces in entries:
-        rows = [r for r in kernels[key] if r["dtype"] == dtype_name]
-        # the sliding-window paths: the f32 VNet3d (plain and packed) and
-        # the UNet3d through the packed twin run the f32 kernels, the bf16
-        # VNet3d (plain and packed) the bf16 ones
-        swin = {path: swin_launches[path][key] for path in swin_launches}
+        all_rows = [r for r in kernels[key] if r["dtype"] == dtype_name]
+        # K3's backward rows: the packed UNet3d step's in the entry, the
+        # packed VNet3d step's in a sub-entry
+        rows = [r for r in all_rows if r["path"] in (None, "unet")]
         if key.startswith("conv3d_small"):
-            swin = {path: n if path.endswith("_bf16") == (dtype_name == "bfloat16") else 0
-                    for path, n in swin.items()}
-            by_path = ({"serve": serve_launches[key], "train": train_launches[key], **swin}
-                       if dtype_name == "float32" else
-                       {"train_bf16": bf16_launches[key], "bench": bench_launches[key],
-                        **swin})
+            # a dtype's kernels run on that dtype's paths
+            by_path = {p: c[key] for p, c in paths.items()
+                       if (p.endswith("_bf16") or p == "bench") == (dtype_name == "bfloat16")}
         else:
-            by_path = {"serve": serve_launches[key], "train": train_launches[key],
-                       "train_bf16": bf16_launches[key], **swin}
+            by_path = {p: c[key] for p, c in paths.items()}
         launches = sum(by_path.values())
         if launches == 0:
             fail(f"{name} was not launched on the serving, training or bench path")
         lib = [r["library_ms"] for r in rows]
         entry = {
             "name": name, "route": "cuda", "dtype": dtype_name,
-            "source": f"tpuseg_torch/kernels/csrc/{source}",
-            "replaces": f"tpuseg/kernels/{replaces}", "launches": launches,
-            "launches_by_path": by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": per_pass(rows, "ms"), "plain_ms": per_pass(rows, "plain_ms"),
-            "bound_ms": per_pass(rows, "bound_ms"),
+            "source": f"tpuseg_torch/kernels/csrc/{source}", "replaces": replaces,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in all_rows),
+            **pass_fields(rows),
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
             "peak_tflops": rows[0]["peak_flops"] / 1e12,
             "library_ms": None if None in lib else per_pass(rows, "library_ms"),
         }
-        if dtype_name == "float32" and (key == "packed_conv3d_structured"
+        if dtype_name == "float32" and (key.startswith("packed_conv3d_structured")
                                         or key.startswith("conv3d_small")):
             # the f32 route is 3xTF32 on the tensor cores: its error against
             # the plain version beside the f32 gate
             entry["tf32x3"] = {"max_err_over_scale": max(r["max_abs_err"] / r["scale"]
-                                                         for r in rows),
+                                                         for r in all_rows),
                                "gate": TOL["float32"]}
+        vrows = [r for r in all_rows if r["path"] == "vnet"]
+        if vrows:
+            entry["train_vnet_packed"] = dict(pass_fields(vrows), library_ms=per_pass(
+                vrows, "library_ms"))
         for path, path_rows in swin_rows.items():
             # one sliding-window forward's calls at its batch (phase 8): 27
             # VNet3d patches (plain, and the packed twin's K3), 8 packed
@@ -1635,8 +2013,9 @@ def main() -> int:
                     entry[path]["bfloat16"] = path_rows[(key, "bfloat16")]
         if not key.startswith("conv3d_small"):
             # the same kernel's bf16 instantiation, timed in phase 3
-            bf = [r for r in kernels[key] if r["dtype"] == "bfloat16"]
-            entry["bfloat16"] = {f: per_pass(bf, f) for f in ("ms", "plain_ms", "bound_ms")}
+            bf = [r for r in kernels[key] if r["dtype"] == "bfloat16"
+                  and r["path"] in (None, "unet")]
+            entry["bfloat16"] = pass_fields(bf)
             entry["bfloat16"]["bound_by"] = max(
                 bf, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"]
             entry["bfloat16"]["peak_tflops"] = bf[0]["peak_flops"] / 1e12
@@ -1656,15 +2035,20 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": f"tpuseg_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
-            "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name],
-                                 "train_bf16": bf16_launches[name], "bench": launches,
-                                 **{path: c[name] for path, c in swin_launches.items()}},
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": top["ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "variants": {tag: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                  "bound_by")} for tag, r in rows.items()},
         })
+    # the stem's one-product weight gradient (torch.matmul, not a kernel of
+    # the package), a train step's calls of each packed net beside cuDNN's
+    stem = {f"{r['path']} {r['dtype']}": {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "max_abs_err")}
+            for r in kernels["stem_dw_gemm"]}
+    say("stem_dw_gemm " + json.dumps({"per_step": stem, "launches_by_path": {
+        p: c["stem_dw_gemm"] for p, c in paths.items() if c["stem_dw_gemm"]}}))
     say(json.dumps({"kernels": summary}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -784,3 +784,122 @@ def test_packed_vnet3d_forward_matches_plain_net(cuda, dtype, levels, want):
         assert agree >= 0.9999, agree
     else:
         assert agree >= 0.99, agree
+
+
+# packed training: K3's autograd node (forward K3, dX K3 on the
+# flip-transposed weight, dW K2's dW kernel on the fine views) against
+# autograd through its plain version on the card, on both grids, one part
+# and two, with a bias; C and F where the backward's kernels take them
+# (dX: K = 64F fully packed, 48F on (H, W), in whole stages; dW: 8 <= C <= 64)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axes, grid, c_fines, f", [
+    ((True, True, True), (1, 3, 4, 5), (8,), 8),
+    ((True, True, True), (2, 3, 5, 4), (8, 16), 16),
+    (HW, (1, 4, 3, 5), (16,), 16),
+    (HW, (1, 3, 4, 3), (8, 8), 8),
+])
+def test_packed_conv_train_matches_plain_autograd(cuda, dtype, axes, grid, c_fines, f):
+    p = packed_conv.deltas(axes)
+    gen = torch.Generator().manual_seed(21)
+    parts = [torch.randn(grid + (p * c,), generator=gen).to(cuda, dtype).requires_grad_()
+             for c in c_fines]
+    ws = [(torch.randn((3, 3, 3, c, f), generator=gen) * 0.2).to(cuda).requires_grad_()
+          for c in c_fines]
+    b = torch.randn(f, generator=gen).to(cuda).requires_grad_()
+    g = torch.randn(grid + (p * f,), generator=gen).to(cuda, dtype)
+    inputs = [*parts, *ws, b]
+    before = (packed_conv.LAUNCHES, packed_conv.DX_LAUNCHES, packed_conv.DW_LAUNCHES,
+              conv3d.DW_LAUNCHES)
+    y = packed_conv.packed_conv3d_train(parts, ws, b, axes)
+    got = torch.autograd.grad(y, inputs, g)
+    torch.cuda.synchronize()
+    after = (packed_conv.LAUNCHES, packed_conv.DX_LAUNCHES, packed_conv.DW_LAUNCHES,
+             conv3d.DW_LAUNCHES)
+    n = len(parts)
+    assert tuple(a - c for a, c in zip(after, before)) == (1, n, n, 0)
+    ref_y = packed_conv.packed_conv3d_plain(
+        parts, [packed_conv.pack_k3_axes(w, axes) for w in ws], b.repeat(p))
+    ref = torch.autograd.grad(ref_y, inputs, g)
+    assert y.dtype == dtype and y.shape == ref_y.shape
+    _close(y, ref_y, dtype)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        _close(a, r, dtype)
+
+
+def test_packed_conv_train_refuses_what_no_backward_kernel_takes(cuda):
+    """C = 4 is outside K2's dW range; F = 2 on the (H, W) grid gives dX a K
+    of 96, not whole bf16 stages: both raise, with no plain route."""
+    x = torch.randn((1, 3, 4, 5, 32), device=cuda)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        packed_conv.packed_conv3d_train([x], [torch.randn((3, 3, 3, 4, 8), device=cuda)])
+    x = torch.randn((1, 3, 4, 5, 4 * 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        packed_conv.packed_conv3d_train([x], [torch.randn((3, 3, 3, 16, 2), device=cuda)],
+                                        axes=HW)
+    with pytest.raises(ValueError, match="CUDA"):
+        packed_conv.packed_conv3d_train([x], [torch.randn((3, 3, 3, 16, 16))], axes=HW)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_conv_on_card_matches_autograd(cuda, dtype):
+    """The k4 stride-2 stem: dW as one product (``stem_dw_gemm``), dX and
+    the forward through cuDNN, dbias a sum, against autograd of the conv."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.models import vnet_packed
+
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn((2, 16, 12, 8, 1), generator=gen).to(cuda, dtype).requires_grad_()
+    w4 = (torch.randn((4, 4, 4, 1, 128), generator=gen) * 0.2).to(cuda).requires_grad_()
+    b = torch.randn(128, generator=gen).to(cuda).requires_grad_()
+    g = torch.randn((2, 8, 6, 4, 128), generator=gen).to(cuda, dtype)
+    before = vnet_packed.STEM_DW_PRODUCTS
+    y = vnet_packed.conv_k4s2_fine2packed(x, w4, b)
+    got = torch.autograd.grad(y, (x, w4, b), g)
+    assert vnet_packed.STEM_DW_PRODUCTS == before + 1
+    ref_y = F.conv3d(x.permute(0, 4, 1, 2, 3), w4.to(dtype).permute(4, 3, 0, 1, 2),
+                     b.to(dtype), stride=2, padding=1).permute(0, 2, 3, 4, 1)
+    ref = torch.autograd.grad(ref_y, (x, w4, b), g)
+    _close(y, ref_y, dtype)
+    for a, r in zip(got, ref):
+        _close(a, r, dtype)
+
+
+# launches of one packed train step (forward and backward) at small
+# shapes: K3 forward / dX / dW (K2's dW kernel), K2 forward / dX / dW, K1
+# forward / backward, stem GEMMs.  UNet3d levels 1: the finest level's
+# three K3 convs (the decoder's of two parts: two dX and two dW), K2 the 7
+# convs of levels 1-3 in its range, K1 18; levels 2: K3 6, K2 3.  VNet3d
+# levels 2: K3 5 (one fully packed, four on (H, W)), K2 6, K1 34.
+@pytest.mark.parametrize("net, levels, want", [
+    ("unet", 1, (3, 4, 4, 7, 7, 7, 18, 18, 1)),
+    ("unet", 2, (6, 8, 8, 3, 3, 3, 18, 18, 2)),
+    ("vnet", 2, (5, 5, 5, 6, 6, 6, 34, 34, 1)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_twins_train_step_launch_counts(cuda, net, levels, want, dtype):
+    from tpuseg_torch.models import unet_packed, vnet_packed
+    from tpuseg_torch.models.unet import UNet
+
+    def counts():
+        return (packed_conv.LAUNCHES, packed_conv.DX_LAUNCHES, packed_conv.DW_LAUNCHES,
+                conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES,
+                fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES, vnet_packed.STEM_DW_PRODUCTS)
+
+    if net == "unet":
+        model = UNet(5, 16, dropout=0.2, generator=torch.Generator().manual_seed(0))
+        twin, side = unet_packed.packed_unet3d_apply, 32
+    else:
+        model = _seeded_vnet(cuda)
+        twin, side = vnet_packed.packed_vnet3d_apply, 64
+    model = model.to(cuda).train()
+    x = torch.randn((1, side, side, side, 1), device=cuda).to(dtype)
+    before = counts()
+    logits, probs = twin(model, x, packed_levels=levels,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    (logits.float().square().mean() + probs.float().mean()).backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == want
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())

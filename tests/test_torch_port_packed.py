@@ -224,24 +224,37 @@ def test_packed_dropout_draws_as_the_plain_net(net):
 
 
 def test_packed_weights_made_once_per_weight_version(net):
-    first = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
-    assert unet_packed.packed_weights(net, torch.float32, "cpu", 1) is first
-    assert unet_packed.packed_weights(net, torch.float32, "cpu", 2) is not first
+    """Served (no gradient asked for), the derived weights are cached per
+    weight version, dtype, device and packed_levels; a call that records
+    gradients makes them fresh in the graph, and the parameters get
+    gradients (``tests/test_torch_port_packed_train.py`` holds them to
+    JAX)."""
+    with torch.no_grad():
+        first = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
+        assert unet_packed.packed_weights(net, torch.float32, "cpu", 1) is first
+        assert unet_packed.packed_weights(net, torch.float32, "cpu", 2) is not first
     saved = {k: v.clone() for k, v in net.state_dict().items()}
     try:
         net.load_state_dict({k: v * 2 if k == "conv.bias" else v for k, v in saved.items()})
-        again = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
+        with torch.no_grad():
+            again = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
         assert again is not first
         torch.testing.assert_close(again.head("delta")[1], first.head("delta")[1] * 2)
     finally:
         net.load_state_dict(saved)
-    with pytest.raises(RuntimeError, match="inference only"):
-        unet_packed.packed_unet3d_apply(net, torch.zeros(1, S, S, S, 1))
+    assert unet_packed.packed_weights(net, torch.float32, "cpu", 1) is not first
+    logits, _ = unet_packed.packed_unet3d_apply(net, torch.ones(1, S, S, S, 1))
+    logits.sum().backward()
+    try:
+        assert net.conv.bias.grad is not None and net.encoder1.enc1conv1.weight.grad is not None
+    finally:
+        net.zero_grad(set_to_none=True)
 
 
 def test_packed_weights_cache_does_not_keep_the_net():
     net = UNet(K, F).eval()
-    wts = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
+    with torch.no_grad():
+        wts = unet_packed.packed_weights(net, torch.float32, "cpu", 1)
     assert len(wts.head("class")[1]) == 8 * K
     ref = weakref.ref(net)
     del net

@@ -304,11 +304,12 @@ def test_cli_parses_the_serve_flags():
     assert cfg.train.alpha == [1, 2] and cfg.data.image_size == (16, 16, 16)
     for bad in (["--model.num_classes"], ["model.num_classes", "5"],
                 ["--train.nope", "1"], ["--infer.new_size", "[1,2]"],
-                ["--train.resume", "maybe"], ["--train.packed_stem", "true"],
+                ["--train.resume", "maybe"], ["--train.packed_stem", "maybe"],
                 ["--train.mesh_data", "2"], ["--data.online_augment", "1"]):
         with pytest.raises(ValueError):
             parse_cli(bad)
     assert parse_cli(["--train.packed_stem", "false"]).train.packed_stem is False
+    assert parse_cli(["--train.packed_stem", "true"]).train.packed_stem is True
 
 
 def test_serve_imports_no_jax():

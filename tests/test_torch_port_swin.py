@@ -395,15 +395,20 @@ def test_packed_merge_rejects_odd_patches_and_positions():
 
 def test_packed_vnet_twin_is_not_ported():
     """The packed VNet3d twin serves (tests/test_torch_port_vnet_packed.py
-    holds it to JAX); its training is what is not ported: ``train=True``,
-    or a net in training mode, raises NotImplementedError naming the
-    packed-training slice."""
-    net = VNet(K, F)
-    x = torch.zeros((1, 32, 32, 32, 1))
-    for kw, mode in (({"train": True}, net.eval), ({}, net.train)):
-        mode()
-        with torch.no_grad(), pytest.raises(NotImplementedError, match="packed-training"):
-            vnet_packed.packed_vnet3d_apply(net, x, **kw)
+    holds it to JAX) and, since packed training was ported, also runs in
+    training mode: there it draws its dropouts from the generator as the
+    plain net does (tests/test_torch_port_packed_train.py holds its
+    gradients to JAX); the ``train`` argument it once refused is gone."""
+    net = VNet(K, F).train()
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (1, 32, 32, 32, 1)).astype(np.float32))
+    with torch.no_grad():
+        _, probs = vnet_packed.packed_vnet3d_apply(
+            net, x, generator=torch.Generator().manual_seed(2))
+        _, plain = net(x, torch.Generator().manual_seed(2))
+        with pytest.raises(TypeError):
+            vnet_packed.packed_vnet3d_apply(net, x, train=True)
+    np.testing.assert_allclose(probs.numpy(), plain.numpy(), atol=1e-4)
     assert MutilVNet3dModel.packed_inference is True
 
 

@@ -285,38 +285,48 @@ def test_packed_vnet3d_default_is_levels_2(net):
 
 
 def test_packed_vnet3d_refuses_training_and_bad_shapes(net):
-    """Inference only: ``train=True`` or a net in training mode raises
-    NotImplementedError (packed training is another slice), and so do
-    sides that 32 does not divide and packed_levels outside 1-2 (ValueError),
-    and a call that would record gradients (RuntimeError)."""
-    x = torch.zeros((1, 32, 32, 32, 1))
+    """Training is ported: a net in training mode runs (its dropouts drawn
+    from the generator, as the plain net's) and a call that records
+    gradients builds its weights in the graph and reaches every parameter
+    (``tests/test_torch_port_packed_train.py`` holds both to JAX).  Sides
+    that 32 does not divide and packed_levels outside 1-2 still raise
+    ValueError, and the removed ``train`` argument TypeError."""
+    x = torch.from_numpy(_randn(22, (1, 32, 32, 32, 1)))
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="packed-training"):
+        with pytest.raises(TypeError):
             pvp.packed_vnet3d_apply(net, x, train=True)
         net.train()
         try:
-            with pytest.raises(NotImplementedError, match="packed-training"):
-                pvp.packed_vnet3d_apply(net, x)
+            _, probs = pvp.packed_vnet3d_apply(net, x, generator=torch.Generator().manual_seed(1))
+            _, plain = net(x, torch.Generator().manual_seed(1))
         finally:
             net.eval()
+        np.testing.assert_allclose(probs.numpy(), plain.numpy(), atol=1e-4)
         with pytest.raises(ValueError, match="32"):
             pvp.packed_vnet3d_apply(net, torch.zeros((1, 32, 48, 32, 1)))
         with pytest.raises(ValueError, match="packed_levels"):
             pvp.packed_vnet3d_apply(net, x, packed_levels=3)
-    with pytest.raises(RuntimeError, match="inference only"):
-        pvp.packed_vnet3d_apply(net, x)
+    logits, _ = pvp.packed_vnet3d_apply(net, x)
+    logits.sum().backward()
+    try:
+        assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in net.parameters())
+    finally:
+        net.zero_grad(set_to_none=True)
 
 
 def test_packed_vnet_weights_made_once_per_weight_version(net):
-    """The derived weights are cached per (weight version, dtype, device,
-    packed_levels) and made anew after an in-place weight change."""
-    a = pvp.packed_vnet_weights(net, torch.float32, "cpu", 2)
-    assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 2) is a
-    assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 1) is not a
+    """The serving weights (no gradient asked for) are cached per (weight
+    version, dtype, device, packed_levels) and made anew after an in-place
+    weight change; a call that records gradients makes them fresh."""
+    with torch.no_grad():
+        a = pvp.packed_vnet_weights(net, torch.float32, "cpu", 2)
+        assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 2) is a
+        assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 1) is not a
+    assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 2) is not a
     w = net.up_tr64.ops[0].conv1.weight
     with torch.no_grad():
         w.mul_(1.0)
-    assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 2) is not a
+        assert pvp.packed_vnet_weights(net, torch.float32, "cpu", 2) is not a
 
 
 # ------------------------------------------------------------ the Model API

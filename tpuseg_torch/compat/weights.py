@@ -56,9 +56,12 @@ def _tconv_to_torch(k: np.ndarray) -> np.ndarray:
     return np.transpose(flipped, (nd, nd + 1) + tuple(range(nd)))
 
 
-def unet_params_from_jax(tree: Mapping, levels: int = 4) -> Dict[str, torch.Tensor]:
+def unet_params_from_jax(tree: Mapping, levels: int = 4,
+                         dtype=np.float32) -> Dict[str, torch.Tensor]:
     """tpuseg UNet params (the tree under ``{"params": ...}``, or the whole
-    variables dict) -> the port's state_dict of float32 CPU tensors."""
+    variables dict) -> the port's state_dict of CPU tensors of ``dtype``
+    (float32; float64 carries a float64 tree, such as its gradients,
+    without rounding)."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     leaves = _flatten(tree)
@@ -68,7 +71,7 @@ def unet_params_from_jax(tree: Mapping, levels: int = 4) -> Dict[str, torch.Tens
         if path not in leaves:
             raise KeyError(f"UNet params lack {'/'.join(path)}")
         consumed.add(path)
-        return np.asarray(leaves[path], np.float32)
+        return np.asarray(leaves[path], dtype)
 
     sd: Dict[str, np.ndarray] = {}
 
@@ -143,10 +146,10 @@ def seeded_unet_params(seed: int, features: int, num_classes: int,
     return tree
 
 
-def vnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+def vnet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
     """tpuseg VNet(ndim=3) params (the tree under ``{"params": ...}``, or
-    the whole variables dict) -> the port's ``VNet`` state_dict of float32
-    CPU tensors.  Strict both ways: every leaf of the tree is consumed and
+    the whole variables dict) -> the port's ``VNet`` state_dict of CPU
+    tensors of ``dtype`` (float32, or float64 as ``unet_params_from_jax``).  Strict both ways: every leaf of the tree is consumed and
     every tensor of the state_dict is filled."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
@@ -157,7 +160,7 @@ def vnet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if path not in leaves:
             raise KeyError(f"VNet params lack {'/'.join(path)}")
         consumed.add(path)
-        return np.asarray(leaves[path], np.float32)
+        return np.asarray(leaves[path], dtype)
 
     sd: Dict[str, np.ndarray] = {}
 

@@ -3,9 +3,9 @@
 
 Overrides take the JAX package's form, ``--section.field value`` or
 ``--section.field=value``; tuples, lists and fields that default to None
-are given as JSON.  Fields the port cannot honour yet (the mesh, the packed
-twins, online augmentation, profiler traces) raise when set to anything but
-their default.
+are given as JSON.  Fields the port cannot honour yet (the mesh, online
+augmentation, profiler traces) raise when set to anything but their
+default.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 
 @dataclass
 class ModelConfig:
-    name: str = "unet3d"  # the only model ported so far
+    name: str = "unet3d"  # or "vnet3d"
     num_classes: int = 2
     image_channel: int = 1
     features: int = 16
@@ -52,7 +52,7 @@ class TrainConfig:
     mesh_data: int = -1  # not ported yet
     mesh_model: int = 1  # not ported yet
     mesh_space: int = 1  # not ported yet
-    packed_stem: bool = False  # not ported yet
+    packed_stem: bool = False  # train through the space-to-depth packed twin
     profile: bool = False  # not ported yet
     compute_dtype: str = "float32"  # "bfloat16": f32 master weights, bf16 compute
 
@@ -78,8 +78,8 @@ class Config:
 # settings whose paths are not ported yet: they must keep these defaults
 NOT_PORTED = {
     ("train", "mesh_data"): -1, ("train", "mesh_model"): 1,
-    ("train", "mesh_space"): 1, ("train", "packed_stem"): False,
-    ("train", "profile"): False, ("data", "online_augment"): False,
+    ("train", "mesh_space"): 1, ("train", "profile"): False,
+    ("data", "online_augment"): False,
 }
 
 

@@ -410,9 +410,12 @@ def _launch_dx(grad_y: torch.Tensor, packed_t: torch.Tensor, cin: int) -> torch.
     return dx
 
 
-def _launch_dw(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
-    """dW (3, 3, 3, Cin, Cout) fp32 of x and the output gradient."""
-    global DW_LAUNCHES
+def dw_kernel(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
+    """The dW kernel's launch, uncounted: (3, 3, 3, Cin, Cout) fp32 of x and
+    the output gradient, both contiguous NDHWC CUDA tensors of one dtype
+    within ``supported``.  ``_launch_dw`` counts it for this module's conv;
+    ``packed_conv.packed_conv3d_train`` calls it for K3's dW on the fine
+    views and counts it there."""
     n, d, h, wd, cin = x.shape
     cout = grad_y.shape[-1]
     plan = _dw_tc_plan(tuple(x.shape), cout, _sm_count(x.device), x.dtype)
@@ -425,6 +428,13 @@ def _launch_dw(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), grad_y.data_ptr(), partial.data_ptr(), dw.data_ptr(),
                  n, d, h, wd, cin, cout, *plan, stream)
     _build.check(err, "conv3d_small dW")
+    return dw
+
+
+def _launch_dw(x: torch.Tensor, grad_y: torch.Tensor) -> torch.Tensor:
+    """dW (3, 3, 3, Cin, Cout) fp32 of x and the output gradient."""
+    global DW_LAUNCHES
+    dw = dw_kernel(x, grad_y)
     DW_LAUNCHES += 1
     return dw
 

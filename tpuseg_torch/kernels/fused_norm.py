@@ -61,13 +61,15 @@ _MAX_C = 1024  # must match csrc/fused_norm.cuh
 
 def fused_group_norm_relu_plain(x, gamma, beta, groups: int = 8,
                                 eps: float = 1e-6, relu: bool = True):
-    """Plain PyTorch version: (N, *spatial, C) in/out, fp32 statistics."""
+    """Plain PyTorch version: (N, *spatial, C) in/out, statistics and
+    affine in fp32 (fp64 for fp64 input, as flax promotes them)."""
     shape = x.shape
     n, c = shape[0], shape[-1]
-    xg = x.reshape(n, -1, groups, c // groups).float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(n, -1, groups, c // groups).to(acc)
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(n, -1, c)
-    y = y * gamma.float() + beta.float()
+    y = y * gamma.to(acc) + beta.to(acc)
     if relu:
         y = torch.relu(y)
     return y.reshape(shape).to(x.dtype)
@@ -77,19 +79,21 @@ def fused_group_norm_relu_backward_plain(x, gamma, beta, grad_y,
                                         groups: int = 8, eps: float = 1e-6,
                                         relu: bool = True):
     """Plain PyTorch backward of ``fused_group_norm_relu_plain``: the
-    kernel's formula in torch ops, fp32 statistics.  Returns (dx in
-    ``x.dtype``, dgamma in ``gamma.dtype``, dbeta in ``beta.dtype``)."""
+    kernel's formula in torch ops, fp32 statistics (fp64 for fp64 input).
+    Returns (dx in ``x.dtype``, dgamma in ``gamma.dtype``, dbeta in
+    ``beta.dtype``)."""
     n, c = x.shape[0], x.shape[-1]
-    xg = x.reshape(n, -1, groups, c // groups).float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(n, -1, groups, c // groups).to(acc)
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
     rstd = torch.rsqrt(var + eps)
     xhat = ((xg - mean) * rstd).reshape(n, -1, c)
-    g = grad_y.reshape(n, -1, c).float()
+    g = grad_y.reshape(n, -1, c).to(acc)
     if relu:
-        g = g * (xhat * gamma.float() + beta.float() > 0)
+        g = g * (xhat * gamma.to(acc) + beta.to(acc) > 0)
     dbeta = g.sum(dim=(0, 1))
     dgamma = (g * xhat).sum(dim=(0, 1))
-    dxhat = (g * gamma.float()).reshape(xg.shape)
+    dxhat = (g * gamma.to(acc)).reshape(xg.shape)
     xh = xhat.reshape(xg.shape)
     dx = rstd * (dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
                  - xh * (dxhat * xh).mean(dim=(1, 3), keepdim=True))

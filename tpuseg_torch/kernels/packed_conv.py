@@ -49,25 +49,47 @@ packed, and which input deltas a tap reads is the table's business
 (tap, delta) pairs) against 64C fully packed.  The C entry takes P to
 check K and the copy width (runs of C = PC / P channels).
 
-There is no backward: the packed twin is served, not trained, in this
-port.  ``packed_conv3d_structured`` runs the plain version on CPU tensors
-and the kernel on CUDA tensors (bf16 -> ``tpuseg_packed_conv3d_bf16``,
-float32 -> ``tpuseg_packed_conv3d_tf32x3``), or raises.
+The backward (``packed_conv3d_train``, an autograd node whose inputs
+are the parts, each part's fine (3, 3, 3, C_i, F) weight and the fine
+bias; the JAX package trains through XLA's dense conv instead, and its
+Pallas kernel has no VJP).  dX is K3 itself: the transpose of a packed k3
+conv is the packed conv of the flip-transposed fine weight,
+``pack_k3_axes(flip_t(w)) == flip_t(pack_k3_axes(w))`` (per packed axis t
+= 2(u-1) + din - dout + 1 is unchanged under u -> 2 - u, din <-> dout), so
+it is one launch a part on dY with c_fine = F.  dW: the packed conv is
+the fine conv, so the fine weight's gradient is the fine k3 conv's weight
+gradient on the depth-to-space views of x and dY along the packed axes,
+which K2's dW kernel (``conv3d.dw_kernel``) computes: 27·C·F outputs, an
+eighth of the dense coarse weight gradient's arithmetic.  dbias sums dY
+over positions and deltas.  The derived weights (the forward's and dX's
+``pack_tc``) are made from the detached fine weights on every call; the
+row tables depend on no weight and stay cached.
+
+``packed_conv3d_structured`` (precomputed weights, no gradient) and
+``packed_conv3d_train`` run the plain versions on CPU tensors and the
+kernels on CUDA tensors (bf16 -> ``tpuseg_packed_conv3d_bf16``, float32 ->
+``tpuseg_packed_conv3d_tf32x3``; dW ``tpuseg_conv3d_small_dw_*``), or
+raise.
 """
 from __future__ import annotations
 
 import functools
 import itertools
+import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.kernels import _build
 
-# kernel launches by `packed_conv3d_structured` in this process (plain
-# calls not counted)
+# kernel launches in this process (plain calls not counted): K3 forward
+# (`packed_conv3d_structured`, `packed_conv3d_train`), K3 on dY for the
+# backward's dX, and K2's dW kernel for the backward's dW
 LAUNCHES = 0
+DX_LAUNCHES = 0
+DW_LAUNCHES = 0
 
 # must match csrc/packed_conv_tc.cu: output channels per block, bytes of K
 # per stage and row, the block's two warpgroups; per dtype the m64 tiles a
@@ -231,6 +253,16 @@ def _mma_tiles(w_nk: torch.Tensor, e: int) -> torch.Tensor:
     return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
+def _tc_layout(wk: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(K, n_pad) fp32 structural weight -> the kernel's weight for
+    ``dtype`` (``pack_tc``)."""
+    w_nk = wk.t()
+    if dtype == torch.bfloat16:
+        return _mma_tiles(w_nk.to(torch.bfloat16), 8)
+    hi, lo = tf32_split(w_nk)
+    return torch.stack([_mma_tiles(hi, 4), _mma_tiles(lo, 4)], dim=2).contiguous()
+
+
 def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
     """Dense per-part kernels -> ``(wt, rows)`` for the kernel of ``dtype``:
     the structural weight of ``pack_structured``, transposed to N x K and
@@ -238,11 +270,98 @@ def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
     8) bf16.  float32: its tf32 hi/lo pair, (n_pad/128, K/32, 2, 16, 8, 8,
     4) fp32, hi then lo in each stage.  A caller makes it once per weight."""
     wk, rows = pack_structured(w3s, dtype, axes)
-    w_nk = wk.t()
-    if dtype == torch.bfloat16:
-        return _mma_tiles(w_nk.to(torch.bfloat16), 8), rows
-    hi, lo = tf32_split(w_nk)
-    return torch.stack([_mma_tiles(hi, 4), _mma_tiles(lo, 4)], dim=2).contiguous(), rows
+    return _tc_layout(wk, dtype), rows
+
+
+# ---------------------------------------------------------------------------
+# the fine weight's packings, exact and differentiable
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _selection(fn, shape, args, device) -> torch.Tensor:
+    ids = torch.arange(1, math.prod(shape) + 1, dtype=torch.float64).reshape(shape)
+    return fn(ids, *args).round().long().to(device)
+
+
+def exact_transform(fn, w: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(w, *args)`` for a transform each of whose outputs is one entry
+    of ``w`` or zero (every weight packing of the twins), as one index
+    gather: exact on any device and in any dtype (TF32 cannot round it),
+    and differentiable, its backward an index-add onto ``w``.  ``fn`` runs
+    once per (shape, args, device), on the entries' float64 ids, which
+    name each output's source; ``args`` must be hashable."""
+    idx = _selection(fn, tuple(w.shape), args, w.device)
+    return torch.cat([w.new_zeros(1), w.reshape(-1)])[idx]
+
+
+def _axis_select(packed: bool) -> np.ndarray:
+    """A[u, din, dout, t] = 1 iff coarse tap u reads fine tap t from input
+    sub-position din for output sub-position dout (``_axis_valid``)."""
+    a = np.zeros((3, 2, 2, 3) if packed else (3, 1, 1, 3), np.float32)
+    for u in range(3):
+        for din, dout in _axis_valid(u, packed):
+            a[u, din, dout, 2 * (u - 1) + din - dout + 1 if packed else u] = 1.0
+    return a
+
+
+def _pack_k3_axes_einsum(w: torch.Tensor, axes) -> torch.Tensor:
+    sel = [torch.as_tensor(_axis_select(p), dtype=w.dtype, device=w.device) for p in axes]
+    c, f = w.shape[-2:]
+    w3 = torch.einsum("aAdt,bBeu,cCgv,tuvxy->abcABCxdegy", *sel, w)
+    p = int(np.prod([s.shape[1] for s in sel]))
+    return w3.reshape(3, 3, 3, p * c, p * f)
+
+
+def pack_k3_axes(w: torch.Tensor, axes: Sequence[bool] = FULL) -> torch.Tensor:
+    """(3, 3, 3, C, F) fine k3 SAME conv -> the k3 conv on the grid packed
+    along ``axes`` (pack_d, pack_h, pack_w), P = 2**(packed axes): (3, 3,
+    3, PC, PF), delta-major (the axis deltas composed d-major over the
+    packed axes), f-minor, 1/P dense.  W3[u, (delta', c), (delta, f)] =
+    W[t, c, f] where per packed axis t = 2(u-1) + delta' - delta lands in
+    [0, 3) and per fine axis t = u (JAX's einsum, run by
+    ``exact_transform``)."""
+    return exact_transform(_pack_k3_axes_einsum, w, tuple(bool(a) for a in axes))
+
+
+def flip_t(w: torch.Tensor) -> torch.Tensor:
+    """The flip-transpose of a (3, 3, 3, I, O) SAME conv weight, the weight
+    of its transposed conv: taps reversed along every axis, I and O
+    swapped."""
+    return w.flip(0, 1, 2).transpose(3, 4)
+
+
+def unpack_axes(x: torch.Tensor, axes: Sequence[bool] = FULL) -> torch.Tensor:
+    """Depth-to-space along the packed ``axes``: (N, D', H', W', P·C)
+    delta-major -> the fine (N, D, H, W, C) map, contiguous."""
+    n, d, h, w, pc = x.shape
+    sd, sh, sw = (2 if a else 1 for a in axes)
+    c = pc // (sd * sh * sw)
+    x = x.reshape(n, d, h, w, sd, sh, sw, c).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(n, d * sd, h * sh, w * sw, c)
+
+
+def _structural(w: torch.Tensor, axes) -> torch.Tensor:
+    return pack_weight_structured(_pack_k3_axes_einsum(w, axes), w.shape[3], axes)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows(c_fines, axes, device) -> torch.Tensor:
+    return row_table(c_fines, axes).to(device)
+
+
+def pack_tc_fine(w_fines: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
+    """``pack_tc`` of the parts' ``pack_k3_axes(w)`` from their fine
+    (3, 3, 3, C_i, F) weights, each part's structural rows by one gather
+    (what ``packed_conv3d_train`` makes on every call; the row table is
+    cached per device)."""
+    axes = tuple(bool(a) for a in axes)
+    stacked = torch.cat([exact_transform(_structural, w.detach().to(dtype), axes)
+                         for w in w_fines]).float()
+    f8 = stacked.shape[1]
+    wk = F.pad(stacked, (0, -(-f8 // _BN) * _BN - f8))
+    rows = _rows(tuple(w.shape[3] for w in w_fines), axes, stacked.device)
+    return _tc_layout(wk, dtype), rows
 
 
 def packed_conv3d_plain(parts: Sequence[torch.Tensor], w3s: Sequence[torch.Tensor],
@@ -297,8 +416,7 @@ def supported(part_shapes: Sequence[Tuple[int, ...]], f8: int, axes=FULL,
     return 1 <= npos < 2 ** 31
 
 
-def _launch(parts, packed, bias, relu: bool, f8: int, p: int) -> torch.Tensor:
-    global LAUNCHES
+def _kernel(parts, packed, bias, relu: bool, f8: int, p: int) -> torch.Tensor:
     wt, rows = packed
     xa = parts[0]
     xb = parts[1] if len(parts) == 2 else None
@@ -315,8 +433,34 @@ def _launch(parts, packed, bias, relu: bool, f8: int, p: int) -> torch.Tensor:
             rows.shape[0], wt.shape[0] * _BN, f8, int(bool(relu)), stream,
         )
     _build.check(err, "packed_conv3d_structured")
+    return y
+
+
+def _launch(parts, packed, bias, relu: bool, f8: int, p: int) -> torch.Tensor:
+    global LAUNCHES
+    y = _kernel(parts, packed, bias, relu, f8, p)
     LAUNCHES += 1
     return y
+
+
+def _launch_dx(grad_y: torch.Tensor, packed_t, c8: int, p: int) -> torch.Tensor:
+    """The backward's dX of one part: K3 on dY with ``pack_tc`` of the
+    flip-transposed fine weight; (N, D', H', W', c8)."""
+    global DX_LAUNCHES
+    dx = _kernel((grad_y,), packed_t, None, False, c8, p)
+    DX_LAUNCHES += 1
+    return dx
+
+
+def _launch_dw(x_fine: torch.Tensor, g_fine: torch.Tensor) -> torch.Tensor:
+    """The backward's dW of one part: K2's dW kernel on the fine views;
+    (3, 3, 3, C, F) fp32."""
+    from tpuseg_torch.kernels import conv3d  # conv3d imports this module
+
+    global DW_LAUNCHES
+    dw = conv3d.dw_kernel(x_fine, g_fine)
+    DW_LAUNCHES += 1
+    return dw
 
 
 def _check_packed(packed, parts, f8: int, axes) -> None:
@@ -337,6 +481,34 @@ def _check_packed(packed, parts, f8: int, axes) -> None:
         )
 
 
+def _check_cuda(what: str, parts, tensors, f8: int, axes, w_shapes, want_w,
+                bias, want_b: int) -> None:
+    """Raise unless the kernel takes these: every tensor on one CUDA
+    device, the parts contiguous in one of its dtypes, each part's weight
+    of shape ``want_w[i]`` and the bias of ``want_b``."""
+    dev = parts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what}: tensors on {sorted({str(t.device) for t in tensors})}; all "
+            "must be on one CUDA device (or all on the CPU)"
+        )
+    dtype = parts[0].dtype
+    if dtype not in ENTRY or any(p.dtype != dtype for p in parts):
+        raise TypeError(f"{what}: part dtypes {[p.dtype for p in parts]} must be one "
+                        f"of {list(ENTRY)}")
+    if (len(w_shapes) != len(parts)
+            or not supported([tuple(p.shape) for p in parts], f8, axes, dtype)
+            or any(tuple(s) != w for s, w in zip(w_shapes, want_w))
+            or (bias is not None and tuple(bias.shape) != (want_b,))):
+        raise ValueError(
+            f"{what}: unsupported shapes: parts {[tuple(p.shape) for p in parts]}, "
+            f"kernels {[tuple(s) for s in w_shapes]}, bias "
+            f"{None if bias is None else tuple(bias.shape)}"
+        )
+    if not all(p.is_contiguous() for p in parts):
+        raise ValueError(f"{what}: parts must be contiguous NDHWC")
+
+
 def packed_conv3d_structured(parts: Sequence[torch.Tensor],
                              w3s: Sequence[torch.Tensor],
                              bias: Optional[torch.Tensor] = None,
@@ -353,46 +525,130 @@ def packed_conv3d_structured(parts: Sequence[torch.Tensor],
     kernel's input channels); ``bias`` (P·F,) optional; ``packed``
     optional, the ``pack_tc(w3s, x.dtype, axes)`` a caller made once.
     Returns (N, D', H', W', P·F) in the parts' dtype.  CPU tensors take the
-    plain version (differentiable); CUDA tensors the kernel, which has no
-    backward, so it raises when a gradient would be asked for."""
+    plain version (differentiable); CUDA tensors the kernel, which this
+    entry does not differentiate: it raises when a gradient would be asked
+    for (``packed_conv3d_train`` is the differentiable entry)."""
     parts, w3s, axes = tuple(parts), tuple(w3s), tuple(axes)
     tensors = parts + w3s + (() if bias is None else (bias,))
     if all(t.device.type == "cpu" for t in tensors):
         return packed_conv3d_plain(parts, w3s, bias, relu)
-    dev = parts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            "packed_conv3d_structured: tensors on "
-            f"{sorted({str(t.device) for t in tensors})}; all must be on one "
-            "CUDA device (or all on the CPU)"
-        )
-    dtype = parts[0].dtype
-    if dtype not in ENTRY or any(p.dtype != dtype for p in parts):
-        raise TypeError(
-            f"packed_conv3d_structured: part dtypes {[p.dtype for p in parts]} "
-            f"must be one of {list(ENTRY)}"
-        )
     f8 = w3s[0].shape[-1] if w3s else 0
-    if (len(w3s) != len(parts)
-            or not supported([tuple(p.shape) for p in parts], f8, axes, dtype)
-            or any(tuple(w.shape) != (3, 3, 3, p.shape[4], f8)
-                   for p, w in zip(parts, w3s))
-            or (bias is not None and tuple(bias.shape) != (f8,))):
-        raise ValueError(
-            "packed_conv3d_structured: unsupported shapes: parts "
-            f"{[tuple(p.shape) for p in parts]}, kernels "
-            f"{[tuple(w.shape) for w in w3s]}, bias "
-            f"{None if bias is None else tuple(bias.shape)}"
-        )
-    if not all(p.is_contiguous() for p in parts):
-        raise ValueError("packed_conv3d_structured: parts must be contiguous NDHWC")
+    _check_cuda("packed_conv3d_structured", parts, tensors, f8, axes,
+                [w.shape for w in w3s], [(3, 3, 3, p.shape[4], f8) for p in parts],
+                bias, f8)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "packed_conv3d_structured: the CUDA kernel has no backward; call "
-            "it under torch.no_grad() or torch.inference_mode()"
+            "packed_conv3d_structured: this entry has no backward on the card; "
+            "call it under torch.no_grad(), or packed_conv3d_train to train"
         )
     if packed is None:
-        packed = pack_tc(w3s, dtype, axes)
+        packed = pack_tc(w3s, parts[0].dtype, axes)
     else:
         _check_packed(packed, parts, f8, axes)
     return _launch(parts, packed, bias, relu, f8, deltas(axes))
+
+
+class _PackedConv3d(torch.autograd.Function):
+    """K3 as an autograd node (``packed_conv3d_train``): inputs the parts,
+    each part's fine weight and the fine bias (optional).  Each step of
+    the forward and backward runs its kernel on CUDA tensors and its plain
+    version on CPU tensors: forward K3, dX K3 on the flip-transposed
+    weight, dW K2's dW kernel on the fine views, dbias a sum."""
+
+    @staticmethod
+    def forward(ctx, axes, n_parts, *tensors):
+        parts, w_fines = tensors[:n_parts], tensors[n_parts:2 * n_parts]
+        bias = tensors[2 * n_parts] if len(tensors) > 2 * n_parts else None
+        ctx.axes, ctx.n_parts = axes, n_parts
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.save_for_backward(*parts, *w_fines)
+        p = deltas(axes)
+        b = None if bias is None else bias.detach().repeat(p)
+        if parts[0].device.type == "cpu":
+            w3s = [pack_k3_axes(w.detach(), axes) for w in w_fines]
+            return packed_conv3d_plain(parts, w3s, b)
+        packed = pack_tc_fine(w_fines, parts[0].dtype, axes)
+        return _launch(parts, packed, b, False, p * w_fines[0].shape[-1], p)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        n, axes = ctx.n_parts, ctx.axes
+        saved = ctx.saved_tensors
+        parts, w_fines = saved[:n], saved[n:]
+        need = ctx.needs_input_grad[2:]
+        p, cpu = deltas(axes), grad_y.device.type == "cpu"
+        g = grad_y.to(parts[0].dtype).contiguous()
+        dxs, dws = [None] * n, [None] * n
+        for i, (x, w) in enumerate(zip(parts, w_fines)):
+            if need[i]:
+                wt = flip_t(w.detach())
+                dxs[i] = (packed_conv3d_plain([g], [pack_k3_axes(wt, axes)]) if cpu else
+                          _launch_dx(g, pack_tc_fine([wt], g.dtype, axes), x.shape[4], p))
+        if any(need[n:2 * n]):
+            g_fine = unpack_axes(g, axes)
+            for i, (x, w) in enumerate(zip(parts, w_fines)):
+                if need[n + i]:
+                    x_fine = unpack_axes(x, axes)
+                    dw = (_dw_plain(x_fine, g_fine) if cpu else _launch_dw(x_fine, g_fine))
+                    dws[i] = dw.to(w.dtype)
+        dbias = ()
+        if ctx.bias_dtype is not None:
+            db = None
+            if need[2 * n]:
+                acc = torch.promote_types(g.dtype, torch.float32)
+                db = g.to(acc).sum(dim=(0, 1, 2, 3)).reshape(p, -1).sum(0)
+                db = db.to(ctx.bias_dtype)
+            dbias = (db,)
+        return (None, None, *dxs, *dws, *dbias)
+
+
+def _dw_plain(x_fine: torch.Tensor, g_fine: torch.Tensor) -> torch.Tensor:
+    from tpuseg_torch.kernels import conv3d
+
+    return conv3d.conv3d_small_dw_plain(x_fine, g_fine)
+
+
+def packed_conv3d_train(parts: Sequence[torch.Tensor], w_fines: Sequence[torch.Tensor],
+                        bias: Optional[torch.Tensor] = None,
+                        axes: Sequence[bool] = FULL) -> torch.Tensor:
+    """The packed k3 conv of one or two parts from the fine weights,
+    differentiable in the parts, the weights and the bias: what the packed
+    twins train through.
+
+    ``parts`` as ``packed_conv3d_structured``'s; ``w_fines``: each part's
+    fine (3, 3, 3, C_i, F) DHWIO weight (the part's slice of the fine
+    conv's input channels), in any float dtype (the kernel's weight is
+    made in the parts' dtype); ``bias`` the fine (F,) bias, optional.
+    Returns (N, D', H', W', P·F) in the parts' dtype, and on the backward
+    dX in the parts' dtype, dW and dbias in the weights' dtype.  CPU tensors
+    take the plain versions; CUDA tensors the kernels (K3 forward and dX,
+    K2's dW kernel), or it raises: dX needs K = 64F (48F on the (H, W)
+    grid) to fill K3's stages and dW 8 <= C_i <= 64, 2 <= F <= 64."""
+    parts, w_fines = tuple(parts), tuple(w_fines)
+    axes = tuple(bool(a) for a in axes)
+    tensors = parts + w_fines + (() if bias is None else (bias,))
+    pk = deltas(axes)
+    f = w_fines[0].shape[-1] if w_fines else 0
+    want_w = [(3, 3, 3, x.shape[4] // pk, f) for x in parts]
+    if all(t.device.type == "cpu" for t in tensors):
+        if len(w_fines) != len(parts) or any(tuple(w.shape) != s
+                                             for w, s in zip(w_fines, want_w)):
+            raise ValueError(
+                f"packed_conv3d_train: weights {[tuple(w.shape) for w in w_fines]} are "
+                f"not the fine weights of parts {[tuple(x.shape) for x in parts]}")
+    else:
+        from tpuseg_torch.kernels import conv3d  # conv3d imports this module
+
+        _check_cuda("packed_conv3d_train", parts, tensors, pk * f, axes,
+                    [w.shape for w in w_fines], want_w, bias, f)
+        for x in parts:
+            c = x.shape[4] // pk
+            fine = tuple(s * (2 if a else 1) for s, a in zip(x.shape[1:4], axes))
+            if (not supported([tuple(x.shape[:4]) + (pk * f,)], x.shape[4], axes,
+                              x.dtype)
+                    or not conv3d.supported((x.shape[0],) + fine + (c,), (3, 3, 3, c, f))):
+                raise ValueError(
+                    f"packed_conv3d_train: no backward kernel takes part "
+                    f"{tuple(x.shape)} -> {pk * f} channels on {axes} (dX: K3 at K = "
+                    f"{k_rows([pk * f], axes)}; dW: K2 at {c} -> {f})")
+    return _PackedConv3d.apply(axes, len(parts), *tensors)

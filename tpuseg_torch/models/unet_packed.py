@@ -13,11 +13,15 @@ blocks (K2, K1 through ``FusedGNReLU``).  The math is the plain net's; the
 same parameters serve both.
 
 Derived weights (the k4 stem kernels, the per-part coarse and structural
-kernels, the 1x1 matrices, the packed head) are built once per weight
-version and device, like ``ConvND``'s packed weight: on the CPU in float32,
-where the transforms are exact, then moved.  The packed forward is for
-inference: it raises when a gradient to the parameters would be asked for
-(packed training is not ported).
+kernels, the 1x1 matrices, the packed head) come from the plain
+parameters by exact gathers (``models/vnet_packed.py`` ``Derive``).
+Served, they are built once per weight version and device, like
+``ConvND``'s packed weight: on the CPU in float32, then moved.  Trained
+(``packed_stem``), they are built on the device inside the autograd graph
+every step, and the gradients land on the plain parameters: K3 runs
+forward and dX and K2's dW kernel its weight gradient
+(``packed_conv3d_train``), the stem's weight gradient is one matrix
+product (``stem_dw_gemm``), and K1 runs forward and backward.
 """
 from __future__ import annotations
 
@@ -29,19 +33,18 @@ import torch
 
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.vnet_packed import (
+    Derive,
     PackedHead,
-    PackedK3,
-    _dhwio,
-    cached_weights,
     channel_dropout,
     conv_k4s2_fine2packed,
     depth_to_space3d,
+    exact_transform,
     gn_packed,
     pack_k3_to_k4s2,
     pack_transpose_k2s2_to_1x1,
     packed_softmax,
     space_to_depth3d,
-    tile_channel_packed,
+    twin_weights,
 )
 from tpuseg_torch.nn.layers import max_pool_nd
 
@@ -68,28 +71,24 @@ def _concat_perm(f: int) -> np.ndarray:
 class _PackedWeights:
     """Every derived weight of one packed forward, per packed level."""
 
-    def __init__(self, net: UNet, dtype: torch.dtype, device: torch.device,
-                 packed_levels: int):
-        def to(t):
-            return t.to(device=device, dtype=dtype)
-
+    def __init__(self, net: UNet, d: Derive, packed_levels: int):
         self.enc, self.dec = [], []
         for lvl in range(packed_levels):
             enc = getattr(net, f"encoder{lvl + 1}")
             (c0, _), (c1, _) = enc.names
-            self.enc.append((to(pack_k3_to_k4s2(_dhwio(getattr(enc, c0).weight))),
-                             PackedK3([_dhwio(getattr(enc, c1).weight)], dtype, device)))
+            self.enc.append((
+                d.to(exact_transform(pack_k3_to_k4s2, d.dhwio(getattr(enc, c0).weight))),
+                d.k3([d.dhwio(getattr(enc, c1).weight)])))
             up = getattr(net, f"upconv{lvl + 1}")
             dec = getattr(net, f"decoder{lvl + 1}")
             (c0, _), (c1, _) = dec.names
-            w0 = _dhwio(getattr(dec, c0).weight)
+            w0 = d.dhwio(getattr(dec, c0).weight)
             f = w0.shape[-1]
             self.dec.append((
-                to(pack_transpose_k2s2_to_1x1(up.weight.detach().float().cpu())),
-                to(tile_channel_packed(up.bias.detach().float().cpu())),
-                PackedK3([w0[..., :f, :], w0[..., f:, :]], dtype, device),
-                PackedK3([_dhwio(getattr(dec, c1).weight)], dtype, device)))
-        self.head = PackedHead(net.conv, net.num_classes, net.features, to)
+                d.to(pack_transpose_k2s2_to_1x1(d.src(up.weight))), d.bias(up, 8),
+                d.k3([w0[..., :f, :], w0[..., f:, :]]),
+                d.k3([d.dhwio(getattr(dec, c1).weight)])))
+        self.head = PackedHead(net.conv, net.num_classes, net.features, d)
 
 
 # net -> {(dtype, device, packed_levels): (weight version, _PackedWeights)}
@@ -98,13 +97,13 @@ _CACHE: "weakref.WeakKeyDictionary[UNet, dict]" = weakref.WeakKeyDictionary()
 
 def packed_weights(net: UNet, dtype: torch.dtype, device,
                    packed_levels: int) -> _PackedWeights:
-    """The derived weights for ``net``'s current parameters, made once per
+    """The derived weights for ``net``'s current parameters: in the
+    autograd graph when a gradient will be asked for; else made once per
     weight version (an in-place change, ``load_state_dict`` or an
     optimizer step makes them anew; a write through ``.data`` is not
-    seen), dtype, device and ``packed_levels``."""
-    device = torch.device(device)
-    return cached_weights(_CACHE, net, (dtype, device, packed_levels),
-                          lambda: _PackedWeights(net, dtype, device, packed_levels))
+    seen), dtype, device and ``packed_levels`` (``twin_weights``)."""
+    return twin_weights(_CACHE, net, dtype, device, packed_levels,
+                        lambda d, lv: _PackedWeights(net, d, lv))
 
 
 def _block_packed(x, blk, stem, k3, rate, generator):
@@ -141,9 +140,9 @@ def packed_unet3d_apply(net: UNet, x: torch.Tensor, *,
     ``x`` (N, D, H, W, Cin), each side divisible by 2**levels.  Returns
     (logits, probs) in the fine domain, or with ``return_packed`` in the
     packed (N, D/2, H/2, W/2, 8K) layout ``packed_layout`` ("delta" or
-    "class").  In training mode the channel dropouts draw from
-    ``generator`` in the plain net's order, so both forwards drop the same
-    channels."""
+    "class").  Differentiable in the parameters (``packed_weights``).  In
+    training mode the channel dropouts draw from ``generator`` in the plain
+    net's order, so both forwards drop the same channels."""
     if packed_levels is None:
         packed_levels = UNET_PACKED_LEVELS_DEFAULT
     if packed_levels not in (1, 2):
@@ -156,9 +155,6 @@ def packed_unet3d_apply(net: UNet, x: torch.Tensor, *,
     if any(s % 2 ** levels for s in x.shape[1:4]):
         raise ValueError(f"packed UNet: sides {tuple(x.shape[1:4])} not divisible "
                          f"by 2**{levels}")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in net.parameters()):
-        raise RuntimeError("packed_unet3d_apply is inference only: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
     wts = packed_weights(net, x.dtype, x.device, packed_levels)
 
     def rate(blk):

@@ -31,8 +31,12 @@ return torch's (I, O, kd, kh, kw) transpose-conv weight, which torch places
 unflipped where flax places the flipped kernel (``compat/weights.py``
 converts between the two), so they need none of the JAX functions' flips.
 Activations are channels-last.  The transforms are exact (each output is
-one weight or a sum of zeros and one weight), so callers run them once per
-weight version.
+one weight or zero), and the twins run each as one index gather
+(``exact_transform``), which no device rounds and whose backward is an
+index-add onto the fine weight: serving makes them once per weight version,
+training every step inside the autograd graph (``Derive``).  The stem's k4
+stride-2 conv takes its weight gradient as one matrix product
+(``stem_dw_gemm``, JAX's ``USE_GEMM_STEM_DW``).
 """
 from __future__ import annotations
 
@@ -44,11 +48,15 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
-from tpuseg_torch.kernels.packed_conv import (
+from tpuseg_torch.kernels.packed_conv import (  # noqa: F401  (pack_k3_axes re-exported)
     FULL,
+    deltas,
+    exact_transform,
+    pack_k3_axes,
     pack_tc,
     packed_conv3d_plain,
     packed_conv3d_structured,
+    packed_conv3d_train,
 )
 from tpuseg_torch.models.vnet import VNet
 
@@ -193,7 +201,18 @@ def gn_packed(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     (N, D'H'W'·p, F): the channel index is delta·F + f, so that view's rows
     are (position, delta) and its statistics run over spatial × delta ×
     group channels, as the JAX function's.  ``relu`` fuses the ReLU that
-    follows (ChannelDropout commutes with it)."""
+    follows (ChannelDropout commutes with it).
+
+    Which form it computes in bf16: K1 (``csrc/fused_norm.cu``
+    ``gn_apply_kernel``) and its plain version both read x into fp32, take
+    the statistics in fp32 and apply y = (x - mean)·(rstd·scale) + bias in
+    fp32 (scale and bias rounded to bf16 first, as every layer casts its
+    parameters), rounding once to bf16.  JAX's training graphs apply the affine
+    form instead (``AFFINE_GN_IN_TRAINING``: a = rstd·scale and b = bias -
+    mean·a rounded to bf16, y = x·a + b in bf16), its serving graphs the
+    reshape form ((x - mean)·rstd rounded to bf16, then ·scale + bias in
+    bf16); the three differ by bf16 roundings, within the bf16 step's
+    tolerance (``tests/test_torch_port_train_parity.py``)."""
     n, f = x.shape[0], x.shape[-1] // p
     y = fused_group_norm_relu(x.reshape(n, -1, f), scale.to(x.dtype),
                               bias.to(x.dtype), GROUPS, GN_EPS, relu)
@@ -224,47 +243,8 @@ def channel_dropout(x: torch.Tensor, rate: float,
     return x * (keep.to(x.dtype) / (1.0 - rate))
 
 
-def _axis_select_packed() -> np.ndarray:
-    """A[u, din, dout, t] = 1 iff fine tap t = 2(u-1)+din-dout+1 in [0,3)."""
-    a = np.zeros((3, 2, 2, 3), np.float32)
-    for u in range(3):
-        for din in range(2):
-            for dout in range(2):
-                t = 2 * (u - 1) + din - dout + 1
-                if 0 <= t < 3:
-                    a[u, din, dout, t] = 1.0
-    return a
-
-
-def _axis_select_fine() -> np.ndarray:
-    """Identity: on a fine axis coarse tap u is fine tap t, no sub-position."""
-    a = np.zeros((3, 1, 1, 3), np.float32)
-    for u in range(3):
-        a[u, 0, 0, u] = 1.0
-    return a
-
-
-_AXIS_PACKED = _axis_select_packed()
-_AXIS_FINE = _axis_select_fine()
 # the packed VNet's level B: packed along H and W, fine along D
 B_AXES = (False, True, True)
-
-
-def pack_k3_axes(w: torch.Tensor, axes: Sequence[bool]) -> torch.Tensor:
-    """(3, 3, 3, C, F) fine k3 SAME conv -> the k3 conv on the grid packed
-    along ``axes`` (pack_d, pack_h, pack_w), P = 2**(packed axes): (3, 3,
-    3, PC, PF), delta-major (the axis deltas composed d-major over the
-    packed axes), f-minor, 1/P dense.  W3[u, (delta', c), (delta, f)] =
-    W[t, c, f] where per packed axis t = 2(u-1) + delta' - delta lands in
-    [0, 3) and per fine axis t = u.  Each entry is one weight or zero (a
-    sum of one product by 1), so the einsum is exact on the CPU; on the
-    card TF32 matmuls would round it."""
-    sel = [torch.as_tensor(_AXIS_PACKED if p else _AXIS_FINE, dtype=w.dtype,
-                           device=w.device) for p in axes]
-    c, f = w.shape[-2:]
-    w3 = torch.einsum("aAdt,bBeu,cCgv,tuvxy->abcABCxdegy", *sel, w)
-    p = int(np.prod([s.shape[1] for s in sel]))
-    return w3.reshape(3, 3, 3, p * c, p * f)
 
 
 def pack_k3_to_k3_coarse(w: torch.Tensor) -> torch.Tensor:
@@ -288,18 +268,94 @@ def packed_k3_conv(parts: Sequence[torch.Tensor], w_fine: torch.Tensor,
     return packed_conv3d_plain(parts, [w3])
 
 
+# calls of the stem's GEMM dW (``stem_dw_gemm``) in this process: one
+# torch.matmul each, as XLA's outside any Pallas kernel, not a kernel of
+# the package
+STEM_DW_PRODUCTS = 0
+
+
+def _stem_dw_perm(ci: int) -> np.ndarray:
+    """Rows of the (a1-major, a0-minor, ci) GEMM -> (kd, kh, kw, ci): each k4
+    offset k = 2·a1 + a0 splits into a block shift a1 and a space-to-depth
+    phase a0 (JAX ``_stem_dw_perm``)."""
+    perm = np.empty((4, 4, 4, ci), np.int64)
+    for kd in range(4):
+        for kh in range(4):
+            for kw in range(4):
+                row = (((kd // 2) * 2 + kh // 2) * 2 + kw // 2) * 8 + (
+                    ((kd % 2) * 2 + kh % 2) * 2 + kw % 2)
+                perm[kd, kh, kw] = row * ci + np.arange(ci)
+    return perm.reshape(-1)
+
+
+def stem_dw_gemm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient (4, 4, 4, Cin, Cout) of the k4 stride-2 stem conv
+    (``conv_k4s2_fine2packed``) as ONE product, [64·Cin, Npos] @ [Npos,
+    Cout] (JAX ``_stem_dw_gemm``): the input padded (1, 3) per axis (the
+    conv's high pad 2 and one zero never read), space-to-depth by 2 (8·Cin
+    channels), its 8 block shifts stacked (64·Cin), against the output
+    gradient at all n·d2·h2·w2 positions; sums in fp32 (fp64 for fp64)."""
+    n, d, h, w, ci = x.shape
+    d2, h2, w2, co = g.shape[1:]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x, (0, 0, 1, 3, 1, 3, 1, 3))
+    dp, hp, wp = (d + 4) // 2, (h + 4) // 2, (w + 4) // 2
+    xe = xp.reshape(n, dp, 2, hp, 2, wp, 2, ci).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    xe = xe.reshape(n, dp, hp, wp, 8 * ci)
+    xs = torch.cat([xe[:, a:a + d2, b:b + h2, c:c + w2]
+                    for a in (0, 1) for b in (0, 1) for c in (0, 1)], dim=-1)
+    dwf = xs.reshape(-1, 64 * ci).to(acc).t() @ g.reshape(-1, co).to(acc)
+    perm = torch.as_tensor(_stem_dw_perm(ci), device=x.device)
+    return dwf[perm].reshape(4, 4, 4, ci, co)
+
+
+class _StemConv(torch.autograd.Function):
+    """The fine -> packed k4 stride-2 stem conv: forward and dX through
+    cuDNN (as XLA's), dW by ``stem_dw_gemm``, dbias a sum.  Takes the
+    weight (DHWIO) and bias in any float dtype and casts them to x's;
+    their gradients come back in their own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w4, bias):
+        ctx.save_for_backward(x, w4)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _conv(x, w4.to(x.dtype).permute(4, 3, 0, 1, 2),
+                     None if bias is None else bias.to(x.dtype), stride=2, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        global STEM_DW_PRODUCTS
+        x, w4 = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            n, d, h, w, c = x.shape
+            dx = torch.nn.grad.conv3d_input(
+                (n, c, d, h, w), w4.to(x.dtype).permute(4, 3, 0, 1, 2),
+                g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
+            dx = dx.permute(0, 2, 3, 4, 1).contiguous()
+        if ctx.needs_input_grad[1]:
+            dw = stem_dw_gemm(x, g).to(w4.dtype)
+            STEM_DW_PRODUCTS += 1
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            acc = torch.promote_types(g.dtype, torch.float32)
+            db = g.to(acc).sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
 def conv_k4s2_fine2packed(x: torch.Tensor, w4: torch.Tensor,
                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fine (N, D, H, W, C) -> packed (N, D/2, H/2, W/2, 8F) k4 stride-2
     conv with the ``pack_k3_to_k4s2`` kernel (4, 4, 4, C, 8F), plus the
-    packed ``bias`` (8F,); forward only.
+    packed ``bias`` (8F,); differentiable, the weight's gradient by
+    ``stem_dw_gemm`` (``_StemConv``).
 
     The JAX function pads (1, 2) per axis.  For even sides the second high
     pad is never read (the last window ends at padded index D + 1), so this
     is ``F.conv3d`` with padding 1 and no padded copy of the input."""
     if any(s % 2 for s in x.shape[1:4]):
         raise ValueError(f"conv_k4s2_fine2packed: odd spatial shape {tuple(x.shape)}")
-    return _conv(x, w4.to(x.dtype).permute(4, 3, 0, 1, 2), bias, stride=2, padding=1)
+    return _StemConv.apply(x, w4, bias)
 
 
 def space_to_depth3d(x: torch.Tensor) -> torch.Tensor:
@@ -389,48 +445,92 @@ def packed_argmax(probs: torch.Tensor, num_classes: int, p: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def _dhwio(conv_weight: torch.Tensor) -> torch.Tensor:
-    """torch conv weight (O, I, k, k, k) -> float32 DHWIO on the CPU."""
-    return _cpu(conv_weight).permute(2, 3, 4, 1, 0)
+def _head_weight(w: torch.Tensor, num_classes: int, f: int, layout: str) -> torch.Tensor:
+    return pack_head_1x1(w, w.new_zeros(num_classes), num_classes, f, layout=layout)[0]
 
 
-def _cpu(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().float().cpu()
+class Derive:
+    """Where a twin's derived weights come from, and where they go.
+
+    Serving (``train`` False): detached float32 copies of the parameters on
+    the CPU, transformed there once per weight version (``cached_weights``)
+    and moved to ``device`` in ``dtype``; K3 gets its dense kernels and, on
+    the card, ``pack_tc``.  Training: the parameters themselves, on their
+    device, so every transform (an exact gather) runs each step inside the
+    autograd graph and its gradient reaches the fine weight; the result is
+    cast to ``dtype`` after the transform (a selection commutes with the
+    cast), and K3 gets the fine weights (``packed_conv3d_train``)."""
+
+    def __init__(self, dtype: torch.dtype, device, train: bool):
+        self.dtype, self.device, self.train = dtype, torch.device(device), train
+
+    def src(self, p: torch.Tensor) -> torch.Tensor:
+        """A parameter as the transforms read it."""
+        return p if self.train else p.detach().float().cpu()
+
+    def dhwio(self, conv_weight: torch.Tensor) -> torch.Tensor:
+        """A torch conv weight (O, I, k, k, k) as DHWIO."""
+        return self.src(conv_weight).permute(2, 3, 4, 1, 0)
+
+    def to(self, t: torch.Tensor) -> torch.Tensor:
+        if self.train:
+            return t.to(self.dtype)
+        return t.to(device=self.device, dtype=self.dtype)
+
+    def bias(self, mod: torch.nn.Module, p: int = 1) -> torch.Tensor:
+        return self.to(tile_channel_packed(self.src(mod.bias), p))
+
+    def k3(self, w_parts, axes=FULL, bias: Optional[torch.Tensor] = None) -> "PackedK3":
+        return PackedK3(w_parts, self, axes, None if bias is None else self.src(bias))
 
 
 class PackedHead:
     """A net's 1x1 head conv as the packed head, (weight, bias) per channel
     layout, each made on first use ("class" only for ``return_packed``
-    callers).  Holds a copy of the fine head, not the net: the derived
-    weights are cached weakly keyed by the net, so no value may refer to
-    it."""
+    callers).  Serving, it holds a copy of the fine head, not the net: the
+    derived weights are cached weakly keyed by the net, so no value may
+    refer to it."""
 
-    def __init__(self, conv: torch.nn.Module, num_classes: int, features: int, to):
-        self._src = (_cpu(conv.weight)[:, :, 0, 0, 0].t().clone(), _cpu(conv.bias).clone(),
-                     num_classes, features)
-        self._to, self._made = to, {}
+    def __init__(self, conv: torch.nn.Module, num_classes: int, features: int,
+                 derive: Derive):
+        w, b = derive.src(conv.weight)[:, :, 0, 0, 0].t(), derive.src(conv.bias)
+        if not derive.train:
+            w, b = w.clone(), b.clone()
+        self._src = (w, b, num_classes, features)
+        self._to, self._made = derive.to, {}
 
     def __call__(self, layout: str):
         if layout not in self._made:
-            self._made[layout] = tuple(self._to(t) for t in pack_head_1x1(*self._src,
-                                                                          layout=layout))
+            w, b, k, f = self._src
+            bp = b.repeat_interleave(8) if layout == "class" else b.repeat(8)
+            self._made[layout] = (self._to(exact_transform(_head_weight, w, k, f, layout)),
+                                  self._to(bp))
         return self._made[layout]
 
 
 class PackedK3:
-    """One packed -> packed k3 conv on a grid packed along ``axes``: each
-    part's dense coarse kernel (the plain version's), the packed bias, and
-    on the card the structural weight and row table (the kernel's)."""
+    """One packed -> packed k3 conv on a grid packed along ``axes``, from
+    each part's fine DHWIO weight (its slice of the fine conv's input
+    channels) and the fine bias.  Serving: each part's dense coarse kernel
+    (the plain version's), the packed bias, and on the card the structural
+    weight and row table (the kernel's), made once.  Training: the fine
+    weights and bias as they are, through ``packed_conv3d_train``."""
 
-    def __init__(self, w_parts, dtype: torch.dtype, device: torch.device,
-                 axes: Sequence[bool] = FULL, bias: Optional[torch.Tensor] = None):
-        self.axes = tuple(axes)
-        self.w3s = tuple(pack_k3_axes(w, self.axes).to(device) for w in w_parts)
-        self.bias = None if bias is None else bias.to(device=device, dtype=dtype)
-        self.packed = (pack_tc(self.w3s, dtype, self.axes) if device.type == "cuda"
-                       else None)
+    def __init__(self, w_parts, derive: Derive, axes: Sequence[bool] = FULL,
+                 bias: Optional[torch.Tensor] = None):
+        self.axes, self.train = tuple(axes), derive.train
+        if self.train:
+            self.w_fines, self.bias = tuple(w_parts), bias
+            return
+        self.w3s = tuple(pack_k3_axes(w, self.axes).to(derive.device) for w in w_parts)
+        self.bias = (None if bias is None else
+                     derive.to(tile_channel_packed(bias, deltas(self.axes))))
+        self.packed = (pack_tc(self.w3s, derive.dtype, self.axes)
+                       if derive.device.type == "cuda" else None)
 
     def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
+        if self.train:
+            return packed_conv3d_train(parts, self.w_fines, self.bias, self.axes)
         return packed_conv3d_structured(parts, self.w3s, self.bias, packed=self.packed,
                                         axes=self.axes)
 
@@ -450,6 +550,19 @@ def cached_weights(cache: "weakref.WeakKeyDictionary", net: torch.nn.Module, key
             hit = (version, build())
         per_net[key] = hit
     return hit[1]
+
+
+def twin_weights(cache: "weakref.WeakKeyDictionary", net: torch.nn.Module,
+                 dtype: torch.dtype, device, packed_levels: int, make: Callable):
+    """``make(derive, packed_levels)``: the twin's derived weights.  When a
+    gradient to the parameters will be asked for, made fresh in the
+    autograd graph (``Derive`` training); otherwise the serving weights,
+    cached per weight version, dtype, device and ``packed_levels``."""
+    device = torch.device(device)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in net.parameters()):
+        return make(Derive(dtype, device, True), packed_levels)
+    return cached_weights(cache, net, (dtype, device, packed_levels),
+                          lambda: make(Derive(dtype, device, False), packed_levels))
 
 
 # ---------------------------------------------------------------------------
@@ -489,51 +602,49 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 class _VNetWeights:
     """Every derived weight of one packed VNet3d forward."""
 
-    def __init__(self, net: VNet, dtype: torch.dtype, device: torch.device,
-                 packed_levels: int):
-        def to(t):
-            return t.to(device=device, dtype=dtype)
-
+    def __init__(self, net: VNet, d: Derive, packed_levels: int):
         def conv(w_dhwio):  # DHWIO -> torch (O, I, k...)
-            return to(w_dhwio.permute(4, 3, 0, 1, 2).contiguous())
+            return d.to(w_dhwio.permute(4, 3, 0, 1, 2).contiguous())
 
-        def bias(mod, p=1):
-            return to(tile_channel_packed(_cpu(mod.bias), p))
-
-        def lus(stage, p, axes):
-            return [PackedK3([_dhwio(op.conv1.weight)], dtype, device, axes,
-                             tile_channel_packed(_cpu(op.conv1.bias), p))
-                    for op in stage.ops]
+        def lus(stage, axes):
+            return [d.k3([d.dhwio(op.conv1.weight)], axes, op.conv1.bias) for op in stage.ops]
 
         def squeeze(stage, p):  # the 1x1 after the concat, per part
-            w = _dhwio(stage.conv.weight)[0, 0, 0]  # (2F, F)
+            w = d.dhwio(stage.conv.weight)[0, 0, 0]  # (2F, F)
             f = w.shape[-1]
-            return (to(block_diag_1x1_packed(w[:f], p=p)),
-                    to(block_diag_1x1_packed(w[f:], p=p)), bias(stage.conv, p))
+            return (d.to(exact_transform(block_diag_1x1_packed, w[:f], (), p)),
+                    d.to(exact_transform(block_diag_1x1_packed, w[f:], (), p)),
+                    d.bias(stage.conv, p))
 
         it, d32, u32 = net.in_tr, net.down_tr32, net.up_tr32
-        self.stem3 = (to(pack_k3_to_k4s2(_dhwio(it.conv1.weight))), bias(it.conv1, 8))
-        self.stem1 = (conv(pack_k1_to_k2s2(_dhwio(it.conv2.weight))), bias(it.conv2, 8))
-        wd = _dhwio(d32.down_conv.weight)
+        self.stem3 = (d.to(exact_transform(pack_k3_to_k4s2, d.dhwio(it.conv1.weight))),
+                      d.bias(it.conv1, 8))
+        self.stem1 = (conv(exact_transform(pack_k1_to_k2s2, d.dhwio(it.conv2.weight))),
+                      d.bias(it.conv2, 8))
+        wd = d.dhwio(d32.down_conv.weight)
         if packed_levels >= 2:
             d64, u64 = net.down_tr64, net.up_tr64
-            self.down32 = (conv(pack_down_k2s2_full8_to_part4(wd)), bias(d32.down_conv, 4))
-            self.lu32 = lus(d32, 4, B_AXES)
-            self.down64 = (conv(pack_down_k2s2_part4_to_fine(_dhwio(d64.down_conv.weight))),
-                           bias(d64.down_conv))
-            self.up64 = (to(pack_transpose_k2s2_fine_to_part4(_cpu(u64.up_conv.weight))),
-                         bias(u64.up_conv, 4))
+            self.down32 = (conv(exact_transform(pack_down_k2s2_full8_to_part4, wd)),
+                           d.bias(d32.down_conv, 4))
+            self.lu32 = lus(d32, B_AXES)
+            self.down64 = (conv(exact_transform(pack_down_k2s2_part4_to_fine,
+                                                d.dhwio(d64.down_conv.weight))),
+                           d.bias(d64.down_conv))
+            self.up64 = (d.to(pack_transpose_k2s2_fine_to_part4(d.src(u64.up_conv.weight))),
+                         d.bias(u64.up_conv, 4))
             self.sq64 = squeeze(u64, 4)
-            self.lu64 = lus(u64, 4, B_AXES)
-            self.up32 = (to(pack_transpose_k2s2_part4_to_full8(_cpu(u32.up_conv.weight))),
-                         bias(u32.up_conv, 8))
+            self.lu64 = lus(u64, B_AXES)
+            self.up32 = (d.to(exact_transform(pack_transpose_k2s2_part4_to_full8,
+                                              d.src(u32.up_conv.weight))),
+                         d.bias(u32.up_conv, 8))
         else:
-            self.down32 = (to(pack_down_k2s2_to_1x1(wd)[0, 0, 0]), bias(d32.down_conv))
-            self.up32 = (to(pack_transpose_k2s2_to_1x1(_cpu(u32.up_conv.weight))),
-                         bias(u32.up_conv, 8))
+            self.down32 = (d.to(exact_transform(pack_down_k2s2_to_1x1, wd)[0, 0, 0]),
+                           d.bias(d32.down_conv))
+            self.up32 = (d.to(pack_transpose_k2s2_to_1x1(d.src(u32.up_conv.weight))),
+                         d.bias(u32.up_conv, 8))
         self.sq32 = squeeze(u32, 8)
-        self.lu32_up = lus(u32, 8, FULL)
-        self.head = PackedHead(net.out_tr.conv, net.num_classes, net.features, to)
+        self.lu32_up = lus(u32, FULL)
+        self.head = PackedHead(net.out_tr.conv, net.num_classes, net.features, d)
 
 
 # net -> {(dtype, device, packed_levels): (weight version, _VNetWeights)}
@@ -543,39 +654,40 @@ _CACHE: "weakref.WeakKeyDictionary[VNet, dict]" = weakref.WeakKeyDictionary()
 def packed_vnet_weights(net: VNet, dtype: torch.dtype, device,
                         packed_levels: int) -> _VNetWeights:
     """The packed VNet3d's derived weights for ``net``'s current
-    parameters, made on the CPU in float32 (where the transforms are exact)
-    once per weight version, dtype, device and ``packed_levels``."""
-    device = torch.device(device)
-    return cached_weights(_CACHE, net, (dtype, device, packed_levels),
-                          lambda: _VNetWeights(net, dtype, device, packed_levels))
+    parameters: in the autograd graph when a gradient will be asked for,
+    else the serving weights, made on the CPU in float32 once per weight
+    version, dtype, device and ``packed_levels`` (``twin_weights``)."""
+    return twin_weights(_CACHE, net, dtype, device, packed_levels,
+                        lambda d, lv: _VNetWeights(net, d, lv))
 
 
-def _packed_lus(x, k3s, stage, p):
+def _packed_lus(x, k3s, stage, p, rate, generator):
     """A stage's LUConvs on a packed map: K3 (bias in its epilogue), then
-    GroupNorm + ReLU on the packed view."""
+    GroupNorm + ReLU on the packed view and the channel dropout (tile p)."""
     for k3, op in zip(k3s, stage.ops):
         x = gn_packed(k3(x), op.bn1.weight, op.bn1.bias, relu=True, p=p)
+        x = channel_dropout(x, rate, generator, p)
     return x
 
 
-def _fine_lus(x, stage):
+def _fine_lus(x, stage, generator):
     """A stage's LUConvs on a fine map: the plain net's own modules (K2 and
-    K1 as in the plain forward)."""
+    K1 as in the plain forward, dropout from ``generator``)."""
     for op in stage.ops:
-        x = op(x)
+        x = op(x, generator)
     return x
 
 
 def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
                         packed_levels: Optional[int] = None,
                         return_packed: bool = False, packed_layout: str = "delta",
-                        train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward of ``net`` (the port's ``VNet``, i.e. the plain
     parameters) with its finest ``packed_levels`` run packed: 1 packs the
     96^3-scale level (16 channels) fully, 2 (the default) also the
     48^3-scale level (32 channels) along H and W.  Counterpart of
-    ``tpuseg/models/vnet_packed.py`` ``packed_vnet3d_apply``, inference
-    only.
+    ``tpuseg/models/vnet_packed.py`` ``packed_vnet3d_apply``.
 
     ``x`` (N, D, H, W, 1), every side divisible by 32.  Returns (logits,
     probs) (N, D, H, W, K), or with ``return_packed`` the packed (N, D/2,
@@ -583,13 +695,11 @@ def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
     class-major ``k * 8 + delta``, so the per-delta softmax is slice
     arithmetic).  The packed levels run K3 for their k3 convs and K1 for
     every GroupNorm; the levels below call the plain net's own stages (K2
-    and K1 as in the plain forward).  Derived weights are made once per
-    weight version, dtype and device (``packed_vnet_weights``)."""
-    if train or net.training:
-        raise NotImplementedError(
-            "packed_vnet3d_apply runs inference only: packed VNet training (its "
-            "dropout sites, the GEMM stem dW, the packed losses) is the packed-training "
-            "slice, not ported yet; call net.eval() with train=False")
+    and K1 as in the plain forward).  Differentiable in the parameters
+    (``packed_vnet_weights``).  In training mode the channel dropouts draw
+    from ``generator`` in the plain net's order, each packed site at its
+    tile (8 fully packed, 4 on the (H, W) grid, 1 on fine maps), so the
+    twin and the plain net drop the same channels."""
     if packed_levels is None:
         packed_levels = PACKED_LEVELS_DEFAULT
     if packed_levels not in (1, 2):
@@ -599,59 +709,62 @@ def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
     if x.dim() != 5 or any(s <= 0 or s % 32 for s in x.shape[1:4]):
         raise ValueError(f"packed VNet: input {tuple(x.shape)} is not (N, D, H, W, C) "
                          "with every side divisible by 32")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in net.parameters()):
-        raise RuntimeError("packed_vnet3d_apply is inference only: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
     wts = packed_vnet_weights(net, x.dtype, x.device, packed_levels)
+    rate = net.in_tr.drop.rate if net.training else 0.0
+
+    def drop(t, tile):
+        return channel_dropout(t, rate, generator, tile)
 
     # InputTransition, fine -> packed: the k3 path as a k4 stride-2 conv, the
     # 1^3 path as a k2 stride-2 one, each normalized with the one GroupNorm
     it = net.in_tr
-    a = gn_packed(conv_k4s2_fine2packed(x, *wts.stem3), it.bn1.weight, it.bn1.bias,
-                  relu=True)
-    b = gn_packed(_conv(x, *wts.stem1, stride=2), it.bn1.weight, it.bn1.bias, relu=True)
+    a = drop(gn_packed(conv_k4s2_fine2packed(x, *wts.stem3), it.bn1.weight, it.bn1.bias,
+                       relu=True), 8)
+    b = drop(gn_packed(_conv(x, *wts.stem1, stride=2), it.bn1.weight, it.bn1.bias,
+                       relu=True), 8)
     out16p = a + b  # (N, D/2, H/2, W/2, 8f): the packed skip
 
     d32, d64 = net.down_tr32, net.down_tr64
     if packed_levels >= 2:
         # DownTransition 32 onto the (H, W) grid, its LUConvs on K3 there
-        down = gn_packed(_conv(out16p, *wts.down32, stride=(1, 2, 2)), d32.bn1.weight,
-                         d32.bn1.bias, relu=True, p=4)
-        out32p = _packed_lus(down, wts.lu32, d32, 4) + down
+        down = drop(gn_packed(_conv(out16p, *wts.down32, stride=(1, 2, 2)), d32.bn1.weight,
+                              d32.bn1.bias, relu=True, p=4), 4)
+        out32p = _packed_lus(down, wts.lu32, d32, 4, rate, generator) + down
         # DownTransition 64's entry reads the (H, W)-packed map
-        down = gn_fine(_conv(out32p, *wts.down64, stride=(2, 1, 1)), d64.bn1.weight,
-                       d64.bn1.bias, relu=True)
-        out64 = _fine_lus(down, d64) + down
+        down = drop(gn_fine(_conv(out32p, *wts.down64, stride=(2, 1, 1)), d64.bn1.weight,
+                            d64.bn1.bias, relu=True), 1)
+        out64 = _fine_lus(down, d64, generator) + down
     else:
-        down = gn_fine(_matmul(out16p, *wts.down32), d32.bn1.weight, d32.bn1.bias, relu=True)
-        out32 = _fine_lus(down, d32) + down
-        out64 = d64(out32)
+        down = drop(gn_fine(_matmul(out16p, *wts.down32), d32.bn1.weight, d32.bn1.bias,
+                            relu=True), 1)
+        out32 = _fine_lus(down, d32, generator) + down
+        out64 = d64(out32, generator)
 
-    out128 = net.down_tr128(out64)
-    out256 = net.down_tr256(out128)
-    up = net.up_tr256(out256, out128)
-    up = net.up_tr128(up, out64)
+    out128 = net.down_tr128(out64, generator)
+    out256 = net.down_tr256(out128, generator)
+    up = net.up_tr256(out256, out128, generator)
+    up = net.up_tr128(up, out64, generator)
 
     if packed_levels >= 2:
         u64 = net.up_tr64
-        up48p = gn_packed(_conv_t(up, *wts.up64, stride=(2, 1, 1)), u64.bn.weight,
-                          u64.bn.bias, relu=True, p=4)
+        up48p = drop(gn_packed(_conv_t(up, *wts.up64, stride=(2, 1, 1)), u64.bn.weight,
+                               u64.bn.bias, relu=True, p=4), 4)
         w_up, w_skip, b_sq = wts.sq64
-        cat = gn_packed(_matmul(up48p, w_up, b_sq, out32p, w_skip), u64.bn2.weight,
-                        u64.bn2.bias, relu=True, p=4)
-        up48p = _packed_lus(cat, wts.lu64, u64, 4) + cat
+        cat = drop(gn_packed(_matmul(up48p, w_up, b_sq, out32p, w_skip), u64.bn2.weight,
+                             u64.bn2.bias, relu=True, p=4), 4)
+        up48p = _packed_lus(cat, wts.lu64, u64, 4, rate, generator) + cat
         upp = _conv_t(up48p, *wts.up32, stride=(1, 2, 2))
     else:
-        upp = _matmul(net.up_tr64(up, out32), *wts.up32)
+        upp = _matmul(net.up_tr64(up, out32, generator), *wts.up32)
 
     # UpTransition 32, packed: the concat's 1x1 squeeze as two products, the
     # LUConv on K3
     u32 = net.up_tr32
-    upp = gn_packed(upp, u32.bn.weight, u32.bn.bias, relu=True)
+    upp = drop(gn_packed(upp, u32.bn.weight, u32.bn.bias, relu=True), 8)
     w_up, w_skip, b_sq = wts.sq32
-    catp = gn_packed(_matmul(upp, w_up, b_sq, out16p, w_skip), u32.bn2.weight,
-                     u32.bn2.bias, relu=True)
-    outp = _packed_lus(catp, wts.lu32_up, u32, 8) + catp
+    catp = drop(gn_packed(_matmul(upp, w_up, b_sq, out16p, w_skip), u32.bn2.weight,
+                          u32.bn2.bias, relu=True), 8)
+    outp = _packed_lus(catp, wts.lu32_up, u32, 8, rate, generator) + catp
 
     layout = packed_layout if return_packed else "delta"
     wp, bp = wts.head(layout)

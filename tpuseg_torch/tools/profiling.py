@@ -15,8 +15,10 @@ size with ``torch.profiler`` and sums the device time per kernel name.  Last it 
 train steps at the reference KiPA setting (112x112x128, batch 1, 5
 classes, MutilDiceLoss, Adam at 1e-3, seeded weights and a random batch)
 after one warmup step, computed in f32 and again in bf16 over f32 master
-weights (``--train.compute_dtype bfloat16``), and sums their device time
-per kernel name (the bf16 keys carry a ``bf16_`` prefix).
+weights (``--train.compute_dtype bfloat16``), through the plain net and
+through the packed twin (``--train.packed_stem true``), and sums their
+device time per kernel name (the keys carry ``bf16_``, ``packed_`` and
+``packed_bf16_`` prefixes).
 It also sums the device time under each ``aten::convolution_backward``
 call by its input shapes, which names the cuDNN convs (those outside the
 kernels' range) that cost the most.  Last it traces ``--swin-forwards``
@@ -164,11 +166,12 @@ def traced_busy(fn) -> tuple:
 
 
 def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
-                            dtype: torch.dtype = torch.float32):
+                            dtype: torch.dtype = torch.float32, packed_stem: bool = False):
     """Device ms per UNet3d train step computed in ``dtype`` (bfloat16:
-    over f32 master weights, as ``--train.compute_dtype bfloat16``), by
-    kernel name, from ``torch.profiler`` over ``steps`` steps after a
-    warmup step; and the device ms per step under
+    over f32 master weights, as ``--train.compute_dtype bfloat16``), through
+    the plain net or (``packed_stem``) the packed twin, by kernel name, from
+    ``torch.profiler`` over ``steps`` steps after a warmup step; and the
+    device ms per step under
     ``aten::convolution_backward`` (the convs outside K2's range: the 1x1
     head, the 1 -> 16 stem, the transpose convs), by the call's
     (grad_output, input, weight) shapes."""
@@ -183,7 +186,7 @@ def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
     trainer = make_segmentation_trainer(
         model, CLASSES, "MutilDiceLoss", alpha=[1.0] * CLASSES,
         config=TrainerConfig(optimizer="adam", lr=1e-3, compute_dtype=dtype),
-        device="cuda")
+        device="cuda", packed_stem=packed_stem)
     x, y, z = new_size
     gen = torch.Generator("cuda").manual_seed(SEED)
     batch = {"image": torch.randn((1, z, y, x, 1), device="cuda", generator=gen),
@@ -299,8 +302,11 @@ def main(argv=None) -> int:
     out = {"card": smi, "torch": torch.__version__, "stages_ms": stages,
            "forward_device_ms_by_kernel": split,
            "forward_device_ms": sum(split.values())}
-    for name, dtype in (("", torch.float32), ("bf16_", torch.bfloat16)):
-        train_split, conv_bwd = train_step_kernel_split(args.train_steps, dtype=dtype)
+    for name, dtype, packed in (("", torch.float32, False), ("bf16_", torch.bfloat16, False),
+                                ("packed_", torch.float32, True),
+                                ("packed_bf16_", torch.bfloat16, True)):
+        train_split, conv_bwd = train_step_kernel_split(args.train_steps, dtype=dtype,
+                                                        packed_stem=packed)
         out.update({f"train_step_{name}device_ms_by_kernel": train_split,
                     f"train_step_{name}device_ms": sum(train_split.values()),
                     f"train_step_{name}conv_backward_device_ms_by_shapes": conv_bwd})
