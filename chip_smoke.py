@@ -70,7 +70,25 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     VNet3d at 96^3 (features 16, 2 classes): packed_levels 2 in f32 and
     bf16 (K3 5, K2 6, K1 34 each way, one stem GEMM) and the plain net (K2
     11, K1 34), 1 epoch of 3 steps each, with packed_levels 1 (K3 1, K2 10)
-    timed beside them;
+    timed beside them; then the rest of the trained 3D zoo (phase 6b, config
+    5 and its neighbours: features 16, 2 classes): K1 at one channel per
+    group without ReLU (STUNet3d's InstanceNorms) at C 16 @96^3 ... 256 @6^3,
+    forward and backward, f32 and bf16, against its plain version and
+    ``F.group_norm``; ResUNet3d and STUNet3d and their twins at features 8,
+    32^3, against the JAX package's logits (``tests/data/
+    torch_port_zoo_golden.npz``: ResUNet3d 1e-4 of the scale, STUNet3d
+    JAX's own bars, logits 6e-2 and argmax >= 0.999); each net's eval
+    forward (ResUNet3d, STUNet3d, UNet3dThin at 96^3, KiUNet3d at
+    64x96x96; the twins too) in f32 and bf16 with its launches asserted,
+    kernels against the plain versions (masks equal outside near-ties,
+    probabilities within 1e-3, STUNet3d 1e-2; bf16 >= 0.99 agreement), the
+    twins' masks against the plain net's (>= 0.9999 f32, >= 0.99 bf16),
+    and timed; ``train.build`` / ``run`` of each net, plain and (ResUNet3d,
+    STUNet3d) ``--train.packed_stem true``, f32 and bf16, 1 epoch of 3
+    steps with every step's launches asserted (``ZOO_TRAIN_LAUNCHES``); the
+    packed f32 step against the plain net's through the plain versions
+    (loss 1e-5 relative, grads through phase 6's gate); and each net's
+    step variants timed interleaved;
  7. K2's micro-benchmarks (``tpuseg_torch.benchmarks``) at the probes' full
     shapes (N 8, 96^3, C 16): every variant of the slab conv GEMM (K4
     ``dot_only``/``abuild``/``full``, K5 ``v0``/``v2``/``v3``/``v5``) and
@@ -229,6 +247,39 @@ SWIN_VNET_PACKED_LAUNCHES.update(packed_conv3d_structured=5, conv3d_small=6,
                                  fused_group_norm_relu=34)
 SWIN_VNET_PACKED1_LAUNCHES = dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=1,
                                   conv3d_small=10)
+# the zoo phase: config 5 of BASELINE.md (bench_configs.py:358-372) and the
+# rest of the trained 3D zoo at full width, features 16, 2 classes, one
+# input channel; (d, h, w) of each net's volume
+ZOO_FEATURES, ZOO_CLASSES = 16, 2
+ZOO_DHW = {"resunet3d": (96, 96, 96), "stunet3d": (96, 96, 96),
+           "kiunet3d": (64, 96, 96), "unet3dthin": (96, 96, 96)}
+ZOO_TWINS = ("resunet3d", "stunet3d")
+
+
+def _zoo_step(k2: int, k1: int, k3=(0, 0, 0), stem: int = 0) -> dict:
+    """A train step's launches: K2 ``k2`` each way, K1 ``k1`` each way, K3
+    forward / dX / dW ``k3``, ``stem`` stem GEMMs."""
+    return dict({k: 0 for k in EXPECTED_LAUNCHES}, conv3d_small=k2, conv3d_small_dx=k2,
+                conv3d_small_dw=k2, fused_group_norm_relu=k1, fused_group_norm_relu_bwd=k1,
+                packed_conv3d_structured=k3[0], packed_conv3d_structured_dx=k3[1],
+                packed_conv3d_structured_dw=k3[2], stem_dw_gemm=stem)
+
+
+# per train step of each zoo net at features 16 (an eval step runs the
+# forward's): K2 takes the stride-1 3^3 convs at 8-64 channels in and 2-64
+# out, K1 every GroupNorm(8) and InstanceNorm.  ResUNet3d: K2 enc1 conv2,
+# enc2 and enc3 2 each, dec1 conv2, dec2 and dec3 2 each; K1 the 18 block
+# norms, 4 down and 4 up.  Its twin: K3 the level-0 encoder conv 2 and
+# the decoder's two convs (the first of two parts: dX and dW a part), K2
+# the 7 at levels 1-2.  STUNet3d: K2 the LUConvINs at 32 and 64 channels
+# (2 + 2 down, 3 + 2 up) and the last one at 16; K1 the 2 stem, 4 x 4 down
+# and 9 up norms.  Its twin: that last LUConvIN on K3.  KiUNet3d: K2 enc1,
+# enc2, dec2, dec3, ki2 and final; K1 its 12 blocks.  UNet3dThin: as the
+# UNet3d's encoder, K2 decoder3 conv2 and decoder2 and decoder1 2 each.
+ZOO_TRAIN_LAUNCHES = {
+    "resunet3d": _zoo_step(10, 26), "resunet3d_packed": _zoo_step(7, 26, (3, 4, 4), 1),
+    "stunet3d": _zoo_step(10, 27), "stunet3d_packed": _zoo_step(9, 27, (1, 1, 1), 1),
+    "kiunet3d": _zoo_step(6, 12), "unet3dthin": _zoo_step(10, 18)}
 # the packed twin's mask against the plain net's in the same dtype: f32
 # sums in other orders; bf16 rounds every layer of two different programs
 PACKED_AGREE = {"float32": 0.9999, "bfloat16": 0.99}
@@ -325,15 +376,19 @@ def rel_err(got, ref) -> tuple:
     return err, max(1.0, ref.float().abs().max().item())
 
 
-def grad_errors(got: dict, ref: dict):
+def grad_errors(got: dict, ref: dict, floor: float = 0.0):
     """(worst max |got - ref| / max |ref| over the parameters, its name, the
     median over the parameters of max |ref|, the worst max |got - ref| /
-    max(1, max |ref|))."""
+    max(1, max |ref|)).  With ``floor`` > 0 a parameter's error is taken
+    relative to max(max |ref|, floor x the largest max |ref|): a gradient
+    that is zero in exact arithmetic (a conv bias feeding an InstanceNorm)
+    holds only rounding."""
     worst, mags, worst_abs = (0.0, ""), [], 0.0
+    top = floor * max(r.float().abs().max().item() for r in ref.values())
     for name, r in ref.items():
         mag = r.float().abs().max().item()
         err = (got[name].float() - r.float()).abs().max().item()
-        worst = max(worst, (err / max(mag, 1e-30), name))
+        worst = max(worst, (err / max(mag, top, 1e-30), name))
         worst_abs = max(worst_abs, err / max(1.0, mag))
         mags.append(mag)
     return worst[0], worst[1], float(np.median(mags)), worst_abs
@@ -764,6 +819,7 @@ def plain_kernels(mods):
          lambda x, w, packed, packed_t: conv3d.conv3d_small_plain(x, w)),
         (mods["layers"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
         (mods["vnet_packed"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
+        (mods["stunet_packed"], "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain),
         (mods["vnet_packed"], "packed_conv3d_structured",
          lambda parts, w3s, bias=None, relu=False, packed=None, axes=None:
              packed_conv.packed_conv3d_plain(parts, w3s, bias, relu)),
@@ -1080,27 +1136,29 @@ def phase_train(torch, mods, workdir):
     return {"train": path_launches, "train_bf16": bf16_launches}, ctx
 
 
-def write_vnet_training_data(workdir: str, rng) -> tuple:
-    """3 training and 1 validation (image, label) .npy pairs of
-    VNET_TRAIN_DHW: a few ellipsoidal blobs of label 1, images the label
+def write_vnet_training_data(workdir: str, rng, dhw=VNET_TRAIN_DHW,
+                             prefix: str = "v") -> tuple:
+    """3 training and 1 validation (image, label) .npy pairs of ``dhw``
+    (VNET_TRAIN_DHW): a few ellipsoidal blobs of label 1, images the label
     plus noise; returns the two CSV manifests."""
-    d, h, w = VNET_TRAIN_DHW
+    d, h, w = dhw
     zz, yy, xx = np.ogrid[:d, :h, :w]
     rows = []
     for i in range(4):
-        label = np.zeros(VNET_TRAIN_DHW, np.uint8)
+        label = np.zeros(dhw, np.uint8)
         for _ in range(3):
             cz, cy, cx = rng.uniform(0.2, 0.8, 3) * (d, h, w)
             rz, ry, rx = rng.uniform(6, 18, 3)
             label[((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2
                   + ((xx - cx) / rx) ** 2 < 1] = 1
-        image = (label * 0.5 + rng.standard_normal(VNET_TRAIN_DHW)).astype(np.float32)
-        paths = (os.path.join(workdir, f"vimg{i}.npy"), os.path.join(workdir, f"vlab{i}.npy"))
+        image = (label * 0.5 + rng.standard_normal(dhw)).astype(np.float32)
+        paths = (os.path.join(workdir, f"{prefix}img{i}.npy"),
+                 os.path.join(workdir, f"{prefix}lab{i}.npy"))
         np.save(paths[0], image)
         np.save(paths[1], label)
         rows.append(paths)
     manifests = []
-    for name, part in (("vtrain.csv", rows[:3]), ("vval.csv", rows[3:])):
+    for name, part in ((f"{prefix}train.csv", rows[:3]), (f"{prefix}val.csv", rows[3:])):
         path = os.path.join(workdir, name)
         with open(path, "w", newline="") as f:
             writer = csv.writer(f)
@@ -1282,6 +1340,283 @@ def phase_train_packed(torch, mods, workdir, ctx):
     say(f"  VNet3d train step 1x{VNET_TRAIN_DHW[0]}^3 ms, 10 steps a pass, 3 interleaved "
         f"passes: min {json.dumps(mins)}, median {json.dumps(meds)}")
     return paths
+
+
+def _zoo_net(torch, mods, name: str, features: int = ZOO_FEATURES, dropout: float = 0.2):
+    """The port's ``name`` with ``seeded_*_params``' weights, on the card."""
+    seeded, conv = mods["zoo_weights"][name]
+    net = mods["build_model"](name, ZOO_CLASSES, features=features, dropout=dropout)
+    net.load_state_dict(conv(seeded(SEED, features, ZOO_CLASSES, 1)), strict=True)
+    return net.cuda()
+
+
+def _zoo_instance_norm_rows(torch, mods):
+    """K1 at one channel per group without ReLU, STUNet3d's InstanceNorms,
+    at the net's five levels on 96^3 (C 16 at 96^3 ... 256 at 6^3; uses per
+    forward), forward and backward in f32 and bf16 against its plain
+    version, timed beside ``F.group_norm`` at C groups on a contiguous (N,
+    C, D, H, W) copy and its autograd backward."""
+    fused_norm = mods["fused_norm"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {"fused_group_norm_relu": [], "fused_group_norm_relu_bwd": []}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        size = torch.tensor([], dtype=dtype).element_size()
+        for c, side, uses in ((16, 96, 3), (32, 48, 6), (64, 24, 7), (128, 12, 7),
+                              (256, 6, 4)):
+            n_el = side ** 3 * c
+            x = (torch.randn((1, side, side, side, c), generator=gen, device="cuda") * 2
+                 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda")
+            g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            what = f"C{c} groups {c} no ReLU @{side}^3"
+
+            def fwd():
+                return fused_norm.fused_group_norm_relu(x, gamma, beta, c, 1e-6, False)
+
+            def fwd_plain():
+                return fused_norm.fused_group_norm_relu_plain(x, gamma, beta, c, 1e-6, False)
+
+            got, ref = fwd(), fwd_plain()
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(torch, fwd, fwd_plain)
+            xl = x.permute(0, 4, 1, 2, 3).contiguous().requires_grad_()
+            gl, bl = (t.to(dtype).detach().requires_grad_() for t in (gamma, beta))
+            library_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+                xl.detach(), c, gl.detach(), bl.detach(), 1e-6))
+            yl = torch.nn.functional.group_norm(xl, c, gl, bl, 1e-6)
+            g_lib = g.permute(0, 4, 1, 2, 3).contiguous()
+            library_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                yl, (xl, gl, bl), g_lib, retain_graph=True))
+            del xl, gl, bl, yl, g_lib
+            _check_row(rows, "fused_group_norm_relu", dtype_name, what, *rel_err(got, ref),
+                       ms, plain_ms, uses, bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name),
+                       library_ms, " (F.group_norm)")
+            _, stats = fused_norm._launch(x, gamma, beta, c, 1e-6, False)
+
+            def bwd():
+                return fused_norm._launch_backward(x, g, stats, gamma, beta, c, False)
+
+            def bwd_plain():
+                return fused_norm.fused_group_norm_relu_backward_plain(
+                    x, gamma, beta, g, c, 1e-6, False)
+
+            got, ref = bwd(), bwd_plain()
+            torch.cuda.synchronize()
+            err, scale = max((rel_err(a, b) for a, b in zip(got, ref)),
+                             key=lambda e: e[0] / e[1])
+            ms, plain_ms = time_pair(torch, bwd, bwd_plain)
+            _check_row(rows, "fused_group_norm_relu_bwd", dtype_name,
+                       what + " (dx, dgamma, dbeta)", err, scale, ms, plain_ms, uses,
+                       bound_ms(20.0 * n_el, 3 * n_el * size, dtype_name), library_bwd_ms,
+                       " (F.group_norm's autograd backward)")
+    return rows
+
+
+def _masks_agree(torch, probs, ref, tol: float):
+    """(share of equal argmax masks, voxels that differ where the reference's
+    top two probabilities lie at least 2 * tol apart, max |probs - ref|)."""
+    top2 = torch.topk(ref.float(), 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) >= 2 * tol
+    a, b = probs.argmax(-1), ref.argmax(-1)
+    return (float((a == b).float().mean()), int(((a != b) & clear).sum()),
+            float((probs.float() - ref.float()).abs().max()))
+
+
+def _zoo_golden(torch, mods):
+    """ResUNet3d and STUNet3d (features 8, 1x32^3, seeded weights) and their
+    twins on the card against the JAX package's logits, written on the CPU
+    (``tests/data/torch_port_zoo_golden.npz``): ResUNet3d within 1e-4 of
+    max(1, max |logits|) (its aux heads at the fingerprint's sampled
+    entries), STUNet3d at JAX's own bars for its f32 twin (logits 6e-2,
+    argmax agreement >= 0.999)."""
+    gen_mod = mods["zoo_golden"]
+    g = np.load(gen_mod.GOLDEN)
+    for net, twin in (("resunet3d", mods["packed_resunet3d_apply"]),
+                      ("stunet3d", mods["packed_stunet3d_apply"])):
+        case = f"{net[:-2]}_fwd"
+        (x,) = gen_mod.inputs(case)
+        model = _zoo_net(torch, mods, net, features=gen_mod.FEATURES).eval()
+        ref = g[f"{case}/logits"]
+        for kind, fn in (("plain", model), ("twin", lambda t: twin(model, t))):
+            c0 = counts(mods)
+            with torch.inference_mode():
+                out = fn(torch.from_numpy(x).cuda())
+            launches = delta(counts(mods), c0)
+            logits = out[0].float().cpu().numpy()
+            err = float(np.abs(logits - ref).max())
+            agree = float((logits.argmax(-1) == ref.argmax(-1)).mean())
+            aux_err = 0.0
+            for i, a in enumerate(out[2] if len(out) == 3 else ()):
+                fp, fr = gen_mod.fingerprint(a.float().cpu().numpy()), g[f"{case}/aux{i}"]
+                aux_err = max(aux_err, float(np.abs(fp - fr)[2:-2].max() / max(1.0, fr[0])))
+            scale = max(1.0, float(np.abs(ref).max()))
+            say(f"  golden {net} {kind} {x.shape[1:4]} features {gen_mod.FEATURES}: logits "
+                f"max_abs_err {err:.3g} (scale {scale:.3g}), aux {aux_err:.3g}, argmax "
+                f"agreement {agree:.6f}; launches {launches}")
+            ok = (err <= 1e-4 * scale and aux_err <= 1e-4 if net == "resunet3d"
+                  else err <= 6e-2 and agree >= 0.999)
+            if not ok:
+                fail(f"{net} {kind} golden mismatch")
+            if not launches["conv3d_small"] or not launches["fused_group_norm_relu"] or (
+                    kind == "twin" and not launches["packed_conv3d_structured"]):
+                fail(f"{net} {kind} golden forward missed a kernel: {launches}")
+
+
+def phase_zoo(torch, mods, workdir):
+    """The rest of the trained 3D zoo (config 5 and its neighbours):
+    K1 at one channel per group; the golden file; each net's forward (and
+    the twins') at config 5's shapes, kernels against plain, launches and
+    times; ``train.build`` / ``run`` of each net, plain and (ResUNet3d,
+    STUNet3d) ``--train.packed_stem true``, in f32 and bf16, 1 epoch of 3
+    steps with every step's launches checked; the packed f32 step against
+    the plain net's through the plain versions; step times interleaved.
+    Returns ({path: launches}, K1 rows)."""
+    t_phase = time.perf_counter()
+    in_rows = _zoo_instance_norm_rows(torch, mods)
+    _zoo_golden(torch, mods)
+    paths, twins = {}, {"resunet3d": mods["packed_resunet3d_apply"],
+                        "stunet3d": mods["packed_stunet3d_apply"]}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    fwd_ms = {}
+    for net, dhw in ZOO_DHW.items():
+        model = _zoo_net(torch, mods, net).eval()
+        x = torch.randn((1,) + dhw + (1,), generator=gen, device="cuda")
+        want = _forward_only(ZOO_TRAIN_LAUNCHES[net])
+        for dtype_name in ("float32", "bfloat16"):
+            xd = x.to(getattr(torch, dtype_name))
+            tag = "" if dtype_name == "float32" else "_bf16"
+            reset_counts(mods)
+            with torch.inference_mode():
+                probs = model(xd)[1]
+            launches = counts(mods)
+            if launches != want:
+                fail(f"{net} {dtype_name} forward launches {launches} != {want}")
+            paths[f"fwd_{net}{tag}"] = launches
+            with torch.inference_mode(), plain_kernels(mods):
+                ref = model(xd)[1]
+            # phase 8's f32 gate on probabilities; STUNet3d at JAX's own bar
+            tol = (1e-2 if net == "stunet3d" else 1e-3) if tag == "" else 1e-2
+            agree, bad, err = _masks_agree(torch, probs, ref, tol)
+            mask = probs.argmax(-1).to(torch.uint8)
+            say(f"  {net} {dtype_name} forward 1x{dhw[0]}x{dhw[1]}x{dhw[2]}: launches "
+                f"{ {k: v for k, v in launches.items() if v} }; kernels vs plain: probs "
+                f"max_abs_err {err:.3g}, mask agreement {agree:.6f}, mismatches outside "
+                f"near-ties {bad}; labels {torch.unique(mask).tolist()}")
+            gate = 0.999 if tag == "" else 0.99
+            if not agree >= gate or (tag == "" and (bad or err > tol)):
+                fail(f"{net} {dtype_name} forward kernels vs plain")
+            with torch.inference_mode():
+                fwd_ms[f"{net}{tag}"] = time_ms(torch, lambda: model(xd)[1].argmax(-1).to(
+                    torch.uint8), iters=5)
+                with plain_kernels(mods):
+                    fwd_ms[f"{net}{tag}_plain_versions"] = time_ms(
+                        torch, lambda: model(xd)[1].argmax(-1), iters=3)
+            if net in twins:
+                twin = twins[net]
+                reset_counts(mods)
+                with torch.inference_mode():
+                    tprobs = twin(model, xd)[1]
+                launches = counts(mods)
+                tw = _forward_only(ZOO_TRAIN_LAUNCHES[f"{net}_packed"])
+                if launches != tw:
+                    fail(f"{net} twin {dtype_name} forward launches {launches} != {tw}")
+                paths[f"fwd_{net}_packed{tag}"] = launches
+                agree = float((tprobs.argmax(-1) == probs.argmax(-1)).float().mean())
+                say(f"  {net} twin {dtype_name}: launches "
+                    f"{ {k: v for k, v in launches.items() if v} }; mask agreement with the "
+                    f"plain net {agree:.6f} (gate {PACKED_AGREE[dtype_name]})")
+                if not agree >= PACKED_AGREE[dtype_name]:
+                    fail(f"{net} twin {dtype_name} against the plain net: {agree}")
+                with torch.inference_mode():
+                    fwd_ms[f"{net}_packed{tag}"] = time_ms(
+                        torch, lambda: twin(model, xd)[1].argmax(-1).to(torch.uint8), iters=5)
+        del model
+    say(f"  config 5 forwards (eval, argmax to uint8), ms by CUDA events, "
+        f"{mods['smi']}: {json.dumps({k: round(v, 3) for k, v in fwd_ms.items()})}")
+
+    # training through train.build / run: 1 epoch of 3 steps each
+    parse_cli = mods["parse_cli"]
+    data = {dhw: write_vnet_training_data(workdir, np.random.default_rng(SEED + 7 + i), dhw,
+                                          f"z{i}")
+            for i, dhw in enumerate(sorted(set(ZOO_DHW.values())))}
+    trainers = {}
+    for net, dhw in ZOO_DHW.items():
+        train_csv, val_csv = data[dhw]
+        flags = ["--model.name", net, "--model.num_classes", str(ZOO_CLASSES),
+                 "--model.features", str(ZOO_FEATURES), "--model.dropout", "0.2",
+                 "--data.image_size", json.dumps(list(dhw[::-1])),
+                 "--data.train_csv", train_csv, "--data.val_csv", val_csv,
+                 "--train.loss_name", "MutilDiceLoss", "--train.optimizer", "adam",
+                 "--train.lr", "1e-3", "--train.epochs", "1"]
+        for packed in ((False, True) if net in twins else (False,)):
+            for bf16 in (False, True):
+                tag = f"train_{net}{'_packed' if packed else ''}{'_bf16' if bf16 else ''}"
+                extra = (["--train.packed_stem", "true"] if packed else []) + (
+                    ["--train.compute_dtype", "bfloat16"] if bf16 else [])
+                cfg = parse_cli(flags + ["--train.model_dir", os.path.join(workdir, tag)]
+                                + extra)
+                trainers[tag], paths[tag] = _run_training(
+                    torch, mods, cfg, ZOO_TRAIN_LAUNCHES[net + ("_packed" if packed else "")],
+                    tag)
+
+    step_ms = {}
+    for net, dhw in ZOO_DHW.items():
+        first = trainers[f"train_{net}"]
+        train_csv, _ = data[dhw]
+        batch = first._put(next(iter(mods["train"].DataLoader(mods["train"].SegDataset3D(
+            *mods["train"].read_manifest_csv(train_csv), dhw, False), 1, shuffle=False))))
+        if net in twins:
+            # one packed f32 step against the plain net's through the plain
+            # versions: same weights, batch and dropout generator
+            model = _zoo_net(torch, mods, net).train()
+
+            def loss_grads(packed, image=batch["image"]):
+                tr = mods["make_segmentation_trainer"](
+                    model, ZOO_CLASSES, "MutilDiceLoss", alpha=[1.0] * ZOO_CLASSES,
+                    device="cuda", packed_stem=packed)
+                model.zero_grad(set_to_none=True)
+                out = tr.apply_fn(model, image, True, mods["step_generator"](SEED, 0, "cuda"))
+                out = {k: tuple(t.float() for t in v) if isinstance(v, tuple) else v.float()
+                       for k, v in out.items()}
+                loss = tr.loss_fn(out, batch)
+                loss.backward()
+                return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+            loss_k, grads_k = loss_grads(True)
+            eps = torch.randn(batch["image"].shape, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(SEED))
+            with plain_kernels(mods):
+                loss_p, grads_p = loss_grads(False)
+                # the plain path's own move at rounding level of the image
+                floor = grad_errors(loss_grads(False, batch["image"] * (1 + 1e-7 * eps))[1],
+                                    grads_p, 1e-3)
+            worst, worst_name, median, worst_abs = grad_errors(grads_k, grads_p, 1e-3)
+            say(f"  {net} packed f32 step vs the plain net's (plain versions): loss "
+                f"{loss_k:.7f} vs {loss_p:.7f} (relative {abs(loss_k - loss_p) / abs(loss_p):.3g}"
+                f", tol 1e-5); worst grad error / max(its max |g|, 1e-3 of the largest) "
+                f"{worst:.3g} ({worst_name}, tol {STEP_GRAD_TOL}); / max(1, max |g|) "
+                f"{worst_abs:.3g} (tol 1e-3); median max |g| {median:.3g}; plain vs plain "
+                f"on the image at rounding level {floor[0]:.3g} ({floor[1]})")
+            if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) or not worst <= STEP_GRAD_TOL \
+                    or not worst_abs <= 1e-3:
+                fail(f"{net} packed train step vs the plain step mismatch")
+            del model
+        variants = {k[len("train_"):]: tr for k, tr in trainers.items()
+                    if k == f"train_{net}" or k.startswith(f"train_{net}_")}
+        mins, meds = _train_passes(torch, variants, batch, steps=3, reps=3)
+        step_ms[net] = {"min": mins, "median": meds}
+        say(f"  {net} train step 1x{dhw[0]}x{dhw[1]}x{dhw[2]} ms ({mods['smi']}), 3 steps a "
+            f"pass, 3 interleaved passes: min {json.dumps(mins)}, median {json.dumps(meds)}")
+        for name, tr in variants.items():
+            split, wall = mods["traced_split"](lambda tr=tr: tr.train_step(batch))
+            dev = sum(split.values())
+            say(f"  {name} step device {dev:.3f} ms of {wall:.3f} wall (busy "
+                f"{dev / wall:.2f}), by family {json.dumps(kernel_families(split))}")
+    del trainers
+    say(f"  zoo phase in {time.perf_counter() - t_phase:.1f} s")
+    return paths, in_rows
 
 
 def phase_bench(torch, mods):
@@ -1832,6 +2167,21 @@ def phase_swin(torch, mods):
     return launches, rows
 
 
+def _load_zoo_golden():
+    """``tests/make_torch_port_zoo_golden.py`` as a module (its inputs,
+    fingerprints and golden path; it imports JAX only inside the functions
+    that write the file)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "make_torch_port_zoo_golden.py")
+    if not os.path.isfile(path):
+        fail(f"golden generator missing: {path}")
+    spec = importlib.util.spec_from_file_location("make_torch_port_zoo_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     import torch
 
@@ -1842,6 +2192,7 @@ def main() -> int:
     from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
     from tpuseg_torch.compat.seg_models import (MutilUNet3dModel, MutilVNet3dModel,
                                                 disable_tf32)
+    from tpuseg_torch.compat import weights as zoo_weights
     from tpuseg_torch.compat.weights import (seeded_unet_params, seeded_vnet_params,
                                              unet_params_from_jax, vnet_params_from_jax)
     from tpuseg_torch.config import parse_cli
@@ -1855,14 +2206,17 @@ def main() -> int:
     from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
                                       slab_conv)
     from tpuseg_torch.losses import build_loss
-    from tpuseg_torch.models import unet_packed, vnet_packed
+    from tpuseg_torch.models import (build_model, resunet_packed, stunet_packed, unet_packed,
+                                     vnet_packed)
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
     from tpuseg_torch.tools.profiling import (swin_forward_split, synthetic_ct,
-                                              traced_busy, train_step_kernel_split)
+                                              traced_busy, traced_split,
+                                              train_step_kernel_split)
 
+    zoo_golden = _load_zoo_golden()
     if "jax" in sys.modules:
         fail("jax was imported")
     disable_tf32()
@@ -1901,7 +2255,18 @@ def main() -> int:
         sliding_window_inference_pipelined=sliding_window.sliding_window_inference_pipelined,
         MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
         traced_busy=traced_busy, swin_forward_split=swin_forward_split,
-        train_step_kernel_split=train_step_kernel_split)
+        train_step_kernel_split=train_step_kernel_split, smi=smi, build_model=build_model,
+        traced_split=traced_split,
+        stunet_packed=stunet_packed, zoo_golden=zoo_golden,
+        packed_resunet3d_apply=resunet_packed.packed_resunet3d_apply,
+        packed_stunet3d_apply=stunet_packed.packed_stunet3d_apply,
+        zoo_weights={
+            "resunet3d": (zoo_weights.seeded_resunet_params,
+                          zoo_weights.resunet_params_from_jax),
+            "stunet3d": (zoo_weights.seeded_stunet_params, zoo_weights.stunet_params_from_jax),
+            "kiunet3d": (zoo_weights.seeded_kiunet_params, zoo_weights.kiunet_params_from_jax),
+            "unet3dthin": (zoo_weights.seeded_unet_thin_params,
+                           zoo_weights.unet_thin_params_from_jax)})
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -1916,6 +2281,9 @@ def main() -> int:
         train_paths, ctx = phase_train(torch, mods, workdir)
         train_paths.update(phase_train_packed(torch, mods, workdir, ctx))
         del ctx
+        say(f"phase 6b: the rest of the trained 3D zoo ({smi})")
+        zoo_paths, zoo_in_rows = phase_zoo(torch, mods, workdir)
+        train_paths.update(zoo_paths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"phase 7: K2 micro-benchmarks ({smi})")
@@ -1998,6 +2366,13 @@ def main() -> int:
             entry["tf32x3"] = {"max_err_over_scale": max(r["max_abs_err"] / r["scale"]
                                                          for r in all_rows),
                                "gate": TOL["float32"]}
+        if key in zoo_in_rows:
+            # STUNet3d's InstanceNorms: K1 at one channel per group, no
+            # ReLU, one f32 forward's (or backward's) calls at 96^3
+            zrows = [r for r in zoo_in_rows[key] if r["dtype"] == dtype_name]
+            entry["zoo_instance_norm"] = dict(
+                pass_fields(zrows), library_ms=per_pass(zrows, "library_ms"),
+                max_abs_err=max(r["max_abs_err"] for r in zrows))
         vrows = [r for r in all_rows if r["path"] == "vnet"]
         if vrows:
             entry["train_vnet_packed"] = dict(pass_fields(vrows), library_ms=per_pass(

@@ -903,3 +903,124 @@ def test_packed_twins_train_step_launch_counts(cuda, net, levels, want, dtype):
     assert tuple(a - b for a, b in zip(counts(), before)) == want
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
+
+
+# ------------------------------------------------- the rest of the 3D zoo
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 5, 6, 7, 16),          # STUNet3d's stem width: 4 (f32) / 8 (bf16) groups a vector
+    (2, 3, 4, 5, 256),         # its bottom width, two samples
+    (1, 9, 4, 24),             # C 24: 8-byte vectors in f32
+    (1, 2, 3, 5),              # C 5: one element a vector
+    (1, 1, 1, 1, 64),          # V = 1: every group a single value
+])
+def test_fused_gn_one_channel_per_group(cuda, dtype, shape):
+    """K1 as STUNet3d's InstanceNorm: ``groups = C``, no ReLU, eps 1e-6,
+    where one thread's vector spans several groups; forward and backward
+    against the plain versions, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 2).to(dtype)
+    gamma = torch.randn(c, generator=gen, device=cuda)
+    beta = torch.randn(c, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    before = fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES
+    y = fused_norm.fused_group_norm_relu(xr, gr, br, c, 1e-6, False)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close(y, fused_norm.fused_group_norm_relu_plain(x, gamma, beta, c, 1e-6, False), dtype)
+    dx, dgamma, dbeta = fused_norm.fused_group_norm_relu_backward_plain(
+        x, gamma, beta, g, c, 1e-6, False)
+    _close(xr.grad, dx, dtype)
+    _close(gr.grad, dgamma, dtype)
+    _close(br.grad, dbeta, dtype)
+
+
+@pytest.mark.parametrize("kernel, padding, side", [(3, "SAME", 8), (3, "SAME", 9),
+                                                   (1, "VALID", 8), (1, "VALID", 7)])
+def test_convnd_stride2_modes_reach_cudnn_with_xla_padding(cuda, kernel, padding, side):
+    """``ConvND``'s stride-2 modes (STUNet3d's dual path) go to cuDNN, not
+    K2, with XLA's SAME padding ((0, 1) on an even side): the card's
+    output equals ``F.conv3d`` on the explicitly padded input."""
+    import torch.nn.functional as F
+
+    from tpuseg_torch.nn.layers import ConvND, same_pads
+
+    conv = ConvND(8, 16, kernel, stride=2, padding=padding)
+    torch.nn.init.normal_(conv.weight, std=0.1)
+    torch.nn.init.normal_(conv.bias, std=0.1)
+    conv = conv.to(cuda)
+    x = torch.randn((1, side, side + 1, side, 8), device=cuda)
+    before = conv3d.LAUNCHES
+    with torch.inference_mode():
+        got = conv(x)
+        pads = [same_pads(n, kernel, 2) if padding == "SAME" else (0, 0)
+                for n in x.shape[1:4]]
+        xp = F.pad(x.permute(0, 4, 1, 2, 3), [p for lh in reversed(pads) for p in lh])
+        ref = F.conv3d(xp, conv.weight, conv.bias, stride=2).permute(0, 2, 3, 4, 1)
+    assert conv3d.LAUNCHES == before
+    assert got.shape == ref.shape
+    _close(got, ref, torch.float32)
+
+
+# launches of one train step of each zoo net at features 16 (forward and
+# backward): K3 forward / dX / dW, K2 forward / dX / dW, K1 forward /
+# backward, stem GEMMs (chip_smoke.py ZOO_TRAIN_LAUNCHES sets out which
+# layer takes which)
+ZOO_STEP = {
+    ("resunet3d", False): (0, 0, 0, 10, 10, 10, 26, 26, 0),
+    ("resunet3d", True): (3, 4, 4, 7, 7, 7, 26, 26, 1),
+    ("stunet3d", False): (0, 0, 0, 10, 10, 10, 27, 27, 0),
+    ("stunet3d", True): (1, 1, 1, 9, 9, 9, 27, 27, 1),
+    ("kiunet3d", False): (0, 0, 0, 6, 6, 6, 12, 12, 0),
+    ("unet3dthin", False): (0, 0, 0, 10, 10, 10, 18, 18, 0),
+}
+
+
+@pytest.mark.parametrize("net, packed", list(ZOO_STEP))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zoo_train_step_launch_counts(cuda, net, packed, dtype):
+    from tpuseg_torch.models import build_model, resunet_packed, stunet_packed, vnet_packed
+
+    def counts():
+        return (packed_conv.LAUNCHES, packed_conv.DX_LAUNCHES, packed_conv.DW_LAUNCHES,
+                conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES,
+                fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES, vnet_packed.STEM_DW_PRODUCTS)
+
+    model = build_model(net, 2, features=16, dropout=0.2,
+                        generator=torch.Generator().manual_seed(0)).to(cuda).train()
+    x = torch.randn((1, 32, 32, 32, 1), device=cuda).to(dtype)
+    gen = torch.Generator(cuda).manual_seed(1)
+    before = counts()
+    if packed:
+        twin = (resunet_packed.packed_resunet3d_apply if net == "resunet3d"
+                else stunet_packed.packed_stunet3d_apply)
+        out = twin(model, x, generator=gen)
+    else:
+        out = model(x, gen)
+    loss = out[0].float().square().mean() + out[1].float().mean()
+    for a in (out[2] if len(out) == 3 else ()):
+        loss = loss + a.float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == ZOO_STEP[(net, packed)]
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+
+
+@pytest.mark.parametrize("net", ["resunet3d", "stunet3d"])
+def test_zoo_twins_refuse_sides_16_does_not_divide(cuda, net):
+    """The packed twins need every side divisible by 16 (4 stride-2
+    downsamples) and raise ValueError otherwise, before any launch."""
+    from tpuseg_torch.models import build_model, resunet_packed, stunet_packed
+
+    model = build_model(net, 2, features=16).to(cuda).eval()
+    twin = (resunet_packed.packed_resunet3d_apply if net == "resunet3d"
+            else stunet_packed.packed_stunet3d_apply)
+    before = fused_norm.LAUNCHES
+    with torch.inference_mode(), pytest.raises(ValueError, match="divisible by 16"):
+        twin(model, torch.zeros((1, 32, 24, 32, 1), device=cuda))
+    assert fused_norm.LAUNCHES == before

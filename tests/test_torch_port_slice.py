@@ -313,12 +313,18 @@ def test_cli_parses_the_serve_flags():
 
 
 def test_serve_imports_no_jax():
-    """Neither entry point of the port (serve, train) nor its packed twin,
-    its kernel modules and its probe modules import JAX."""
+    """Neither entry point of the port (serve, train) nor its packed twins,
+    its zoo and registry (``build_model`` builds each net), its kernel
+    modules and its probe modules import JAX."""
     code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train, "
             "tpuseg_torch.models.unet_packed, tpuseg_torch.kernels.packed_conv, "
             "tpuseg_torch.kernels.slab_conv, tpuseg_torch.kernels.flat_conv, "
             "tpuseg_torch.benchmarks.kmicro, tpuseg_torch.benchmarks.kmicro2, "
-            "tpuseg_torch.benchmarks.kmicro3, tpuseg_torch.benchmarks.kbench; "
+            "tpuseg_torch.benchmarks.kmicro3, tpuseg_torch.benchmarks.kbench, "
+            "tpuseg_torch.models.resunet3d, tpuseg_torch.models.stunet3d, "
+            "tpuseg_torch.models.kiunet3d, tpuseg_torch.models.unet, "
+            "tpuseg_torch.models.resunet_packed, tpuseg_torch.models.stunet_packed; "
+            "from tpuseg_torch.models import PORTED, build_model; "
+            "[build_model(n, 2, features=8) for n in PORTED]; "
             "assert 'jax' not in sys.modules and 'tpuseg' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

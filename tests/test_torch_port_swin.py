@@ -156,10 +156,16 @@ def test_vnet_block_matches_jax(params, port_vnet, block):
 
 
 def test_conv_rejects_modes_the_port_lacks():
+    """ConvND pads SAME as XLA does at any stride and kernel (the k3
+    stride-2 SAME conv came with STUNet3d's dual path, an even kernel pads
+    (0, 1)) or VALID; any other padding raises."""
     with pytest.raises(ValueError):
-        pl.ConvND(8, 8, 2)  # an even kernel at stride 1 has no SAME padding
+        pl.ConvND(8, 8, 3, padding="CIRCULAR")
     with pytest.raises(ValueError):
-        pl.ConvND(8, 8, 3, stride=2)
+        pl.ConvND(8, 8, 3, stride=2, padding=1)
+    assert pl.ConvND(8, 8, 3, stride=2).padding == "SAME"
+    assert pl.ConvND(8, 8, 2, stride=2).padding == "VALID"
+    assert pl.same_pads(8, 2, 1) == (0, 1)
 
 
 def test_vnet3d_forward_matches_jax(params, port_vnet):

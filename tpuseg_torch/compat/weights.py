@@ -1,5 +1,6 @@
-"""Weights for the port's UNet and VNet: from tpuseg's flax trees, from
-seeds, from reference-named ``.pth`` state_dicts.
+"""Weights for the port's zoo (UNet, VNet, ResUNet3d, STUNet3d, KiUNet3d,
+UNetThin): from tpuseg's flax trees, from seeds, from reference-named
+``.pth`` state_dicts (UNet, VNet).
 
 ``unet_params_from_jax`` converts a tpuseg ``UNet`` parameter tree (flax
 layout, numpy leaves) into the port's ``state_dict``: reference-framework
@@ -24,6 +25,12 @@ VNet.  The reference's VNet shares one GroupNorm per UpTransition
 (``up_trX.bn``) where tpuseg and the port hold two (``GroupNorm_0`` /
 ``bn``, ``GroupNorm_1`` / ``bn2``): ``vnet_state_dict_from_reference``
 fills both from the reference's one.
+
+``{resunet,stunet,kiunet,unet_thin}_params_from_jax`` and
+``seeded_{resunet,stunet,kiunet,unet_thin}_params`` do the same for the rest
+of the 3D zoo, from one table per net (``ZOO_ROWS``), strict both ways.
+STUNet3d's ``_DualPathDown`` holds one GroupNorm that both of its paths run
+through; it maps to one ``norm`` module.
 """
 from __future__ import annotations
 
@@ -270,3 +277,204 @@ def seeded_vnet_params(seed: int, features: int, num_classes: int,
             "ConvND_0": conv(1, 2 * cout, cout), "GroupNorm_1": gn(cout)}, cout, n)
     tree["OutputHead_0"] = {"ConvND_0": conv(1, f, num_classes)}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the rest of the 3D zoo: ResUNet3d, STUNet3d, KiUNet3d, UNet3dThin
+# ---------------------------------------------------------------------------
+# Each net's carry is a table of (port key, flax path, kind), kind "conv" (a
+# conv kernel), "tconv" (a transpose-conv kernel, flipped) or "vec" (a bias,
+# a GroupNorm scale or bias); ``_from_jax`` applies it strictly both ways and
+# ``_seeded`` draws a flax tree of the shapes the port's module gives (the
+# shapes JAX's ``init`` gives, which the tests check).
+
+_GN = (("weight", "scale"), ("bias", "bias"))
+
+
+def _conv_rows(key: str, node: Tuple[str, ...], bias: bool,
+               inner: str = "Conv_0", kind: str = "conv"):
+    rows = [(f"{key}.weight", node + (inner, "kernel"), kind)]
+    if bias:
+        rows.append((f"{key}.bias", node + (inner, "bias"), "vec"))
+    return rows
+
+
+def _gn_rows(key: str, node: Tuple[str, ...]):
+    return [(f"{key}.{t}", node + (j,), "vec") for t, j in _GN]
+
+
+def _block_rows(key: str, node: Tuple[str, ...], repeats: int = 2, prefix: str = ""):
+    """A ``ConvBlock`` (k3 convs without bias, GroupNorms)."""
+    rows = []
+    for i in range(repeats):
+        rows += _conv_rows(f"{key}.{prefix}conv{i + 1}", node + (f"ConvND_{i}",), False)
+        rows += _gn_rows(f"{key}.{prefix}norm{i + 1}", node + (f"GroupNorm_{i}",))
+    return rows
+
+
+def _resunet_rows():
+    rows = []
+    for i in range(5):
+        rows += _block_rows(f"enc.{i}", (f"ConvBlock_{i}",))
+    for i in range(4):
+        rows += _conv_rows(f"down.{i}.conv", (f"_DownSample_{i}", "ConvND_0"), False)
+        rows += _gn_rows(f"down.{i}.norm", (f"_DownSample_{i}", "GroupNorm_0"))
+        rows += _conv_rows(f"up.{i}.conv", (f"_UpSample_{i}", "ConvTransposeND_0"), False,
+                           "ConvTranspose_0", "tconv")
+        rows += _gn_rows(f"up.{i}.norm", (f"_UpSample_{i}", "GroupNorm_0"))
+        rows += _block_rows(f"dec.{i}", (f"ConvBlock_{5 + i}",))
+        rows += _conv_rows(f"heads.{i}.conv", (f"_Head_{i}", "ConvND_0"), False)
+    return rows
+
+
+def _stunet_rows():
+    from tpuseg_torch.models.stunet3d import DOWN_STAGES, UP_STAGES
+
+    def dual(key, node):
+        return (_conv_rows(f"{key}.conv_a", (node, "ConvND_0"), True)
+                + _conv_rows(f"{key}.conv_b", (node, "ConvND_1"), True)
+                + _gn_rows(f"{key}.norm", (node, "GroupNorm_0")))
+
+    lu = iter(range(100))
+
+    def luconvs(key, n):
+        rows = []
+        for j in range(n):
+            node = f"_LUConvIN_{next(lu)}"
+            rows += _conv_rows(f"{key}.ops.{j}.conv", (node, "ConvND_0"), True)
+            rows += _gn_rows(f"{key}.ops.{j}.norm", (node, "GroupNorm_0"))
+        return rows
+
+    rows = dual("stem", "_DualPathDown_0")
+    for i, (_, n) in enumerate(DOWN_STAGES):
+        rows += dual(f"downs.{i}.dual", f"_DualPathDown_{i + 1}") + luconvs(f"downs.{i}", n)
+    for i, (_, n) in enumerate(UP_STAGES):
+        rows += _conv_rows(f"ups.{i}.up_conv", (f"ConvND_{2 * i}",), True)
+        rows += _conv_rows(f"ups.{i}.cat_conv", (f"ConvND_{2 * i + 1}",), True)
+        rows += luconvs(f"ups.{i}", n)
+    return rows + _conv_rows("head", (f"ConvND_{2 * len(UP_STAGES)}",), True)
+
+
+def _kiunet_rows():
+    def block(key, i):
+        return _block_rows(key, (f"_Block_{i}", "ConvBlock_0"), repeats=1)
+
+    rows = []
+    for i in range(5):
+        rows += block(f"enc.{i}", i)
+    for j in range(4):
+        rows += block(f"dec.{j}", 5 + j)
+    for j in range(3):
+        rows += _conv_rows(f"heads.{j}.conv", (f"_Head_{j}", "ConvND_0"), False)
+    rows += block("ki1", 9) + block("ki2", 10) + block("final", 11)
+    return rows + _conv_rows("head.conv", ("_Head_3", "ConvND_0"), False)
+
+
+def _unet_thin_rows(levels: int = 4):
+    rows = []
+    for i in range(levels):
+        rows += _block_rows(f"encoder{i + 1}", (f"ConvBlock_{i}",), prefix=f"enc{i + 1}")
+    rows += _block_rows("bottleneck", (f"ConvBlock_{levels}",), prefix="bottleneck")
+    for j in range(levels):
+        lvl = levels - j
+        rows += _block_rows(f"decoder{lvl}", (f"ConvBlock_{levels + 1 + j}",),
+                            prefix=f"dec{lvl}")
+    return rows + _conv_rows("conv", ("OutputHead_0", "ConvND_0"), True)
+
+
+ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
+            "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows}
+
+
+def _from_jax(net: str, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    leaves = _flatten(tree)
+    sd = {}
+    for key, path, kind in ZOO_ROWS[net]():
+        if path not in leaves:
+            raise KeyError(f"{net} params lack {'/'.join(path)} (for {key})")
+        a = np.asarray(leaves[path], dtype)
+        sd[key] = {"conv": _conv_to_torch, "tconv": _tconv_to_torch}.get(kind, np.asarray)(a)
+    leftover = sorted("/".join(p) for p in set(leaves) - {p for _, p, _ in ZOO_ROWS[net]()})
+    if leftover:
+        raise ValueError(
+            f"{net} params hold {len(leftover)} tensors the converter does not "
+            f"map: {leftover[:8]}{'...' if len(leftover) > 8 else ''}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def resunet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """tpuseg ``ResUNet3d`` params (the tree under ``{"params": ...}``, or
+    the whole variables dict) -> the port's ``ResUNet3d`` state_dict of CPU
+    tensors of ``dtype``.  Strict both ways: every leaf is consumed and every
+    tensor of the state_dict filled (``ZOO_ROWS`` names them all)."""
+    return _from_jax("resunet3d", tree, dtype)
+
+
+def stunet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``STUNet3d``: each
+    ``_DualPathDown``'s one GroupNorm fills the one ``norm`` module its two
+    paths share."""
+    return _from_jax("stunet3d", tree, dtype)
+
+
+def kiunet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``KiUNet3d``."""
+    return _from_jax("kiunet3d", tree, dtype)
+
+
+def unet_thin_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``UNetThin`` (4 levels)."""
+    return _from_jax("unet3dthin", tree, dtype)
+
+
+def _seeded(net: str, seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+    """A flax tree for ``net`` drawn from ``numpy.random.default_rng(seed)``
+    in ``ZOO_ROWS`` order: He-normal kernels, biases 0.05 N(0, 1), GroupNorm
+    scales 1 + 0.1 N(0, 1) and biases 0.1 N(0, 1) (so that a norm shared in
+    the wrong place would show).  Shapes from the port's module, made on
+    the meta device."""
+    from tpuseg_torch.models import build_model
+
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in build_model(
+            net, num_classes, features=features, in_channels=in_ch).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for key, path, kind in ZOO_ROWS[net]():
+        s = shapes[key]
+        if kind == "vec":
+            if path[-1] == "scale":
+                a = 1.0 + 0.1 * rng.standard_normal(s)
+            else:
+                a = (0.1 if path[-2].startswith("GroupNorm") else 0.05) * rng.standard_normal(s)
+        else:  # torch (O, I, *k) / (I, O, *k) -> flax (*k, I, O)
+            jshape = s[2:] + ((s[1], s[0]) if kind == "conv" else s[:2])
+            a = rng.standard_normal(jshape) * np.sqrt(2.0 / int(np.prod(jshape[:-1])))
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a.astype(np.float32)
+    return tree
+
+
+def seeded_resunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+    """A tpuseg ``ResUNet3d`` parameter tree (flax layout and names) from a
+    seed, with numpy alone (``_seeded``)."""
+    return _seeded("resunet3d", seed, features, num_classes, in_ch)
+
+
+def seeded_stunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+    """As ``seeded_resunet_params``, for ``STUNet3d``."""
+    return _seeded("stunet3d", seed, features, num_classes, in_ch)
+
+
+def seeded_kiunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+    """As ``seeded_resunet_params``, for ``KiUNet3d``."""
+    return _seeded("kiunet3d", seed, features, num_classes, in_ch)
+
+
+def seeded_unet_thin_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+    """As ``seeded_resunet_params``, for ``UNetThin``."""
+    return _seeded("unet3dthin", seed, features, num_classes, in_ch)

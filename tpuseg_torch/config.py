@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 
 @dataclass
 class ModelConfig:
-    name: str = "unet3d"  # or "vnet3d"
+    name: str = "unet3d"  # a name of models.build_model: unet3d, vnet3d, resunet3d, ...
     num_classes: int = 2
     image_channel: int = 1
     features: int = 16

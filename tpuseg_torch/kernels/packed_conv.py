@@ -280,8 +280,12 @@ def pack_tc(w3s: Sequence[torch.Tensor], dtype: torch.dtype, axes=FULL):
 
 @functools.lru_cache(maxsize=None)
 def _selection(fn, shape, args, device) -> torch.Tensor:
-    ids = torch.arange(1, math.prod(shape) + 1, dtype=torch.float64).reshape(shape)
-    return fn(ids, *args).round().long().to(device)
+    # made outside inference mode: an index first made while serving
+    # under torch.inference_mode() is kept, and training saves it for the
+    # gather's backward
+    with torch.inference_mode(False):
+        ids = torch.arange(1, math.prod(shape) + 1, dtype=torch.float64).reshape(shape)
+        return fn(ids, *args).round().long().to(device)
 
 
 def exact_transform(fn, w: torch.Tensor, *args) -> torch.Tensor:

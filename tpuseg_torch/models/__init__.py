@@ -1,1 +1,31 @@
-"""Model zoo of tpuseg_torch (see ``unet``)."""
+"""Model zoo of tpuseg_torch, and its registry (``build_model``), keyed by
+the names of ``tpuseg/models/__init__.py``'s."""
+from __future__ import annotations
+
+# the registry's names of the ported nets, and the JAX registry's other names
+PORTED = ("unet3d", "unet", "unet3dthin", "unetthin", "vnet3d", "vnet", "resunet3d",
+          "stunet3d", "kiunet3d", "kiunet3dthin")
+NOT_PORTED = ("unet2d", "vnet2d", "resnet2d", "resnet3d", "resnet", "tpddnet", "unext2d",
+              "unext2ds", "amlpunet2d", "vnet3dregistration", "smt", "vsnet")
+
+
+def build_model(name: str, num_classes: int, **kw):
+    """The port's net called ``name`` (case-insensitive), as the JAX
+    ``build_model`` names it: unet3d / unet, unet3dthin / unetthin, vnet3d /
+    vnet, resunet3d, stunet3d, kiunet3d / kiunet3dthin.  ``kw`` go to the
+    module (``features``, ``dropout``, ``in_channels``, ``generator``).
+    Every other name raises NotImplementedError naming the ported ones."""
+    from tpuseg_torch.models.kiunet3d import KiUNet3d
+    from tpuseg_torch.models.resunet3d import ResUNet3d
+    from tpuseg_torch.models.stunet3d import STUNet3d
+    from tpuseg_torch.models.unet import UNet, UNetThin
+    from tpuseg_torch.models.vnet import VNet
+
+    name = name.lower()
+    cls = {"unet3d": UNet, "unet": UNet, "unet3dthin": UNetThin, "unetthin": UNetThin,
+           "vnet3d": VNet, "vnet": VNet, "resunet3d": ResUNet3d, "stunet3d": STUNet3d,
+           "kiunet3d": KiUNet3d, "kiunet3dthin": KiUNet3d}.get(name)
+    if cls is not None:
+        return cls(num_classes, **kw)
+    what = "is not ported yet" if name in NOT_PORTED else "is not a model of the zoo"
+    raise NotImplementedError(f"model {name!r} {what} (ported: {', '.join(PORTED)})")

@@ -485,15 +485,16 @@ class Derive:
 
 
 class PackedHead:
-    """A net's 1x1 head conv as the packed head, (weight, bias) per channel
-    layout, each made on first use ("class" only for ``return_packed``
+    """A net's 1x1 head conv (with or without bias) as the packed head,
+    (weight, bias) per channel layout, each made on first use ("class" only for ``return_packed``
     callers).  Serving, it holds a copy of the fine head, not the net: the
     derived weights are cached weakly keyed by the net, so no value may
     refer to it."""
 
     def __init__(self, conv: torch.nn.Module, num_classes: int, features: int,
                  derive: Derive):
-        w, b = derive.src(conv.weight)[:, :, 0, 0, 0].t(), derive.src(conv.bias)
+        w = derive.src(conv.weight)[:, :, 0, 0, 0].t()
+        b = w.new_zeros(num_classes) if conv.bias is None else derive.src(conv.bias)
         if not derive.train:
             w, b = w.clone(), b.clone()
         self._src = (w, b, num_classes, features)

@@ -2,11 +2,15 @@
 
 The PyTorch counterparts of ``tpuseg/nn/layers.py`` (``ConvND``,
 ``ConvTransposeND``, ``ChannelDropout``, ``max_pool_nd``, ``ConvBlock``,
-``OutputHead`` and the V-Net vocabulary ``LUConv``, ``InputTransition``,
-``DownTransition``, ``UpTransition``), in the 3D modes the UNet3d and VNet3d
-paths call: stride-1 SAME convs, the kernel-2 stride-2 VALID down conv,
-kernel-2 stride-2 transpose convs and 2-window max pools.  The 2D modes
-come with the slice that uses them.
+``OutputHead``, ``upsample_nd`` and the V-Net vocabulary ``LUConv``,
+``InputTransition``, ``DownTransition``, ``UpTransition``), in the 3D modes
+the 3D zoo calls: stride-1 SAME convs, stride-2 SAME and VALID convs (XLA's
+SAME padding, low side first), kernel-2 stride-2 transpose convs, 2-window
+max pools, nearest and linear upsampling, ``resize_half_linear`` (the
+antialiased x1/2 linear resize of ``jax.image.resize``), GroupNorm(8) + ReLU
+and InstanceNorm (``InstanceNorm``, flax's ``GroupNorm(group_size=1)``),
+both through the fused kernel.  The 2D modes come with the slice that uses
+them.
 Activations are channels-last (N, D, H, W, C) at every ``forward``, as in
 tpuseg.  Parameters carry the reference PyTorch framework's names and
 layouts (conv ``weight`` (O, I, *k), transpose-conv ``weight`` (I, O, *k),
@@ -26,7 +30,7 @@ backend returns another layout.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,14 +58,24 @@ def to_channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1).contiguous()
 
 
+def same_pads(n: int, kernel_size: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis of size ``n``: (low, high) with
+    low = total // 2, total = max((ceil(n / stride) - 1) * stride +
+    kernel_size - n, 0); (0, 1) for a k3 stride-2 conv on an even side,
+    where torch's ``padding=1`` would pad (1, 1)."""
+    total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
+    return total // 2, total - total // 2
+
+
 class ConvND(nn.Module):
-    """Channels-last 3D conv with a cubic kernel: stride-1 SAME with an odd
-    kernel, or VALID with the stride equal to the kernel (the V-Net's k2 s2
-    down conv).
+    """Channels-last 3D conv with a cubic kernel, SAME (XLA's padding) or
+    VALID.  ``padding`` defaults to VALID when the stride equals a kernel
+    above 1 (the k2 s2 down convs) and to SAME otherwise.
 
     A stride-1 3x3x3 conv inside ``conv3d_small``'s supported range goes to the
     hand-written kernel (the convs the TPU kernel took); every other conv
-    goes to ``F.conv3d``, as XLA took them outside Pallas.  On the card the
+    goes to ``F.conv3d``, as XLA took them outside Pallas, with an explicit
+    pad where SAME is not symmetric.  On the card the
     kernel's packed weights (the forward's, and the transposed one of the
     backward's dX conv when a gradient will be asked for) are made once
     and made again only when the weight changes in place
@@ -69,15 +83,14 @@ class ConvND(nn.Module):
     ``weight.data`` is not seen."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 use_bias: bool = True, stride: int = 1):
+                 use_bias: bool = True, stride: int = 1,
+                 padding: Optional[str] = None):
         super().__init__()
-        if stride == 1 and kernel_size % 2 == 0:
-            raise ValueError("SAME padding needs an odd kernel")
-        if stride not in (1, kernel_size):
-            raise ValueError(f"stride {stride} with kernel {kernel_size}: a conv is "
-                             "stride-1 SAME or VALID with the stride equal to the kernel")
-        self.stride = stride
-        self.pad = kernel_size // 2 if stride == 1 else 0
+        if padding is None:
+            padding = "VALID" if stride == kernel_size > 1 else "SAME"
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: a conv is SAME or VALID")
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.weight = nn.Parameter(
             torch.empty(features, in_features, *(kernel_size,) * 3))
         if use_bias:
@@ -104,7 +117,8 @@ class ConvND(nn.Module):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0)  # view
-        if self.stride == 1 and supported(tuple(x.shape), tuple(w_dhwio.shape)):
+        if (self.stride == 1 and self.padding == "SAME"
+                and supported(tuple(x.shape), tuple(w_dhwio.shape))):
             packed = packed_t = None
             if x.is_cuda:
                 packed = self._packed_weight(w_dhwio, x.dtype)
@@ -112,7 +126,14 @@ class ConvND(nn.Module):
                     packed_t = self._packed_weight_t(w_dhwio, x.dtype)
             y = conv3d_small(x, w_dhwio, packed, packed_t)
             return y if bias is None else y + bias
-        y = F.conv3d(to_channels_first(x), w, bias, stride=self.stride, padding=self.pad)
+        xc, pad = to_channels_first(x), 0
+        if self.padding == "SAME":
+            pads = [same_pads(n, self.kernel_size, self.stride) for n in x.shape[1:4]]
+            if all(lo == hi for lo, hi in pads):
+                pad = tuple(lo for lo, _ in pads)
+            else:  # F.pad takes the last axis first
+                xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
+        y = F.conv3d(xc, w, bias, stride=self.stride, padding=pad)
         return to_channels_last(y)
 
 
@@ -163,10 +184,63 @@ def max_pool_nd(x: torch.Tensor) -> torch.Tensor:
     return to_channels_last(F.max_pool3d(to_channels_first(x), 2))
 
 
+def upsample_nd(x: torch.Tensor, factor: int = 2, method: str = "linear") -> torch.Tensor:
+    """Nearest or trilinear upsampling of a channels-last map by an integer
+    ``factor`` (``jax.image.resize``, which upsamples as torch's
+    ``align_corners=False``, half-pixel centers and edge clamping)."""
+    if method not in ("nearest", "linear"):
+        raise ValueError(f"upsample method {method!r} is not 'nearest' or 'linear'")
+    xc = to_channels_first(x)
+    if method == "nearest":
+        y = F.interpolate(xc, scale_factor=factor, mode="nearest")
+    else:
+        y = F.interpolate(xc, scale_factor=factor, mode="trilinear", align_corners=False)
+    return to_channels_last(y)
+
+
+def _half_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``resize_half_linear`` along one even axis: the [1, 3, 3, 1]/8 filter
+    at stride 2 over the axis padded by one zero each side, each output
+    divided by the share of its filter inside the axis (7/8 at a border,
+    6/8 where the axis has 2 voxels)."""
+    n = x.shape[axis]
+    if n % 2:
+        raise ValueError(f"resize_half_linear: odd side {n}")
+    m = n // 2
+    zero = x.new_zeros(x.shape[:axis] + (1,) + x.shape[axis + 1:])
+    xp = torch.cat([zero, x, zero], dim=axis)
+    pairs = xp.reshape(x.shape[:axis] + (m + 1, 2) + x.shape[axis + 1:])
+    a = pairs.narrow(axis, 0, m)
+    b = pairs.narrow(axis, 1, m)
+    y = (a.select(axis + 1, 0) + 3.0 * a.select(axis + 1, 1)
+         + 3.0 * b.select(axis + 1, 0) + b.select(axis + 1, 1))
+    share = torch.full((m,), 8.0, dtype=x.dtype, device=x.device)
+    share[0] -= 1.0
+    share[-1] -= 1.0
+    return y / share.reshape((m,) + (1,) * (x.dim() - axis - 1))
+
+
+def resize_half_linear(x: torch.Tensor) -> torch.Tensor:
+    """The x1/2 linear resize of a channels-last map with even sides, as
+    ``jax.image.resize(..., method="linear")`` computes it: downsampling, it
+    antialiases, so each axis is the triangle kernel widened by 2, a
+    separable [1, 3, 3, 1]/8 filter at stride 2, renormalized by the weights
+    that fall inside the map.  ``F.interpolate`` does not antialias (a ramp
+    0..7 gives [0.5, 2.5, 4.5, 6.5] where JAX gives [0.714, 2.5, 4.5,
+    6.286]).  Sums in fp32 (fp64 for fp64), output in x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = x.to(acc)
+    for axis in (1, 2, 3):
+        y = _half_axis(y, axis)
+    return y.to(x.dtype)
+
+
 class FusedGNReLU(nn.Module):
     """GroupNorm(groups) + affine + ReLU through the fused kernel;
     ``weight``/``bias`` are torch GroupNorm's names for flax's
     ``scale``/``bias``."""
+
+    relu = True
 
     def __init__(self, features: int, groups: int = 8, eps: float = GN_EPS):
         super().__init__()
@@ -178,7 +252,18 @@ class FusedGNReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_group_norm_relu(x, self.weight.to(x.dtype),
                                      self.bias.to(x.dtype), self.groups,
-                                     self.eps, relu=True)
+                                     self.eps, relu=self.relu)
+
+
+class InstanceNorm(FusedGNReLU):
+    """flax ``GroupNorm(num_groups=None, group_size=1)`` (eps 1e-6, where
+    torch's ``instance_norm`` takes 1e-5): statistics per (sample, channel),
+    the affine, no ReLU; the fused kernel at ``groups = C``."""
+
+    relu = False
+
+    def __init__(self, features: int, eps: float = GN_EPS):
+        super().__init__(features, features, eps)
 
 
 class ConvBlock(nn.Module):
@@ -297,9 +382,16 @@ class UpTransition(nn.Module):
         return out + cat
 
 
+def probs_of(logits: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """The zoo's activation: sigmoid for one class, softmax over the channel
+    axis otherwise."""
+    if num_classes == 1:
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, dim=-1)
+
+
 class OutputHead(ConvND):
-    """1x1x1 conv head returning (logits, probs): sigmoid for one class,
-    softmax over the channel axis otherwise."""
+    """1x1x1 conv head returning (logits, ``probs_of`` logits)."""
 
     def __init__(self, in_features: int, num_classes: int):
         super().__init__(in_features, num_classes, 1)
@@ -307,9 +399,7 @@ class OutputHead(ConvND):
 
     def forward(self, x: torch.Tensor):
         logits = super().forward(x)
-        if self.num_classes == 1:
-            return logits, torch.sigmoid(logits)
-        return logits, torch.softmax(logits, dim=-1)
+        return logits, probs_of(logits, self.num_classes)
 
 
 @torch.no_grad()

@@ -34,6 +34,13 @@ from tpuseg_torch.core.optim import clip_grad_global_norm, make_optimizer
 from tpuseg_torch.core.prng import step_generator
 
 
+def _tree_map(fn, outputs: dict) -> dict:
+    """``fn`` on every tensor of an outputs dict, whose values are tensors
+    or tuples of tensors (a deep-supervised net's ``ds_logits``)."""
+    return {k: tuple(fn(t) for t in v) if isinstance(v, tuple) else fn(v)
+            for k, v in outputs.items()}
+
+
 @dataclass
 class TrainerConfig:
     epochs: int = 50
@@ -75,7 +82,7 @@ class Trainer:
         generator = step_generator(cfg.seed, self.step, self.device)
         outputs = self.apply_fn(self.model, batch["image"].to(cfg.compute_dtype),
                                 True, generator)
-        outputs = {k: v.float() for k, v in outputs.items()}
+        outputs = _tree_map(lambda v: v.float(), outputs)
         loss = self.loss_fn(outputs, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -83,7 +90,7 @@ class Trainer:
             clip_grad_global_norm(self.model.parameters(), cfg.grad_clip)
         self.optimizer.step()
         with torch.no_grad():
-            metric = self.metric_fn({k: v.detach() for k, v in outputs.items()}, batch)
+            metric = self.metric_fn(_tree_map(lambda v: v.detach(), outputs), batch)
         self.step += 1
         return {"loss": loss.detach(), "metric": metric}
 
@@ -92,7 +99,7 @@ class Trainer:
         """Forward in float32 with dropout off; loss, metric and outputs."""
         self.model.eval()
         outputs = self.apply_fn(self.model, batch["image"], False, None)
-        outputs = {k: v.float() for k, v in outputs.items()}
+        outputs = _tree_map(lambda v: v.float(), outputs)
         return {"loss": self.loss_fn(outputs, batch),
                 "metric": self.metric_fn(outputs, batch), "outputs": outputs}
 

@@ -165,6 +165,21 @@ def traced_busy(fn) -> tuple:
     return sum(_device_split(prof, 1).values()), wall_ms
 
 
+def traced_split(fn, count: int = 2) -> tuple:
+    """Run ``fn`` ``count`` times under ``torch.profiler`` after one
+    untraced call: ({kernel name: device ms per call}, host-clock ms per
+    call from a synchronize before to one after)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / count
+    return _device_split(prof, count), wall_ms
+
+
 def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
                             dtype: torch.dtype = torch.float32, packed_stem: bool = False):
     """Device ms per UNet3d train step computed in ``dtype`` (bfloat16:

@@ -1,7 +1,8 @@
 """Training entry point of the port (counterpart of ``examples/train.py``):
-CSV manifests of .npy volume/label pairs -> UNet3d or VNet3d
-(``--model.name vnet3d``) -> Trainer.fit, with the JAX package's
-``--section.field`` flags.
+CSV manifests of .npy volume/label pairs -> a 3D net of the zoo
+(``--model.name`` unet3d, unet3dthin, vnet3d, resunet3d, stunet3d or
+kiunet3d, as ``models.build_model`` names them) -> Trainer.fit, with the JAX
+package's ``--section.field`` flags.
 
     python -m tpuseg_torch.train --model.num_classes 5 \
         --data.train_csv data/traindata.csv --data.val_csv data/validata.csv \
@@ -13,7 +14,8 @@ The reference KiPA setting is the default: UNet3d, features 16, dropout
 header row and (image, mask) paths; volumes are (z, y, x) = image_size
 reversed.  ``--train.compute_dtype bfloat16`` trains in bf16 over float32
 master weights; ``--train.packed_stem true`` trains through the packed
-twin (the JAX package's headline training step); ``--train.resume true``
+twin of unet3d, vnet3d, resunet3d or stunet3d (the JAX package's headline
+training step); resunet3d and kiunet3d train with deep supervision; ``--train.resume true``
 continues from ``<model_dir>/latest``.  The run writes ``best/`` and ``latest/``
 checkpoints, the loss and accuracy curves, and ``config.json`` into
 ``model_dir``.  It runs on the GPU.
@@ -27,26 +29,25 @@ import torch
 from tpuseg_torch.compat.seg_models import disable_tf32
 from tpuseg_torch.config import Config, parse_cli
 from tpuseg_torch.data.dataset import DataLoader, SegDataset3D, read_manifest_csv
-from tpuseg_torch.models.unet import UNet
-from tpuseg_torch.models.vnet import VNet
+from tpuseg_torch.models import build_model
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.visualization import plot_result
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MODELS = {"unet3d": UNet, "vnet3d": VNet}
 
 
 def build(cfg: Config, device="cuda"):
     """(trainer, train_loader, val_loader) for ``cfg``."""
-    if cfg.model.name not in MODELS:
-        raise NotImplementedError(f"model {cfg.model.name!r} is not ported yet "
-                                  f"(ported: {list(MODELS)})")
     if len(cfg.data.image_size) != 3:
         raise NotImplementedError("2D training is not ported yet")
     if cfg.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r} not in "
                          f"{list(COMPUTE_DTYPES)}")
+    model = build_model(
+        cfg.model.name, cfg.model.num_classes, features=cfg.model.features,
+        dropout=cfg.model.dropout, in_channels=cfg.model.image_channel,
+        generator=torch.Generator().manual_seed(0))  # tpuseg's default seed
     disable_tf32()
     images, labels = read_manifest_csv(cfg.data.train_csv)
     if cfg.data.train_aug_csv:
@@ -60,10 +61,6 @@ def build(cfg: Config, device="cuda"):
                               seed=cfg.data.shuffle_seed)
     val_loader = DataLoader(SegDataset3D(val_images, val_labels, (z, y, x), binary),
                             cfg.data.batch_size, shuffle=False)
-    model = MODELS[cfg.model.name](
-        cfg.model.num_classes, cfg.model.features, cfg.model.dropout,
-        in_channels=cfg.model.image_channel,
-        generator=torch.Generator().manual_seed(0))  # tpuseg's default seed
     trainer = make_segmentation_trainer(
         model, cfg.model.num_classes, cfg.train.loss_name,
         alpha=cfg.train.alpha or [1.0] * cfg.model.num_classes,
