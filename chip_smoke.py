@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card (H100), nvcc
 and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
 
  1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
- 2. builds the hand-written kernels from ``tpuseg_torch/kernels/csrc``;
+ 2. builds the hand-written kernels from ``tpuseg_torch/kernels/csrc`` and
+    the C++ host library from ``tpuseg_torch/io_native/native.cc``;
  3. holds each kernel against its plain PyTorch version on the card at
     every shape the serving and training paths hand it (UNet3d, features
     16, input 112x112x128), in float32 (TF32 off) and bfloat16 (the convs
@@ -43,9 +44,12 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     NIfTI volumes to ``POST /predict`` (served by the packed twin, the
     default), fetches each mask with ``GET /getresult`` and checks its
     shape, its labels, the kernel launch counts of the request and its
-    agreement with the plain, unpacked net through the plain versions, and
-    times the f32 forward four ways (packed twin and plain net, each with
-    the kernels and with the plain versions);
+    agreement with the plain, unpacked net through the plain versions, the
+    C++ host calls each request made (the NIfTI codec and the nearest
+    resample; the linear resample of an int16 CT runs scipy, as in the JAX
+    package) and its host ms by stage (``tools/profiling.py``
+    ``request_stages``), and times the f32 forward four ways (packed twin
+    and plain net, each with the kernels and with the plain versions);
  6. trains through ``tpuseg_torch.train``'s code path (``build`` and
     ``run``, as ``python -m tpuseg_torch.train`` does) on 3 training and 1
     validation seeded .npy volume of 128x112x112 with blob labels 0..4:
@@ -86,9 +90,11 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     and timed; ``train.build`` / ``run`` of each net, plain and (ResUNet3d,
     STUNet3d) ``--train.packed_stem true``, f32 and bf16, 1 epoch of 3
     steps with every step's launches asserted (``ZOO_TRAIN_LAUNCHES``); the
-    packed f32 step against the plain net's through the plain versions
-    (loss 1e-5 relative, grads through phase 6's gate); and each net's
-    step variants timed interleaved;
+    packed f32 step against the plain net's step in float64 through the
+    plain versions (loss 1e-5 relative, grads through phase 6's gate; the
+    plain net's f32 step, which STUNet3d's leaky ReLUs on 6^3 voxels make
+    jump under rounding, printed beside it); and each net's step variants
+    timed interleaved;
  7. K2's micro-benchmarks (``tpuseg_torch.benchmarks``) at the probes' full
     shapes (N 8, 96^3, C 16): every variant of the slab conv GEMM (K4
     ``dot_only``/``abuild``/``full``, K5 ``v0``/``v2``/``v3``/``v5``) and
@@ -126,7 +132,35 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     through the plain versions (>= 0.999); and K2 and K1 at the VNet3d's
     shapes at 27 patches, K3 at the packed VNet3d's two grids (fully packed
     and (H, W)) at 27 patches, and K1-K3 at the packed UNet3d's at 8, in
-    f32 and bf16, against their plain versions, timed.
+    f32 and bf16, against their plain versions, timed;
+ 9. the host layer and the evaluator: ``infer/volume.py``
+    ``infer_volume_device`` (resize, percentile z-score, the plain UNet3d
+    forward, argmax and the nearest resize back, all on the card; features
+    16, 5 classes, 112x112x128) on phase 5's three volumes, with K2 10 and
+    K1 18 launches a volume (path ``volume_device``), its masks on the
+    network's grid, before the resize back, against the host pipeline's
+    ``infer_volume`` on the same net (>= 0.99 over all voxels; the two
+    routes' nearest resizes back round ties differently, each as in the
+    JAX package), its output the nearest resize back of that grid mask,
+    and against itself through the plain versions (>= 0.999), the input's
+    shape and
+    geometry, both pipelines timed interleaved with the device ms, busy
+    share, upload and fetch; ``SegMetric3d`` on the first volume's two
+    masks, the native KD-tree against scipy's cKDTree (all 9 metrics
+    within 1e-9), timed; ``tools.evaluate`` over the served masks against
+    the host pipeline's (3 rows and MEAN); ``train.build`` / ``run`` on
+    phase 6's data with ``LovaszLoss`` and ``MutilClDiceLoss`` (5 classes)
+    and ``BinaryLovaszLoss`` and ``BinaryClDiceLoss`` (1 class, labels
+    binarised), 1 epoch of 3 steps each (paths ``train_<loss>``), every
+    step's launches asserted, one step against the plain versions (loss
+    1e-5 relative; given the plain path's gradient of the loss by the
+    logits, the parameter gradients within phase 6's gate, which a bf16
+    step, the control, must exceed; each step's distance from the step in
+    float64, and the end-to-end gradients, which the losses' sorts and max
+    pools make move under rounding, printed), step times;
+    ``ssim`` and
+    ``ms_ssim`` of two 128x112x112 volumes on the card against the CPU
+    (1e-5).
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
@@ -892,6 +926,7 @@ def phase_serve(torch, mods, workdir):
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     rng = np.random.default_rng(SEED)
+    served = []  # (file name, volume, served mask)
     try:
         reset_counts(mods)
         for i, size in enumerate(REQUEST_SIZES):
@@ -901,7 +936,7 @@ def phase_serve(torch, mods, workdir):
             write_nifti(vol, src)
             with open(src, "rb") as f:
                 body = f.read()
-            c0 = counts(mods)
+            c0, n0 = counts(mods), dict(mods["io_native"].CALLS)
             t0 = time.perf_counter()
             req = urllib.request.Request(
                 f"http://127.0.0.1:{port}/predict?filename={name}", data=body,
@@ -910,6 +945,7 @@ def phase_serve(torch, mods, workdir):
                 answer = json.load(resp)
             predict_s = time.perf_counter() - t0
             launches = delta(counts(mods), c0)
+            native = {k: v for k, v in delta(mods["io_native"].CALLS, n0).items() if v}
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{port}/getresult?file={answer['result']}",
                     timeout=600) as resp:
@@ -918,15 +954,23 @@ def phase_serve(torch, mods, workdir):
             out = os.path.join(workdir, "fetched_" + answer["result"])
             with open(out, "wb") as f:
                 f.write(payload)
-            mask = read_nifti(out).array
+            served.append((name, vol, read_nifti(out)))
+            mask = served[-1][2].array
+            # the request's stages on the host clock, in the order the
+            # server runs them (tools/profiling.py), on the same upload
+            stages = mods["request_stages"](model, src, os.path.join(workdir, "staged.nii.gz"),
+                                            cfg.infer.new_size)
             with plain_kernels(mods), unpacked(model):
                 ref = model.inference(vol, cfg.infer.new_size).array
             agree = float((mask == ref).mean())
             labels = sorted(int(v) for v in np.unique(mask))
-            say(f"  request {i} {size[0]}x{size[1]}x{size[2]}: POST /predict "
-                f"{predict_s * 1e3:.1f} ms, with GET /getresult {total_s * 1e3:.1f} ms; "
-                f"launches {launches}; labels {labels}; agreement with the plain "
-                f"net through the plain versions {agree:.6f}")
+            say(f"  request {i} {size[0]}x{size[1]}x{size[2]} ({vol.array.dtype} CT): POST "
+                f"/predict {predict_s * 1e3:.1f} ms, with GET /getresult "
+                f"{total_s * 1e3:.1f} ms; launches {launches}; labels {labels}; agreement "
+                f"with the plain net through the plain versions {agree:.6f}")
+            say(f"    C++ host calls of the request {native} (the linear resample of an "
+                f"int16 CT runs scipy, as in the JAX package); host ms by stage "
+                + json.dumps({k: round(v, 3) for k, v in stages.items()}))
             if mask.shape != vol.array.shape:
                 fail(f"mask shape {mask.shape} != volume {vol.array.shape}")
             if mask.min() < 0 or mask.max() > CLASSES - 1:
@@ -935,12 +979,15 @@ def phase_serve(torch, mods, workdir):
                 fail(f"launches {launches} != {EXPECTED_LAUNCHES}")
             if not agree >= 0.999:
                 fail(f"agreement {agree} < 0.999")
+            if native.get("nifti_read_bytes", 0) < 2 or native.get("nifti_write_bytes", 0) < 1 \
+                    or native.get("resample_nearest", 0) != 1:
+                fail(f"the request did not take the C++ codec and nearest resample: {native}")
         path_launches = counts(mods)
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    return path_launches
+    return path_launches, served
 
 
 def write_training_data(workdir: str, rng) -> tuple:
@@ -1088,14 +1135,7 @@ def phase_train(torch, mods, workdir):
         mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1)), strict=True)
     net.train()
     loss_fn = mods["build_loss"]("MutilDiceLoss", CLASSES, alpha=[1.0] * CLASSES)
-
-    def loss_and_grads(image, dtype=torch.float32):
-        net.zero_grad(set_to_none=True)
-        logits, _ = net(image.to(dtype), mods["step_generator"](SEED, 0, "cuda"))
-        loss = loss_fn(logits.float(), batch["label"])
-        loss.backward()
-        return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
-
+    loss_and_grads = _step_grads(torch, mods, net, loss_fn, batch)
     image = batch["image"]
     eps = torch.randn(image.shape, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(SEED))
@@ -1134,6 +1174,23 @@ def phase_train(torch, mods, workdir):
     ctx = dict(flags=flags, net=net, batch=batch, loss_fn=loss_fn, loss_p=loss_p,
                grads_p=grads_p, plain_trainer=resumed)
     return {"train": path_launches, "train_bf16": bf16_launches}, ctx
+
+
+def _step_grads(torch, mods, net, loss_fn, batch):
+    """fn(image, dtype=float32, dlogits=None) -> (loss, {name: grad}) of one
+    train step of ``net`` on ``batch``'s labels, with the dropout generator
+    of step 0; given ``dlogits``, the gradients backpropagate that gradient
+    of the loss by the logits instead of the loss's own."""
+    def loss_and_grads(image, dtype=torch.float32, dlogits=None):
+        net.zero_grad(set_to_none=True)
+        logits, _ = net(image.to(dtype), mods["step_generator"](SEED, 0, "cuda"))
+        loss = loss_fn(logits.float(), batch["label"])
+        if dlogits is None:
+            loss.backward()
+        else:
+            logits.float().backward(dlogits)
+        return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
+    return loss_and_grads
 
 
 def write_vnet_training_data(workdir: str, rng, dhw=VNET_TRAIN_DHW,
@@ -1471,7 +1528,8 @@ def phase_zoo(torch, mods, workdir):
     times; ``train.build`` / ``run`` of each net, plain and (ResUNet3d,
     STUNet3d) ``--train.packed_stem true``, in f32 and bf16, 1 epoch of 3
     steps with every step's launches checked; the packed f32 step against
-    the plain net's through the plain versions; step times interleaved.
+    the plain net's f64 step through the plain versions; step times
+    interleaved.
     Returns ({path: launches}, K1 rows)."""
     t_phase = time.perf_counter()
     in_rows = _zoo_instance_norm_rows(torch, mods)
@@ -1568,40 +1626,53 @@ def phase_zoo(torch, mods, workdir):
         batch = first._put(next(iter(mods["train"].DataLoader(mods["train"].SegDataset3D(
             *mods["train"].read_manifest_csv(train_csv), dhw, False), 1, shuffle=False))))
         if net in twins:
-            # one packed f32 step against the plain net's through the plain
-            # versions: same weights, batch and dropout generator
+            # one packed f32 step against the plain net's step in float64
+            # through the plain versions (same weights, batch and dropout
+            # generator), at phase 6's gate.  The plain net's f32 step is
+            # printed beside it, not gated: STUNet3d's leaky ReLUs after
+            # InstanceNorms over 6^3 voxels make its f32 gradients jump
+            # when one voxel crosses the kink, so one f32 step is no
+            # reference (the line prints its own distance from the f64 one)
             model = _zoo_net(torch, mods, net).train()
 
-            def loss_grads(packed, image=batch["image"]):
+            def loss_grads(packed, image=batch["image"], dtype=torch.float32):
                 tr = mods["make_segmentation_trainer"](
                     model, ZOO_CLASSES, "MutilDiceLoss", alpha=[1.0] * ZOO_CLASSES,
                     device="cuda", packed_stem=packed)
-                model.zero_grad(set_to_none=True)
-                out = tr.apply_fn(model, image, True, mods["step_generator"](SEED, 0, "cuda"))
-                out = {k: tuple(t.float() for t in v) if isinstance(v, tuple) else v.float()
-                       for k, v in out.items()}
+                model.to(dtype).zero_grad(set_to_none=True)
+                out = tr.apply_fn(model, image.to(dtype), True,
+                                  mods["step_generator"](SEED, 0, "cuda"))
+                out = {k: tuple(t.to(dtype) for t in v) if isinstance(v, tuple)
+                       else v.to(dtype) for k, v in out.items()}
                 loss = tr.loss_fn(out, batch)
                 loss.backward()
-                return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+                grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+                model.float()
+                return loss.item(), grads
 
             loss_k, grads_k = loss_grads(True)
             eps = torch.randn(batch["image"].shape, device="cuda",
                               generator=torch.Generator("cuda").manual_seed(SEED))
             with plain_kernels(mods):
+                loss_ref, grads_ref = loss_grads(False, dtype=torch.float64)
                 loss_p, grads_p = loss_grads(False)
                 # the plain path's own move at rounding level of the image
                 floor = grad_errors(loss_grads(False, batch["image"] * (1 + 1e-7 * eps))[1],
                                     grads_p, 1e-3)
-            worst, worst_name, median, worst_abs = grad_errors(grads_k, grads_p, 1e-3)
-            say(f"  {net} packed f32 step vs the plain net's (plain versions): loss "
-                f"{loss_k:.7f} vs {loss_p:.7f} (relative {abs(loss_k - loss_p) / abs(loss_p):.3g}"
-                f", tol 1e-5); worst grad error / max(its max |g|, 1e-3 of the largest) "
-                f"{worst:.3g} ({worst_name}, tol {STEP_GRAD_TOL}); / max(1, max |g|) "
-                f"{worst_abs:.3g} (tol 1e-3); median max |g| {median:.3g}; plain vs plain "
-                f"on the image at rounding level {floor[0]:.3g} ({floor[1]})")
-            if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) or not worst <= STEP_GRAD_TOL \
-                    or not worst_abs <= 1e-3:
-                fail(f"{net} packed train step vs the plain step mismatch")
+            worst, worst_name, median, worst_abs = grad_errors(grads_k, grads_ref, 1e-3)
+            vs_plain, plain_vs_ref = (grad_errors(grads_k, grads_p, 1e-3),
+                                      grad_errors(grads_p, grads_ref, 1e-3))
+            rel = abs(loss_k - loss_ref) / abs(loss_ref)
+            say(f"  {net} packed f32 step vs the plain net's f64 step (plain versions): loss "
+                f"{loss_k:.7f} vs {loss_ref:.7f} (relative {rel:.3g}, tol 1e-5); worst grad "
+                f"error / max(its max |g|, 1e-3 of the largest) {worst:.3g} ({worst_name}, "
+                f"tol {STEP_GRAD_TOL}); / max(1, max |g|) {worst_abs:.3g} (tol 1e-3); median "
+                f"max |g| {median:.3g}; not gated: vs the plain net's f32 step {vs_plain[0]:.3g} "
+                f"({vs_plain[1]}), which lies {plain_vs_ref[0]:.3g} ({plain_vs_ref[1]}) from "
+                f"the f64 step; plain vs plain on the image at rounding level {floor[0]:.3g} "
+                f"({floor[1]})")
+            if not rel <= 1e-5 or not worst <= STEP_GRAD_TOL or not worst_abs <= 1e-3:
+                fail(f"{net} packed train step vs the f64 step mismatch")
             del model
         variants = {k[len("train_"):]: tr for k, tr in trainers.items()
                     if k == f"train_{net}" or k.startswith(f"train_{net}_")}
@@ -2167,6 +2238,309 @@ def phase_swin(torch, mods):
     return launches, rows
 
 
+# phase 9: the whole-volume pipeline on the card runs the plain UNet3d
+# (features 16): K2 its 10 convs at 16-64 channels, K1 its 18 GroupNorms
+DEVICE_INFER_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES}, conv3d_small=10,
+                             fused_group_norm_relu=18)
+# the losses phase 9 trains with (loss name, classes): one class on the
+# labels binarised (``--data.binary_labels``)
+HOST_LOSSES = (("LovaszLoss", CLASSES), ("MutilClDiceLoss", CLASSES),
+               ("BinaryLovaszLoss", 1), ("BinaryClDiceLoss", 1))
+
+
+def _device_pipeline(torch, mods, net, served):
+    """The on-card whole-volume pipeline on the served volumes: launches
+    per volume (counts from 0 over the three), shape and geometry,
+    agreement with the host pipeline and with itself through the plain
+    versions, and times.  Returns (the path's launches, [(name, volume,
+    device mask, host mask)])."""
+    infer_volume, infer_volume_device = mods["infer_volume"], mods["infer_volume_device"]
+
+    def host(vol):
+        return infer_volume(vol, lambda b: net(b)[1], NEW_SIZE)
+
+    def device(vol):
+        return infer_volume_device(vol, net, NEW_SIZE, CLASSES)
+
+    for _, vol, _ in served:  # first calls: cuDNN's choices, the bucket caches
+        device(vol)
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    dev_masks = []
+    for name, vol, _ in served:
+        c0 = counts(mods)
+        dev_masks.append(device(vol))
+        launches = delta(counts(mods), c0)
+        if launches != DEVICE_INFER_LAUNCHES:
+            fail(f"infer_volume_device {name}: launches {launches} != {DEVICE_INFER_LAUNCHES}")
+    path_launches = counts(mods)
+
+    masks = []
+    for (name, vol, _), dev in zip(served, dev_masks):
+        # each pipeline through its entry point once more, its forward's
+        # probabilities kept: the masks on the network's grid, before the
+        # resize back (the host's C++ nearest rounds half away from zero in
+        # float64 and the device's half to even in float32, each as the
+        # JAX package's route does, so the resized masks differ by design)
+        seen_dev, seen_host = _KeepProbs(net), _KeepProbs(net)
+        dev_again = infer_volume_device(vol, seen_dev, NEW_SIZE, CLASSES)
+        ref = infer_volume(vol, lambda b: seen_host(b)[1], NEW_SIZE)
+        grid_dev, grid_host = seen_dev.mask(torch), seen_host.mask(torch)
+        agree_grid = float((grid_dev == grid_host).mean())
+        back = mods["resize_volume_device"](torch.from_numpy(grid_dev),
+                                            vol.array.shape, "nearest").numpy()
+        resized_back = bool((back == dev_again.array).all())
+        with plain_kernels(mods):
+            plain = device(vol)
+        agree_plain = float((dev.array == plain.array).mean())
+        geometry = all(getattr(dev, g)() == getattr(vol, g)()
+                       for g in ("GetOrigin", "GetSpacing", "GetDirection"))
+        mins, meds = interleaved(torch, {"device": lambda: device(vol),
+                                         "host": lambda: host(vol)}, reps=5)
+        dev_ms, wall_ms = mods["traced_busy"](lambda: device(vol))
+        raw = np.ascontiguousarray(vol.array, np.float32)
+        up = time_host_ms(torch, lambda: torch.from_numpy(raw).cuda())
+        on_card = torch.zeros(vol.array.shape, dtype=torch.uint8).cuda()
+        fetch = time_host_ms(torch, lambda: on_card.cpu())
+        say(f"  {name} {vol.array.shape[::-1]} (x y z): infer_volume_device "
+            f"{mins['device'] * 1e3:.2f} / {meds['device'] * 1e3:.2f} ms (min / median of "
+            f"5, interleaved), host pipeline {mins['host'] * 1e3:.2f} / "
+            f"{meds['host'] * 1e3:.2f} ms; traced: device {dev_ms:.3f} of {wall_ms:.3f} ms "
+            f"(busy {dev_ms / wall_ms:.3f}); upload of the raw float32 {up:.3f} ms, fetch "
+            f"of the uint8 mask {fetch:.3f} ms; agreement with the host pipeline on the "
+            f"network's {NEW_SIZE} grid {agree_grid:.6f} (>= 0.99, all voxels), after "
+            f"each resize back {float((dev.array == ref.array).mean()):.6f} (not gated); "
+            f"the output is its grid mask's nearest resize back: {resized_back}; with the "
+            f"plain versions {agree_plain:.6f} (>= 0.999); shape {dev.array.shape}, "
+            f"geometry equal: {geometry}")
+        if dev.array.shape != vol.array.shape or dev.array.dtype != np.uint8 or not geometry:
+            fail(f"infer_volume_device {name}: shape, dtype or geometry differs")
+        if not agree_grid >= 0.99 or not resized_back or not agree_plain >= 0.999:
+            fail(f"infer_volume_device {name}: agreement {agree_grid} / {resized_back} / "
+                 f"{agree_plain}")
+        masks.append((name, vol, dev, ref))
+    return path_launches, masks
+
+
+class _KeepProbs:
+    """A net for the two whole-volume pipelines that keeps the
+    probabilities of its last forward; ``mask`` is their argmax on the
+    network's grid, (D, H, W) uint8 on the host."""
+
+    def __init__(self, net):
+        self.net, self.probs = net, None
+
+    def __call__(self, x):
+        out = self.net(x)
+        self.probs = out[1]
+        return out
+
+    def mask(self, torch):
+        return torch.argmax(self.probs[0], dim=-1).to(torch.uint8).cpu().numpy()
+
+
+def time_host_ms(torch, fn, iters: int = 5) -> float:
+    """Mean host-clock ms of ``fn``, each call ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _evaluator(mods, served, masks, workdir):
+    """``SegMetric3d`` on the first volume's device and host masks, native
+    KD-tree against scipy's; ``tools.evaluate`` over the served masks
+    against the host pipeline's."""
+    seg3d, evaluate = mods["seg3d"], mods["evaluate"]
+    _, vol, dev, ref = masks[0]
+    real, pred = (ref.array != 0).astype(np.uint8), (dev.array != 0).astype(np.uint8)
+    spacing = vol.GetSpacing()
+    t0 = time.perf_counter()
+    native = seg3d.SegMetric3d(real, pred, spacing)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    saved = seg3d.nn_distances
+    seg3d.nn_distances = seg3d.nn_distances_plain
+    try:
+        plain = seg3d.SegMetric3d(real, pred, spacing)
+    finally:
+        seg3d.nn_distances = saved
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pts = (native.real_pts, native.pred_pts)
+    t0 = time.perf_counter()
+    mods["io_native"].nn_distances(*pts)
+    mods["io_native"].nn_distances(*pts[::-1])
+    kd_native = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    seg3d.nn_distances_plain(*pts)
+    seg3d.nn_distances_plain(*pts[::-1])
+    kd_plain = (time.perf_counter() - t0) * 1e3
+    got, ref_m = native.all_metrics(), plain.all_metrics()
+    worst = max(abs(got[k] - ref_m[k]) / max(1.0, abs(ref_m[k])) for k in ref_m)
+    say(f"  SegMetric3d, first volume, foreground of the device mask against the host "
+        f"mask's ({len(pts[0])} + {len(pts[1])} surface points): native KD-tree "
+        f"{native_ms:.1f} ms (its two queries {kd_native:.1f} ms), scipy cKDTree "
+        f"{plain_ms:.1f} ms ({kd_plain:.1f} ms); worst metric difference {worst:.3g} "
+        f"(<= 1e-9 relative); " + json.dumps({k: round(v, 6) for k, v in got.items()}))
+    if not worst <= 1e-9:
+        fail(f"SegMetric3d native against scipy: {worst}")
+
+    pred_dir, gt_dir = os.path.join(workdir, "served"), os.path.join(workdir, "host")
+    os.makedirs(pred_dir)
+    os.makedirs(gt_dir)
+    for i, ((name, _, served_mask), (_, _, _, host_mask)) in enumerate(zip(served, masks)):
+        mods["write_nifti"](served_mask, os.path.join(pred_dir, name))
+        mods["write_nifti"](host_mask, os.path.join(gt_dir, name))
+    out_csv = os.path.join(workdir, "evaluation.csv")
+    t0 = time.perf_counter()
+    evaluate.main([pred_dir, gt_dir, out_csv])
+    eval_s = time.perf_counter() - t0
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    say(f"  tools.evaluate over the 3 served masks against the host pipeline's: "
+        f"{len(rows)} rows in {eval_s:.2f} s, columns {list(rows[0]) if rows else []}, "
+        f"dice {[round(float(r['dice']), 6) for r in rows]}")
+    if len(rows) != 4 or rows[-1]["case"] != "MEAN" \
+            or list(rows[0]) != ["case", *evaluate.METRIC_KEYS]:
+        fail(f"tools.evaluate wrote {rows}")
+
+
+def _loss_training(torch, mods, workdir):
+    """``train.build`` / ``run`` with each loss of ``HOST_LOSSES`` (phase 6's
+    data, 1 epoch of 3 steps, f32), every step's launches asserted; one step
+    against the same step through the plain versions; step times."""
+    train, parse_cli = mods["train"], mods["parse_cli"]
+    train_csv, val_csv = write_training_data(workdir, np.random.default_rng(SEED))
+    eval_expect = {k: (v if k in ("conv3d_small", "fused_group_norm_relu") else 0)
+                   for k, v in TRAIN_LAUNCHES.items()}
+    paths = {}
+    for loss_name, classes in HOST_LOSSES:
+        flags = ["--model.num_classes", str(classes), "--model.features", str(FEATURES),
+                 "--model.dropout", "0.2", "--data.image_size", json.dumps(list(NEW_SIZE)),
+                 "--data.train_csv", train_csv, "--data.val_csv", val_csv,
+                 "--data.binary_labels", json.dumps(classes == 1),
+                 "--train.loss_name", loss_name, "--train.optimizer", "adam",
+                 "--train.lr", "1e-3", "--train.epochs", "1",
+                 "--train.model_dir", os.path.join(workdir, f"run_{loss_name}")]
+        cfg = parse_cli(flags)
+        trainer, train_loader, val_loader = train.build(cfg, device="cuda")
+        steps = []
+        _watch_steps(trainer, mods, steps)
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        history = train.run(cfg, trainer, train_loader, val_loader)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        paths[f"train_{loss_name}"] = counts(mods)
+        for kind, launches in steps:
+            expect = TRAIN_LAUNCHES if kind == "train_step" else eval_expect
+            if launches != expect:
+                fail(f"{loss_name} {kind} launches {launches} != {expect}")
+        kinds = [k for k, _ in steps]
+        if kinds.count("train_step") != 3 or kinds.count("eval_step") != 1 \
+                or not all(np.isfinite(history["train_loss"])):
+            fail(f"{loss_name}: steps {kinds}, history {history}")
+
+        # one step's loss and gradients, kernels against plain
+        batch = trainer._put(next(iter(train_loader)))
+        net = mods["UNet"](classes, FEATURES, 0.2).cuda()
+        net.load_state_dict(mods["unet_params_from_jax"](
+            mods["seeded_unet_params"](SEED, FEATURES, classes, 1)), strict=True)
+        net.train()
+        loss_fn = mods["build_loss"](loss_name, classes, alpha=[1.0] * classes)
+        loss_and_grads = _step_grads(torch, mods, net, loss_fn, batch)
+        image = batch["image"]
+        eps = torch.randn(image.shape, device=image.device,
+                          generator=torch.Generator("cuda").manual_seed(SEED))
+        noisy = image * (1 + 1e-7 * eps)
+        with plain_kernels(mods):
+            logits = net(image, mods["step_generator"](SEED, 0, "cuda"))[0].float()
+        logits = logits.detach().requires_grad_(True)
+        dlogits, = torch.autograd.grad(loss_fn(logits, batch["label"]), logits)
+        # given one gradient of the loss by the logits (the plain path's),
+        # the step's parameter gradients, kernels against plain, are held to
+        # phase 6's gate, which a bf16 step, the control, must exceed.  End
+        # to end (the loss's own gradient) they are printed, not gated:
+        # Lovasz sorts the errors and clDice's max pools route each gradient
+        # to one voxel of a window, so rounding anywhere before the loss
+        # moves its gradient by as much as the gate (the plain path against
+        # itself on the image perturbed at rounding level shows how much).
+        # Both steps' distances from the step in float64 are printed too
+        loss_k, e2e_k = loss_and_grads(image)
+        grads_k = loss_and_grads(image, dlogits=dlogits)[1]
+        with plain_kernels(mods):
+            loss_p, e2e_p = loss_and_grads(image)
+            e2e_floor = grad_errors(loss_and_grads(noisy)[1], e2e_p)
+            grads_p = loss_and_grads(image, dlogits=dlogits)[1]
+            floor = grad_errors(loss_and_grads(noisy, dlogits=dlogits)[1], grads_p)
+            ref = loss_and_grads(image, torch.float64, dlogits)[1]
+        worst, worst_name, median, worst_abs = grad_errors(grads_k, grads_p)
+        control = grad_errors(loss_and_grads(image, torch.bfloat16, dlogits)[1], grads_p)
+        err_k, err_p = grad_errors(grads_k, ref), grad_errors(grads_p, ref)
+        e2e = grad_errors(e2e_k, e2e_p)
+        rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+
+        def plain_step():
+            with plain_kernels(mods):
+                trainer.train_step(batch)
+
+        ms, plain_ms = time_pair(torch, lambda: trainer.train_step(batch), plain_step, iters=3)
+        say(f"  {loss_name} ({classes} class{'es' if classes > 1 else ''}): 1 epoch x 3 "
+            f"steps + validation in {run_s:.2f} s, train loss {history['train_loss']}; "
+            f"launches per step as phase 6's on all 3; step kernels vs plain: loss "
+            f"{loss_k:.7f} vs {loss_p:.7f} (relative {rel:.3g}, tol 1e-5); given the "
+            f"plain path's gradient of the loss by the logits, worst grad error / its "
+            f"max |g| {worst:.3g} ({worst_name}, tol {STEP_GRAD_TOL}), / max(1, max |g|) "
+            f"{worst_abs:.3g} (tol 1e-3), median max |g| {median:.3g}, plain vs plain on "
+            f"the image at rounding level {floor[0]:.3g} ({floor[1]}), bf16 kernels "
+            f"control {control[0]:.3g} ({control[1]}); against the f64 step: kernels "
+            f"{err_k[0]:.3g} ({err_k[1]}), plain f32 {err_p[0]:.3g} ({err_p[1]}); end to "
+            f"end (not gated) kernels vs plain {e2e[0]:.3g} ({e2e[1]}), plain vs plain on "
+            f"the image at rounding level {e2e_floor[0]:.3g} ({e2e_floor[1]}); train step "
+            f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if not rel <= 1e-5 or not worst <= STEP_GRAD_TOL or not worst_abs <= 1e-3:
+            fail(f"{loss_name} train step kernels vs plain mismatch")
+        if not control[0] > STEP_GRAD_TOL:
+            fail(f"{loss_name}: the gradient gate does not tell a bf16 step from an f32 one")
+    return paths
+
+
+def phase_host(torch, mods, served, workdir):
+    """Phase 9: the whole-volume pipeline on the card, the evaluator, the
+    Lovasz and clDice losses in training, and SSIM on the card against the
+    CPU.  Returns the launches of its paths."""
+    net = mods["UNet"](CLASSES, FEATURES, 0.2).cuda().eval()
+    net.load_state_dict(mods["unet_params_from_jax"](
+        mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1)), strict=True)
+    device_launches, masks = _device_pipeline(torch, mods, net, served)
+    paths = {"volume_device": device_launches}
+    _evaluator(mods, served, masks, workdir)
+    paths.update(_loss_training(torch, mods, workdir))
+
+    # SSIM of two 128x112x112 volumes, on the card against the CPU
+    rng = np.random.default_rng(SEED)
+    a = rng.random((1,) + TRAIN_DHW + (1,)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0.0, 1.0).astype(np.float32)
+    ssim, ms_ssim = mods["ssim"], mods["ms_ssim"]
+    cpu = [torch.from_numpy(a), torch.from_numpy(b)]
+    card = [t.cuda() for t in cpu]
+    for name, fn in (("ssim", ssim), ("ms_ssim", ms_ssim)):
+        t0 = time.perf_counter()
+        ref = fn(*cpu).item()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = fn(*card).item()
+        card_ms = time_ms(torch, lambda: fn(*card), iters=5)
+        say(f"  {name} 1x{TRAIN_DHW[0]}x{TRAIN_DHW[1]}x{TRAIN_DHW[2]}: card {got:.7f} "
+            f"({card_ms:.3f} ms), CPU {ref:.7f} ({cpu_ms:.1f} ms); difference "
+            f"{abs(got - ref):.3g} (tol 1e-5)")
+        if not abs(got - ref) <= 1e-5:
+            fail(f"{name} on the card {got} against the CPU {ref}")
+    return paths
+
+
 def _load_zoo_golden():
     """``tests/make_torch_port_zoo_golden.py`` as a module (its inputs,
     fingerprints and golden path; it imports JAX only inside the functions
@@ -2202,18 +2576,22 @@ def main() -> int:
     from tpuseg_torch.data.normalize import truncate_and_normalize
     from tpuseg_torch.infer import sliding_window
     from tpuseg_torch.infer.serving import SegServer
-    from tpuseg_torch.infer.volume import hu_code_volume
+    from tpuseg_torch.infer.volume import hu_code_volume, infer_volume, infer_volume_device
+    from tpuseg_torch import io_native
     from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
                                       slab_conv)
-    from tpuseg_torch.losses import build_loss
+    from tpuseg_torch.kernels.resample import resize_volume_device
+    from tpuseg_torch.losses import build_loss, ms_ssim
+    from tpuseg_torch.metrics import seg3d, ssim
     from tpuseg_torch.models import (build_model, resunet_packed, stunet_packed, unet_packed,
                                      vnet_packed)
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
-    from tpuseg_torch.tools.profiling import (swin_forward_split, synthetic_ct,
-                                              traced_busy, traced_split,
+    from tpuseg_torch.tools import evaluate
+    from tpuseg_torch.tools.profiling import (request_stages, swin_forward_split,
+                                              synthetic_ct, traced_busy, traced_split,
                                               train_step_kernel_split)
 
     zoo_golden = _load_zoo_golden()
@@ -2235,6 +2613,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill", "C75")):
             say(f"  ptxas {line.strip()}")
+    t0 = time.perf_counter()
+    built = not io_native.library_path().is_file()
+    io_native.library()
+    say(f"  C++ host library {io_native.library_path().name} "
+        f"{'built' if built else 'found'} and loaded in {time.perf_counter() - t0:.2f} s")
 
     mods = dict(
         serve=serve, train=train, parse_cli=parse_cli, SegServer=SegServer,
@@ -2256,7 +2639,10 @@ def main() -> int:
         MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
         traced_busy=traced_busy, swin_forward_split=swin_forward_split,
         train_step_kernel_split=train_step_kernel_split, smi=smi, build_model=build_model,
-        traced_split=traced_split,
+        traced_split=traced_split, io_native=io_native, request_stages=request_stages,
+        infer_volume=infer_volume, infer_volume_device=infer_volume_device, seg3d=seg3d,
+        evaluate=evaluate, ssim=ssim, ms_ssim=ms_ssim,
+        resize_volume_device=resize_volume_device,
         stunet_packed=stunet_packed, zoo_golden=zoo_golden,
         packed_resunet3d_apply=resunet_packed.packed_resunet3d_apply,
         packed_stunet3d_apply=stunet_packed.packed_stunet3d_apply,
@@ -2276,7 +2662,7 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
     try:
         say(f"phase 5: serving ({smi})")
-        serve_launches = phase_serve(torch, mods, workdir)
+        serve_launches, served = phase_serve(torch, mods, workdir)
         say(f"phase 6: training ({smi})")
         train_paths, ctx = phase_train(torch, mods, workdir)
         train_paths.update(phase_train_packed(torch, mods, workdir, ctx))
@@ -2290,6 +2676,12 @@ def main() -> int:
     bench_rows, bench_launches = phase_bench(torch, mods)
     say(f"phase 8: sliding window ({smi})")
     swin_launches, swin_rows = phase_swin(torch, mods)
+    say(f"phase 9: the host layer and the evaluator ({smi})")
+    workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
+    try:
+        host_paths = phase_host(torch, mods, served, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -2325,7 +2717,7 @@ def main() -> int:
          "conv3d_small_dw_tf32.cu", k3_vjp),
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
-             **swin_launches}
+             **swin_launches, **host_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""

@@ -201,6 +201,22 @@ def test_conv3d_small_bf16_dw_is_deterministic(cuda, x_shape, cout):
     _close(a, conv3d.conv3d_small_dw_plain(x.float(), g.float()), torch.bfloat16)
 
 
+@pytest.mark.parametrize("cin, cout, dhw", [(16, 16, (16, 24, 20)), (64, 64, (16, 20, 28))])
+def test_conv3d_small_f32_does_not_drift(cuda, cin, cout, dhw):
+    """The 3xTF32 forward against an f64 conv: its rms error within 1.5x of
+    cuDNN's fp32 and its mean signed error (err * sign(ref)) under 0.75x
+    cuDNN's rms error.  The tensor cores truncate each sum into their
+    accumulator; one accumulator over all of K drifted toward zero by a
+    unit in the last place a k8 step (at 64 -> 64: 2.8e-6 of the output's
+    rms, 8x cuDNN's error)."""
+    from tpuseg_torch.benchmarks import k2_precision
+
+    fwd = k2_precision.measure(cin, cout, dhw, "cuda")["fwd"]
+    kernel, cudnn = fwd["kernel"], fwd["cudnn f32"]
+    assert kernel["rms_over_rms"] <= 1.5 * cudnn["rms_over_rms"], (kernel, cudnn)
+    assert abs(kernel["signed_mean_over_rms"]) <= 0.75 * cudnn["rms_over_rms"], (kernel, cudnn)
+
+
 def test_conv3d_small_routes_by_dtype(cuda, monkeypatch):
     """A bf16 tensor reaches the bf16 tensor-core entries and an f32 tensor
     the 3xTF32 ones, forward, dX and dW, each launch counted; no f32 route
@@ -1024,3 +1040,69 @@ def test_zoo_twins_refuse_sides_16_does_not_divide(cuda, net):
     with torch.inference_mode(), pytest.raises(ValueError, match="divisible by 16"):
         twin(model, torch.zeros((1, 32, 24, 32, 1), device=cuda))
     assert fused_norm.LAUNCHES == before
+
+
+# the host layer's device half: the resize and the normalizers run as
+# tensor code on whatever device holds their input, and the card must give
+# the CPU's values (the coordinates are float32 on both; nearest exactly)
+@pytest.mark.parametrize("shape, out", [((20, 24, 28), (16, 16, 16)),
+                                        ((16, 16, 16), (20, 24, 28)),
+                                        ((96, 160, 160), (128, 112, 112))])
+def test_resize_volume_device_on_card_matches_cpu(cuda, shape, out):
+    from tpuseg_torch.kernels.resample import resize_volume_device
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    for mode in ("linear", "nearest"):
+        got = resize_volume_device(x.to(cuda), out, mode).cpu()
+        ref = resize_volume_device(x, out, mode)
+        if mode == "nearest":
+            assert torch.equal(got, ref)
+        else:
+            assert (got - ref).abs().max().item() <= 1e-6
+    labels = (x > 0).to(torch.uint8)
+    assert torch.equal(resize_volume_device(labels.to(cuda), out, "nearest").cpu(),
+                       resize_volume_device(labels, out, "nearest"))
+
+
+@pytest.mark.parametrize("case", ["sparse", "all_zero"])
+def test_device_normalizers_on_card_match_cpu(cuda, case):
+    from tpuseg_torch.kernels.normalize import (percentile_zscore_device,
+                                                truncate_and_normalize_device)
+
+    x = torch.rand((40, 48, 56), generator=torch.Generator().manual_seed(1)) * 100
+    x = torch.where(x < 10, 0.0, x) if case == "sparse" else torch.zeros_like(x)
+    got = percentile_zscore_device(x.to(cuda)).cpu()
+    ref = percentile_zscore_device(x)
+    scale = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+    if case == "all_zero":
+        assert torch.equal(got, x)
+    hu = x * 20 - 1000
+    for method in ("meanstd", "maxmin"):
+        got = truncate_and_normalize_device(hu.to(cuda), 100.0, -100.0, method).cpu()
+        ref = truncate_and_normalize_device(hu, 100.0, -100.0, method)
+        assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_infer_volume_device_on_card(cuda):
+    """One whole-volume call on the card (UNet3d features 16, 5 classes):
+    the plain net's K2 10 and K1 18 launches, the input's shape and
+    geometry, the CPU's mask outside near-ties (>= 0.999)."""
+    import numpy as np
+
+    from tpuseg_torch.data.geometry import Volume
+    from tpuseg_torch.infer.volume import infer_volume_device
+    from tpuseg_torch.models.unet import UNet
+
+    net = UNet(5, 16, 0.0, generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(2)
+    vol = Volume((rng.random((40, 36, 44)) * 300).astype(np.float32),
+                 origin=(1.0, -2.0, 3.0), spacing=(0.8, 0.9, 1.7))
+    ref = infer_volume_device(vol, net, (32, 32, 32), 5, device="cpu")
+    net.to(cuda)
+    before = (conv3d.LAUNCHES, fused_norm.LAUNCHES)
+    got = infer_volume_device(vol, net, (32, 32, 32), 5, device=cuda)
+    assert (conv3d.LAUNCHES - before[0], fused_norm.LAUNCHES - before[1]) == (10, 18)
+    assert got.array.shape == vol.array.shape and got.array.dtype == np.uint8
+    assert (got.origin, got.spacing, got.direction) == (vol.origin, vol.spacing, vol.direction)
+    assert (got.array == ref.array).mean() >= 0.999

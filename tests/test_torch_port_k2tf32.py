@@ -6,9 +6,10 @@ chip_smoke.py hold them to the plain versions there).  What the CPU can
 check is their arithmetic and the layouts around them: the tf32 hi/lo
 packed weight (the three dx taps side by side in N), the GEMM the forward
 / dX kernel computes from it (K in (dz, dy, ci) order over every staged
-column, both operands split into tf32 hi + lo, a_hi·b_hi in one fp32 sum
-and a_lo·b_hi + a_hi·b_lo in another, then the three dx column blocks
-added one column apart), the dW kernel's
+column, both operands split into tf32 hi + lo, a_hi·b_hi + a_lo·b_hi +
+a_hi·b_lo summed a pair of k8 steps at a time and the pairs added in fp32,
+then the three dx column blocks added one column apart; why pairs: a model
+of the tensor cores' truncating accumulator), the dW kernel's
 sums split along its walk (per tile-plane, per block, then the blocks in
 fp64), and the tile plans against the card's shared memory.  tf32 rounding
 is ``packed_conv.tf32_round``, the kernels' integer form of
@@ -67,8 +68,10 @@ def _emulate_forward(x: torch.Tensor, packed: torch.Tensor, cout: int, passes: i
     them, the halo zero) the (dz, dy, ci) im2col of x with ci zero-padded
     to cin_pad, split into tf32 hi + lo, times the packed hi / lo matrices
     (a_hi b_hi plus a_lo b_hi + a_hi b_lo; ``passes`` 1: a_hi b_hi alone,
-    one tf32 pass), giving P[column, (dx, co)]; output column x adds
-    P[x, dx 0] + P[x + 1, dx 1] + P[x + 2, dx 2]."""
+    one tf32 pass) over a pair of k8 steps (16 rows of K) at a time, each
+    pair's sum rounded to fp32 and the pairs added in fp32, giving
+    P[column, (dx, co)]; output column x adds P[x, dx 0] + P[x + 1, dx 1]
+    + P[x + 2, dx 2]."""
     n, d, h, w, cin = x.shape
     b_hi, b_lo = (m.double() for m in _matrices(packed))
     cin_pad, cout_pad = b_hi.shape[0] // 9, b_hi.shape[1] // 3
@@ -76,9 +79,13 @@ def _emulate_forward(x: torch.Tensor, packed: torch.Tensor, cout: int, passes: i
     cols = torch.cat([xp[:, dz:dz + d, dy:dy + h] for dz in range(3) for dy in range(3)],
                      dim=-1)
     a_hi, a_lo = (a.double() for a in tf32_split(cols.reshape(-1, 9 * cin_pad)))
-    p = (a_hi @ b_hi).float()
-    if passes == 3:
-        p = p + (a_lo @ b_hi + a_hi @ b_lo).float()
+    p = torch.zeros((a_hi.shape[0], b_hi.shape[1]), dtype=torch.float32)
+    for k0 in range(0, 9 * cin_pad, 16):
+        k = slice(k0, k0 + 16)
+        pair = a_hi[:, k] @ b_hi[k]
+        if passes == 3:
+            pair = pair + a_lo[:, k] @ b_hi[k] + a_hi[:, k] @ b_lo[k]
+        p = p + pair.float()
     p = p.reshape(n, d, h, w + 2, 3, cout_pad)
     y = p[:, :, :, 0:w, 0] + p[:, :, :, 1:w + 1, 1] + p[:, :, :, 2:w + 2, 2]
     return y[..., :cout]
@@ -167,6 +174,45 @@ def test_one_tf32_pass_misses_the_gate_at_k_27x64():
     assert (_emulate_forward(tx, packed, 8, passes=1) - ref).abs().max().item() > 1e-4 * scale
 
 
+def test_pairwise_sums_stop_the_drift_of_a_truncating_accumulator():
+    """The tensor cores add into their fp32 accumulator with the sum
+    truncated toward zero.  Modelled at K = 9·64 (72 k8 steps, one truncated
+    add of a step's exact products each): one accumulator over all steps,
+    as the kernel had it, drifts toward zero by about a unit in the last
+    place a step; a pair of steps summed apart (its first step overwriting
+    the accumulator) and the pairs added with rounded fp32 adds, as the
+    kernel does, drifts at least 5x less and errs at least 2x less."""
+    rng = np.random.default_rng(3)
+    n_out, steps = 4096, 72
+    a = np.maximum(rng.standard_normal((n_out, steps * 8)), 0)
+    w = rng.standard_normal(steps * 8) * (2 / (steps * 8)) ** 0.5
+    step_sums = (a * w).reshape(n_out, steps, 8).sum(2)
+    ref = step_sums.sum(1)
+
+    def truncated(v):  # float64 -> float32 toward zero
+        f = v.astype(np.float32)
+        over = np.abs(f.astype(np.float64)) > np.abs(v)
+        f[over] = np.nextafter(f[over], np.float32(0))
+        return f
+
+    one = np.zeros(n_out, np.float32)
+    for s in range(steps):
+        one = truncated(one + step_sums[:, s])
+    pairs = np.zeros(n_out, np.float32)
+    for s in range(0, steps, 2):
+        pairs = pairs + truncated(truncated(step_sums[:, s]) + step_sums[:, s + 1])
+    rms = np.sqrt((ref ** 2).mean())
+
+    def drift(got):
+        return ((got - ref) * np.sign(ref)).mean() / rms
+
+    def err(got):
+        return np.sqrt(((got - ref) ** 2).mean()) / rms
+
+    assert drift(one) < 0 and 5 * abs(drift(pairs)) <= abs(drift(one))
+    assert 2 * err(pairs) <= err(one)
+
+
 @pytest.mark.parametrize("x_shape, cout, zc, blocks", [
     ((1, 5, 6, 7, 12), 5, 2, 3),
     ((2, 3, 9, 10, 16), 16, 1, 4),
@@ -238,3 +284,21 @@ def test_f32_plans_fit_the_card(shape, cout):
         slot = ((ty + 2) * (tx + 2) * (16 * mtb + 8) + -(-ty * tx // 8) * 8 * (cp16 + 8)) * 4
         assert ty * tx <= 256 and 4 <= stages <= 8 and stages * slot <= SMEM_LIMIT
         assert chunks >= 1 and -(-27 // tap_splits) * mtb <= 8 * (16 // (cp16 // 8))
+
+
+def test_precision_probe_runs_on_the_cpu(capsys):
+    """``benchmarks/k2_precision.py`` on the CPU (the kernel's plain version
+    there): every route printed, the tf32 split's own error (f64 sums)
+    below fp32's, and ``measure``'s fp32 routes within 1e-6 of f64."""
+    from tpuseg_torch.benchmarks import k2_precision
+
+    assert k2_precision.main(["--device", "cpu", "--cases", "12,5,3,4,6"]) == 0
+    out = capsys.readouterr().out
+    for route in ("kernel", "cudnn f32", "3xtf32 f64", "3xtf32 f32"):
+        assert f"    {route} " in out
+    assert out.rstrip().endswith("K2 PRECISION DONE")
+    rows = k2_precision.measure(16, 8, (3, 5, 7), "cpu")
+    assert rows["fwd"]["3xtf32 f64"]["rms_over_rms"] < rows["fwd"]["cudnn f32"]["rms_over_rms"]
+    for what in ("fwd", "dw"):
+        for e in rows[what].values():
+            assert e["max_over_scale"] < 1e-6

@@ -49,6 +49,7 @@ from tpuseg_torch.compat.weights import (
     vnet_params_from_jax,
     vnet_state_dict_from_reference,
 )
+from tpuseg_torch.data import geometry as port_geometry
 from tpuseg_torch.data.geometry import Volume, resample_to_size, resample_to_spacing
 from tpuseg_torch.data.normalize import truncate_and_normalize
 from tpuseg_torch.infer import sliding_window as psw
@@ -77,9 +78,11 @@ def port_vnet(params):
 
 @pytest.fixture
 def scipy_resample(monkeypatch):
-    """The JAX package's resample on scipy, as the port's (its C++ fast
-    path, where it builds, rounds differently in the last digits)."""
+    """Both packages' resample on scipy: their C++ routes round differently
+    in the last digits from scipy, and the JAX package's takes its C++
+    route only where its in-place build succeeded in this process."""
     monkeypatch.setattr(jax_geometry, "_resample_native", lambda *a: None)
+    monkeypatch.setattr(port_geometry, "_native_route", lambda *a: False)
 
 
 def _randn(seed, shape, scale=1.0):

@@ -1,7 +1,7 @@
-"""ITK-equivalent volume geometry: the Volume type and resampling to a size.
+"""ITK-equivalent volume geometry: the Volume type, resampling, and mask
+helpers.
 
-Host-side counterpart of ``tpuseg/data/geometry.py`` (``Volume``,
-``resample_to_size``, ``resample_to_spacing``), with ITK conventions:
+Host-side counterpart of ``tpuseg/data/geometry.py``, with ITK conventions:
 
  * ``Volume.array`` is (z, y, x) indexed (the GetArrayFromImage order);
  * ``origin`` / ``spacing`` are (x, y, z); ``direction`` is the row-major
@@ -9,9 +9,12 @@ Host-side counterpart of ``tpuseg/data/geometry.py`` (``Volume``,
  * physical point of index (i, j, k) (x fastest) = origin + direction @
    (spacing * (i, j, k)).
 
-Resampling runs on scipy's ``map_coordinates``.  (The JAX package tries a
-C++ resampler first and falls back to scipy; porting that native layer is
-later work, so here scipy is the one path.)
+A 3D float32 volume resamples linearly, and a 3D uint8 one by nearest
+neighbour, through the C++ host library (``tpuseg_torch.io_native``),
+exactly where the JAX package takes its own; every other dtype or rank runs
+scipy's ``map_coordinates``.  The choice is by dtype: a failed build of the
+library raises, it does not fall back to scipy.  The device-side
+counterpart for the whole-volume pipeline is ``tpuseg_torch.kernels.resample``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
+
+from tpuseg_torch import io_native
 
 LINEAR = "linear"
 NEAREST = "nearest"
@@ -48,6 +53,15 @@ class Volume:
     def GetDirection(self):
         return tuple(self.direction)
 
+    def SetOrigin(self, o):
+        self.origin = tuple(float(v) for v in o)
+
+    def SetSpacing(self, s):
+        self.spacing = tuple(float(v) for v in s)
+
+    def SetDirection(self, d):
+        self.direction = tuple(float(v) for v in d)
+
     def copy_geometry_from(self, other: "Volume"):
         self.origin = tuple(other.origin)
         self.spacing = tuple(other.spacing)
@@ -57,6 +71,30 @@ class Volume:
     def direction_matrix(self) -> np.ndarray:
         return np.asarray(self.direction, np.float64).reshape(3, 3)
 
+    def index_to_physical(self, idx_xyz: np.ndarray) -> np.ndarray:
+        """Physical (LPS) point of the continuous (x, y, z) index."""
+        s = np.asarray(self.spacing, np.float64)
+        return np.asarray(self.origin) + self.direction_matrix @ (s * idx_xyz)
+
+
+def get_array_from_image(vol: Volume) -> np.ndarray:
+    return vol.array
+
+
+def get_image_from_array(arr: np.ndarray, reference: Volume = None) -> Volume:
+    """A Volume of ``arr``, with ``reference``'s geometry when given."""
+    vol = Volume(np.asarray(arr))
+    if reference is not None:
+        vol.copy_geometry_from(reference)
+    return vol
+
+
+def _native_route(arr: np.ndarray, interp: str) -> bool:
+    """The JAX package's C++ cases: a 3D float32 linear or uint8 nearest."""
+    return arr.ndim == 3 and (
+        (interp == LINEAR and arr.dtype == np.float32)
+        or (interp == NEAREST and arr.dtype == np.uint8))
+
 
 def resample_to_size(
     vol: Volume, new_size_xyz: Sequence[int], interp: str = LINEAR
@@ -64,7 +102,8 @@ def resample_to_size(
     """Resample to an explicit (x, y, z) voxel count, keeping the physical
     extent: identity transform, same origin/direction, spacing' = spacing *
     size / size' (``resize_image_itkwithsize`` semantics).  Linear output is
-    float32; nearest keeps the dtype."""
+    float32; nearest keeps the dtype.  A 3D float32 linear or uint8 nearest
+    resample runs in the C++ host library, every other one on scipy."""
     if interp not in (LINEAR, NEAREST):
         raise ValueError(f"interp must be {LINEAR!r} or {NEAREST!r}: {interp!r}")
     old_xyz = np.asarray(vol.GetSize(), np.float64)
@@ -73,21 +112,25 @@ def resample_to_size(
     new_spacing = np.asarray(vol.spacing, np.float64) * factor
 
     nz, ny, nx = int(new_xyz[2]), int(new_xyz[1]), int(new_xyz[0])
-    zz, yy, xx = np.meshgrid(
-        np.arange(nz) * factor[2],
-        np.arange(ny) * factor[1],
-        np.arange(nx) * factor[0],
-        indexing="ij",
-    )
-    order = 1 if interp == LINEAR else 0
-    data = ndimage.map_coordinates(
-        vol.array.astype(np.float32 if order else vol.array.dtype),
-        [zz, yy, xx],
-        order=order,
-        mode="nearest",
-    )
-    if order == 0:
-        data = data.astype(vol.array.dtype)
+    if _native_route(vol.array, interp):
+        resample = io_native.resample_linear if interp == LINEAR else io_native.resample_nearest
+        data = resample(vol.array, (nz, ny, nx))
+    else:
+        zz, yy, xx = np.meshgrid(
+            np.arange(nz) * factor[2],
+            np.arange(ny) * factor[1],
+            np.arange(nx) * factor[0],
+            indexing="ij",
+        )
+        order = 1 if interp == LINEAR else 0
+        data = ndimage.map_coordinates(
+            vol.array.astype(np.float32 if order else vol.array.dtype),
+            [zz, yy, xx],
+            order=order,
+            mode="nearest",
+        )
+        if order == 0:
+            data = data.astype(vol.array.dtype)
     return Volume(
         data,
         origin=tuple(vol.origin),
@@ -110,3 +153,61 @@ def resample_to_spacing(
     out = resample_to_size(vol, new_size, interp)
     out.spacing = tuple(new_sp)
     return out
+
+
+# ------------------------------------------------------------ morphology/CC
+
+def largest_connected_component(mask: np.ndarray) -> np.ndarray:
+    """Keep only the largest foreground component (uint8 0/1)."""
+    labeled, n = ndimage.label(mask != 0)
+    if n == 0:
+        return np.zeros_like(mask, dtype=np.uint8)
+    counts = np.bincount(labeled.reshape(-1))
+    counts[0] = 0
+    return (labeled == counts.argmax()).astype(np.uint8)
+
+
+def connected_component_bboxes(mask: np.ndarray):
+    """Bounding boxes (tuples of slices) of every foreground component,
+    largest first."""
+    labeled, n = ndimage.label(mask != 0)
+    slices = ndimage.find_objects(labeled)
+    sizes = [(labeled[s] == i + 1).sum() for i, s in enumerate(slices) if s]
+    order = np.argsort(sizes)[::-1]
+    return [slices[i] for i in order]
+
+
+def morphological_operation(mask: np.ndarray, op: str, kernel_size: int = 3) -> np.ndarray:
+    """Binary "open", "close", "dilate" or "erode" with a box structuring
+    element of side ``kernel_size`` (uint8 0/1)."""
+    structure = np.ones((kernel_size,) * mask.ndim, bool)
+    m = mask != 0
+    if op == "open":
+        out = ndimage.binary_opening(m, structure)
+    elif op == "close":
+        out = ndimage.binary_closing(m, structure)
+    elif op == "dilate":
+        out = ndimage.binary_dilation(m, structure)
+    elif op == "erode":
+        out = ndimage.binary_erosion(m, structure)
+    else:
+        raise ValueError(f"op must be open, close, dilate or erode: {op!r}")
+    return out.astype(np.uint8)
+
+
+def calcu_dice(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Binary dice of two arrays (nonzero = foreground); 1.0 when both are
+    empty."""
+    p = np.asarray(pred) != 0
+    g = np.asarray(gt) != 0
+    inter = float(np.logical_and(p, g).sum())
+    denom = float(p.sum() + g.sum())
+    return 2.0 * inter / denom if denom else 1.0
+
+
+def nonzero_z_range(mask: np.ndarray):
+    """(first, last) z index holding a nonzero voxel; (0, 0) when none."""
+    nz = np.flatnonzero(mask.reshape(mask.shape[0], -1).any(axis=1))
+    if len(nz) == 0:
+        return 0, 0
+    return int(nz[0]), int(nz[-1])

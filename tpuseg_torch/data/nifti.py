@@ -1,21 +1,23 @@
-"""Self-contained NIfTI-1 reader/writer (.nii / .nii.gz), pure Python.
+"""Self-contained NIfTI-1 reader/writer (.nii / .nii.gz).
 
 Counterpart of ``tpuseg/data/nifti.py``: the 348-byte header plus raw
 voxels, optionally gzip.  Geometry is converted between NIfTI's RAS+ affine
 and the ITK-style LPS origin/spacing/direction of ``Volume`` (negate the
 first two affine rows), so written masks overlay their source image.  The
-JAX package streams the voxel payload through a C++ codec when it is built;
-porting that layer is later work, so this module always takes Python's
-``gzip``.
+header math lives here; the bytes go through the C++ host library's zlib
+codec (``tpuseg_torch.io_native`` ``nifti_read_bytes`` /
+``nifti_write_bytes``), which streams the voxel payload straight into or
+out of the numpy buffer: gzip level 6 for ``.nii.gz``, plain bytes for
+``.nii``.
 """
 from __future__ import annotations
 
-import gzip
 import struct
 from typing import Tuple
 
 import numpy as np
 
+from tpuseg_torch import io_native
 from tpuseg_torch.data.geometry import Volume
 
 _DT_TO_NUMPY = {
@@ -33,18 +35,23 @@ _NUMPY_TO_DT = {np.dtype(v): k for k, v in _DT_TO_NUMPY.items()}
 _HDR_SIZE = 348
 
 
-def _open(path: str, mode: str):
-    if str(path).endswith(".gz"):
-        return gzip.open(path, mode, compresslevel=6)  # the JAX codec's level
-    return open(path, mode)
+def _gzip_level(path) -> int:
+    """The codec's level: 6 for .gz, 0 (plain bytes) otherwise."""
+    return 6 if str(path).endswith(".gz") else 0
 
 
 def read_nifti(path: str) -> Volume:
-    with _open(path, "rb") as f:
-        raw = f.read()
-    if len(raw) < _HDR_SIZE:
+    """Read a .nii / .nii.gz file through the C++ codec."""
+    hdr = bytes(io_native.nifti_read_bytes(str(path), 0, _HDR_SIZE))
+    return _parse_volume(path, hdr, lambda offset, count: io_native.nifti_read_bytes(
+        str(path), offset, count))
+
+
+def _parse_volume(path, hdr: bytes, read_payload) -> Volume:
+    """A Volume from the 348-byte header and ``read_payload(offset, count)``,
+    which returns up to ``count`` uint8 bytes of the file from ``offset``."""
+    if len(hdr) < _HDR_SIZE:
         raise ValueError(f"{path}: shorter than a NIfTI-1 header")
-    hdr = raw[:_HDR_SIZE]
     sizeof_hdr = struct.unpack_from("<i", hdr, 0)[0]
     if sizeof_hdr != _HDR_SIZE:
         if struct.unpack_from(">i", hdr, 0)[0] == _HDR_SIZE:
@@ -64,10 +71,10 @@ def read_nifti(path: str) -> Volume:
         raise ValueError(f"{path}: unsupported NIfTI datatype {datatype}")
     dt = np.dtype(_DT_TO_NUMPY[datatype])
     count = nx * ny * nz
-    if len(raw) < vox_offset + count * dt.itemsize:
+    buf = read_payload(vox_offset, count * dt.itemsize)
+    if buf.size != count * dt.itemsize:
         raise ValueError(f"{path}: truncated voxel payload")
-    data = np.frombuffer(raw, dtype=dt, count=count, offset=vox_offset)
-    data = data.reshape(nz, ny, nx)  # x-fastest on disk
+    data = buf.view(dt).reshape(nz, ny, nx)  # x-fastest on disk
 
     if scl_slope not in (0.0, 1.0) or scl_inter != 0.0:
         slope = scl_slope if scl_slope != 0 else 1.0
@@ -125,6 +132,13 @@ def _itk_to_ras_affine(vol: Volume) -> np.ndarray:
 
 
 def write_nifti(vol: Volume, path: str) -> None:
+    """Write ``vol`` through the C++ codec (gzip level 6 for .nii.gz)."""
+    header, arr = _encode(vol)
+    io_native.nifti_write_bytes(str(path), header, arr, _gzip_level(path))
+
+
+def _encode(vol: Volume):
+    """(the 352 header bytes, the contiguous voxel array) of ``vol``."""
     arr = np.ascontiguousarray(vol.array)
     if arr.dtype == np.bool_:
         arr = arr.astype(np.uint8)
@@ -151,7 +165,4 @@ def write_nifti(vol: Volume, path: str) -> None:
     struct.pack_into("<4f", hdr, 296, *aff[1])
     struct.pack_into("<4f", hdr, 312, *aff[2])
     hdr[344:348] = b"n+1\x00"
-
-    with _open(path, "wb") as f:
-        f.write(bytes(hdr) + b"\x00" * 4)  # no extensions
-        f.write(arr.tobytes())
+    return bytes(hdr) + b"\x00" * 4, arr  # no extensions

@@ -7,6 +7,10 @@ Counterpart of ``tpuseg/infer/volume.py``:
    device, bring back only the uint8 mask, resample it to the original size
    (nearest) and re-stamp the original origin/spacing/direction so the mask
    overlays the source image;
+ * ``infer_volume_device``: the same pipeline with every step on the
+   device, from the upload of the raw float32 volume to the fetch of the
+   uint8 mask (resize, normalization, forward, threshold/argmax, nearest
+   resize back);
  * ``infer_volume_patched``: resample to a spacing, HU-window and
    normalize (on the host, or as uint8 HU codes with the normalization
    folded into an affine run on the device, ``hu_code_volume``), batched
@@ -23,6 +27,9 @@ import torch
 from tpuseg_torch.data.geometry import Volume, resample_to_size, resample_to_spacing
 from tpuseg_torch.data.normalize import percentile_zscore, truncate_and_normalize
 from tpuseg_torch.infer.sliding_window import sliding_window_inference
+from tpuseg_torch.kernels.normalize import (percentile_zscore_device,
+                                            truncate_and_normalize_device)
+from tpuseg_torch.kernels.resample import resize_volume_device
 
 
 def probs_to_mask(probs: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
@@ -56,6 +63,48 @@ def infer_volume(
     final = resample_to_size(mask_vol, vol.GetSize(), "nearest")
     final.copy_geometry_from(vol)
     return final
+
+
+def infer_volume_device(
+    vol: Volume,
+    model: torch.nn.Module,
+    new_size_xyz: Sequence[int],
+    num_classes: int,
+    normalizer: str = "percentile",
+    hu_window: Optional[tuple] = None,
+    threshold: float = 0.5,
+    device="cuda",
+) -> Volume:
+    """Whole-volume inference with every step on ``device``: resize to
+    ``new_size_xyz`` (linear, ITK semantics), normalize ("percentile": the
+    percentile z-score; "hu": ``truncate_and_normalize`` with ``hu_window``
+    = (upper, lower, method)), the forward of ``model`` (a net on
+    ``device`` returning (logits, probs, ...), channels-last), threshold
+    (one class) or argmax, nearest resize back to the input's shape.  The
+    host uploads the raw volume as float32 and fetches the uint8 mask,
+    which carries the input's geometry."""
+    sx, sy, sz = (int(v) for v in new_size_xyz)
+    in_shape = tuple(vol.array.shape)
+
+    raw = torch.from_numpy(np.ascontiguousarray(vol.array, np.float32))
+    with torch.inference_mode():
+        x = resize_volume_device(raw.to(device), (sz, sy, sx), "linear")
+        if normalizer == "percentile":
+            x = percentile_zscore_device(x)
+        elif normalizer == "hu":
+            upper, lower, method = hu_window
+            x = truncate_and_normalize_device(x, upper, lower, method)
+        else:
+            raise ValueError(f"normalizer must be 'percentile' or 'hu': {normalizer!r}")
+        probs = model(x[None, ..., None])[1][0]
+        if num_classes == 1:
+            mask = (probs[..., 0] > threshold).to(torch.uint8)
+        else:
+            mask = torch.argmax(probs, dim=-1).to(torch.uint8)
+        mask = resize_volume_device(mask, in_shape, "nearest").cpu().numpy()
+    out = Volume(mask)
+    out.copy_geometry_from(vol)
+    return out
 
 
 def hu_code_volume(arr: np.ndarray, upper: float, lower: float, method: str):

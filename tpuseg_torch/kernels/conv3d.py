@@ -57,8 +57,12 @@ design:
   the epilogue adds each output column's three products from columns c,
   c + 1 and c + 2 with warp shuffles.  Per k8 step the A fragment is
   split in registers and three ``wgmma`` m64n(3·cout_pad)k8 run per m64
-  tile (a_hi·b_hi into one accumulator, the two corrections into another
-  up to Cout 16).  The weight's hi/lo pair takes 27·cin_pad·cout_pad·8
+  tile.  The tensor cores truncate each sum into their fp32 accumulator,
+  so a pair of k8 steps is summed there (its first ``wgmma`` overwriting
+  the accumulator) and the pairs are added in registers with rounded fp32
+  adds (per half of N where both sets would not fit the registers): one
+  accumulator over K drifted toward zero by a unit in the last place a
+  step.  The weight's hi/lo pair takes 27·cin_pad·cout_pad·8
   bytes (55 KB at 16 -> 16, 885 KB at 64 -> 64): where it fits beside
   the ring it is copied once and stays resident; else it streams from L2
   in chunks of k8 steps through a 2-slot ring filled by

@@ -30,9 +30,18 @@
 // 4-float sub-tiles, which is the tf32 m16k8 fragment (g, t), (g + 8, t),
 // (g, t + 4), (g + 8, t + 4).  It is split into tf32 hi / lo in registers,
 // and each step is three wgmma m64n(3 NT)k8 per m64 tile, B from shared
-// memory through a descriptor: a_hi b_hi into `acc` and, up to NT = 16, the
-// two corrections into `corr` (a second chain; wider outputs keep one
-// accumulator, so that two m16 tiles a warp fit the registers at NT = 32).
+// memory through a descriptor.
+//
+// The tensor cores add each product into the fp32 accumulator with the
+// sum truncated toward zero, not rounded, so one accumulator over all
+// 9 x KCI steps drifts toward zero by about a unit in the last place of
+// fp32 per step: at 64 -> 64 (72 steps) ~4e-6 of the output's scale, eight
+// times cuDNN's fp32 error.  So a pair of k8 steps (six wgmmas a m64 tile)
+// goes into `acc`, its first wgmma overwriting it (scale-d 0), and after
+// the pair the warp waits and adds `acc` into `sum` with fp32 adds, which
+// round to nearest; the next pair's A is loaded while the pair's wgmmas
+// run.  Where `sum` and a whole-N `acc` would not fit the registers (N =
+// 192, or two m16 tiles a warp at N = 96), a pair runs once per half of N.
 //
 // The weight: the tf32 hi/lo pair of kernels/conv3d.py `pack_weight`, per
 // k8 step [hi, lo][3 NT / 8 n8 tiles, dx-major][k half][8 n][4 k]
@@ -62,11 +71,12 @@ constexpr int F32_CPAD = 4;     // floats of padding per staged voxel
 constexpr int TXO = 14;         // output columns of a tile: 16 staged
 
 // ---- d (m64 x N fp32, the first N / 8 n8 tiles of d: each warp's 16 rows
-// in the m16n8 C layout per n8 tile) += a (this warp's 16 rows of the m64 x
-// k8 tf32 A tile) * B (k8 x N tf32, K-major, through desc_b)
+// in the m16n8 C layout per n8 tile) = scale_d d + a (this warp's 16 rows
+// of the m64 x k8 tf32 A tile) * B (k8 x N tf32, K-major, through desc_b);
+// scale_d 0 or 1
 template <int N, int M>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
+                                           uint64_t desc_b, int scale_d) {
   static_assert(N % 24 == 0 && N / 8 <= M, "3 NT columns, NT a multiple of 8");
   if constexpr (N == 24) {
     asm volatile(
@@ -74,7 +84,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
   else if constexpr (N == 48) {
     asm volatile(
@@ -82,7 +92,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
   else if constexpr (N == 96) {
     asm volatile(
@@ -90,7 +100,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
   else if constexpr (N == 144) {
     asm volatile(
@@ -98,7 +108,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, {%72, %73, %74, %75}, %76, p, 1, 1;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
   else if constexpr (N == 192) {
     asm volatile(
@@ -106,46 +116,46 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[M][4], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 }
 
-// the three dx taps' products in 3 NT columns; a second accumulator for
-// the corrections up to NT = 16 (wider ones would not fit the registers)
-template <int NT>
+// the three dx taps' products in 3 NT columns; an accumulator holds PN
+// of them (all, or half where the registers need it)
+template <int NT, int MT>
 struct Fold {
   static constexpr int N = 3 * NT;
   static constexpr int NJ = N / 8;
-  static constexpr bool CORR = NT <= 16;
+  static constexpr int PARTS = (NT == 64 || (NT == 32 && MT == 2)) ? 2 : 1;
+  static constexpr int PN = N / PARTS;
+  static constexpr int PJ = NJ / PARTS;
 };
 
-// one k8 step: the raw A fragments split into register set SET, then per
-// m64 tile a_hi b_hi into `acc`, and a_lo b_hi + a_hi b_lo into `corr` (or
-// `acc`), one commit group
-template <int NT, int MT, int SET>
-__device__ __forceinline__ void tf32x3_step(float (&acc)[MT][Fold<NT>::NJ][4],
-                                            float (&corr)[MT][Fold<NT>::NJ][4],
-                                            const uint32_t (&raw)[MT][4],
-                                            uint32_t (&hi)[2][MT][4], uint32_t (&lo)[2][MT][4],
-                                            uint32_t b_at) {
-  constexpr int N = Fold<NT>::N;
+// one pair of k8 steps (ns = 1 or 2, their A split into register sets 0
+// and 1) for columns part PN .. + PN: per step and m64 tile a_hi b_hi,
+// a_lo b_hi and a_hi b_lo into `acc`, the pair's first wgmma overwriting
+// it; one commit group
+template <int NT, int MT>
+__device__ __forceinline__ void tf32x3_pair(float (&acc)[MT][Fold<NT, MT>::PJ][4],
+                                            const uint32_t (&hi)[2][MT][4],
+                                            const uint32_t (&lo)[2][MT][4], uint32_t b_at,
+                                            int ns, int part) {
+  constexpr int N = Fold<NT, MT>::N;
+  constexpr int PN = Fold<NT, MT>::PN;
+  wgmma_fence();  // the split's registers, and the reads of `acc`, are ordered
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) tf32_split(raw[mt], hi[SET][mt], lo[SET][mt]);
-  wgmma_fence();  // the split's registers (and the zeroed sums) are visible
-  const uint64_t dh = wgmma_desc(b_at, 128, 256);
-  const uint64_t dl = wgmma_desc(b_at + N * 32, 128, 256);
+  for (int i = 0; i < 2; ++i) {
+    if (i < ns) {
+      const uint32_t b = b_at + i * N * 64 + part * PN * 32;
+      const uint64_t dh = wgmma_desc(b, 128, 256);
+      const uint64_t dl = wgmma_desc(b + N * 32, 128, 256);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) wgmma_tf32<N>(acc[mt], hi[SET][mt], dh);
-  if constexpr (Fold<NT>::CORR) {
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<PN>(acc[mt], hi[i][mt], dh, i);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) wgmma_tf32<N>(corr[mt], lo[SET][mt], dh);
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<PN>(acc[mt], lo[i][mt], dh, 1);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) wgmma_tf32<N>(corr[mt], hi[SET][mt], dl);
-  } else {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) wgmma_tf32<N>(acc[mt], lo[SET][mt], dh);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) wgmma_tf32<N>(acc[mt], hi[SET][mt], dl);
+      for (int mt = 0; mt < MT; ++mt) wgmma_tf32<PN>(acc[mt], hi[i][mt], dl, 1);
+    }
   }
   wgmma_commit();
 }
@@ -166,8 +176,10 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_tf32_kernel(
     Tiles t, int cout, int kci, int kpc, int vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int NJ = NT / 8;
-  constexpr int FJ = Fold<NT>::NJ;
-  constexpr int STEP_BYTES = Fold<NT>::N * 64;  // k8 step: hi, lo of k8 x 3 NT
+  constexpr int FJ = Fold<NT, MT>::NJ;
+  constexpr int PARTS = Fold<NT, MT>::PARTS;
+  constexpr int PJ = Fold<NT, MT>::PJ;
+  constexpr int STEP_BYTES = Fold<NT, MT>::N * 64;  // k8 step: hi, lo of k8 x 3 NT
   const int nchunks = 9 * kci / kpc;
   const bool resident = nchunks == 1;
   const int wslots = resident ? 1 : WSLOTS;
@@ -252,28 +264,31 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_tf32_kernel(
         if (sl < 0) sl += t.stages;
         plane[dz] = ring_u + sl * t.patch * 4;
       }
-      float acc[MT][FJ][4], corr[MT][FJ][4];
+      float acc[MT][PJ][4], sum[MT][FJ][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int j = 0; j < FJ; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][j][e] = corr[mt][j][e] = 0.f;
-      uint32_t raw[MT][4], hi[2][MT][4], lo[2][MT][4];
+          for (int e = 0; e < 4; ++e) sum[mt][j][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < PJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+      }
+      uint32_t raw[2][MT][4], hi[2][MT][4], lo[2][MT][4];
       int dz = 0, dy = 0, kc = 0;  // of the next step to load
       for (int c = 0; c < nchunks; ++c, ++q) {
         const int slot = resident ? 0 : (int)(q % wslots);
         mbar_wait(full + slot, resident ? 0u : (uint32_t)((q / wslots) & 1));
         if (live) {
           const uint32_t b0 = wring_u + slot * chunk_bytes;
-          // steps of the chunk in pairs, register sets 0 and 1: the A of
-          // step s + 1 is loaded while step s's wgmmas run, and step s
-          // waits for step s - 1's, whose set step s + 1 overwrites
-          auto load_a = [&]() {
+          // the A fragments of the next step into `r`
+          auto load_a = [&](uint32_t (&r)[MT][4]) {
             const uint32_t a_at =
                 (dz == 0 ? plane[0] : dz == 1 ? plane[1] : plane[2]) + dy * row_b + kc * 32;
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(raw[mt], a_at + a_lane[mt]);
+            for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(r[mt], a_at + a_lane[mt]);
             if (++kc == kci) {  // the next (dz, dy), row-major
               kc = 0;
               if (++dy == 3) {
@@ -282,18 +297,39 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_tf32_kernel(
               }
             }
           };
-          load_a();
+          // the chunk's steps in pairs: the pair's A is split, its wgmmas
+          // run (per part of N) while the next pair's A loads, and after
+          // each part the warp waits (so it also holds no read of the
+          // weight slot at the chunk's end) and adds `acc` into `sum`
+          int ns = min(2, kpc);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < ns) load_a(raw[i]);
           for (int s = 0; s < kpc; s += 2) {
-            tf32x3_step<NT, MT, 0>(acc, corr, raw, hi, lo, b0 + s * STEP_BYTES);
-            if (s + 1 < kpc) {
-              load_a();
-              wgmma_wait<1>();
-              tf32x3_step<NT, MT, 1>(acc, corr, raw, hi, lo, b0 + (s + 1) * STEP_BYTES);
-              if (s + 2 < kpc) load_a();
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (i < ns)
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) tf32_split(raw[i][mt], hi[i][mt], lo[i][mt]);
+            const int next_ns = min(2, kpc - s - 2);
+#pragma unroll
+            for (int part = 0; part < PARTS; ++part) {
+              tf32x3_pair<NT, MT>(acc, hi, lo, b0 + s * STEP_BYTES, ns, part);
+              if (part == PARTS - 1) {
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                  if (i < next_ns) load_a(raw[i]);
+              }
+              wgmma_wait<0>();
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int j = 0; j < PJ; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) sum[mt][part * PJ + j][e] += acc[mt][j][e];
             }
-            wgmma_wait<1>();
+            ns = next_ns;
           }
-          wgmma_wait<0>();  // this warp's reads of the slot are done
         }
         if (!resident) {
           if (lane == 0) mbar_arrive(empty + slot);
@@ -325,16 +361,15 @@ __global__ void __launch_bounds__(THREADS, 1) conv3d_tf32_kernel(
             for (int h = 0; h < 2; ++h)
 #pragma unroll
               for (int e = 0; e < 2; ++e)
-                v[h][e] = acc[mt][j][2 * h + e] + corr[mt][j][2 * h + e];
+                v[h][e] = sum[mt][j][2 * h + e];
 #pragma unroll
             for (int dx = 1; dx < 3; ++dx) {
               const int src = (((g + dx) & 7) << 2) | t4;
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int jj = dx * NJ + j;
-                const float p0 = __shfl_sync(0xffffffffu, acc[mt][jj][e] + corr[mt][jj][e], src);
-                const float p1 =
-                    __shfl_sync(0xffffffffu, acc[mt][jj][2 + e] + corr[mt][jj][2 + e], src);
+                const float p0 = __shfl_sync(0xffffffffu, sum[mt][jj][e], src);
+                const float p1 = __shfl_sync(0xffffffffu, sum[mt][jj][2 + e], src);
                 v[0][e] += (g + dx) >> 3 ? p1 : p0;  // row g + dx
                 v[1][e] += p1;                       // row g + 8 + dx, where stored
               }

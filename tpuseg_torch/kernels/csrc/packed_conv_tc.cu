@@ -5,7 +5,13 @@
 // accumulation, optional bias and ReLU.  bf16 runs wgmma m64n128k16 with
 // both operands in shared memory; f32 runs wgmma m64n128k8 in tf32 three
 // times per step (3xTF32: a_hi b_hi + a_hi b_lo + a_lo b_hi, each half
-// rounded with cvt.rna.tf32), which keeps about fp32's accuracy.
+// rounded with cvt.rna.tf32), which keeps about fp32's accuracy.  The
+// tensor cores truncate each sum into their fp32 accumulator, so f32 sums
+// one stage (4 k8 steps) on them, its first wgmma overwriting the
+// accumulator, and adds the stages with rounded fp32 adds into a second
+// set of registers (one m64 tile a warpgroup, for the registers): one
+// accumulator over K = 64C drifts toward zero by a unit in the last place
+// a step, ~7e-6 of the output's scale at C = 16.
 //
 // Replaces the Pallas kernel tpuseg/kernels/packed_conv.py
 // `packed_conv3d_structured`.  Python wrapper, packing and design note:
@@ -50,14 +56,14 @@ using namespace tpuseg;
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int BN = 128;       // output channels per block
 constexpr int BKB = 128;      // bytes of K per stage and row
-// m64 tiles a warpgroup and ring slots, the faster of the H100 trials at
-// the served shapes: f32 two tiles (the hi/lo weight tile, twice the A
-// tile's bytes, is reused over 256 positions) in 3 slots, against one tile
-// in 3 or 4; bf16 one tile in 6 slots, against two in 4
+// m64 tiles a warpgroup and ring slots: bf16 one tile in 6 slots, the
+// faster of the H100 trials at the served shapes (against two in 4); f32
+// one tile in 4 slots, as the stages' fp32 sum doubles the accumulator
+// registers (two tiles in 3 slots were faster with one accumulator)
 constexpr int MT_BF16 = 1;
-constexpr int MT_TF32 = 2;
+constexpr int MT_TF32 = 1;
 constexpr int STAGES_BF16 = 6;
-constexpr int STAGES_TF32 = 3;
+constexpr int STAGES_TF32 = 4;
 constexpr int MAX_C8 = 1 << 16;
 
 // valid (tap, delta) pairs per fine channel on a grid with p deltas:
@@ -138,18 +144,18 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[16][4], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d (m64 x n128 fp32) += a (this warp's 16 rows of the m64 x k8 tf32 A
-// tile: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-// with g = lane / 4, t = lane % 4) * B (k8 x n128 tf32, K-major in shared
-// memory)
+// d (m64 x n128 fp32) = scale_d d + a (this warp's 16 rows of the m64 x
+// k8 tf32 A tile: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g
+// + 8, t + 4) with g = lane / 4, t = lane % 4) * B (k8 x n128 tf32,
+// K-major in shared memory); scale_d 0 or 1
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16][4], const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " TPUSEG_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : TPUSEG_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
@@ -274,13 +280,14 @@ __global__ void __launch_bounds__(THREADS, 1) packed_conv_tc_kernel(const Args a
 
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wq = warp & 3;
-  float acc[C::MT][16][4];
+  // f32: `acc` a stage's sums, `sum` the stages'
+  float acc[C::MT][16][4], sum[C::MT][16][4];
 #pragma unroll
   for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[mt][j][q] = sum[mt][j][q] = 0.f;
 
   const int KT = a.k_tiles;
 #pragma unroll 1
@@ -319,8 +326,8 @@ __global__ void __launch_bounds__(THREADS, 1) packed_conv_tc_kernel(const Args a
       // (+ 8), m8 groups 8 (wg MT + mt) + 2 wq (+ 1); k8 step s is 16-byte
       // chunks 2 s, 2 s + 1.  Per k8 step: the A fragments split into
       // tf32 hi / lo in one of two register sets, three wgmmas per m64
-      // tile, one commit group; the wait keeps one step in flight, so the
-      // set written next is free.
+      // tile (the stage's first overwriting `acc`), one commit group; the
+      // wait keeps one step in flight, so the set written next is free.
       const unsigned char* ar = smem + slot * C::STAGE_BYTES +
                                 (8 * wg * C::MT + 2 * wq) * 1024 + (lane >> 2) * 16 +
                                 (lane & 3) * 4;
@@ -341,14 +348,20 @@ __global__ void __launch_bounds__(THREADS, 1) packed_conv_tc_kernel(const Args a
         const uint64_t dl = wgmma_desc(b_s + BN * BKB + s * 256, 128, 1024);
 #pragma unroll
         for (int mt = 0; mt < C::MT; ++mt) {
-          wgmma_tf32_rs(acc[mt], lo[s & 1][mt], dh);
-          wgmma_tf32_rs(acc[mt], hi[s & 1][mt], dl);
-          wgmma_tf32_rs(acc[mt], hi[s & 1][mt], dh);
+          wgmma_tf32_rs(acc[mt], lo[s & 1][mt], dh, s > 0);
+          wgmma_tf32_rs(acc[mt], hi[s & 1][mt], dl, 1);
+          wgmma_tf32_rs(acc[mt], hi[s & 1][mt], dh, 1);
         }
         wgmma_commit();
         wgmma_wait<1>();
       }
       wgmma_wait<0>();  // this stage's slot is free for the next load
+#pragma unroll
+      for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum[mt][j][q] += acc[mt][j][q];
     }
   }
   wgmma_wait<0>();
@@ -368,7 +381,8 @@ __global__ void __launch_bounds__(THREADS, 1) packed_conv_tc_kernel(const Args a
       for (int j = 0; j < 16; ++j) {
         const int o = nt * BN + 8 * j + 2 * (lane & 3);
         if (o >= a.f8) continue;
-        float v0 = acc[mt][j][2 * half], v1 = acc[mt][j][2 * half + 1];
+        float v0 = TF32 ? sum[mt][j][2 * half] : acc[mt][j][2 * half];
+        float v1 = TF32 ? sum[mt][j][2 * half + 1] : acc[mt][j][2 * half + 1];
         if (a.bias != nullptr) {
           v0 += __ldg(a.bias + o);
           v1 += __ldg(a.bias + o + 1);

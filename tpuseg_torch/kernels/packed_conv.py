@@ -22,16 +22,18 @@ not the TPU design (a rolling 4-slot VMEM plane buffer fed by DMA, an
 im2col scratch and one MXU GEMM per plane).  The structural weight is a
 (K, 8F) matrix whose rows are, tap by tap, only the valid input-delta
 channel runs (``_taps``), with an int32 table naming each row's part, tap
-and channel.  A block owns 128 (bf16) or 256 (f32) consecutive output
-positions and 128 output channels; per stage of 128 bytes of K it gathers
+and channel.  A block owns 128 consecutive output positions and 128
+output channels; per stage of 128 bytes of K it gathers
 the shifted input rows into shared memory with ``cp.async`` (the tap is an
 address, zero-filled outside the volume) and copies the weight tile,
 which ``pack_tc`` lays out once in wgmma's K-major core-matrix layout,
-through a ring of 6 (bf16) or 3 (f32) slots.  bf16 runs ``wgmma`` m64n128k16 with both
+through a ring of 6 (bf16) or 4 (f32) slots.  bf16 runs ``wgmma`` m64n128k16 with both
 operands in shared memory.  f32 runs 3xTF32: the weight's tf32 hi/lo pair
 is split once in ``pack_tc``, the input's per stage in registers
 (``cvt.rna.tf32``), and ``wgmma`` m64n128k8 sums a_lo·b_hi + a_hi·b_lo +
-a_hi·b_hi, fp32 throughout; the bias/ReLU epilogue is fp32.  Why a gather
+a_hi·b_hi over a stage, the stages added in registers with rounded fp32
+adds (the tensor cores truncate their own sums), fp32 throughout; the
+bias/ReLU epilogue is fp32.  Why a gather
 through L2 and not planes staged once: the source's note.
 
 Two input parts.  The decoder's first conv reads the concat [up; skip] of
@@ -95,8 +97,8 @@ DW_LAUNCHES = 0
 # per stage and row, the block's two warpgroups; per dtype the m64 tiles a
 # warpgroup holds and the ring slots
 _BN, _BKB, _THREADS = 128, 128, 256
-_MT = {torch.bfloat16: 1, torch.float32: 2}
-_STAGES = {torch.bfloat16: 6, torch.float32: 3}
+_MT = {torch.bfloat16: 1, torch.float32: 1}
+_STAGES = {torch.bfloat16: 6, torch.float32: 4}
 _MAX_C8 = 1 << 16
 # a fully packed grid (pack_d, pack_h, pack_w); the packed VNet's level B is
 # (False, True, True)
@@ -112,8 +114,9 @@ def plan(dtype: torch.dtype) -> dict:
     """The kernel's tiling for parts of ``dtype`` (``Cfg`` in the source):
     positions per block (two warpgroups of ``mt`` m64 tiles), K per stage,
     ring slots, shared memory per block, and 32-bit registers per thread
-    that the accumulators (m64 x n128 fp32 over a warpgroup, per tile) and,
-    for 3xTF32, the A hi/lo fragments of two k8 steps hold.  Cached (the
+    that the accumulators (m64 x n128 fp32 over a warpgroup, per tile;
+    3xTF32 keeps two, a stage's sums and the stages') and, for 3xTF32, the
+    A hi/lo fragments of two k8 steps hold.  Cached (the
     wrapper reads it on every call): read it, do not change it."""
     tf32 = dtype == torch.float32
     es = 4 if tf32 else 2
@@ -121,7 +124,7 @@ def plan(dtype: torch.dtype) -> dict:
     bm = 128 * mt
     stage = bm * _BKB + _BN * _BKB * (2 if tf32 else 1)
     return dict(bm=bm, mt=mt, bk=_BKB // es, stages=stages,
-                smem=stages * stage + bm * 16, acc_regs=mt * 64,
+                smem=stages * stage + bm * 16, acc_regs=mt * 64 * (2 if tf32 else 1),
                 frag_regs=2 * mt * 8 if tf32 else 0)
 
 

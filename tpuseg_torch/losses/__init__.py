@@ -1,16 +1,15 @@
 """Loss registry by the reference framework's names (counterpart of
 ``tpuseg/losses/__init__.py``).  Each entry is ``fn(logits, labels)``, with
-alpha / gamma bound at build time.  The names whose modules are not ported
-yet (Lovasz, clDice, SSIM, the packed losses) raise."""
+alpha / gamma bound at build time; ``LOSS_NAMES`` lists them all."""
 from __future__ import annotations
 
 from functools import partial
 from typing import Callable
 
-from tpuseg_torch.losses import binary, categorical
+import torch
 
-NOT_PORTED = ("BinaryLovaszLoss", "BinaryClDiceLoss", "LovaszLoss",
-              "MutilClDiceLoss")
+from tpuseg_torch.losses import binary, categorical, cldice, lovasz, ssim  # noqa: F401
+from tpuseg_torch.losses.ssim import ms_ssim, ssim_loss  # noqa: F401
 
 
 def build_loss(name: str, num_classes: int = 1, alpha=None,
@@ -31,6 +30,11 @@ def build_loss(name: str, num_classes: int = 1, alpha=None,
     if name == "BinaryFocalLoss":
         a = float(alpha) if alpha is not None and not isinstance(alpha, (list, tuple)) else 0.25
         return partial(binary.focal_loss, alpha=a, gamma=gamma)
+    if name == "BinaryLovaszLoss":
+        return lovasz.lovasz_hinge
+    if name == "BinaryClDiceLoss":
+        return lambda logits, t: cldice.binary_cldice_loss(torch.sigmoid(logits), t)
+
     cat_map = {
         "MutilCrossEntropyLoss": categorical.cross_entropy_loss,
         "MutilDiceLoss": categorical.dice_loss,
@@ -43,6 +47,19 @@ def build_loss(name: str, num_classes: int = 1, alpha=None,
         return partial(cat_map[name], alpha=alpha)
     if name == "MutilFocalLoss":
         return partial(categorical.focal_loss, alpha=alpha, gamma=gamma)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"loss {name!r} is not ported yet")
+    if name == "LovaszLoss":
+        return lovasz.lovasz_softmax
+    if name == "MutilClDiceLoss":
+        return lambda logits, t: cldice.multiclass_cldice_loss(
+            torch.softmax(logits, dim=-1), t, alpha=alpha)
     raise KeyError(f"unknown loss name: {name!r}")
+
+
+LOSS_NAMES = [
+    "BinaryDiceLoss", "BinaryJaccardLoss", "BinaryELDiceLoss", "BinarySSLoss",
+    "BinaryTverskyLoss", "BinaryCrossEntropyLoss", "BinaryCrossEntropyDiceLoss",
+    "BinaryFocalLoss", "BinaryLovaszLoss", "BinaryClDiceLoss", "MCCLoss",
+    "MutilCrossEntropyLoss", "MutilDiceLoss", "MutilCrossEntropyDiceLoss",
+    "MutilELDiceLoss", "MutilSSLoss", "MutilTverskyLoss", "MutilFocalLoss",
+    "LovaszLoss", "MutilClDiceLoss",
+]

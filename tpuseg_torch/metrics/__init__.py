@@ -1,5 +1,5 @@
 """Metrics (counterpart of ``tpuseg/metrics``): the online per-step
-metrics; ``seg3d.SegMetric3d`` and SSIM are not ported yet."""
+metrics, the offline 9-metric evaluator and SSIM."""
 from tpuseg_torch.metrics.online import (  # noqa: F401
     accuracy,
     dice_coeff,
@@ -12,3 +12,5 @@ from tpuseg_torch.metrics.online import (  # noqa: F401
     nrmse,
     psnr,
 )
+from tpuseg_torch.metrics.seg3d import SegMetric3d, Seg_Metirc3d  # noqa: F401
+from tpuseg_torch.losses.ssim import ssim  # noqa: F401
