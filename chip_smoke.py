@@ -160,12 +160,41 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     pools make move under rounding, printed), step times;
     ``ssim`` and
     ``ms_ssim`` of two 128x112x112 volumes on the card against the CPU
-    (1e-5).
+    (1e-5);
+10. augmentation, registration and TPDDNet, in f32: the augmenter's
+    affine (``data/augment3d.py`` ``_apply``) on a 128x112x112 volume on the
+    card against the same affine on the CPU with the same parameters
+    (image within 1e-5 of its scale, masks >= 0.999 and, without rotation,
+    equal; labels in the class set), the batch augmenter's ms,
+    ``train.build`` / ``run`` at phase 6's setting with
+    ``--data.online_augment true`` (path ``train_online_augment``, phase
+    6's launches on every step, the augmenter run on the card once per
+    training batch), ``DataAug3D`` (2 copies of 2 volumes, files and
+    manifest); VNet3dRegistration (features 8) and TPDDNet at 1x32^3
+    against the JAX package's outputs (``tests/data/
+    torch_port_regtp_golden.npz``, 1e-4 of each output's scale);
+    VNet3dRegistration (features 16) on a 1x128^3 ``synthetic_ct`` pair,
+    the fixed image the moving one warped by a known smooth field: the
+    forward through the kernels against the plain versions (moved image
+    and ddf within 1e-4 of their scale; K2 9, K1 29 launches,
+    ``fwd_vnet3dregistration``), 3 train steps of
+    ``make_registration_trainer`` (``train_vnet3dregistration``, launches
+    on every step), one step against the f64 step through the plain
+    versions (``_kernel_step_gate``), and the ``trainregistration3d``
+    recipe for 8 one-step epochs, whose loss must fall
+    (``recipe_trainregistration3d``); TPDDNet (2 classes, 1x1x128^3): the
+    eval forward through the kernels against the plain versions (argmax
+    >= 0.999; K2 10, K1 18, ``fwd_tpddnet``), 3
+    ``make_segmentation_trainer`` steps with MutilDiceLoss and the aux
+    heads (``train_tpddnet``), one step against the f64 step; each
+    path's step time, device ms by family and the cuDNN conv backward by
+    shape, and peak memory.
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
 launches on the served, training (plain and packed, UNet3d and VNet3d, f32
-and bf16), bench and sliding-window paths (K3's dX and dW rows among them),
+and bf16; the zoo; online augmentation, registration and TPDDNet), bench,
+sliding-window and whole-volume paths (K3's dX and dW rows among them),
 error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
@@ -2541,16 +2570,459 @@ def phase_host(torch, mods, served, workdir):
     return paths
 
 
-def _load_zoo_golden():
-    """``tests/make_torch_port_zoo_golden.py`` as a module (its inputs,
-    fingerprints and golden path; it imports JAX only inside the functions
-    that write the file)."""
+# phase 10: augmentation, registration and TPDDNet, in f32 on 1x128^3.  A
+# forward's launches (a train step's each way too): VNet3dRegistration
+# (features 16): K2 the LUConvINs at 16-64 channels (downs.0 and downs.1 2
+# each, ups.1 and ups.2 2 each, ups.3 1; the 128- and 256-channel levels
+# and the 2-channel stem go to cuDNN), K1 its 29 InstanceNorms (the stem's
+# one norm twice, downs 3 each, ups 4, 4, 4, 3).  TPDDNet (2 classes): K2
+# the undilated 3^3 convs with 8-64 channels in (enc 1, 3, 6, 9, 10, 11;
+# dec 1, 3, 4, 5: one decoder pass serves both heads), K1 its 18
+# InstanceNorms (12 encoder, 6 decoder); the dilated convs go to cuDNN
+AUG_DHW = (128, 128, 128)
+REG_FEATURES = 16
+REG_TRAIN_LAUNCHES = _zoo_step(9, 29)
+TP_CLASSES = 2
+TP_TRAIN_LAUNCHES = _zoo_step(10, 18)
+
+
+def _affine_gate(torch, mods, image: np.ndarray, label: np.ndarray) -> dict:
+    """The augmenter's affine on the card against the same affine on the
+    CPU with the same parameters: the image within 1e-5 of its scale, the
+    masks on >= 0.999 of the voxels and exactly without rotation, labels in
+    the class set.  Returns the figures."""
+    aug = mods["augment3d"]
+    img, lab = torch.from_numpy(image)[..., None], torch.from_numpy(label)[..., None]
+    params = aug.random_affine_params(torch.Generator().manual_seed(SEED), aug.Affine3DConfig())
+    out = {}
+    for tag, p in (("rotated", params), ("no rotation", (torch.zeros(3),) + params[1:])):
+        ci, cm = aug._apply(img.cuda(), lab.cuda(), *p)
+        pi, pm = aug._apply(img, lab, *p)
+        err, scale = rel_err(ci.cpu(), pi)
+        agree = float((cm.cpu() == pm).float().mean())
+        classes = torch.unique(cm).tolist()
+        say(f"  affine {tag} 1x{image.shape[0]}x{image.shape[1]}x{image.shape[2]} "
+            f"(rot {[round(v, 4) for v in p[0].tolist()]}, zoom "
+            f"{[round(v, 4) for v in p[2].tolist()]}, flips {p[3].tolist()}): card vs CPU "
+            f"image max_abs_err {err:.3g} (scale {scale:.3g}), mask agreement {agree:.7f}, "
+            f"labels {classes}")
+        if not err <= 1e-5 * scale or not agree >= 0.999 or not set(classes) <= set(
+                range(CLASSES)):
+            fail(f"augmentation affine ({tag}) on the card vs the CPU")
+        if tag == "no rotation" and agree != 1.0:
+            fail("augmentation masks differ without rotation")
+        out[tag] = {"image_err": err, "mask_agreement": agree}
+    return out
+
+
+def _peak(torch, fn):
+    """(fn's result, the peak device memory in GiB while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _param_errors(got: dict, ref: dict, floor: float = 1e-3) -> dict:
+    """Per parameter: max |got - ref| over max(max |ref|, ``floor`` x the
+    largest max |ref|) (a conv bias feeding an InstanceNorm has a zero
+    gradient in exact arithmetic)."""
+    top = floor * max(r.double().abs().max().item() for r in ref.values())
+    return {n: (got[n].double() - r.double()).abs().max().item()
+            / max(r.double().abs().max().item(), top, 1e-30) for n, r in ref.items()}
+
+
+def _kernel_step_gate(torch, mods, tag: str, loss_and_grads):
+    """One train step's loss and parameter gradients through the kernels
+    against the same step in float64 through the plain versions (same
+    weights, batch and dropout generator).  These InstanceNorm nets' f32
+    gradients are ill-conditioned in places (the weight gradient of a conv
+    that feeds an InstanceNorm is a difference of large terms: on
+    VNet3dRegistration's 16^3 level the plain path's own f32 step moves
+    by 6e-2 of max |g| when the input moves at rounding level), so the
+    plain versions are measured the same two ways: their f32 step against
+    the f64 one, and against itself with the input scaled by 1 + 1e-7.
+    The kernels' step must lie within phase 6's gate of the f64 step, or
+    no farther than twice the larger of those two distances, worst and
+    median (errors over max(max |g|, 1e-3 of the largest)); a bf16 step
+    through the kernels, the control, must lie outside that.  Loss 1e-5
+    relative."""
+    def summary(errs):
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst, float(np.median(list(errs.values())))
+
+    loss_k, grads_k = loss_and_grads(torch.float32)
+    control = loss_and_grads(torch.bfloat16)[1]
+    with plain_kernels(mods):
+        loss_ref, grads_ref = loss_and_grads(torch.float64)
+        grads_p = loss_and_grads(torch.float32)[1]
+        own = summary(_param_errors(loss_and_grads(torch.float32, 1.0 + 1e-7)[1], grads_p))
+    k, p, c = (summary(_param_errors(g, grads_ref)) for g in (grads_k, grads_p, control))
+    gate = (max(STEP_GRAD_TOL, 2 * max(p[0], own[0])), max(1e-3, 2 * max(p[2], own[2])))
+    rel = abs(loss_k - loss_ref) / max(abs(loss_ref), 1e-12)
+    say(f"  {tag} step vs the f64 step (plain versions): loss {loss_k:.7f} vs {loss_ref:.7f} "
+        f"(relative {rel:.3g}, tol 1e-5); grad error / max(its max |g|, 1e-3 of the "
+        f"largest), worst and median: kernels {k[0]:.3g} ({k[1]}), {k[2]:.3g}; plain f32 "
+        f"{p[0]:.3g} ({p[1]}), {p[2]:.3g}; gate {gate[0]:.3g}, {gate[1]:.3g}; bf16 control "
+        f"{c[0]:.3g} ({c[1]}), {c[2]:.3g}; plain f32 vs itself with the input scaled by "
+        f"1 + 1e-7 {own[0]:.3g} ({own[1]}), {own[2]:.3g}")
+    if not rel <= 1e-5 or not k[0] <= gate[0] or not k[2] <= gate[1]:
+        fail(f"{tag} train step kernels vs the f64 step mismatch")
+    if not (c[0] > gate[0] or c[2] > gate[1]):
+        fail(f"{tag}: the gate does not tell a bf16 step from an f32 one")
+    return k
+
+
+def _steps(torch, mods, trainer, batch, expect: dict, tag: str, n: int = 3):
+    """``n`` train steps of ``trainer`` on ``batch`` with counts from 0,
+    each step's launches checked; (launches, losses, step ms min, peak
+    GiB)."""
+    record = []
+    _watch_steps(trainer, mods, record)
+    reset_counts(mods)
+    (losses, ms), peak = _peak(torch, lambda: _timed_steps(torch, trainer, batch, n))
+    launches = counts(mods)
+    for kind, got in record:
+        if got != expect:
+            fail(f"{tag} {kind} launches {got} != {expect}")
+    del trainer.train_step, trainer.eval_step
+    if len(record) != n or not all(np.isfinite(losses)):
+        fail(f"{tag}: steps {len(record)}, losses {losses}")
+    say(f"  {tag}: {n} train steps, losses {[round(v, 6) for v in losses]}, launches per "
+        f"step { {k: v for k, v in expect.items() if v} } on every step; step "
+        f"{min(ms):.3f} ms (min of {n}), peak {peak:.2f} GiB ({mods['smi']})")
+    return launches, min(ms), peak
+
+
+def _timed_steps(torch, trainer, batch, n: int):
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _step_split(torch, mods, tag: str, fn) -> None:
+    """One call of ``fn`` traced: device ms by kernel family and the five
+    longest kernels against its wall time, and the cuDNN conv backward by
+    shape (the five longest)."""
+    split, wall = mods["traced_split"](fn, 1)
+    dev = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
+    conv_bwd = list(mods["conv_backward_split"](fn, 1).items())[:5]
+    say(f"  {tag} step device {dev:.3f} ms of {wall:.3f} wall (busy {dev / wall:.2f}), by "
+        f"family {json.dumps(kernel_families(split))}; longest "
+        f"{json.dumps({k[:80]: round(v, 3) for k, v in top})}; conv backward by "
+        f"(grad_output, input, weight) {json.dumps({k: round(v, 3) for k, v in conv_bwd})}")
+
+
+def _augmentation(torch, mods, workdir):
+    """Online augmentation through ``train.build`` / ``run`` at phase 6's
+    KiPA setting, the affine gate and the augmenter's time; offline
+    ``DataAug3D`` over two of the volumes.  Returns the path's launches."""
+    train, parse_cli, aug = mods["train"], mods["parse_cli"], mods["augment3d"]
+    train_csv, val_csv = write_training_data(workdir, np.random.default_rng(SEED))
+    images, labels = train.read_manifest_csv(train_csv)
+    _affine_gate(torch, mods, np.load(images[0]), np.load(labels[0]))
+
+    loader = train.DataLoader(train.SegDataset3D(images, labels, TRAIN_DHW), 1)
+    batch = next(iter(loader))
+    transform = aug.make_batch_augmenter(device="cuda")
+    out = transform(batch)
+    if out["label"].dtype != batch["label"].dtype or out["image"].shape != batch[
+            "image"].shape:
+        fail("the batch augmenter changed the batch's dtypes or shapes")
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        transform(batch)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    say(f"  batch augmenter 1x{TRAIN_DHW[0]}x{TRAIN_DHW[1]}x{TRAIN_DHW[2]} on the card "
+        f"(host arrays in and out): {min(ts):.2f} ms min, {float(np.median(ts)):.2f} median "
+        f"of 5 ({mods['smi']})")
+
+    calls = []
+    real = train.make_batch_augmenter
+
+    def counting(*args, **kw):
+        fn = real(*args, **kw)
+
+        def counted(b):
+            calls.append(kw.get("device"))
+            return fn(b)
+        return counted
+
+    flags = ["--model.num_classes", str(CLASSES), "--model.features", str(FEATURES),
+             "--model.dropout", "0.2", "--data.image_size", json.dumps(list(NEW_SIZE)),
+             "--data.train_csv", train_csv, "--data.val_csv", val_csv,
+             "--train.loss_name", "MutilDiceLoss", "--train.optimizer", "adam",
+             "--train.lr", "1e-3", "--train.epochs", "1", "--data.online_augment", "true",
+             "--train.model_dir", os.path.join(workdir, "run_aug")]
+    train.make_batch_augmenter = counting
+    try:
+        (trainer, launches), peak = _peak(torch, lambda: _run_training(
+            torch, mods, parse_cli(flags), TRAIN_LAUNCHES, "train_online_augment"))
+    finally:
+        train.make_batch_augmenter = real
+    if calls != ["cuda"] * 3:
+        fail(f"online augmentation ran {calls} times, not once per training batch on the card")
+    say(f"  online augmentation: the augmenter ran on the card for each of the 3 training "
+        f"batches; peak {peak:.2f} GiB")
+
+    # offline: two copies of each of two volumes and their manifest
+    two = os.path.join(workdir, "two.csv")
+    with open(two, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["Image", "Mask"])
+        writer.writerows(zip(images[:2], labels[:2]))
+    t0 = time.perf_counter()
+    out_csv = aug.DataAug3D(aug_number=2, device="cuda").run(two, os.path.join(workdir, "aug"))
+    off_s = time.perf_counter() - t0
+    rows = train.read_manifest_csv(out_csv)
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in images[:2]]
+    want = [[os.path.join(workdir, "aug", f"{s}_aug{j}_{k}.npy") for s in stems
+             for j in range(2)] for k in ("img", "msk")]
+    with open(out_csv) as f:
+        header = f.readline().strip()
+    if list(rows) != want or header != "Image,Mask":
+        fail(f"DataAug3D manifest {header} {rows}")
+    for ip, mp in zip(*rows):
+        a_img, a_msk = np.load(ip), np.load(mp)
+        if a_img.shape != TRAIN_DHW or a_img.dtype != np.float32 or a_msk.dtype != np.uint8 \
+                or not set(np.unique(a_msk).tolist()) <= set(range(CLASSES)):
+            fail(f"DataAug3D copy {ip}: {a_img.shape} {a_img.dtype} {a_msk.dtype}")
+    say(f"  DataAug3D: 2 copies of 2 volumes and trainaugdata.csv in {off_s:.2f} s")
+    return {"train_online_augment": launches}
+
+
+def _registration_pair(torch, mods):
+    """A 1x128^3 moving CT (``synthetic_ct``, z-scored) and the fixed one,
+    the moving warped by a known smooth displacement (up to 2 voxels a
+    side), with their labels (voxels above the mean); a batch on the card."""
+    ct = mods["synthetic_ct"](AUG_DHW[::-1], np.random.default_rng(SEED + 11)).array
+    mov = ((ct - ct.mean()) / ct.std()).astype(np.float32)
+    mov = torch.from_numpy(mov)[None, ..., None].cuda()
+    axes = [torch.arange(n, device="cuda", dtype=torch.float32) * (2 * np.pi / n)
+            for n in AUG_DHW]
+    zz, yy, xx = torch.meshgrid(*axes, indexing="ij")
+    flow = torch.stack([1.5 * torch.sin(yy), 2.0 * torch.cos(xx) * torch.sin(zz),
+                        -1.0 * torch.sin(zz + xx)], dim=-1)[None]
+    fix = mods["warp_3d"](mov, flow, "linear")
+    return {"moving_image": mov, "fixed_image": fix,
+            "moving_label": (mov > mov.mean()).float(),
+            "fixed_label": (fix > fix.mean()).float()}
+
+
+def _regtp_golden(torch, mods):
+    """VNet3dRegistration (features 8) and TPDDNet (2 classes) at 1x32^3
+    on the card against the JAX package's outputs
+    (``tests/data/torch_port_regtp_golden.npz``), within 1e-4 of each
+    output's scale."""
+    gen_mod = mods["regtp_golden"]
+    g = np.load(gen_mod.GOLDEN)
+    reg = gen_mod.port_net("reg").cuda().eval()
+    pair = gen_mod.reg_inputs()
+    with torch.inference_mode():
+        out = reg(*(torch.from_numpy(pair[k]).cuda() for k in ("moving_image", "fixed_image",
+                                                                 "moving_label")))
+    errs = {}
+    for key, t in zip(("moved_image", "moved_label", "ddf"), out):
+        ref = g[f"reg_fwd/{key}"]
+        errs[key] = (float(np.abs(t.cpu().numpy() - ref).max()),
+                     max(1.0, float(np.abs(ref).max())))
+    tp = gen_mod.port_net("tp").cuda().eval()
+    with torch.inference_mode():
+        logits = tp(torch.from_numpy(gen_mod.tp_inputs()[0]).cuda())[0].cpu().numpy()
+    ref = g["tp_fwd/logits"]
+    errs["tpddnet logits"] = (float(np.abs(logits - ref).max()),
+                              max(1.0, float(np.abs(ref).max())))
+    say("  golden 1x32^3 (JAX, CPU) vs the card: " + ", ".join(
+        f"{k} {e:.3g} (scale {s:.3g})" for k, (e, s) in errs.items()))
+    if any(e > 1e-4 * s for e, s in errs.values()):
+        fail("registration / TPDDNet golden mismatch")
+
+
+def _registration(torch, mods, workdir):
+    """VNet3dRegistration (features 16) on a 1x128^3 pair: the forward
+    through the kernels against the plain versions, its launches; the
+    task's train steps, one against the plain versions; the
+    ``trainregistration3d`` recipe for a few epochs (its loss falls).
+    Returns the paths' launches."""
+    wts = mods["zoo_weights"]["vnet3dregistration"]
+    batch = _registration_pair(torch, mods)
+    net = mods["build_model"]("vnet3dregistration", 0, features=REG_FEATURES)
+    net.load_state_dict(wts[1](wts[0](SEED, REG_FEATURES)), strict=True)
+    net = net.cuda().eval()
+    args = [batch[k] for k in ("moving_image", "fixed_image", "moving_label")]
+    reset_counts(mods)
+    with torch.inference_mode():
+        out = net(*args)
+    launches = counts(mods)
+    want = _forward_only(REG_TRAIN_LAUNCHES)
+    if launches != want:
+        fail(f"registration forward launches {launches} != {want}")
+    with torch.inference_mode(), plain_kernels(mods):
+        ref = net(*args)
+    errs = {k: rel_err(a, b) for k, a, b in zip(("moved_image", "moved_label", "ddf"), out, ref)}
+    agree = float((out[1] == ref[1]).float().mean())
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: net(*args), iters=5)
+        with plain_kernels(mods):
+            plain_ms = time_ms(torch, lambda: net(*args), iters=3)
+    say(f"  registration forward 1x{AUG_DHW[0]}^3 features {REG_FEATURES}: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; kernels vs plain: moved image "
+        f"{errs['moved_image'][0]:.3g} (scale {errs['moved_image'][1]:.3g}), ddf "
+        f"{errs['ddf'][0]:.3g} (scale {errs['ddf'][1]:.3g}), moved label agreement "
+        f"{agree:.7f}; ddf max |v| {out[2].abs().max().item():.3g} voxels; {ms:.3f} ms "
+        f"(plain versions {plain_ms:.3f})")
+    if any(errs[k][0] > 1e-4 * errs[k][1] for k in ("moved_image", "ddf")) or agree < 0.999:
+        fail("registration forward kernels vs plain")
+    paths = {"fwd_vnet3dregistration": launches}
+
+    trainer = mods["make_registration_trainer"](
+        example_shape=(1,) + AUG_DHW + (1,), seg_weight=0.5, model=net.train(),
+        device="cuda")
+    paths["train_vnet3dregistration"], reg_ms, reg_peak = _steps(
+        torch, mods, trainer, batch, REG_TRAIN_LAUNCHES, "train_vnet3dregistration")
+    _step_split(torch, mods, "train_vnet3dregistration", lambda: trainer.train_step(batch))
+
+    gate_net = mods["build_model"]("vnet3dregistration", 0, features=REG_FEATURES)
+    gate_net.load_state_dict(wts[1](wts[0](SEED, REG_FEATURES)), strict=True)
+    gate_net = gate_net.cuda().train()
+
+    def loss_and_grads(dtype, scale=1.0):
+        gate_net.zero_grad(set_to_none=True)
+        b = {k: v.to(dtype) for k, v in batch.items()}
+        b["moving_image"] = b["moving_image"] * scale
+        o = trainer.apply_fn(gate_net, b, True, mods["step_generator"](SEED, 0, "cuda"))
+        loss = trainer.loss_fn(o, b)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in gate_net.named_parameters()}
+
+    _kernel_step_gate(torch, mods, "train_vnet3dregistration", loss_and_grads)
+    del gate_net, trainer, net
+
+    # the recipe, as a user runs it: .npy pairs from a CSV, a few epochs
+    pair_paths = []
+    for key in ("moving_image", "fixed_image"):
+        p = os.path.join(workdir, f"reg_{key}.npy")
+        np.save(p, batch[key][0, ..., 0].cpu().numpy())
+        pair_paths.append(p)
+    csv_path = os.path.join(workdir, "reg.csv")
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["moving_image", "fixed_image"])
+        writer.writerow(pair_paths)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    history = mods["recipes"].trainregistration3d(csv_path, csv_path,
+                                                  os.path.join(workdir, "reg_run"), 8)
+    torch.cuda.synchronize()
+    paths["recipe_trainregistration3d"] = counts(mods)
+    losses = history["train_loss"]
+    say(f"  trainregistration3d: 8 epochs of 1 step in {time.perf_counter() - t0:.2f} s, "
+        f"train loss {[round(v, 5) for v in losses]}, validation dice "
+        f"{[round(v, 4) for v in history['valdation_accuracy']]}")
+    # the loss falls: the last three epochs' mean under the first epoch's
+    # (dropout 0.2 makes single steps noisy)
+    if not np.mean(losses[-3:]) < losses[0] or not all(np.isfinite(losses)):
+        fail(f"trainregistration3d's loss did not fall: {losses}")
+    return paths, reg_ms, reg_peak
+
+
+def _tpddnet(torch, mods):
+    """TPDDNet (2 classes) on 1x1x128^3: the eval forward through the
+    kernels against the plain versions, its launches; segmentation train
+    steps (MutilDiceLoss with the aux heads), one against the plain
+    versions.  Returns the paths' launches."""
+    wts = mods["zoo_weights"]["tpddnet"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x = torch.randn((1,) + AUG_DHW + (1,), generator=gen, device="cuda")
+    d, h, w = AUG_DHW
+    zz, yy, xx = np.ogrid[:d, :h, :w]
+    label = ((zz - 60) / 30.0) ** 2 + ((yy - 70) / 25.0) ** 2 + ((xx - 64) / 35.0) ** 2 < 1
+    label = torch.from_numpy(label.astype(np.int32))[None].cuda()
+    x = x + 0.5 * label[..., None]
+
+    def fresh():
+        net = mods["build_model"]("tpddnet", TP_CLASSES)
+        net.load_state_dict(wts[1](wts[0](SEED, TP_CLASSES)), strict=True)
+        return net.cuda()
+
+    net = fresh().eval()
+    reset_counts(mods)
+    with torch.inference_mode():
+        probs = net(x)[1]
+    launches = counts(mods)
+    want = _forward_only(TP_TRAIN_LAUNCHES)
+    if launches != want:
+        fail(f"TPDDNet forward launches {launches} != {want}")
+    with torch.inference_mode(), plain_kernels(mods):
+        ref = net(x)[1]
+    agree, bad, err = _masks_agree(torch, probs, ref, 1e-3)
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: net(x)[1].argmax(-1), iters=5)
+        with plain_kernels(mods):
+            plain_ms = time_ms(torch, lambda: net(x)[1].argmax(-1), iters=3)
+    say(f"  TPDDNet forward 1x{d}^3, {TP_CLASSES} classes: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; kernels vs plain: probs max_abs_err "
+        f"{err:.3g}, argmax agreement {agree:.7f}, mismatches outside near-ties {bad}; "
+        f"{ms:.3f} ms (plain versions {plain_ms:.3f})")
+    if agree < 0.999:
+        fail("TPDDNet forward kernels vs plain")
+    paths = {"fwd_tpddnet": launches}
+    del net
+
+    batch = {"image": x, "label": label}
+    trainer = mods["make_segmentation_trainer"](fresh(), TP_CLASSES, "MutilDiceLoss",
+                                                alpha=[1.0] * TP_CLASSES, device="cuda")
+    paths["train_tpddnet"], tp_ms, tp_peak = _steps(torch, mods, trainer, batch,
+                                                    TP_TRAIN_LAUNCHES, "train_tpddnet")
+    _step_split(torch, mods, "train_tpddnet", lambda: trainer.train_step(batch))
+    gate_net = fresh().train()
+
+    def loss_and_grads(dtype, scale=1.0):
+        gate_net.zero_grad(set_to_none=True)
+        o = trainer.apply_fn(gate_net, x.to(dtype) * scale, True,
+                             mods["step_generator"](SEED, 0, "cuda"))
+        loss = trainer.loss_fn(o, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in gate_net.named_parameters()}
+
+    _kernel_step_gate(torch, mods, "train_tpddnet", loss_and_grads)
+    return paths, tp_ms, tp_peak
+
+
+def phase_augreg(torch, mods, workdir):
+    """Phase 10: online and offline augmentation, the registration path and
+    TPDDNet.  Returns {path: launches}."""
+    t_phase = time.perf_counter()
+    paths = _augmentation(torch, mods, workdir)
+    _regtp_golden(torch, mods)
+    reg_paths, reg_ms, reg_peak = _registration(torch, mods, workdir)
+    paths.update(reg_paths)
+    tp_paths, tp_ms, tp_peak = _tpddnet(torch, mods)
+    paths.update(tp_paths)
+    say(f"  step times ({mods['smi']}): registration {reg_ms:.3f} ms, peak {reg_peak:.2f} "
+        f"GiB; TPDDNet {tp_ms:.3f} ms, peak {tp_peak:.2f} GiB")
+    say(f"  phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _load_generator(name: str):
+    """``tests/<name>.py``, a golden file's generator, as a module (its
+    inputs, fingerprints and golden path; it imports JAX only inside the
+    functions that write the file)."""
     import importlib.util
 
-    path = os.path.join(ROOT, "tests", "make_torch_port_zoo_golden.py")
+    path = os.path.join(ROOT, "tests", f"{name}.py")
     if not os.path.isfile(path):
         fail(f"golden generator missing: {path}")
-    spec = importlib.util.spec_from_file_location("make_torch_port_zoo_golden", path)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2562,7 +3034,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from tpuseg_torch import serve, train
+    from tpuseg_torch import recipes, serve, train
     from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
     from tpuseg_torch.compat.seg_models import (MutilUNet3dModel, MutilVNet3dModel,
                                                 disable_tf32)
@@ -2571,6 +3043,7 @@ def main() -> int:
                                              unet_params_from_jax, vnet_params_from_jax)
     from tpuseg_torch.config import parse_cli
     from tpuseg_torch.core.prng import step_generator
+    from tpuseg_torch.data import augment3d
     from tpuseg_torch.data.geometry import resample_to_spacing
     from tpuseg_torch.data.nifti import read_nifti, write_nifti
     from tpuseg_torch.data.normalize import truncate_and_normalize
@@ -2580,7 +3053,7 @@ def main() -> int:
     from tpuseg_torch import io_native
     from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
                                       slab_conv)
-    from tpuseg_torch.kernels.resample import resize_volume_device
+    from tpuseg_torch.kernels.resample import resize_volume_device, warp_3d
     from tpuseg_torch.losses import build_loss, ms_ssim
     from tpuseg_torch.metrics import seg3d, ssim
     from tpuseg_torch.models import (build_model, resunet_packed, stunet_packed, unet_packed,
@@ -2588,13 +3061,15 @@ def main() -> int:
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
+    from tpuseg_torch.tasks.registration import make_registration_trainer
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
     from tpuseg_torch.tools import evaluate
-    from tpuseg_torch.tools.profiling import (request_stages, swin_forward_split,
-                                              synthetic_ct, traced_busy, traced_split,
-                                              train_step_kernel_split)
+    from tpuseg_torch.tools.profiling import (conv_backward_split, request_stages,
+                                              swin_forward_split, synthetic_ct, traced_busy,
+                                              traced_split, train_step_kernel_split)
 
-    zoo_golden = _load_zoo_golden()
+    zoo_golden = _load_generator("make_torch_port_zoo_golden")
+    regtp_golden = _load_generator("make_torch_port_regtp_golden")
     if "jax" in sys.modules:
         fail("jax was imported")
     disable_tf32()
@@ -2639,11 +3114,14 @@ def main() -> int:
         MutilUNet3dModel=MutilUNet3dModel, MutilVNet3dModel=MutilVNet3dModel,
         traced_busy=traced_busy, swin_forward_split=swin_forward_split,
         train_step_kernel_split=train_step_kernel_split, smi=smi, build_model=build_model,
-        traced_split=traced_split, io_native=io_native, request_stages=request_stages,
+        traced_split=traced_split, conv_backward_split=conv_backward_split,
+        io_native=io_native, request_stages=request_stages,
         infer_volume=infer_volume, infer_volume_device=infer_volume_device, seg3d=seg3d,
         evaluate=evaluate, ssim=ssim, ms_ssim=ms_ssim,
         resize_volume_device=resize_volume_device,
-        stunet_packed=stunet_packed, zoo_golden=zoo_golden,
+        stunet_packed=stunet_packed, zoo_golden=zoo_golden, regtp_golden=regtp_golden,
+        augment3d=augment3d, recipes=recipes, warp_3d=warp_3d,
+        make_registration_trainer=make_registration_trainer,
         packed_resunet3d_apply=resunet_packed.packed_resunet3d_apply,
         packed_stunet3d_apply=stunet_packed.packed_stunet3d_apply,
         zoo_weights={
@@ -2652,7 +3130,11 @@ def main() -> int:
             "stunet3d": (zoo_weights.seeded_stunet_params, zoo_weights.stunet_params_from_jax),
             "kiunet3d": (zoo_weights.seeded_kiunet_params, zoo_weights.kiunet_params_from_jax),
             "unet3dthin": (zoo_weights.seeded_unet_thin_params,
-                           zoo_weights.unet_thin_params_from_jax)})
+                           zoo_weights.unet_thin_params_from_jax),
+            "vnet3dregistration": (zoo_weights.seeded_registration_params,
+                                   zoo_weights.registration_params_from_jax),
+            "tpddnet": (zoo_weights.seeded_tpddnet_params,
+                        zoo_weights.tpddnet_params_from_jax)})
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -2680,6 +3162,12 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
     try:
         host_paths = phase_host(torch, mods, served, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 10: augmentation, registration and TPDDNet ({smi})")
+    workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
+    try:
+        augreg_paths = phase_augreg(torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2717,7 +3205,7 @@ def main() -> int:
          "conv3d_small_dw_tf32.cu", k3_vjp),
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
-             **swin_launches, **host_paths}
+             **swin_launches, **host_paths, **augreg_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""

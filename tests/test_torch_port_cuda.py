@@ -1106,3 +1106,94 @@ def test_infer_volume_device_on_card(cuda):
     assert got.array.shape == vol.array.shape and got.array.dtype == np.uint8
     assert (got.origin, got.spacing, got.direction) == (vol.origin, vol.spacing, vol.direction)
     assert (got.array == ref.array).mean() >= 0.999
+
+
+@pytest.mark.parametrize("dilation, side", [(2, 9), (2, 8), (3, 12)])
+def test_dilated_convnd_reaches_cudnn_with_xla_padding(cuda, dilation, side):
+    """A dilated k3 ``ConvND`` (TPDDNet's) goes to cuDNN, not K2, with
+    SAME's padding of the dilated extent, and equals the CPU's."""
+    from tpuseg_torch.nn.layers import ConvND
+
+    conv = ConvND(16, 32, 3, kernel_dilation=dilation)
+    torch.nn.init.normal_(conv.weight, std=0.1)
+    torch.nn.init.normal_(conv.bias, std=0.1)
+    x = torch.randn((2, side, side + 1, side + 2, 16))
+    with torch.inference_mode():
+        ref = conv(x)
+        conv = conv.to(cuda)
+        before = conv3d.LAUNCHES
+        got = conv(x.to(cuda))
+    assert conv3d.LAUNCHES == before and got.shape == ref.shape
+    _close(got.cpu(), ref, torch.float32)
+
+
+def test_augmenter_affine_on_card_matches_cpu(cuda):
+    """The augmentation affine on the card against the CPU with the same
+    parameters: the image within 1e-5 of its scale, the mask equal; the
+    batch augmenter on the card returns host arrays of the batch's dtypes."""
+    import numpy as np
+
+    from tpuseg_torch.data import augment3d as aug
+
+    img = torch.randn((40, 36, 28, 1))
+    msk = torch.randint(0, 5, (40, 36, 28, 1), dtype=torch.int32)
+    g = torch.Generator().manual_seed(3)
+    for _ in range(4):
+        p = aug.random_affine_params(g, aug.Affine3DConfig(rotation_deg=(15.0,) * 3))
+        ci, cm = aug._apply(img.to(cuda), msk.to(cuda), *p)
+        pi, pm = aug._apply(img, msk, *p)
+        assert (ci.cpu() - pi).abs().max().item() <= 1e-5 * pi.abs().max().item()
+        assert torch.equal(cm.cpu(), pm)
+    batch = {"image": img.numpy()[None].repeat(2, 0),
+             "label": msk.numpy()[None, ..., 0].astype(np.uint8).repeat(2, 0)}
+    out = aug.make_batch_augmenter(device=cuda)(batch)
+    assert isinstance(out["image"], np.ndarray) and out["image"].dtype == np.float32
+    assert out["label"].dtype == np.uint8 and out["label"].shape == batch["label"].shape
+
+
+def _seeded_net(name, device):
+    from tpuseg_torch.compat import weights
+    from tpuseg_torch.models import build_model
+
+    if name == "vnet3dregistration":
+        net = build_model(name, 0, features=8)
+        net.load_state_dict(weights.registration_params_from_jax(
+            weights.seeded_registration_params(0, 8)), strict=True)
+    else:
+        net = build_model(name, 2)
+        net.load_state_dict(weights.tpddnet_params_from_jax(
+            weights.seeded_tpddnet_params(0, 2)), strict=True)
+    return net.to(device).eval()
+
+
+# a forward's launches at 1x32^3 (chip_smoke.py phase 10 sets out which
+# layer takes which): K2, K1
+FORWARD_LAUNCHES = {"vnet3dregistration": (13, 29), "tpddnet": (10, 18)}
+
+
+@pytest.mark.parametrize("name", list(FORWARD_LAUNCHES))
+def test_registration_and_tpddnet_forward_kernels_match_plain(cuda, monkeypatch, name):
+    """VNet3dRegistration (features 8: K2 takes every LUConvIN at 8-64
+    channels, 13) and TPDDNet at 1x32^3 through K1 and K2 against the
+    plain versions: outputs within 1e-4 of their scale, argmax / moved
+    label agreement >= 0.999, the forward's launches."""
+    net = _seeded_net(name, cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((1, 32, 32, 32, 1), device=cuda, generator=gen)
+    args = (x, torch.roll(x, 2, 1), (x > 0).float()) if name == "vnet3dregistration" else (x,)
+    before = (conv3d.LAUNCHES, fused_norm.LAUNCHES)
+    with torch.inference_mode():
+        got = net(*args)
+    assert (conv3d.LAUNCHES - before[0], fused_norm.LAUNCHES - before[1]) == \
+        FORWARD_LAUNCHES[name]
+    _plain_layers(monkeypatch)
+    with torch.inference_mode():
+        ref = net(*args)
+    if name == "vnet3dregistration":
+        _close(got[0], ref[0], torch.float32)
+        _close(got[2], ref[2], torch.float32)
+        assert (got[1] == ref[1]).float().mean().item() >= 0.999
+    else:
+        for g, r in zip((got[0], *got[2]), (ref[0], *ref[2])):
+            _close(g, r, torch.float32)
+        assert (got[1].argmax(-1) == ref[1].argmax(-1)).float().mean().item() >= 0.999

@@ -305,17 +305,19 @@ def test_cli_parses_the_serve_flags():
     for bad in (["--model.num_classes"], ["model.num_classes", "5"],
                 ["--train.nope", "1"], ["--infer.new_size", "[1,2]"],
                 ["--train.resume", "maybe"], ["--train.packed_stem", "maybe"],
-                ["--train.mesh_data", "2"], ["--data.online_augment", "1"]):
+                ["--train.mesh_data", "2"], ["--data.online_augment", "maybe"]):
         with pytest.raises(ValueError):
             parse_cli(bad)
+    assert parse_cli(["--data.online_augment", "1"]).data.online_augment is True
     assert parse_cli(["--train.packed_stem", "false"]).train.packed_stem is False
     assert parse_cli(["--train.packed_stem", "true"]).train.packed_stem is True
 
 
 def test_serve_imports_no_jax():
-    """Neither entry point of the port (serve, train) nor its packed twins,
-    its zoo and registry (``build_model`` builds each net), its kernel
-    modules and its probe modules import JAX."""
+    """Neither entry point of the port (serve, train, augmain, recipes) nor
+    its packed twins, its zoo and registry (``build_model`` builds each
+    net), its augmentation and registration modules, its kernel modules and
+    its probe modules import JAX."""
     code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train, "
             "tpuseg_torch.models.unet_packed, tpuseg_torch.kernels.packed_conv, "
             "tpuseg_torch.kernels.slab_conv, tpuseg_torch.kernels.flat_conv, "
@@ -323,8 +325,12 @@ def test_serve_imports_no_jax():
             "tpuseg_torch.benchmarks.kmicro3, tpuseg_torch.benchmarks.kbench, "
             "tpuseg_torch.models.resunet3d, tpuseg_torch.models.stunet3d, "
             "tpuseg_torch.models.kiunet3d, tpuseg_torch.models.unet, "
-            "tpuseg_torch.models.resunet_packed, tpuseg_torch.models.stunet_packed; "
+            "tpuseg_torch.models.resunet_packed, tpuseg_torch.models.stunet_packed, "
+            "tpuseg_torch.augmain, tpuseg_torch.recipes, tpuseg_torch.data.augment3d, "
+            "tpuseg_torch.models.registration, tpuseg_torch.models.tpddnet, "
+            "tpuseg_torch.tasks.registration; "
             "from tpuseg_torch.models import PORTED, build_model; "
-            "[build_model(n, 2, features=8) for n in PORTED]; "
+            "[build_model(n, 2, **({} if n == 'tpddnet' else {'features': 8})) "
+            "for n in PORTED]; "
             "assert 'jax' not in sys.modules and 'tpuseg' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

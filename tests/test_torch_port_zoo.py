@@ -250,16 +250,23 @@ def test_kiunet_ki_branch_is_not_interpolate():
 
 def test_build_model_names_and_refusals():
     """Every name of the JAX registry: the ported ones build the port's
-    classes; the others, and a name no registry knows, raise
-    NotImplementedError naming what is ported."""
+    classes (TPDDNet without a width, the registration net without
+    classes, as in JAX); the others, 2D, and a name no registry knows,
+    raise NotImplementedError naming what is ported."""
     classes = {"unet3d": "UNet", "unet": "UNet", "unet3dthin": "UNetThin",
                "unetthin": "UNetThin", "vnet3d": "VNet", "vnet": "VNet",
                "resunet3d": "ResUNet3d", "stunet3d": "STUNet3d", "kiunet3d": "KiUNet3d",
                "kiunet3dthin": "KiUNet3d"}
-    assert set(classes) == set(PORTED)
+    assert set(classes) | {"tpddnet", "vnet3dregistration"} == set(PORTED)
     for name, cls in classes.items():
         m = build_model(name.upper(), 3, features=8, dropout=0.1, in_channels=2)
         assert type(m).__name__ == cls and m.num_classes == 3 and m.features == 8
+    m = build_model("TPDDNet", 3, in_channels=2)
+    assert type(m).__name__ == "TPDDNet" and m.num_classes == 3
+    m = build_model("vnet3dregistration", 3, features=8, dropout=0.1)
+    assert type(m).__name__ == "VNet3dRegistration" and m.features == 8
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model("unet", 2, ndim=2)
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="stunet3d"):
             build_model(name, 2)

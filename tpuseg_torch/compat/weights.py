@@ -1,6 +1,6 @@
 """Weights for the port's zoo (UNet, VNet, ResUNet3d, STUNet3d, KiUNet3d,
-UNetThin): from tpuseg's flax trees, from seeds, from reference-named
-``.pth`` state_dicts (UNet, VNet).
+UNetThin, VNet3dRegistration, TPDDNet): from tpuseg's flax trees, from
+seeds, from reference-named ``.pth`` state_dicts (UNet, VNet).
 
 ``unet_params_from_jax`` converts a tpuseg ``UNet`` parameter tree (flax
 layout, numpy leaves) into the port's ``state_dict``: reference-framework
@@ -30,7 +30,11 @@ fills both from the reference's one.
 ``seeded_{resunet,stunet,kiunet,unet_thin}_params`` do the same for the rest
 of the 3D zoo, from one table per net (``ZOO_ROWS``), strict both ways.
 STUNet3d's ``_DualPathDown`` holds one GroupNorm that both of its paths run
-through; it maps to one ``norm`` module.
+through; it maps to one ``norm`` module.  ``registration_params_from_jax``,
+``tpddnet_params_from_jax``, ``seeded_registration_params`` and
+``seeded_tpddnet_params`` do the same for ``VNet3dRegistration`` (its
+stem's shared GroupNorm one ``norm``) and ``TPDDNet`` (its shared decoder
+and ``head_dec`` once each).
 """
 from __future__ import annotations
 
@@ -382,8 +386,58 @@ def _unet_thin_rows(levels: int = 4):
     return rows + _conv_rows("conv", ("OutputHead_0", "ConvND_0"), True)
 
 
+def _registration_rows():
+    from tpuseg_torch.models.registration import DOWN_STAGES, UP_STAGES
+
+    def luconvs(key, node, n):
+        rows = []
+        for j in range(n):
+            lu = node + (f"_LUConvIN_{j}",)
+            rows += _conv_rows(f"{key}.ops.{j}.conv", lu + ("ConvND_0",), True)
+            rows += _gn_rows(f"{key}.ops.{j}.norm", lu + ("GroupNorm_0",))
+        return rows
+
+    rows = (_conv_rows("conv_a", ("ConvND_0",), True) + _conv_rows("conv_b", ("ConvND_1",), True)
+            + _gn_rows("norm", ("GroupNorm_0",)))
+    for i, (_, n) in enumerate(DOWN_STAGES):
+        node = (f"_Down_{i}",)
+        rows += _conv_rows(f"downs.{i}.down_conv", node + ("ConvND_0",), True)
+        rows += _gn_rows(f"downs.{i}.norm", node + ("GroupNorm_0",))
+        rows += luconvs(f"downs.{i}", node, n)
+    for i, (_, n) in enumerate(UP_STAGES):
+        node = (f"_Up_{i}",)
+        rows += _conv_rows(f"ups.{i}.up_conv", node + ("ConvTransposeND_0",), True,
+                           "ConvTranspose_0", "tconv")
+        rows += _gn_rows(f"ups.{i}.norm", node + ("GroupNorm_0",))
+        rows += _conv_rows(f"ups.{i}.conv", node + ("ConvND_0",), True)
+        rows += _gn_rows(f"ups.{i}.norm2", node + ("GroupNorm_1",))
+        rows += luconvs(f"ups.{i}", node, n)
+    return rows + _conv_rows("ddf", ("ConvND_2",), True)
+
+
+def _tpddnet_rows():
+    from tpuseg_torch.models.tpddnet import DECODER, ENCODER
+
+    def sse(key, node, double_gate):
+        gates = ("gate", "gate2") if double_gate else ("gate",)
+        rows = _conv_rows(f"{key}.conv", (node, "ConvND_0"), True)
+        rows += _gn_rows(f"{key}.norm", (node, "GroupNorm_0"))
+        for j, g in enumerate(gates):
+            rows += _conv_rows(f"{key}.{g}", (node, f"ConvND_{1 + j}"), False)
+        return rows + _conv_rows(f"{key}.side", (node, f"ConvND_{1 + len(gates)}"), True)
+
+    rows = []
+    for i, unit in enumerate(ENCODER):
+        rows += sse(f"enc.{i}", f"SSEConv_{i}", unit[3])
+    for i, unit in enumerate(DECODER):
+        rows += sse(f"dec.{i}", f"SSEConv_{len(ENCODER) + i}", unit[3])
+    return (rows + _conv_rows("head_enc", ("ConvND_0",), True)
+            + _conv_rows("head_dec", ("ConvND_1",), True))
+
+
 ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
-            "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows}
+            "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows,
+            "vnet3dregistration": _registration_rows, "tpddnet": _tpddnet_rows}
 
 
 def _from_jax(net: str, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
@@ -429,17 +483,32 @@ def unet_thin_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torc
     return _from_jax("unet3dthin", tree, dtype)
 
 
-def _seeded(net: str, seed: int, features: int, num_classes: int, in_ch: int) -> dict:
+def registration_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``VNet3dRegistration``: the
+    stem's one GroupNorm fills the one ``norm`` module both of its branches
+    run through."""
+    return _from_jax("vnet3dregistration", tree, dtype)
+
+
+def tpddnet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``TPDDNet``: the decoder's six
+    ``SSEConv`` modules and ``head_dec``, which both decoder passes run
+    through, map once each."""
+    return _from_jax("tpddnet", tree, dtype)
+
+
+def _seeded(net: str, seed: int, num_classes: int = 2, **build_kw) -> dict:
     """A flax tree for ``net`` drawn from ``numpy.random.default_rng(seed)``
     in ``ZOO_ROWS`` order: He-normal kernels, biases 0.05 N(0, 1), GroupNorm
     scales 1 + 0.1 N(0, 1) and biases 0.1 N(0, 1) (so that a norm shared in
-    the wrong place would show).  Shapes from the port's module, made on
-    the meta device."""
+    the wrong place would show).  Shapes from the port's module
+    (``build_model(net, num_classes, **build_kw)``), made on the meta
+    device."""
     from tpuseg_torch.models import build_model
 
     with torch.device("meta"):
         shapes = {k: tuple(v.shape) for k, v in build_model(
-            net, num_classes, features=features, in_channels=in_ch).state_dict().items()}
+            net, num_classes, **build_kw).state_dict().items()}
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for key, path, kind in ZOO_ROWS[net]():
@@ -462,19 +531,30 @@ def _seeded(net: str, seed: int, features: int, num_classes: int, in_ch: int) ->
 def seeded_resunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
     """A tpuseg ``ResUNet3d`` parameter tree (flax layout and names) from a
     seed, with numpy alone (``_seeded``)."""
-    return _seeded("resunet3d", seed, features, num_classes, in_ch)
+    return _seeded("resunet3d", seed, num_classes, features=features, in_channels=in_ch)
 
 
 def seeded_stunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
     """As ``seeded_resunet_params``, for ``STUNet3d``."""
-    return _seeded("stunet3d", seed, features, num_classes, in_ch)
+    return _seeded("stunet3d", seed, num_classes, features=features, in_channels=in_ch)
 
 
 def seeded_kiunet_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
     """As ``seeded_resunet_params``, for ``KiUNet3d``."""
-    return _seeded("kiunet3d", seed, features, num_classes, in_ch)
+    return _seeded("kiunet3d", seed, num_classes, features=features, in_channels=in_ch)
 
 
 def seeded_unet_thin_params(seed: int, features: int, num_classes: int, in_ch: int) -> dict:
     """As ``seeded_resunet_params``, for ``UNetThin``."""
-    return _seeded("unet3dthin", seed, features, num_classes, in_ch)
+    return _seeded("unet3dthin", seed, num_classes, features=features, in_channels=in_ch)
+
+
+def seeded_registration_params(seed: int, features: int, in_ch: int = 1) -> dict:
+    """As ``seeded_resunet_params``, for ``VNet3dRegistration`` (``in_ch``
+    channels an image)."""
+    return _seeded("vnet3dregistration", seed, features=features, in_channels=in_ch)
+
+
+def seeded_tpddnet_params(seed: int, num_classes: int, in_ch: int = 1) -> dict:
+    """As ``seeded_resunet_params``, for ``TPDDNet``."""
+    return _seeded("tpddnet", seed, num_classes, in_channels=in_ch)

@@ -3,9 +3,8 @@
 
 Overrides take the JAX package's form, ``--section.field value`` or
 ``--section.field=value``; tuples, lists and fields that default to None
-are given as JSON.  Fields the port cannot honour yet (the mesh, online
-augmentation, profiler traces) raise when set to anything but their
-default.
+are given as JSON.  Fields the port cannot honour yet (the mesh and
+profiler traces) raise when set to anything but their default.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ class DataConfig:
     image_size: Tuple[int, ...] = (112, 112, 128)  # (x, y, z)
     batch_size: int = 1
     binary_labels: bool = False  # labels != 0 -> 1
-    online_augment: bool = False  # not ported yet
+    online_augment: bool = False  # a fresh random affine per sample (data/augment3d.py)
     shuffle_seed: int = 0
 
 
@@ -79,7 +78,6 @@ class Config:
 NOT_PORTED = {
     ("train", "mesh_data"): -1, ("train", "mesh_model"): 1,
     ("train", "mesh_space"): 1, ("train", "profile"): False,
-    ("data", "online_augment"): False,
 }
 
 

@@ -1,1 +1,2 @@
-"""Host data layer of tpuseg_torch: geometry, normalizers, NIfTI IO."""
+"""Host data layer of tpuseg_torch: datasets and the loader, 3D
+augmentation, geometry, normalizers, NIfTI IO."""

@@ -6,7 +6,9 @@
 * deterministic per-epoch shuffling from a seed (validation unshuffled);
 * a background thread that decodes the next batches while the device
   computes;
-* static batch shapes: a last partial batch is dropped.
+* static batch shapes: a last partial batch is dropped;
+* an optional ``transform`` of each collated batch, run in that thread
+  (online augmentation, ``data/augment3d.py`` ``make_batch_augmenter``).
 
 The 2D, classification and regression datasets (cv2) and multi-host
 sharding come with the slices that need them.
@@ -16,7 +18,7 @@ from __future__ import annotations
 import csv
 import queue
 import threading
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -49,6 +51,19 @@ class SegDataset3D:
         return {"image": img, "label": lab}
 
 
+class ArrayDataset:
+    """In-memory dataset of pre-built samples (dicts of arrays)."""
+
+    def __init__(self, samples):
+        self.samples = list(samples)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
 def _collate(samples):
     return {k: np.stack([np.asarray(s[k]) for s in samples]) for k in samples[0]}
 
@@ -58,16 +73,18 @@ class DataLoader:
 
     Each ``iter()`` is one epoch; the shuffle order of epoch e comes from
     ``default_rng(seed + e)``.  A thread assembles up to PREFETCH batches
-    ahead of the consumer."""
+    ahead of the consumer, each passed through ``transform`` (batch dict ->
+    batch dict) when one is given."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, transform: Optional[Callable] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.transform = transform
         self.epoch = 0
 
     def __len__(self):
@@ -92,7 +109,7 @@ class DataLoader:
                 for chunk in chunks:
                     if cancel.is_set():
                         break
-                    q.put(_collate([self.dataset[int(i)] for i in chunk]))
+                    q.put(self._make_batch(chunk))
                 q.put(stop)
             except BaseException as e:  # raised again in the consumer
                 q.put(e)
@@ -117,6 +134,10 @@ class DataLoader:
                 except queue.Empty:
                     t.join(timeout=0.05)
             t.join()
+
+    def _make_batch(self, chunk):
+        batch = _collate([self.dataset[int(i)] for i in chunk])
+        return batch if self.transform is None else self.transform(batch)
 
 
 def read_manifest_csv(path: str):

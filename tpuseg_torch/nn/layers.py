@@ -5,12 +5,12 @@ The PyTorch counterparts of ``tpuseg/nn/layers.py`` (``ConvND``,
 ``OutputHead``, ``upsample_nd`` and the V-Net vocabulary ``LUConv``,
 ``InputTransition``, ``DownTransition``, ``UpTransition``), in the 3D modes
 the 3D zoo calls: stride-1 SAME convs, stride-2 SAME and VALID convs (XLA's
-SAME padding, low side first), kernel-2 stride-2 transpose convs, 2-window
-max pools, nearest and linear upsampling, ``resize_half_linear`` (the
-antialiased x1/2 linear resize of ``jax.image.resize``), GroupNorm(8) + ReLU
-and InstanceNorm (``InstanceNorm``, flax's ``GroupNorm(group_size=1)``),
-both through the fused kernel.  The 2D modes come with the slice that uses
-them.
+SAME padding, low side first), dilated SAME convs, kernel-2 stride-2
+transpose convs, 2-window max pools, nearest and linear upsampling,
+``resize_half_linear`` (the antialiased x1/2 linear resize of
+``jax.image.resize``), GroupNorm(8) + ReLU and InstanceNorm
+(``InstanceNorm``, flax's ``GroupNorm(group_size=1)``), both through the
+fused kernel.  The 2D modes come with the slice that uses them.
 Activations are channels-last (N, D, H, W, C) at every ``forward``, as in
 tpuseg.  Parameters carry the reference PyTorch framework's names and
 layouts (conv ``weight`` (O, I, *k), transpose-conv ``weight`` (I, O, *k),
@@ -71,9 +71,12 @@ class ConvND(nn.Module):
     """Channels-last 3D conv with a cubic kernel, SAME (XLA's padding) or
     VALID.  ``padding`` defaults to VALID when the stride equals a kernel
     above 1 (the k2 s2 down convs) and to SAME otherwise.
+    ``kernel_dilation`` spaces the taps (flax's field): SAME then pads the
+    dilated extent (k - 1) * dilation + 1, (2, 2) for k3 at dilation 2.
 
-    A stride-1 3x3x3 conv inside ``conv3d_small``'s supported range goes to the
-    hand-written kernel (the convs the TPU kernel took); every other conv
+    An undilated stride-1 3x3x3 conv inside ``conv3d_small``'s supported
+    range goes to the hand-written kernel (the convs the TPU kernel took,
+    whose ``supported`` refuses dilation too); every other conv
     goes to ``F.conv3d``, as XLA took them outside Pallas, with an explicit
     pad where SAME is not symmetric.  On the card the
     kernel's packed weights (the forward's, and the transposed one of the
@@ -84,13 +87,14 @@ class ConvND(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, stride: int = 1,
-                 padding: Optional[str] = None):
+                 padding: Optional[str] = None, kernel_dilation: int = 1):
         super().__init__()
         if padding is None:
             padding = "VALID" if stride == kernel_size > 1 else "SAME"
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}: a conv is SAME or VALID")
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.dilation = kernel_dilation
         self.weight = nn.Parameter(
             torch.empty(features, in_features, *(kernel_size,) * 3))
         if use_bias:
@@ -117,7 +121,7 @@ class ConvND(nn.Module):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0)  # view
-        if (self.stride == 1 and self.padding == "SAME"
+        if (self.stride == 1 and self.dilation == 1 and self.padding == "SAME"
                 and supported(tuple(x.shape), tuple(w_dhwio.shape))):
             packed = packed_t = None
             if x.is_cuda:
@@ -128,12 +132,14 @@ class ConvND(nn.Module):
             return y if bias is None else y + bias
         xc, pad = to_channels_first(x), 0
         if self.padding == "SAME":
-            pads = [same_pads(n, self.kernel_size, self.stride) for n in x.shape[1:4]]
+            extent = (self.kernel_size - 1) * self.dilation + 1
+            pads = [same_pads(n, extent, self.stride) for n in x.shape[1:4]]
             if all(lo == hi for lo, hi in pads):
                 pad = tuple(lo for lo, _ in pads)
             else:  # F.pad takes the last axis first
                 xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
-        y = F.conv3d(xc, w, bias, stride=self.stride, padding=pad)
+        y = F.conv3d(xc, w, bias, stride=self.stride, padding=pad,
+                     dilation=self.dilation)
         return to_channels_last(y)
 
 

@@ -1,1 +1,1 @@
-"""Tasks: the generic Trainer and the segmentation task."""
+"""Tasks: the generic Trainer, the segmentation and the registration task."""

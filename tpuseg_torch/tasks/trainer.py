@@ -55,15 +55,19 @@ class TrainerConfig:
 class Trainer:
     """Task-parameterized trainer.
 
-    ``apply_fn(model, image, train, generator) -> outputs`` (a dict of
-    tensors); ``loss_fn(outputs, batch)`` and ``metric_fn(outputs, batch)``
-    return 0-d tensors.  ``device`` defaults to "cuda"; there is no fallback
-    to the CPU."""
+    ``apply_fn(model, inputs, train, generator) -> outputs`` (a dict of
+    tensors), ``inputs`` the batch's ``input_key`` entry (the image), or
+    with ``input_key=None`` the whole batch dict (the registration task's
+    image pairs), floating tensors in the compute dtype when training;
+    ``loss_fn(outputs, batch)`` and ``metric_fn(outputs, batch)`` return
+    0-d tensors.  ``device`` defaults to "cuda"; there is no fallback to
+    the CPU."""
 
     def __init__(self, model: torch.nn.Module, apply_fn: Callable,
                  loss_fn: Callable, metric_fn: Callable, config: TrainerConfig,
-                 device="cuda"):
+                 device="cuda", input_key: Optional[str] = "image"):
         self.device = torch.device(device)
+        self.input_key = input_key
         self.model = model.to(self.device)
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
@@ -80,7 +84,7 @@ class Trainer:
         cfg = self.config
         self.model.train()
         generator = step_generator(cfg.seed, self.step, self.device)
-        outputs = self.apply_fn(self.model, batch["image"].to(cfg.compute_dtype),
+        outputs = self.apply_fn(self.model, self._inputs(batch, cfg.compute_dtype),
                                 True, generator)
         outputs = _tree_map(lambda v: v.float(), outputs)
         loss = self.loss_fn(outputs, batch)
@@ -98,7 +102,7 @@ class Trainer:
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """Forward in float32 with dropout off; loss, metric and outputs."""
         self.model.eval()
-        outputs = self.apply_fn(self.model, batch["image"], False, None)
+        outputs = self.apply_fn(self.model, self._inputs(batch), False, None)
         outputs = _tree_map(lambda v: v.float(), outputs)
         return {"loss": self.loss_fn(outputs, batch),
                 "metric": self.metric_fn(outputs, batch), "outputs": outputs}
@@ -204,6 +208,16 @@ class Trainer:
                       f"restart {attempt}/{max_restarts} from latest checkpoint")
 
     # ------------------------------------------------------------- helpers
+    def _inputs(self, batch: dict, dtype: Optional[torch.dtype] = None):
+        """What ``apply_fn`` takes from ``batch``, its floating tensors cast
+        to ``dtype`` when one is given."""
+        def cast(t):
+            return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+        if self.input_key is None:
+            return {k: cast(v) for k, v in batch.items()}
+        return cast(batch[self.input_key])
+
     def _put(self, batch: dict) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in batch.items():

@@ -216,20 +216,30 @@ def train_step_kernel_split(steps: int = 3, new_size=NEW_SIZE,
         torch.cuda.synchronize()
     kernels = _device_split(prof, steps)
     # a second pass with the host ops, to attribute cuDNN conv backward time
+    return kernels, conv_backward_split(lambda: trainer.train_step(batch), steps)
+
+
+def conv_backward_split(fn, count: int = 1) -> dict:
+    """Device ms per call of ``fn`` under ``aten::convolution_backward``
+    (the convs outside K2's range), by the call's (grad_output, input,
+    weight) shapes, largest first: ``count`` calls traced with the host ops
+    and their shapes, after one untraced call."""
+    fn()
+    torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA],
             record_shapes=True) as prof:
-        for _ in range(steps):
-            trainer.train_step(batch)
+        for _ in range(count):
+            fn()
         torch.cuda.synchronize()
     conv_bwd = {}
     for event in prof.key_averages(group_by_input_shape=True):
         if event.key == "aten::convolution_backward":
             key = " ".join("x".join(map(str, s)) for s in event.input_shapes[:3])
             conv_bwd[key] = conv_bwd.get(key, 0.0) + _device_us(
-                event, ("device_time_total", "cuda_time_total")) / steps / 1e3
-    return kernels, dict(sorted(conv_bwd.items(), key=lambda kv: -kv[1]))
+                event, ("device_time_total", "cuda_time_total")) / count / 1e3
+    return dict(sorted(conv_bwd.items(), key=lambda kv: -kv[1]))
 
 
 def swin_forward_split(dtype: torch.dtype = torch.float32, batch: int = 27,

@@ -15,8 +15,15 @@ header row and (image, mask) paths; volumes are (z, y, x) = image_size
 reversed.  ``--train.compute_dtype bfloat16`` trains in bf16 over float32
 master weights; ``--train.packed_stem true`` trains through the packed
 twin of unet3d, vnet3d, resunet3d or stunet3d (the JAX package's headline
-training step); resunet3d and kiunet3d train with deep supervision; ``--train.resume true``
-continues from ``<model_dir>/latest``.  The run writes ``best/`` and ``latest/``
+training step); resunet3d and kiunet3d train with deep supervision;
+``--data.online_augment true`` gives every training sample a fresh random
+affine on the card (``data/augment3d.py``); ``--train.resume true``
+continues from ``<model_dir>/latest``.  tpddnet and vnet3dregistration
+do not train here, as in the JAX package's script: TPDDNet takes neither
+``features`` nor ``dropout`` (train it through
+``tasks.segmentation.make_segmentation_trainer``), the registration net
+trains on image pairs (``tasks.registration``, ``recipes
+trainregistration3d``).  The run writes ``best/`` and ``latest/``
 checkpoints, the loss and accuracy curves, and ``config.json`` into
 ``model_dir``.  It runs on the GPU.
 """
@@ -28,6 +35,7 @@ import torch
 
 from tpuseg_torch.compat.seg_models import disable_tf32
 from tpuseg_torch.config import Config, parse_cli
+from tpuseg_torch.data.augment3d import make_batch_augmenter
 from tpuseg_torch.data.dataset import DataLoader, SegDataset3D, read_manifest_csv
 from tpuseg_torch.models import build_model
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
@@ -35,6 +43,15 @@ from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.visualization import plot_result
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# nets of the registry this script cannot build, and where they train
+ELSEWHERE = {
+    "tpddnet": "TPDDNet takes neither features nor dropout: train it through "
+               "tpuseg_torch.tasks.segmentation.make_segmentation_trainer("
+               "build_model('tpddnet', num_classes), ...)",
+    "vnet3dregistration": "the registration net trains on moving/fixed pairs: "
+                          "tpuseg_torch.tasks.registration.make_registration_trainer, "
+                          "or python -m tpuseg_torch.recipes trainregistration3d",
+}
 
 
 def build(cfg: Config, device="cuda"):
@@ -44,6 +61,9 @@ def build(cfg: Config, device="cuda"):
     if cfg.train.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r} not in "
                          f"{list(COMPUTE_DTYPES)}")
+    if cfg.model.name.lower() in ELSEWHERE:
+        raise ValueError(f"--model.name {cfg.model.name}: "
+                         f"{ELSEWHERE[cfg.model.name.lower()]}")
     model = build_model(
         cfg.model.name, cfg.model.num_classes, features=cfg.model.features,
         dropout=cfg.model.dropout, in_channels=cfg.model.image_channel,
@@ -56,9 +76,10 @@ def build(cfg: Config, device="cuda"):
     val_images, val_labels = read_manifest_csv(cfg.data.val_csv)
     x, y, z = cfg.data.image_size
     binary = cfg.data.binary_labels
+    transform = make_batch_augmenter(device=device) if cfg.data.online_augment else None
     train_loader = DataLoader(SegDataset3D(images, labels, (z, y, x), binary),
                               cfg.data.batch_size, shuffle=True,
-                              seed=cfg.data.shuffle_seed)
+                              seed=cfg.data.shuffle_seed, transform=transform)
     val_loader = DataLoader(SegDataset3D(val_images, val_labels, (z, y, x), binary),
                             cfg.data.batch_size, shuffle=False)
     trainer = make_segmentation_trainer(
