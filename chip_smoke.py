@@ -188,14 +188,36 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     ``make_segmentation_trainer`` steps with MutilDiceLoss and the aux
     heads (``train_tpddnet``), one step against the f64 step; each
     path's step time, device ms by family and the cuDNN conv backward by
-    shape, and peak memory.
+    shape, and peak memory;
+11. the 2D, classification and GAN Model API (``tpuseg_torch.compat``), in
+    f32: the golden file of this slice (``tests/data/
+    torch_port_model_api_golden.npz``: UNet2d, VNet2d, ResNet2d / 3d logits
+    of JAX in float64 within 1e-4 of their scale, the ResNet2d Grad-CAM,
+    one GAN step whose gradients must be no farther from JAX's float64
+    step than twice JAX's own f32 step) and the committed tpuseg run
+    directory (``tests/data/tpuseg_run_unet2d``) read by MutilUNet2dModel
+    and serving an image; K1 at UNet2d's 18 GroupNorm shapes at 8 x 512^2
+    and the discriminator's six InstanceNorms (groups = C up to 1024 on 4
+    x 4), forward and backward, against the plain versions beside
+    ``F.group_norm``; K2 and K1 at ResNet3d's shapes at 2 x 96^3; then
+    ``BinaryUNet2dModel`` and ``MutilVNet2dModel`` at 512^2, batch 8
+    (``seg_unet2d``, ``seg_vnet2d``), ``MutilResNet2dModel`` at 28^2,
+    batch 64, 10 classes (``cls_resnet2d``), ``MutilResNet3dModel`` at 2 x
+    96^3 (``cls_resnet3d``) and ``Pixel2PixelGAN2dModel`` at 256^2, batch 4
+    (``gan_pix2pix``): ``trainprocess`` for 2 steps and a validation
+    batch from PNG files the port writes (or .npy volumes), K1 launched
+    each way on every path, K2 only on ResNet3d's, a timed step (min and
+    median, device ms by family, busy share, peak memory), one forward's
+    launches (K2 0 / K1 18 UNet2d, 0 / 34 VNet2d, 0 / 17 ResNet2d, 5 / 17
+    ResNet3d), ``inference`` on a 600 x 480 image, ``predict`` and
+    ``Grad_CAM_Visual``.
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
 launches on the served, training (plain and packed, UNet3d and VNet3d, f32
-and bf16; the zoo; online augmentation, registration and TPDDNet), bench,
-sliding-window and whole-volume paths (K3's dX and dW rows among them),
-error, times (one
+and bf16; the zoo; online augmentation, registration and TPDDNet; the
+Model API's 2D, classification and GAN paths), bench, sliding-window and
+whole-volume paths (K3's dX and dW rows among them), error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
@@ -541,10 +563,10 @@ def _off_the_kink(torch, x, gamma, beta, g):
     """g with zeros where the GroupNorm output lies within 1e-3 of the ReLU
     kink, where the kernel's and the plain statistics (equal to fp32
     rounding) may put an element on either side."""
-    c = x.shape[-1]
-    xg = x.double().reshape(1, -1, 8, c // 8)
+    n, c = x.shape[0], x.shape[-1]
+    xg = x.double().reshape(n, -1, 8, c // 8)
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
-    v = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(1, -1, c) * gamma.double() \
+    v = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(n, -1, c) * gamma.double() \
         + beta.double()
     return g * (v.abs() > 1e-3).reshape(g.shape).to(g.dtype)
 
@@ -3013,6 +3035,378 @@ def phase_augreg(torch, mods, workdir):
     return paths
 
 
+# ------------------------------------------------------------- phase 11
+SEG2D_HW, SEG2D_BATCH = (512, 512), 8
+CLS2D_HW, CLS2D_BATCH, CLS2D_CLASSES = (28, 28), 64, 10
+CLS3D_DHW, CLS3D_BATCH, CLS3D_CLASSES = (96, 96, 96), 2, 2
+GAN_HW, GAN_BATCH = (256, 256), 4
+# one forward's kernel launches (each way in a train step): K1 at every
+# GroupNorm / InstanceNorm call, K2 at ResNet3d's 3^3 LUConvs of 32 and 64
+# channels (2D convs run on cuDNN)
+MODEL_API_FORWARD = {"seg_unet2d": (0, 18), "seg_vnet2d": (0, 34), "cls_resnet2d": (0, 17),
+                     "cls_resnet3d": (5, 17)}
+MODEL_API_GOLDEN_TOL = 1e-4
+SEG2D_PATHS = (("seg_unet2d", "BinaryUNet2dModel", "BinaryCrossEntropyDiceLoss", 1),
+               ("seg_vnet2d", "MutilVNet2dModel", "MutilDiceLoss", 2))
+
+
+def _slices_2d(rng, n: int, hw, classes: int):
+    """``n`` synthetic 2D slices: (uint8 image, uint8 mask) pairs, bright
+    discs on a smooth background, the mask the discs (0/255 for one class,
+    labels 0/1 for two)."""
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    out = []
+    for _ in range(n):
+        inside = np.zeros((h, w), bool)
+        for _ in range(3):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            r = rng.uniform(0.06, 0.15) * min(h, w)
+            inside |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        img = 60 + 40 * np.sin(xx / (w / 3.0)) * np.cos(yy / (h / 4.0)) + 110 * inside
+        img = np.clip(img + rng.normal(0, 8, (h, w)), 0, 255).astype(np.uint8)
+        out.append((img, (inside * (255 if classes == 1 else 1)).astype(np.uint8)))
+    return out
+
+
+def _write_slices(io_image, root: str, tag: str, pairs) -> tuple:
+    images, masks = [], []
+    for i, (img, mask) in enumerate(pairs):
+        images.append(io_image.imwrite(os.path.join(root, f"{tag}_img{i}.png"), img))
+        masks.append(io_image.imwrite(os.path.join(root, f"{tag}_mask{i}.png"), mask))
+    return images, masks
+
+
+def _timed_step(torch, mods, fn, what: str, steps: int = 5) -> dict:
+    """A train step's ms (min and median of ``steps`` by CUDA events after a
+    warmup), device ms by family and busy share (``torch.profiler``), peak
+    memory."""
+    fn()
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    split, wall = mods["traced_split"](fn, 2)
+    fams = kernel_families(split)
+    device_ms, busy_wall = mods["traced_busy"](fn)
+    _, peak = _peak(torch, fn)
+    out = {"step_ms_min": min(times), "step_ms_median": float(np.median(times)),
+           "device_ms": sum(split.values()), "families": fams,
+           "busy": device_ms / busy_wall, "peak_gib": peak}
+    say(f"  {what} step ({mods['smi']}): {out['step_ms_min']:.3f} / "
+        f"{out['step_ms_median']:.3f} ms min / median, device {out['device_ms']:.3f} ms "
+        f"{json.dumps(fams)}, busy {out['busy']:.3f}, peak {peak:.2f} GiB")
+    return out
+
+
+def _forward_launches(torch, mods, fn, path: str) -> None:
+    """One eval forward's K2 and K1 launches against MODEL_API_FORWARD."""
+    reset_counts(mods)
+    fn()
+    torch.cuda.synchronize()
+    c = counts(mods)
+    got = (c["conv3d_small"], c["fused_group_norm_relu"])
+    say(f"  {path} forward launches: K2 {got[0]}, K1 {got[1]}")
+    if got != MODEL_API_FORWARD[path]:
+        fail(f"{path}: forward launches K2, K1 {got}, expected {MODEL_API_FORWARD[path]}")
+
+
+def _train_launches(mods, path: str) -> dict:
+    """The launches of a trainprocess run (the counts set to 0 just before
+    it): K1 each way on every path, K2 on ResNet3d's and on no 2D path."""
+    c = counts(mods)
+    say(f"  {path} trainprocess launches: {json.dumps({k: v for k, v in c.items() if v})}")
+    if c["fused_group_norm_relu"] == 0 or c["fused_group_norm_relu_bwd"] == 0:
+        fail(f"{path}: K1 was not launched each way")
+    k2 = c["conv3d_small"] + c["conv3d_small_dx"] + c["conv3d_small_dw"]
+    if (k2 > 0) != path.endswith("3d"):
+        fail(f"{path}: K2 launches {k2} (2D convs run cuDNN; ResNet3d's LUConvs K2)")
+    return c
+
+
+def _model_api_seg2d(torch, mods, workdir, compat, io_image) -> dict:
+    """BinaryUNet2dModel and MutilVNet2dModel at 512^2, batch 8: trainprocess
+    (2 steps + validation) from PNG files, launches, a timed step,
+    ``predict``'s launches and ``inference`` on a 600 x 480 image."""
+    rng = np.random.default_rng(SEED + 11)
+    paths = {}
+    for path, cls_name, loss, classes in SEG2D_PATHS:
+        train = _write_slices(io_image, workdir, f"{path}_t",
+                              _slices_2d(rng, 2 * SEG2D_BATCH, SEG2D_HW, classes))
+        val = _write_slices(io_image, workdir, f"{path}_v",
+                            _slices_2d(rng, SEG2D_BATCH, SEG2D_HW, classes))
+        model = getattr(compat, cls_name)(*SEG2D_HW, 1, classes, SEG2D_BATCH, loss)
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        hist = model.trainprocess(*train, *val, os.path.join(workdir, path), epochs=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        paths[path] = _train_launches(mods, path)
+        if not all(np.isfinite(hist[k][0]) for k in hist):
+            fail(f"{path}: history not finite: {hist}")
+        say(f"  {path}: trainprocess 2 steps + validation in {fit_s:.2f} s, history "
+            f"{json.dumps({k: round(v[0], 5) for k, v in hist.items()})}")
+        trainer = model.trainer
+        batch = trainer._put(next(iter(model._dataloader(*train, shuffle=False))))
+        _timed_step(torch, mods, lambda: trainer.train_step(batch), path)
+        model.model.eval()
+        img = io_image.imread(val[0][0], 0).astype(np.float32)
+        chw = ((img - img.mean()) / (img.std() or 1.0))[None]
+        _forward_launches(torch, mods, lambda: model.predict(chw), path)
+        big = io_image.resize(img, (600, 480))
+        t0 = time.perf_counter()
+        mask = model.inference(big)
+        inf_ms = (time.perf_counter() - t0) * 1e3
+        if mask.shape != (600, 480) or mask.dtype != np.uint8 or mask.max() >= max(2, classes):
+            fail(f"{path}: inference mask {mask.shape} {mask.dtype} max {mask.max()}")
+        say(f"  {path}: inference of a 600x480 image {inf_ms:.1f} ms, labels "
+            f"{sorted(np.unique(mask).tolist())}")
+    return paths
+
+
+def _model_api_classify(torch, mods, workdir, compat, io_image) -> dict:
+    """MutilResNet2dModel (28^2, 10 classes, batch 64) and
+    MutilResNet3dModel (96^3, 2 classes, batch 2): trainprocess 2 steps +
+    validation, launches, a timed step, ``predict`` and
+    ``Grad_CAM_Visual``."""
+    rng = np.random.default_rng(SEED + 12)
+    paths = {}
+    imgs = [io_image.imwrite(os.path.join(workdir, f"cls{i}.png"),
+                             rng.integers(0, 256, CLS2D_HW, dtype=np.uint8))
+            for i in range(3 * CLS2D_BATCH)]
+    labels = rng.integers(0, CLS2D_CLASSES, len(imgs)).tolist()
+    vols = []
+    for i in range(3 * CLS3D_BATCH):
+        vols.append(os.path.join(workdir, f"cls3d{i}.npy"))
+        np.save(vols[-1], rng.standard_normal(CLS3D_DHW).astype(np.float32))
+    cases = (("cls_resnet2d", compat.MutilResNet2dModel(*CLS2D_HW, 1, CLS2D_CLASSES,
+                                                        CLS2D_BATCH, "MutilCrossEntropyLoss"),
+              imgs, labels, 2 * CLS2D_BATCH, (1,) + CLS2D_HW),
+             ("cls_resnet3d", compat.MutilResNet3dModel(*CLS3D_DHW, 1, CLS3D_CLASSES,
+                                                        CLS3D_BATCH, "MutilCrossEntropyLoss"),
+              vols, [i % CLS3D_CLASSES for i in range(len(vols))], 2 * CLS3D_BATCH,
+              (1,) + CLS3D_DHW))
+    for path, model, x, y, n, shape in cases:
+        reset_counts(mods)
+        hist = model.trainprocess(x[:n], y[:n], x[n:], y[n:], os.path.join(workdir, path),
+                                  epochs=1)
+        torch.cuda.synchronize()
+        paths[path] = _train_launches(mods, path)
+        if not np.isfinite(hist["train_loss"][0]):
+            fail(f"{path}: loss {hist}")
+        trainer = model.trainer
+        batch = trainer._put(next(iter(model._dataloader(x[:n], y[:n], shuffle=False))))
+        _timed_step(torch, mods, lambda: trainer.train_step(batch), path)
+        img = rng.standard_normal(shape).astype(np.float32)
+        _forward_launches(torch, mods, lambda: model.predict(img), path)
+        label, probs = model.predict(img)
+        cam = model.Grad_CAM_Visual(img)
+        if cam.shape != shape[1:] or not (0 <= cam.min() and cam.max() <= 1 + 1e-6):
+            fail(f"{path}: Grad-CAM {cam.shape} [{cam.min()}, {cam.max()}]")
+        say(f"  {path}: predict {label} (p {float(np.max(probs)):.4f}), Grad-CAM "
+            f"{cam.shape} max {cam.max():.3f}, history "
+            f"{json.dumps({k: round(v[0], 5) for k, v in hist.items()})}")
+    return paths
+
+
+def _model_api_gan(torch, mods, workdir, compat, io_image) -> dict:
+    """Pixel2PixelGAN2dModel (256^2, batch 4, features 16 / 32): trainprocess
+    2 steps + validation, launches, a timed step, ``inference``."""
+    rng = np.random.default_rng(SEED + 13)
+    pairs = _slices_2d(rng, 3 * GAN_BATCH, GAN_HW, 1)
+    imgs = [io_image.imwrite(os.path.join(workdir, f"gan_in{i}.png"), a)
+            for i, (a, _) in enumerate(pairs)]
+    tgts = [io_image.imwrite(os.path.join(workdir, f"gan_tgt{i}.png"),
+                             np.clip(255 - a.astype(int) // 2 + m // 4, 0, 255).astype(np.uint8))
+            for i, (a, m) in enumerate(pairs)]
+    model = compat.Pixel2PixelGAN2dModel(*GAN_HW, 1, 1, batch_size=GAN_BATCH)
+    n = 2 * GAN_BATCH
+    reset_counts(mods)
+    hist = model.trainprocess(imgs[:n], tgts[:n], imgs[n:], tgts[n:],
+                              os.path.join(workdir, "gan"), epochs=1)
+    torch.cuda.synchronize()
+    launches = _train_launches(mods, "gan_pix2pix")
+    if not all(np.isfinite(v[0]) for v in hist.values()):
+        fail(f"GAN history {hist}")
+    trainer = model.trainer
+    batch = trainer._put(next(iter(model._dataloader(imgs[:n], tgts[:n], shuffle=False))))
+    _timed_step(torch, mods, lambda: trainer.train_step(batch), "gan_pix2pix")
+    out = model.inference(io_image.resize(io_image.imread(imgs[-1], 0).astype(np.float32),
+                                          (240, 200)))
+    if out.shape != (240, 200) or not np.isfinite(out).all():
+        fail(f"GAN inference {out.shape}")
+    say(f"  gan_pix2pix: history {json.dumps({k: round(v[0], 4) for k, v in hist.items()})}, "
+        f"inference {out.shape} range [{out.min():.1f}, {out.max():.1f}]")
+    return {"gan_pix2pix": launches}
+
+
+def _model_api_norm_rows(torch, mods) -> dict:
+    """K1 at the 2D paths' shapes, f32, each held to its plain version and
+    timed beside ``F.group_norm``: UNet2d's 18 GroupNorm(8)+ReLU calls at
+    8 x 512^2 (a forward's, and a backward's each), and the discriminator's
+    six affine-free InstanceNorms (groups = C, no ReLU) at 4 x 128^2 x 32
+    ... 4 x 4^2 x 1024 for a 256^2 input."""
+    fused_norm = mods["fused_norm"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    rows = {"fused_group_norm_relu": [], "fused_group_norm_relu_bwd": []}
+    n = SEG2D_BATCH
+    cases = [(n, 512 >> lvl, 16 << lvl, 8, True, uses)
+             for lvl, uses in ((0, 4), (1, 4), (2, 4), (3, 4), (4, 2))]
+    cases += [(GAN_BATCH, 128 >> i, 32 << i, 32 << i, False, 1) for i in range(6)]
+    for n_, side, c, groups, relu, uses in cases:
+        x = torch.randn((n_, side, side, c), generator=gen, device="cuda") * 2 + 0.5
+        gamma = torch.randn(c, generator=gen, device="cuda") if relu else torch.ones(
+            c, device="cuda")
+        beta = torch.randn(c, generator=gen, device="cuda") if relu else torch.zeros(
+            c, device="cuda")
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        if relu:  # no element at the ReLU's kink, where rounding picks the side
+            g = _off_the_kink(torch, x, gamma, beta, g)
+        what = f"{'GN8+ReLU' if relu else 'InstanceNorm'} C{c} @{n_}x{side}^2"
+
+        def fwd():
+            return fused_norm.fused_group_norm_relu(x, gamma, beta, groups, 1e-6, relu)
+
+        def fwd_plain():
+            return fused_norm.fused_group_norm_relu_plain(x, gamma, beta, groups, 1e-6, relu)
+
+        got, ref = fwd(), fwd_plain()
+        ms, plain_ms = time_pair(torch, fwd, fwd_plain)
+        xl = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+        gl, bl = (t.detach().clone().requires_grad_() for t in (gamma, beta))
+        library_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+            xl.detach(), groups, gl.detach(), bl.detach(), 1e-6))
+        yl = torch.nn.functional.group_norm(xl, groups, gl, bl, 1e-6)
+        g_lib = g.permute(0, 3, 1, 2).contiguous()
+        library_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            yl, (xl, gl, bl), g_lib, retain_graph=True))
+        del xl, gl, bl, yl, g_lib
+        n_el = x.numel()
+        _check_row(rows, "fused_group_norm_relu", "float32", what, *rel_err(got, ref), ms,
+                   plain_ms, uses, bound_ms(10.0 * n_el, 2 * n_el * 4, "float32"),
+                   library_ms, " (F.group_norm, no ReLU)")
+        _, stats = fused_norm._launch(x, gamma, beta, groups, 1e-6, relu)
+
+        def bwd():
+            return fused_norm._launch_backward(x, g, stats, gamma, beta, groups, relu)
+
+        def bwd_plain():
+            return fused_norm.fused_group_norm_relu_backward_plain(
+                x, gamma, beta, g, groups, 1e-6, relu)
+
+        got, ref = bwd(), bwd_plain()
+        err, scale = max((rel_err(a, b) for a, b in zip(got, ref)), key=lambda e: e[0] / e[1])
+        ms, plain_ms = time_pair(torch, bwd, bwd_plain)
+        _check_row(rows, "fused_group_norm_relu_bwd", "float32", what + " (dx, dgamma, dbeta)",
+                   err, scale, ms, plain_ms, uses,
+                   bound_ms(20.0 * n_el, 3 * n_el * 4, "float32"), library_bwd_ms,
+                   " (F.group_norm's autograd backward)")
+        del x, g
+    return rows
+
+
+def _model_api_golden(torch, mods, compat, golden) -> None:
+    """The golden file's JAX outputs on the card, f32, TF32 off: UNet2d,
+    VNet2d, ResNet2d / 3d logits (float64 JAX, within 1e-4 of their
+    scale), the ResNet2d Grad-CAM (1e-4), one GAN step (G loss 1e-5, D
+    loss 1e-3 of their scale; gradients no farther from JAX's float64 step
+    than twice JAX's own f32 step, nor than 4x the port's own f32 step on
+    the CPU: the step is ill-conditioned, so JAX's f32 distance is loose,
+    while a bfloat16 step on the CPU lies an order of magnitude or more
+    beyond the port's f32 one), and the committed tpuseg run directory read by
+    MutilUNet2dModel (its logits 1e-4) and serving an image."""
+    from tpuseg_torch.tasks.gan import GANTrainer
+    from tpuseg_torch.tools.gradcam import grad_cam
+
+    ref = golden.load()
+    for case in golden.FORWARDS:
+        net = golden.port_nets(case)["net"].cuda().eval()
+        with torch.no_grad():
+            out = net(torch.from_numpy(golden.inputs(case)["x"]).cuda())
+        logits = (out if case.startswith("resnet") else out[0]).double().cpu()
+        err, scale = rel_err(logits, torch.from_numpy(ref[f"{case}/logits"]))
+        say(f"  golden {case}: logits max_abs_err {err:.3g} (scale {scale:.3g})")
+        if err > MODEL_API_GOLDEN_TOL * scale:
+            fail(f"golden {case}: {err} > {MODEL_API_GOLDEN_TOL} * {scale}")
+    cam = grad_cam(golden.port_nets("resnet2d")["net"].cuda(),
+                   golden.inputs("resnet2d")["x"][:1])
+    cam_err = float(np.abs(cam - ref["resnet2d/cam"]).max())
+    say(f"  golden resnet2d Grad-CAM: max_abs_err {cam_err:.3g}")
+    if cam_err > MODEL_API_GOLDEN_TOL:
+        fail(f"golden Grad-CAM error {cam_err}")
+    nets, gin = golden.port_nets("gan"), golden.inputs("gan")
+
+    def gan_step(device):
+        trainer = GANTrainer(1, 1, golden.F, device=device, dropout=0.0, d_features=golden.F)
+        trainer.generator.load_state_dict(nets["g"].state_dict())
+        trainer.discriminator.load_state_dict(nets["d"].state_dict())
+        m = trainer.train_step({k: torch.from_numpy(gin[v]).to(device)
+                                for k, v in (("image", "x"), ("target", "target"))})
+        return trainer, m
+
+    trainer, m = gan_step("cuda")
+    cpu_trainer, _ = gan_step("cpu")
+    for key, tol in (("g_loss", 1e-5), ("d_loss", 1e-3)):
+        want = float(ref[f"gan/{key}"])
+        err = abs(float(m[key]) - want)
+        say(f"  golden GAN {key}: {float(m[key]):.7f} vs JAX f64 {want:.7f} (JAX f32 "
+            f"{float(ref[f'gan/{key}_f32']):.7f})")
+        if err > tol * max(1.0, abs(want)):
+            fail(f"golden GAN {key}: error {err}")
+    for tag in ("g", "d"):
+        want = {k.split("/", 2)[2]: v for k, v in ref.items() if k.startswith(f"gan/{tag}_grad/")}
+        dist, cpu_dist = (golden.grad_distance(
+            {n: p.grad.double().cpu().numpy() for n, p in getattr(
+                t, "generator" if tag == "g" else "discriminator").named_parameters()}, want)
+            for t in (trainer, cpu_trainer))
+        jax_own = float(ref[f"gan/{tag}_f32_distance"])
+        say(f"  golden GAN {tag} gradients: distance from JAX's f64 step {dist:.4g} "
+            f"(the port's f32 step on the CPU {cpu_dist:.4g}, JAX's own f32 step "
+            f"{jax_own:.4g})")
+        if dist > min(2 * jax_own, 4 * cpu_dist):
+            fail(f"golden GAN {tag} gradients: {dist} > min(2 * {jax_own}, 4 * {cpu_dist})")
+    model = compat.MutilUNet2dModel(32, 32, 1, 2, 1, inference=True, model_path=golden.RUN_DIR,
+                                    features=golden.F)
+    with torch.no_grad():
+        logits = model.model(torch.from_numpy(golden.inputs("unet2d")["x"]).cuda())[0]
+    err, scale = rel_err(logits.double().cpu(), torch.from_numpy(ref["unet2d/logits"]))
+    mask = model.inference(np.linspace(0, 255, 45 * 50, dtype=np.float32).reshape(45, 50))
+    say(f"  tpuseg run directory {os.path.relpath(golden.RUN_DIR, ROOT)}: logits "
+        f"max_abs_err {err:.3g} (scale {scale:.3g}), served mask {mask.shape}")
+    if err > MODEL_API_GOLDEN_TOL * scale or mask.shape != (45, 50):
+        fail(f"tpuseg run directory: error {err}, mask {mask.shape}")
+
+
+def phase_model_api(torch, mods, workdir):
+    """Phase 11: the 2D segmentation classes, the classifiers with Grad-CAM,
+    pix2pix and a tpuseg run directory.  Returns ({path: launches},
+    {kernel: K1 rows at the 2D shapes}, {(kernel, dtype): ResNet3d's K2
+    and K1 rows})."""
+    from tpuseg_torch import compat
+    from tpuseg_torch.io_native import image as io_image
+
+    t_phase = time.perf_counter()
+    _model_api_golden(torch, mods, compat, mods["model_api_golden"])
+    norm_rows = _model_api_norm_rows(torch, mods)
+    f = FEATURES
+    resnet3d_rows = batch_kernel_rows(
+        torch, mods, CLS3D_BATCH,
+        ([(2 * f, 2 * f, (48,) * 3, 2), (4 * f, 4 * f, (24,) * 3, 3)],
+         [(f, (96,) * 3, 2), (2 * f, (48,) * 3, 3), (4 * f, (24,) * 3, 4),
+          (8 * f, (12,) * 3, 4), (16 * f, (6,) * 3, 4)], []),
+        ("float32",), "resnet3d")
+    paths = _model_api_seg2d(torch, mods, workdir, compat, io_image)
+    paths.update(_model_api_classify(torch, mods, workdir, compat, io_image))
+    paths.update(_model_api_gan(torch, mods, workdir, compat, io_image))
+    say(f"  phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return paths, norm_rows, resnet3d_rows
+
+
 def _load_generator(name: str):
     """``tests/<name>.py``, a golden file's generator, as a module (its
     inputs, fingerprints and golden path; it imports JAX only inside the
@@ -3070,6 +3464,7 @@ def main() -> int:
 
     zoo_golden = _load_generator("make_torch_port_zoo_golden")
     regtp_golden = _load_generator("make_torch_port_regtp_golden")
+    model_api_golden = _load_generator("make_torch_port_model_api_golden")
     if "jax" in sys.modules:
         fail("jax was imported")
     disable_tf32()
@@ -3120,6 +3515,7 @@ def main() -> int:
         evaluate=evaluate, ssim=ssim, ms_ssim=ms_ssim,
         resize_volume_device=resize_volume_device,
         stunet_packed=stunet_packed, zoo_golden=zoo_golden, regtp_golden=regtp_golden,
+        model_api_golden=model_api_golden,
         augment3d=augment3d, recipes=recipes, warp_3d=warp_3d,
         make_registration_trainer=make_registration_trainer,
         packed_resunet3d_apply=resunet_packed.packed_resunet3d_apply,
@@ -3170,6 +3566,13 @@ def main() -> int:
         augreg_paths = phase_augreg(torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 11: the 2D, classification and GAN Model API ({smi})")
+    workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
+    try:
+        model_api_paths, model_api_norm_rows, resnet3d_rows = phase_model_api(
+            torch, mods, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -3205,7 +3608,7 @@ def main() -> int:
          "conv3d_small_dw_tf32.cu", k3_vjp),
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
-             **swin_launches, **host_paths, **augreg_paths}
+             **swin_launches, **host_paths, **augreg_paths, **model_api_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""
@@ -3253,6 +3656,16 @@ def main() -> int:
             entry["zoo_instance_norm"] = dict(
                 pass_fields(zrows), library_ms=per_pass(zrows, "library_ms"),
                 max_abs_err=max(r["max_abs_err"] for r in zrows))
+        if key in model_api_norm_rows:
+            # phase 11: UNet2d's GroupNorms at 8 x 512^2 and the pix2pix
+            # discriminator's InstanceNorms up to 1024 channels on 4 x 4
+            mrows = model_api_norm_rows[key]
+            entry["model_api_2d"] = dict(
+                pass_fields(mrows), library_ms=per_pass(mrows, "library_ms"),
+                max_abs_err=max(r["max_abs_err"] for r in mrows))
+        if (key, dtype_name) in resnet3d_rows:
+            # phase 11: one ResNet3d forward's calls at 2 x 96^3
+            entry["model_api_resnet3d"] = resnet3d_rows[(key, dtype_name)]
         vrows = [r for r in all_rows if r["path"] == "vnet"]
         if vrows:
             entry["train_vnet_packed"] = dict(pass_fields(vrows), library_ms=per_pass(

@@ -1197,3 +1197,53 @@ def test_registration_and_tpddnet_forward_kernels_match_plain(cuda, monkeypatch,
         for g, r in zip((got[0], *got[2]), (ref[0], *ref[2])):
             _close(g, r, torch.float32)
         assert (got[1].argmax(-1) == ref[1].argmax(-1)).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("shape, groups, relu", [
+    ((8, 512, 512, 16), 8, True),    # UNet2d's first level, batch 8 at 512^2
+    ((8, 256, 256, 32), 8, True),    # its second
+    ((4, 4, 4, 1024), 1024, False),  # the discriminator's last InstanceNorm: C = 1024, V = 16
+    ((4, 8, 8, 512), 512, False),    # the one before it
+    ((4, 256, 256, 16), 16, False),  # the generator's first at 256^2
+])
+def test_fused_gn_on_2d_maps(cuda, shape, groups, relu):
+    """K1 on the 2D nets' (N, H, W, C) maps, f32: GroupNorm(8) + ReLU at
+    UNet2d's 512^2 shapes and the pix2pix nets' affine-free InstanceNorms
+    (groups = C, up to K1's 1024 channels on a 4 x 4 map); forward and
+    backward against the plain versions, one launch each way."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5
+    gamma = torch.ones(c, device=cuda) if groups == c else torch.randn(
+        c, generator=gen, device=cuda)
+    beta = torch.zeros(c, device=cuda) if groups == c else torch.randn(
+        c, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda)
+    xr = x.clone().requires_grad_()
+    before = fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES
+    y = fused_norm.fused_group_norm_relu(xr, gamma, beta, groups, 1e-6, relu)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close(y, fused_norm.fused_group_norm_relu_plain(x, gamma, beta, groups, 1e-6, relu),
+           torch.float32)
+    dx, _, _ = fused_norm.fused_group_norm_relu_backward_plain(
+        x, gamma, beta, g, groups, 1e-6, relu)
+    _close(xr.grad, dx, torch.float32)
+
+
+def test_2d_layers_leave_k2_alone(cuda):
+    """2D convs (UNet2d's 3x3 at 16 channels, which K2 would take in 3D)
+    run on cuDNN: no K2 launch; the affine-free InstanceNorm runs K1."""
+    from tpuseg_torch.nn.layers import ConvND, InstanceNormNoAffine
+
+    conv = ConvND(16, 16, 3, use_bias=False, ndim=2).to(cuda)
+    torch.nn.init.normal_(conv.weight, std=0.1)
+    norm = InstanceNormNoAffine(16).to(cuda)
+    x = torch.randn((2, 64, 64, 16), device=cuda)
+    k2, k1 = conv3d.LAUNCHES, fused_norm.LAUNCHES
+    with torch.inference_mode():
+        y = norm(conv(x))
+    torch.cuda.synchronize()
+    assert conv3d.LAUNCHES == k2 and fused_norm.LAUNCHES == k1 + 1
+    assert y.shape == x.shape and torch.isfinite(y).all()

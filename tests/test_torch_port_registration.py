@@ -283,7 +283,9 @@ def test_trainregistration3d_recipe_trains(tmp_path):
     assert len(history["train_loss"]) == 1 and np.isfinite(history["train_loss"]).all()
     assert 0.0 <= history["valdation_accuracy"][0] <= 1.0
     assert (tmp_path / "run" / "latest" / "state.pt").is_file()
-    assert set(recipes.RECIPES) == {"trainregistration3d"}
+    assert set(recipes.RECIPES) == {
+        "trainregistration3d", "trainbinaryunet2d", "trainbinaryvnet2d", "trainmutilunet2d",
+        "trainmutilvnet2d", "trainmutilresnet2d", "trainpix2pixgan2d", "inferencebinaryvnet2d"}
 
 
 # ---------------------------------------------------------------- TPDDNet

@@ -251,22 +251,27 @@ def test_kiunet_ki_branch_is_not_interpolate():
 def test_build_model_names_and_refusals():
     """Every name of the JAX registry: the ported ones build the port's
     classes (TPDDNet without a width, the registration net without
-    classes, as in JAX); the others, 2D, and a name no registry knows,
-    raise NotImplementedError naming what is ported."""
-    classes = {"unet3d": "UNet", "unet": "UNet", "unet3dthin": "UNetThin",
-               "unetthin": "UNetThin", "vnet3d": "VNet", "vnet": "VNet",
-               "resunet3d": "ResUNet3d", "stunet3d": "STUNet3d", "kiunet3d": "KiUNet3d",
-               "kiunet3dthin": "KiUNet3d"}
-    assert set(classes) | {"tpddnet", "vnet3dregistration"} == set(PORTED)
-    for name, cls in classes.items():
+    classes, as in JAX; a name without its rank takes ``ndim``); the
+    others, and a name no registry knows, raise NotImplementedError naming
+    what is ported."""
+    classes = {"unet3d": ("UNet", 3), "unet": ("UNet", 3), "unet2d": ("UNet", 2),
+               "unet3dthin": ("UNetThin", 3), "unetthin": ("UNetThin", 3),
+               "vnet3d": ("VNet", 3), "vnet": ("VNet", 3), "vnet2d": ("VNet", 2),
+               "resunet3d": ("ResUNet3d", 3), "stunet3d": ("STUNet3d", 3),
+               "kiunet3d": ("KiUNet3d", 3), "kiunet3dthin": ("KiUNet3d", 3)}
+    assert set(classes) | {"tpddnet", "vnet3dregistration", "resnet2d", "resnet3d",
+                           "resnet"} == set(PORTED)
+    for name, (cls, nd) in classes.items():
         m = build_model(name.upper(), 3, features=8, dropout=0.1, in_channels=2)
         assert type(m).__name__ == cls and m.num_classes == 3 and m.features == 8
+        assert getattr(m, "ndim", 3) == nd
     m = build_model("TPDDNet", 3, in_channels=2)
     assert type(m).__name__ == "TPDDNet" and m.num_classes == 3
     m = build_model("vnet3dregistration", 3, features=8, dropout=0.1)
     assert type(m).__name__ == "VNet3dRegistration" and m.features == 8
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model("unet", 2, ndim=2)
+    for name, ndim, nd in (("unet", 2, 2), ("vnet", 2, 2), ("resnet", 2, 2),
+                           ("resnet", 3, 3), ("resnet3d", 2, 3), ("resnet2d", 3, 2)):
+        assert build_model(name, 2, ndim=ndim).ndim == nd
     for name in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="stunet3d"):
             build_model(name, 2)

@@ -1,12 +1,18 @@
-"""Reference-compatible 3D Model classes (U-Net and V-Net).
+"""Reference-compatible segmentation Model classes (U-Net and V-Net, 3D
+and 2D).
 
-Counterpart of ``tpuseg/compat/seg_models.py`` for ``MutilUNet3dModel``,
-``BinaryUNet3dModel``, ``MutilVNet3dModel`` and ``BinaryVNet3dModel``: the
-reference constructor signature, ``.pth`` loading, ``trainprocess`` (Adam,
+Counterpart of ``tpuseg/compat/seg_models.py``: ``MutilUNet3dModel``,
+``BinaryUNet3dModel``, ``MutilVNet3dModel``, ``BinaryVNet3dModel`` and the
+2D ``MutilUNet2dModel``, ``BinaryUNet2dModel``, ``MutilVNet2dModel``,
+``BinaryVNet2dModel``: the reference constructor signatures, weights from
+a reference-named ``.pth`` or a tpuseg run directory
+(``compat/checkpoints.py``), ``trainprocess`` (Adam in 3D, AdamW in 2D,
 the reference's per-class alpha/gamma, best/latest checkpoints with
-resume), ``inference(Volume, newSize)``, ``inference_patch(Volume,
-newSpacing, patch, batch_size, transfer_dtype)`` (batched sliding-window
-inference) and ``predict``.  ``network`` ("unet" or "vnet") picks the net.
+resume, the pred-vs-GT bitmaps each epoch), ``predict``, and
+``inference``: a ``Volume`` at ``newSize`` in 3D (with ``inference_patch
+(Volume, newSpacing, patch, batch_size, transfer_dtype)``, batched
+sliding-window inference), a 2D image in 2D.  ``network`` ("unet" or
+"vnet") picks the net.
 
 The 3D classes serve the space-to-depth packed twin of their net, as the
 JAX classes do (``packed_inference``, a class attribute, switches it off):
@@ -27,15 +33,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tpuseg_torch.compat.checkpoints import load_weights
 from tpuseg_torch.compat.weights import (
     unet_params_from_jax,
     vnet_params_from_jax,
     vnet_state_dict_from_reference,
 )
-from tpuseg_torch.data.dataset import DataLoader, SegDataset3D
+from tpuseg_torch.data.dataset import DataLoader, SegDataset2D, SegDataset3D
 from tpuseg_torch.data.geometry import Volume
 from tpuseg_torch.data.normalize import percentile_zscore, truncate_and_normalize
 from tpuseg_torch.infer.volume import infer_volume, infer_volume_patched, probs_to_mask
+from tpuseg_torch.io_native.image import resize
 from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.unet_packed import packed_unet3d_apply
 from tpuseg_torch.models.vnet import VNet
@@ -43,7 +51,7 @@ from tpuseg_torch.models.vnet_packed import packed_vnet3d_apply
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 from tpuseg_torch.tools.summary import print_summary
-from tpuseg_torch.tools.visualization import plot_result
+from tpuseg_torch.tools.visualization import make_seg_viz, plot_result
 
 
 def disable_tf32() -> None:
@@ -54,40 +62,17 @@ def disable_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _checkpoint_file(model_path: str) -> str:
-    """A ``.pth``/``.pt`` file, or the single one inside a directory."""
-    if os.path.isfile(model_path) and model_path.endswith((".pth", ".pt")):
-        return model_path
-    if os.path.isdir(model_path):
-        found = sorted(f for f in os.listdir(model_path)
-                       if f.endswith((".pth", ".pt")))
-        if len(found) == 1:
-            return os.path.join(model_path, found[0])
-        if len(found) > 1:
-            raise ValueError(f"{model_path}: several checkpoints {found}; "
-                             "name the .pth file")
-    raise FileNotFoundError(
-        f"{model_path}: no .pth/.pt checkpoint (tpuseg state.msgpack "
-        "checkpoints cannot be read by tpuseg_torch yet)"
-    )
+class _SegModel:
+    """What the 3D and 2D classes share: the net, its weights, training,
+    ``predict``.  A subclass sets ``ndim``, ``optimizer``, its
+    ``__init__`` and ``_dataloader``; the class sets ``binary`` and
+    ``network``."""
 
-
-class _SegModel3d:
-    inference_normalizer = staticmethod(percentile_zscore)
     binary = False
     network = "unet"
-    optimizer = "adam"  # the reference's 3D models train with Adam
 
-    def __init__(self, image_depth: int, image_height: int, image_width: int,
-                 image_channel: int, numclass: int, batch_size: int = 1,
-                 loss_name: str = "BinaryDiceLoss", inference: bool = False,
-                 model_path: Optional[str] = None, use_cuda: bool = True,
-                 features: int = 16, device=None):
-        """``device`` defaults to "cuda" if ``use_cuda`` else "cpu"; there
-        is no fallback to the CPU.  Without a checkpoint the weights are
-        He-normal from ``torch.Generator().manual_seed(0)``.  The class's
-        ``network`` ("unet" or "vnet") picks the net."""
-        self.image_depth = image_depth
+    def _setup(self, image_height, image_width, image_channel, numclass, batch_size,
+               loss_name, inference, model_path, use_cuda, features, device):
         self.image_height = image_height
         self.image_width = image_width
         self.image_channel = image_channel
@@ -96,18 +81,18 @@ class _SegModel3d:
         self.loss_name = loss_name
         self.accuracyname = "dice"
         # the reference's per-class defaults: binary (0.25, 2), mutil 3D
-        # ([1] * C, 3)
+        # ([1] * C, 3), mutil 2D ([1] * C, 2)
         if self.binary:
             self.alpha, self.gamma = 0.25, 2
         else:
-            self.alpha, self.gamma = [1.0] * numclass, 3
+            self.alpha, self.gamma = [1.0] * numclass, 3 if self.ndim == 3 else 2
         self.trainer = None
         self.device = torch.device(
             device if device is not None else ("cuda" if use_cuda else "cpu"))
         disable_tf32()
         net_cls = {"unet": UNet, "vnet": VNet}[self.network]
         net = net_cls(num_classes=numclass, features=features,
-                      in_channels=image_channel,
+                      in_channels=image_channel, ndim=self.ndim,
                       generator=torch.Generator().manual_seed(0))
         self.model = net.to(self.device).eval()
         if inference:
@@ -116,15 +101,15 @@ class _SegModel3d:
             print("Model loaded!")
 
     def load_torch_checkpoint(self, path_or_state_dict) -> None:
-        """Load a reference-named state_dict (path to a ``.pth``, a
-        directory holding one, or the dict itself) with ``strict=True``.
-        A reference VNet's one ``up_trX.bn`` fills both of the port's
-        UpTransition norms; a state_dict that has them both (the port's
-        own) loads as it is."""
-        sd = path_or_state_dict
-        if isinstance(sd, (str, os.PathLike)):
-            sd = torch.load(_checkpoint_file(os.fspath(sd)), map_location="cpu",
-                            weights_only=True)
+        """Load weights with ``strict=True`` from a reference-named
+        state_dict (the dict, a ``.pth``, a directory holding one), a tpuseg
+        run (``state.msgpack``, its checkpoint or run directory; the
+        parameter tree converted) or a run of the port's trainer
+        (``compat/checkpoints.py``).  A reference VNet's one ``up_trX.bn``
+        fills both of the port's UpTransition norms; a state_dict that has
+        them both (the port's own) loads as it is."""
+        sd = load_weights(path_or_state_dict, self.network, levels=getattr(
+            self.model, "levels", 4))
         if self.network == "vnet" and not any(".bn2." in k for k in sd):
             sd = vnet_state_dict_from_reference(sd)
         self.model.load_state_dict(sd, strict=True)
@@ -137,20 +122,17 @@ class _SegModel3d:
             self.load_torch_checkpoint(
                 unet_params_from_jax(tree, levels=self.model.levels))
 
-    def _dataloader(self, images, labels, shuffle: bool) -> DataLoader:
-        return DataLoader(SegDataset3D(images, labels, binary=self.binary),
-                          batch_size=self.batch_size, shuffle=shuffle)
-
     def trainprocess(self, trainimage: Sequence[str], trainmask: Sequence[str],
                      validationimage: Sequence[str],
                      validationmask: Sequence[str], model_dir: str,
                      epochs: int = 50, lr: float = 1e-3, showwind=(8, 8),
                      resume: bool = False):
-        """Train on .npy volume/label path lists, keep the best (validation
-        dice) and latest checkpoints under ``model_dir`` and write the loss
-        and accuracy curves there.  ``showwind`` (the mask mosaics) is
-        accepted for signature parity: the mosaics need cv2 and are not
-        ported yet.  Returns the history."""
+        """Train on image/label path lists (.npy volumes in 3D, PNG / BMP
+        images in 2D), keep the best (validation dice) and latest
+        checkpoints under ``model_dir``, write the first validation
+        sample's pred-vs-GT bitmaps each epoch (3D: mosaics of ``showwind``
+        rows x cols slices) and the loss and accuracy curves there.
+        Returns the history."""
         print("[INFO] training the network...")
         os.makedirs(model_dir, exist_ok=True)
         print_summary(self.model, type(self).__name__)
@@ -158,7 +140,8 @@ class _SegModel3d:
             self.model, self.numclass, self.loss_name, alpha=self.alpha,
             gamma=self.gamma, accuracy_name=self.accuracyname,
             config=TrainerConfig(epochs=epochs, lr=lr, optimizer=self.optimizer),
-            device=self.device)
+            device=self.device,
+            viz_fn=make_seg_viz(self.numclass, self.ndim, tuple(showwind)))
         train_loader = self._dataloader(trainimage, trainmask, shuffle=True)
         val_loader = self._dataloader(validationimage, validationmask, shuffle=False)
         history = self.trainer.fit(lambda: iter(train_loader),
@@ -175,6 +158,45 @@ class _SegModel3d:
 
     def _forward_probs(self, batch: torch.Tensor) -> torch.Tensor:
         return self.model(batch)[1]
+
+    def predict(self, full_img: np.ndarray, out_threshold: float = 0.5) -> np.ndarray:
+        """Channel-first (C, *spatial) in -> uint8 (*spatial) label map out;
+        the threshold/argmax runs on the device."""
+        img = np.moveaxis(np.asarray(full_img, np.float32), 0, -1)[None]
+        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        with torch.inference_mode():
+            mask = probs_to_mask(self._forward_probs(x)[0], out_threshold)
+        return mask.cpu().numpy()
+
+    def clear_GPU_cache(self):
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+class _SegModel3d(_SegModel):
+    """The 3D classes: Adam, .npy volumes, whole-volume and sliding-window
+    inference through the packed twins."""
+
+    inference_normalizer = staticmethod(percentile_zscore)
+    ndim = 3
+    optimizer = "adam"  # the reference's 3D models train with Adam
+
+    def __init__(self, image_depth: int, image_height: int, image_width: int,
+                 image_channel: int, numclass: int, batch_size: int = 1,
+                 loss_name: str = "BinaryDiceLoss", inference: bool = False,
+                 model_path: Optional[str] = None, use_cuda: bool = True,
+                 features: int = 16, device=None):
+        """``device`` defaults to "cuda" if ``use_cuda`` else "cpu"; there
+        is no fallback to the CPU.  Without a checkpoint the weights are
+        He-normal from ``torch.Generator().manual_seed(0)``.  The class's
+        ``network`` ("unet" or "vnet") picks the net."""
+        self.image_depth = image_depth
+        self._setup(image_height, image_width, image_channel, numclass, batch_size,
+                    loss_name, inference, model_path, use_cuda, features, device)
+
+    def _dataloader(self, images, labels, shuffle: bool) -> DataLoader:
+        return DataLoader(SegDataset3D(images, labels, binary=self.binary),
+                          batch_size=self.batch_size, shuffle=shuffle)
 
     # Space-to-depth packed serving (models/unet_packed.py), an exact
     # rewrite of the plain net's forward; set False on an instance or the
@@ -239,18 +261,35 @@ class _SegModel3d:
             transfer_dtype=transfer_dtype, packed_apply=packed, packed_layout=layout,
             device=self.device)
 
-    def predict(self, full_img: np.ndarray, out_threshold: float = 0.5) -> np.ndarray:
-        """Channel-first (C, D, H, W) in -> uint8 (D, H, W) label map out;
-        the threshold/argmax runs on the device."""
-        img = np.moveaxis(np.asarray(full_img, np.float32), 0, -1)[None]
-        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        with torch.inference_mode():
-            mask = probs_to_mask(self._forward_probs(x)[0], out_threshold)
-        return mask.cpu().numpy()
 
-    def clear_GPU_cache(self):
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+class _SegModel2d(_SegModel):
+    """The 2D classes: AdamW, PNG / BMP datasets, per-image inference."""
+
+    ndim = 2
+    optimizer = "adamw"  # the reference's 2D models train with AdamW
+
+    def __init__(self, image_height: int, image_width: int, image_channel: int,
+                 numclass: int, batch_size: int, loss_name: str = "BinaryDiceLoss",
+                 inference: bool = False, model_path: Optional[str] = None,
+                 use_cuda: bool = True, features: int = 16, device=None):
+        """As the 3D classes' (no depth)."""
+        self._setup(image_height, image_width, image_channel, numclass, batch_size,
+                    loss_name, inference, model_path, use_cuda, features, device)
+
+    def _dataloader(self, images, labels, shuffle: bool) -> DataLoader:
+        return DataLoader(SegDataset2D(images, labels, (self.image_height, self.image_width),
+                                       self.binary),
+                          batch_size=self.batch_size, shuffle=shuffle)
+
+    def inference(self, image: np.ndarray) -> np.ndarray:
+        """One image (H, W) or (H, W, C) -> uint8 (H, W) label map: resized
+        (linear, in float32) to the net's size, z-scored, predicted, the
+        mask resized back by nearest (cv2's rules, ``io_native/image.py``)."""
+        src_h, src_w = image.shape[:2]
+        img = resize(image.astype(np.float32), (self.image_height, self.image_width))
+        img = (img - img.mean()) / (img.std() or 1.0)
+        img = img[None] if img.ndim == 2 else np.moveaxis(img, -1, 0)
+        return resize(self.predict(img), (src_h, src_w), "nearest")
 
 
 class BinaryUNet3dModel(_SegModel3d):
@@ -282,3 +321,26 @@ class MutilVNet3dModel(_SegModel3d):
     network = "vnet"
     inference_normalizer = staticmethod(
         lambda a: truncate_and_normalize(a, 100, -100, "meanstd"))
+
+
+class BinaryUNet2dModel(_SegModel2d):
+    """The 2D U-Net, one output class, sigmoid and threshold."""
+
+    binary = True
+
+
+class MutilUNet2dModel(_SegModel2d):
+    """The 2D U-Net, ``numclass`` output classes, softmax and argmax."""
+
+
+class BinaryVNet2dModel(_SegModel2d):
+    """The 2D V-Net, one output class, sigmoid and threshold."""
+
+    binary = True
+    network = "vnet"
+
+
+class MutilVNet2dModel(_SegModel2d):
+    """The 2D V-Net, ``numclass`` output classes, softmax and argmax."""
+
+    network = "vnet"

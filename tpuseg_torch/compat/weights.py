@@ -1,6 +1,8 @@
-"""Weights for the port's zoo (UNet, VNet, ResUNet3d, STUNet3d, KiUNet3d,
-UNetThin, VNet3dRegistration, TPDDNet): from tpuseg's flax trees, from
-seeds, from reference-named ``.pth`` state_dicts (UNet, VNet).
+"""Weights for the port's zoo (UNet and VNet in 3D and 2D, ResUNet3d,
+STUNet3d, KiUNet3d, UNetThin, VNet3dRegistration, TPDDNet, the ResNet
+classifiers, the pix2pix generator and discriminator): from tpuseg's flax
+trees, from seeds, from reference-named ``.pth`` state_dicts (UNet, VNet,
+ResNet, the pix2pix generator).
 
 ``unet_params_from_jax`` converts a tpuseg ``UNet`` parameter tree (flax
 layout, numpy leaves) into the port's ``state_dict``: reference-framework
@@ -34,7 +36,15 @@ through; it maps to one ``norm`` module.  ``registration_params_from_jax``,
 ``tpddnet_params_from_jax``, ``seeded_registration_params`` and
 ``seeded_tpddnet_params`` do the same for ``VNet3dRegistration`` (its
 stem's shared GroupNorm one ``norm``) and ``TPDDNet`` (its shared decoder
-and ``head_dec`` once each).
+and ``head_dec`` once each).  ``resnet_params_from_jax``,
+``pix2pix_generator_params_from_jax`` and
+``pix2pix_discriminator_params_from_jax`` with their ``seeded_*`` do the
+same for ``ResNetClassifier`` (2D or 3D; flax's Dense (in, out) kernels to
+torch's (out, in)) and the pix2pix nets (affine-free norms: convs only).
+The UNet and VNet converters and seeds take either rank (``ndim``).
+
+``params_from_jax(net, tree)`` dispatches by the name a Model class or a
+run directory carries (``core/checkpoint.py`` ``read_run``).
 """
 from __future__ import annotations
 
@@ -116,8 +126,8 @@ def unet_params_from_jax(tree: Mapping, levels: int = 4,
 
 
 def seeded_unet_params(seed: int, features: int, num_classes: int,
-                       in_ch: int, levels: int = 4) -> dict:
-    """A tpuseg ``UNet(ndim=3)`` parameter tree (flax layout and names, the
+                       in_ch: int, levels: int = 4, ndim: int = 3) -> dict:
+    """A tpuseg ``UNet(ndim)`` parameter tree (flax layout and names, the
     tree under ``{"params": ...}``) drawn from ``numpy.random.default_rng
     (seed)``: He-normal kernels (std sqrt(2 / fan_in), fan_in over the taps
     and input channels), ones/zeros GroupNorms, and small random biases
@@ -134,7 +144,7 @@ def seeded_unet_params(seed: int, features: int, num_classes: int,
     def block(cin, cout):
         node = {}
         for i in (0, 1):
-            node[f"ConvND_{i}"] = {"Conv_0": {"kernel": he((3, 3, 3, cin, cout))}}
+            node[f"ConvND_{i}"] = {"Conv_0": {"kernel": he((3,) * ndim + (cin, cout))}}
             node[f"GroupNorm_{i}"] = {"scale": np.ones(cout, np.float32),
                                       "bias": np.zeros(cout, np.float32)}
             cin = cout
@@ -150,16 +160,16 @@ def seeded_unet_params(seed: int, features: int, num_classes: int,
     for j in range(levels):
         ch = f * 2 ** (levels - 1 - j)
         tree[f"ConvTransposeND_{j}"] = {"ConvTranspose_0": {
-            "kernel": he((2, 2, 2, 2 * ch, ch)), "bias": bias(ch)}}
+            "kernel": he((2,) * ndim + (2 * ch, ch)), "bias": bias(ch)}}
         tree[f"ConvBlock_{levels + 1 + j}"] = block(2 * ch, ch)
     tree["OutputHead_0"] = {"ConvND_0": {"Conv_0": {
-        "kernel": he((1, 1, 1, f, num_classes)), "bias": bias(num_classes)}}}
+        "kernel": he((1,) * ndim + (f, num_classes)), "bias": bias(num_classes)}}}
     return tree
 
 
 def vnet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
-    """tpuseg VNet(ndim=3) params (the tree under ``{"params": ...}``, or
-    the whole variables dict) -> the port's ``VNet`` state_dict of CPU
+    """tpuseg VNet(ndim=3 or 2) params (the tree under ``{"params": ...}``,
+    or the whole variables dict) -> the port's ``VNet`` state_dict of CPU
     tensors of ``dtype`` (float32, or float64 as ``unet_params_from_jax``).  Strict both ways: every leaf of the tree is consumed and
     every tensor of the state_dict is filled."""
     if "params" in tree and isinstance(tree["params"], Mapping):
@@ -238,8 +248,8 @@ def vnet_state_dict_from_reference(state_dict: Mapping) -> Dict[str, torch.Tenso
 
 
 def seeded_vnet_params(seed: int, features: int, num_classes: int,
-                       in_ch: int) -> dict:
-    """A tpuseg ``VNet(ndim=3)`` parameter tree (flax layout and names, the
+                       in_ch: int, ndim: int = 3) -> dict:
+    """A tpuseg ``VNet(ndim)`` parameter tree (flax layout and names, the
     tree under ``{"params": ...}``) drawn from ``numpy.random.default_rng
     (seed)``: He-normal kernels, small random biases (std 0.05) and random
     GroupNorm scales (1 + 0.1 N(0, 1)) and biases (0.1 N(0, 1)), so that
@@ -252,7 +262,7 @@ def seeded_vnet_params(seed: int, features: int, num_classes: int,
         return (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
 
     def conv(k, cin, cout):
-        return {"Conv_0": {"kernel": he((k, k, k, cin, cout)),
+        return {"Conv_0": {"kernel": he((k,) * ndim + (cin, cout)),
                            "bias": (rng.standard_normal(cout) * 0.05).astype(np.float32)}}
 
     def gn(c):
@@ -276,7 +286,7 @@ def seeded_vnet_params(seed: int, features: int, num_classes: int,
         tree[f"UpTransition_{i}"] = luconvs({
             "GroupNorm_0": gn(cout),
             "ConvTransposeND_0": {"ConvTranspose_0": {
-                "kernel": he((2, 2, 2, cin, cout)),
+                "kernel": he((2,) * ndim + (cin, cout)),
                 "bias": (rng.standard_normal(cout) * 0.05).astype(np.float32)}},
             "ConvND_0": conv(1, 2 * cout, cout), "GroupNorm_1": gn(cout)}, cout, n)
     tree["OutputHead_0"] = {"ConvND_0": conv(1, f, num_classes)}
@@ -435,9 +445,58 @@ def _tpddnet_rows():
             + _conv_rows("head_dec", ("ConvND_1",), True))
 
 
+def _resnet_rows():
+    rows = (_conv_rows("in_tr.conv1", ("InputTransition_0", "ConvND_0"), True)
+            + _conv_rows("in_tr.conv2", ("InputTransition_0", "ConvND_1"), True)
+            + _gn_rows("in_tr.bn1", ("InputTransition_0", "GroupNorm_0")))
+    for i, (t, n) in enumerate(DOWN_STAGES):
+        node = (f"DownTransition_{i}",)
+        rows += _conv_rows(f"{t}.down_conv", node + ("ConvND_0",), True)
+        rows += _gn_rows(f"{t}.bn1", node + ("GroupNorm_0",))
+        for j in range(n):
+            lu = node + (f"LUConv_{j}",)
+            rows += _conv_rows(f"{t}.ops.{j}.conv1", lu + ("ConvND_0",), True)
+            rows += _gn_rows(f"{t}.ops.{j}.bn1", lu + ("GroupNorm_0",))
+    # flax Dense (in, out) -> torch Linear (out, in): the conv rule at 0 taps
+    for key, node in (("fc_layers.0", "Dense_0"), ("fc_layers.2", "Dense_1")):
+        rows += [(f"{key}.weight", (node, "kernel"), "conv"),
+                 (f"{key}.bias", (node, "bias"), "vec")]
+    return rows
+
+
+def _pix2pix_generator_rows():
+    def luconvs(key, node, n):
+        return [row for j in range(n) for row in _conv_rows(
+            f"{key}.ops.{j}.conv1", (node, f"_LUConvIN_{j}", "ConvND_0"), True)]
+
+    rows = (_conv_rows("in_tr.conv1", ("_InputTr_0", "ConvND_0"), True)
+            + _conv_rows("in_tr.conv2", ("_InputTr_0", "ConvND_1"), True))
+    for i, (t, n) in enumerate(DOWN_STAGES):
+        rows += _conv_rows(f"{t}.down_conv", (f"_DownTr_{i}", "ConvND_0"), True)
+        rows += luconvs(t, f"_DownTr_{i}", n)
+    for i, (t, n) in enumerate(UP_STAGES):
+        rows += _conv_rows(f"{t}.up_conv", (f"_UpTr_{i}", "ConvTransposeND_0"), True,
+                           "ConvTranspose_0", "tconv")
+        rows += _conv_rows(f"{t}.conv", (f"_UpTr_{i}", "ConvND_0"), True)
+        rows += luconvs(t, f"_UpTr_{i}", n)
+    return rows + _conv_rows("out_tr.conv", ("ConvND_0",), True)
+
+
+def _pix2pix_discriminator_rows():
+    from tpuseg_torch.models.pix2pix import Discriminator2d
+
+    n = len(Discriminator2d.MULTS)
+    return ([row for i in range(n) for row in _conv_rows(f"convs.{i}", (f"ConvND_{i}",),
+                                                         False)]
+            + _conv_rows("head", (f"ConvND_{n}",), False))
+
+
 ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
             "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows,
-            "vnet3dregistration": _registration_rows, "tpddnet": _tpddnet_rows}
+            "vnet3dregistration": _registration_rows, "tpddnet": _tpddnet_rows,
+            "resnet2d": _resnet_rows, "resnet3d": _resnet_rows,
+            "pix2pix_generator": _pix2pix_generator_rows,
+            "pix2pix_discriminator": _pix2pix_discriminator_rows}
 
 
 def _from_jax(net: str, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
@@ -502,13 +561,17 @@ def _seeded(net: str, seed: int, num_classes: int = 2, **build_kw) -> dict:
     in ``ZOO_ROWS`` order: He-normal kernels, biases 0.05 N(0, 1), GroupNorm
     scales 1 + 0.1 N(0, 1) and biases 0.1 N(0, 1) (so that a norm shared in
     the wrong place would show).  Shapes from the port's module
-    (``build_model(net, num_classes, **build_kw)``), made on the meta
-    device."""
+    (``build_model(net, num_classes, **build_kw)``, or the pix2pix net's
+    class with ``build_kw``), made on the meta device."""
     from tpuseg_torch.models import build_model
+    from tpuseg_torch.models.pix2pix import Discriminator2d, GeneratorUNet2d
 
+    pix2pix = {"pix2pix_generator": GeneratorUNet2d,
+               "pix2pix_discriminator": Discriminator2d}
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in build_model(
-            net, num_classes, **build_kw).state_dict().items()}
+        net_module = (pix2pix[net](**build_kw) if net in pix2pix
+                      else build_model(net, num_classes, **build_kw))
+        shapes = {k: tuple(v.shape) for k, v in net_module.state_dict().items()}
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for key, path, kind in ZOO_ROWS[net]():
@@ -558,3 +621,60 @@ def seeded_registration_params(seed: int, features: int, in_ch: int = 1) -> dict
 def seeded_tpddnet_params(seed: int, num_classes: int, in_ch: int = 1) -> dict:
     """As ``seeded_resunet_params``, for ``TPDDNet``."""
     return _seeded("tpddnet", seed, num_classes, in_channels=in_ch)
+
+
+def resnet_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``ResNetClassifier`` of either
+    rank (the rank is in the kernels' shapes)."""
+    return _from_jax("resnet2d", tree, dtype)
+
+
+def pix2pix_generator_params_from_jax(tree: Mapping,
+                                      dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``GeneratorUNet2d``."""
+    return _from_jax("pix2pix_generator", tree, dtype)
+
+
+def pix2pix_discriminator_params_from_jax(tree: Mapping,
+                                          dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``Discriminator2d``."""
+    return _from_jax("pix2pix_discriminator", tree, dtype)
+
+
+def seeded_resnet_params(seed: int, num_classes: int, in_ch: int = 1, ndim: int = 2,
+                         features: int = 16) -> dict:
+    """As ``seeded_resunet_params``, for ``ResNetClassifier(ndim)``."""
+    return _seeded("resnet2d" if ndim == 2 else "resnet3d", seed, num_classes,
+                   features=features, in_channels=in_ch)
+
+
+def seeded_pix2pix_generator_params(seed: int, out_channels: int = 1, in_ch: int = 1,
+                                    features: int = 16) -> dict:
+    """As ``seeded_resunet_params``, for ``GeneratorUNet2d``."""
+    return _seeded("pix2pix_generator", seed, out_channels=out_channels,
+                   in_channels=in_ch, features=features)
+
+
+def seeded_pix2pix_discriminator_params(seed: int, out_channels: int = 1,
+                                        in_ch: int = 2, features: int = 32) -> dict:
+    """As ``seeded_resunet_params``, for ``Discriminator2d`` (``in_ch`` the
+    image's and the condition's channels together)."""
+    return _seeded("pix2pix_discriminator", seed, out_channels=out_channels,
+                   in_channels=in_ch, features=features)
+
+
+def params_from_jax(net: str, tree: Mapping, levels: int = 4,
+                    dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The port's state_dict of a tpuseg parameter tree of ``net``: "unet",
+    "vnet" (either rank), "resnet", "pix2pix_generator",
+    "pix2pix_discriminator", or a ``ZOO_ROWS`` name."""
+    if net == "unet":
+        return unet_params_from_jax(tree, levels=levels, dtype=dtype)
+    if net == "vnet":
+        return vnet_params_from_jax(tree, dtype=dtype)
+    if net == "resnet":
+        net = "resnet2d"
+    if net not in ZOO_ROWS:
+        raise ValueError(f"no converter for {net!r} (unet, vnet, resnet, "
+                         f"{', '.join(sorted(ZOO_ROWS))})")
+    return _from_jax(net, tree, dtype)

@@ -7,20 +7,29 @@ state.pt}``, where ``state.pt`` holds the model's reference-named
 A save writes a fresh directory and swaps it in (the old one moved aside to
 ``<name>.old`` first, so there is never a moment with neither on disk); a
 restore falls back to ``.old`` when a crash hit that window.  The manager
-keeps "best" (the highest validation metric so far) and "latest"; it
-writes before it returns, as the JAX trainer, which waits for each write
-at once, does in effect.
+keeps "best" (the highest validation metric so far, or the lowest with
+``mode="min"``, as the GAN trainer's) and "latest"; it writes before it
+returns, as the JAX trainer, which waits for each write at once, does in
+effect.
 
-Reading the JAX package's ``state.msgpack`` directories is not ported yet.
+A tpuseg run reads too: ``read_msgpack`` decodes the subset of msgpack that
+flax's ``serialization.to_bytes`` writes for a train state (maps, arrays,
+ints, floats, strings, booleans, nil, and its ndarray / numpy-scalar
+extension types), in Python and numpy, and ``read_run`` finds
+``state.msgpack`` in a run directory (``<dir>/best``, falling back to
+``best.old`` as the JAX restore does) and returns the decoded train state,
+whose parameter tree ``compat/weights.py`` converts.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import tempfile
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -67,10 +76,14 @@ def exists(path: str) -> bool:
 
 
 class CheckpointManager:
-    """Best (highest metric) + latest retention."""
+    """Best (highest metric, or lowest with ``mode="min"``) + latest
+    retention."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
         self.directory = directory
+        self.mode = mode
         self._best: Optional[float] = None
         os.makedirs(directory, exist_ok=True)
         best = os.path.join(directory, "best")
@@ -85,7 +98,8 @@ class CheckpointManager:
 
     def maybe_save_best(self, state: dict, step: int, metric: float,
                         **extra) -> bool:
-        better = self._best is None or metric > self._best
+        better = (self._best is None
+                  or (metric > self._best if self.mode == "max" else metric < self._best))
         if better:
             self._best = float(metric)
             meta = {"step": int(step), "metric": float(metric)}
@@ -103,3 +117,130 @@ class CheckpointManager:
     @property
     def best_metric(self) -> Optional[float]:
         return self._best
+
+
+# ------------------------------------------------------------ tpuseg runs
+
+class _Reader:
+    """A msgpack stream: one object per ``obj()`` call."""
+
+    _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack data ends early")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(">" + fmt)))[0]
+
+    def obj(self) -> Any:
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.obj() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        sizes = {0: "B", 1: "H", 2: "I"}
+        if 0xC4 <= b <= 0xC6:  # bin 8/16/32
+            return bytes(self.take(self.unpack(sizes[b - 0xC4])))
+        if 0xC7 <= b <= 0xC9:  # ext 8/16/32
+            n = self.unpack(sizes[b - 0xC7])
+            return self.ext(self.unpack("b"), bytes(self.take(n)))
+        if b == 0xCA:
+            return self.unpack("f")
+        if b == 0xCB:
+            return self.unpack("d")
+        if 0xCC <= b <= 0xD3:  # uint / int 8..64
+            return self.unpack("BHIQbhiq"[b - 0xCC])
+        if 0xD4 <= b <= 0xD8:  # fixext 1..16
+            code = self.unpack("b")
+            return self.ext(code, bytes(self.take(1 << (b - 0xD4))))
+        if 0xD9 <= b <= 0xDB:  # str 8/16/32
+            return str(self.take(self.unpack(sizes[b - 0xD9])), "utf-8")
+        if b in (0xDC, 0xDD):
+            return [self.obj() for _ in range(self.unpack("H" if b == 0xDC else "I"))]
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        raise ValueError(f"msgpack byte 0x{b:02x} at {self.pos - 1} is not one flax writes")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.obj()
+            out[k] = self.obj()
+        return out
+
+    def ext(self, code: int, payload: bytes):
+        if code in (self._EXT_NDARRAY, self._EXT_NPSCALAR):
+            inner = _Reader(payload)
+            shape, dtype, buf = inner.obj()
+            arr = _array_from_buffer(buf, dtype, shape)
+            return arr if code == self._EXT_NDARRAY else arr[()]
+        raise ValueError(f"msgpack extension type {code} is not one flax writes")
+
+
+def _array_from_buffer(buf: bytes, dtype, shape) -> np.ndarray:
+    """flax's ndarray payload; bfloat16 (no numpy dtype) widens to float32."""
+    dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+    if dtype == "bfloat16":
+        bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, np.dtype(dtype)).reshape(shape).copy()
+
+
+def read_msgpack(data: bytes) -> Any:
+    """Decode bytes written by ``flax.serialization.to_bytes`` into nested
+    dicts of numpy arrays and Python scalars."""
+    reader = _Reader(data)
+    out = reader.obj()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"msgpack data has {len(reader.data) - reader.pos} bytes after "
+                         "its object")
+    return out
+
+
+def msgpack_path(path: str) -> str:
+    """The ``state.msgpack`` a tpuseg path names: the file itself (any
+    ``.msgpack`` file), a checkpoint directory holding it (or its ``.old``
+    copy after a crash in the save's swap), or a run directory holding
+    ``best/``."""
+    if os.path.isfile(path) and path.endswith(".msgpack"):
+        return path
+    for d in (path, os.path.join(path, "best")):
+        for cand in (d, d + ".old"):
+            f = os.path.join(cand, "state.msgpack")
+            if os.path.isfile(f):
+                return f
+    raise FileNotFoundError(f"{path}: no tpuseg state.msgpack (nor best/state.msgpack)")
+
+
+def is_tpuseg_run(path: str) -> bool:
+    try:
+        msgpack_path(os.fspath(path))
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def read_run(path: str) -> dict:
+    """The train state a tpuseg checkpoint holds (``msgpack_path``):
+    ``{"params": {"params": tree, ...}, "opt_state": ..., "step": ...}`` from
+    the JAX Trainer, ``{"g_params": ..., "d_params": ..., ...}`` from its
+    GAN trainer."""
+    with open(msgpack_path(os.fspath(path)), "rb") as f:
+        return read_msgpack(f.read())

@@ -1,8 +1,12 @@
 """Host datasets and the batched, prefetching loader (counterpart of
-``tpuseg/data/dataset.py``, the 3D segmentation parts).
+``tpuseg/data/dataset.py``).
 
-* channels-last samples: image (D, H, W, 1) float32, label (D, H, W)
-  int32, or (D, H, W, 1) float 0/1 for binary models;
+* channels-last samples: image (D, H, W, 1) or (H, W, C) float32, label
+  (D, H, W) / (H, W) int32, or (..., 1) float 0/1 for binary models, a
+  class index for the classifiers;
+* the 2D datasets read PNG / BMP files and resize them with
+  ``io_native/image.py``, as the JAX ones do with cv2: images by
+  INTER_LINEAR, masks by INTER_NEAREST, then the per-image z-score;
 * deterministic per-epoch shuffling from a seed (validation unshuffled);
 * a background thread that decodes the next batches while the device
   computes;
@@ -10,8 +14,7 @@
 * an optional ``transform`` of each collated batch, run in that thread
   (online augmentation, ``data/augment3d.py`` ``make_batch_augmenter``).
 
-The 2D, classification and regression datasets (cv2) and multi-host
-sharding come with the slices that need them.
+Multi-host sharding comes with the parallelism slice.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ import threading
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+
+from tpuseg_torch.data.normalize import zscore
+from tpuseg_torch.io_native.image import imread, resize
 
 
 class SegDataset3D:
@@ -49,6 +55,92 @@ class SegDataset3D:
         if self.binary:
             lab = (lab != 0).astype(np.float32)[..., None]
         return {"image": img, "label": lab}
+
+
+class SegDataset2D:
+    """The reference's datasetModelSegwithopencv: PNG / BMP image and mask
+    pairs, resized to ``target_hw``, the image z-scored per image."""
+
+    def __init__(self, images, labels, target_hw=(512, 512), binary: bool = False):
+        self.images = list(images)
+        self.labels = list(labels)
+        if len(self.images) != len(self.labels):
+            raise ValueError(f"{len(self.images)} images but {len(self.labels)} labels")
+        self.target_hw = tuple(target_hw)
+        self.binary = binary
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        img = zscore(resize(imread(self.images[i], 0), self.target_hw, "linear"))
+        lab = resize(imread(self.labels[i], 0), self.target_hw, "nearest").astype(np.int32)
+        if self.binary:
+            lab = (lab != 0).astype(np.float32)[..., None]
+        return {"image": img[..., None], "label": lab}
+
+
+class ClassifyDataset2D:
+    """The reference's datasetModelClassifywithopencv: PNG / BMP images
+    (gray, or BGR for ``channels`` > 1) resized to ``target_hw`` and
+    z-scored, each with its class index."""
+
+    def __init__(self, images, labels, target_hw=(64, 64), channels: int = 1):
+        self.images = list(images)
+        self.labels = list(labels)
+        self.target_hw = tuple(target_hw)
+        self.channels = channels
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        img = imread(self.images[i], 0 if self.channels == 1 else 1)
+        img = zscore(resize(img, self.target_hw, "linear"))
+        if img.ndim == 2:
+            img = img[..., None]
+        return {"image": img, "label": np.int32(self.labels[i])}
+
+
+class ClassifyDataset3D:
+    """The reference's datasetModelClassifywithnpy: .npy volumes (D, H, W),
+    each with its class index."""
+
+    def __init__(self, images, labels):
+        self.images = list(images)
+        self.labels = list(labels)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        img = np.load(self.images[i]).astype(np.float32)
+        return {"image": img.reshape(img.shape[:3] + (1,)),
+                "label": np.int32(self.labels[i])}
+
+
+class RegressionDataset2D:
+    """The reference's datasetModelRegressionwithopencv: paired input and
+    target images (PNG / BMP) resized to ``target_hw`` (INTER_LINEAR on
+    the uint8 pixels), each z-scored, with the target's mean and std for
+    the de-normalized PSNR."""
+
+    def __init__(self, images, targets, target_hw=(512, 512)):
+        self.images = list(images)
+        self.targets = list(targets)
+        self.target_hw = tuple(target_hw)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        img = resize(imread(self.images[i], 0), self.target_hw).astype(np.float32)
+        tgt = resize(imread(self.targets[i], 0), self.target_hw).astype(np.float32)
+        istd = img.std() or 1.0
+        tstd = tgt.std() or 1.0
+        return {"image": ((img - img.mean()) / istd)[..., None],
+                "target": ((tgt - tgt.mean()) / tstd)[..., None],
+                "mean": np.float32(tgt.mean()), "std": np.float32(tstd)}
 
 
 class ArrayDataset:

@@ -4,6 +4,13 @@ from __future__ import annotations
 import numpy as np
 
 
+def zscore(image: np.ndarray) -> np.ndarray:
+    """The 2D datasets' per-image (x - mean) / std in float32 (std 0 -> 1)."""
+    x = image.astype(np.float32)
+    std = x.std()
+    return (x - x.mean()) / (std if std > 0 else 1.0)
+
+
 def percentile_zscore(
     image: np.ndarray, lower: float = 5.0, upper: float = 95.0
 ) -> np.ndarray:

@@ -1,11 +1,14 @@
 """Host C++ ops of the port, loaded with ctypes: ITK-semantics resampling,
-KD-tree nearest-neighbour distances, the percentile z-score and the NIfTI-1
-voxel codec.
+KD-tree nearest-neighbour distances, the percentile z-score, the NIfTI-1
+voxel codec, and the 8-bit PNG / BMP decoders of the 2D datasets
+(``image_decode``; ``io_native/image.py`` holds the readers, writers and
+resizes built on it).
 
 Counterpart of ``tpuseg/io_native`` with the same entry points
 (``resample_linear``, ``resample_nearest``, ``nn_distances``,
 ``percentile_zscore``, ``nifti_read_bytes``, ``nifti_write_bytes``) and its
-own copy of the source, ``native.cc``.  At first use the source is compiled
+own copy of the source, ``native.cc``; JAX reads its 2D images with cv2,
+which the port does not use.  At first use the source is compiled
 with
 
     g++ -O3 -march=native -shared -fPIC -o <tmp> native.cc -lz
@@ -39,7 +42,7 @@ FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 CALLS = {name: 0 for name in ("resample_linear", "resample_nearest", "nn_distances",
                               "percentile_zscore", "nifti_read_bytes",
-                              "nifti_write_bytes")}
+                              "nifti_write_bytes", "image_decode")}
 
 _lock = threading.Lock()
 _lib = None
@@ -109,6 +112,9 @@ def library() -> ctypes.CDLL:
                 "nifti_read_bytes": ([ctypes.c_char_p, i64, i64, u8raw], i64),
                 "nifti_write_bytes": ([ctypes.c_char_p, u8raw, i64, u8raw, i64,
                                        ctypes.c_int], i64),
+                "image_dims": ([u8p, i64, np.ctypeslib.ndpointer(
+                    np.int64, flags="C_CONTIGUOUS")], i64),
+                "image_decode": ([u8p, i64, u8p, ctypes.c_int], i64),
             }
             for name, (argtypes, restype) in signatures.items():
                 fn = getattr(lib, name)
@@ -196,3 +202,30 @@ def nifti_write_bytes(path: str, header: bytes, data: np.ndarray, level: int) ->
         payload.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), payload.size, level)
     if wrote != hdr.size + payload.size:
         raise IOError(f"nifti_write_bytes failed for {path} ({wrote})")
+
+
+_IMAGE_ERRORS = {-2: "is neither a PNG nor a BMP file",
+                 -3: "is a PNG or BMP variant the decoder does not read (PNG: 8-bit "
+                     "gray, gray+alpha, RGB or RGBA, not interlaced; BMP: "
+                     "uncompressed 8-, 24- or 32-bit, 32-bit bit fields in BGR order)",
+                 -4: "is corrupt or truncated"}
+
+
+def image_decode(data: bytes, channels: int = 1, name: str = "image") -> np.ndarray:
+    """Decode a PNG or BMP held in ``data`` to uint8 (H, W) gray
+    (``channels`` 1) or (H, W, 3) BGR (``channels`` 3), as
+    ``cv2.imdecode`` with flag 0 or 1 does.  Raises ValueError naming
+    ``name`` for another format or a corrupt file."""
+    if channels not in (1, 3):
+        raise ValueError(f"channels must be 1 or 3, got {channels}")
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    hw = np.zeros(2, np.int64)
+    err = lib.image_dims(buf, buf.size, hw)
+    if err == 0:
+        out = np.empty((int(hw[0]), int(hw[1]), channels), np.uint8)
+        CALLS["image_decode"] += 1
+        err = lib.image_decode(buf, buf.size, out.reshape(-1), channels)
+    if err:
+        raise ValueError(f"{name} {_IMAGE_ERRORS.get(int(err), f'failed ({err})')}")
+    return out[..., 0] if channels == 1 else out

@@ -3,7 +3,8 @@
 // the NIfTI-1 voxel codec, behind a plain C interface loaded with ctypes
 // (tpuseg_torch/io_native/__init__.py).  The same code as the JAX package's
 // tpuseg/io_native/native.cc, kept here because the port imports nothing of
-// that package.
+// that package; and the 8-bit PNG / BMP decoders of the 2D datasets, which
+// the JAX package takes from cv2 (tpuseg_torch/io_native/image.py).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libtpuseg_torch_native.so native.cc -lz
 
@@ -239,6 +240,214 @@ int64_t nifti_write_bytes(const char* path, const uint8_t* hdr, int64_t hdr_n,
     }
   }
   return gzclose(f) == Z_OK ? total : -1;
+}
+
+// ------------------------------------------------------------ PNG and BMP
+// Decoders of the 2D datasets' images, read as cv2.imread reads them with
+// flag 0 (gray) or 1 (BGR).  PNG: 8-bit gray, gray+alpha, RGB and RGBA,
+// non-interlaced, the five row filters; to gray as libpng's
+// png_set_rgb_to_gray(0.299, 0.587) computes it (integer weights 9797,
+// 19234, 3737, the sum shifted down by 15 bits, truncated), alpha dropped.
+// BMP: uncompressed 8-bit paletted, 24-bit and 32-bit (bit fields only in
+// B, G, R byte order); to gray as cv2 reads them: 8- and 24-bit by its
+// BGR->gray (weights 1868, 9617, 4899 over 2^14, rounded), 32-bit as
+// floor((0.299 r + 0.587 g) + 0.114 b) in float32.  Other files
+// return a negative code.
+
+namespace {
+
+constexpr int64_t kBadFormat = -2, kUnsupported = -3, kCorrupt = -4;
+
+inline uint32_t be32(const uint8_t* p) {
+  return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) | p[3];
+}
+inline uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24);
+}
+inline uint16_t le16(const uint8_t* p) { return uint16_t(p[0] | (p[1] << 8)); }
+
+inline uint8_t png_gray(int r, int g, int b) {
+  return uint8_t((9797 * r + 19234 * g + 3737 * b) >> 15);
+}
+inline uint8_t bmp_gray(int b, int g, int r) {
+  return uint8_t((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14);
+}
+inline uint8_t bmp32_gray(int b, int g, int r) {
+  // float32 products and sums in this order, none fused into an FMA
+  volatile float pr = float(r) * 0.299f, pg = float(g) * 0.587f;
+  volatile float prg = pr + pg, pb = float(b) * 0.114f;
+  return uint8_t(std::floor(prg + pb));
+}
+
+struct Image {
+  int64_t h = 0, w = 0;
+};
+
+const uint8_t kPngSig[8] = {0x89, 'P', 'N', 'G', 0x0D, 0x0A, 0x1A, 0x0A};
+
+// PNG header: dims and the sample layout; 0 or a negative code.
+int64_t png_header(const uint8_t* buf, int64_t n, Image* im, int* channels) {
+  if (n < 33 || std::memcmp(buf, kPngSig, 8) != 0) return kBadFormat;
+  if (std::memcmp(buf + 12, "IHDR", 4) != 0) return kCorrupt;
+  const uint8_t* h = buf + 16;
+  im->w = be32(h);
+  im->h = be32(h + 4);
+  int depth = h[8], type = h[9], interlace = h[12];
+  if (depth != 8 || interlace != 0) return kUnsupported;
+  switch (type) {
+    case 0: *channels = 1; break;
+    case 2: *channels = 3; break;
+    case 4: *channels = 2; break;
+    case 6: *channels = 4; break;
+    default: return kUnsupported;  // palette
+  }
+  if (im->w <= 0 || im->h <= 0) return kCorrupt;
+  return 0;
+}
+
+inline int paeth(int a, int b, int c) {
+  int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  return pb <= pc ? b : c;
+}
+
+int64_t png_decode(const uint8_t* buf, int64_t n, uint8_t* out, int out_ch) {
+  Image im;
+  int ch = 0;
+  int64_t err = png_header(buf, n, &im, &ch);
+  if (err) return err;
+  std::vector<uint8_t> z;
+  for (int64_t pos = 8; pos + 12 <= n;) {
+    uint32_t len = be32(buf + pos);
+    const uint8_t* type = buf + pos + 4;
+    if (pos + 12 + int64_t(len) > n) return kCorrupt;
+    if (std::memcmp(type, "IDAT", 4) == 0) z.insert(z.end(), type + 4, type + 4 + len);
+    if (std::memcmp(type, "IEND", 4) == 0) break;
+    pos += 12 + int64_t(len);
+  }
+  const int64_t stride = im.w * ch;
+  std::vector<uint8_t> raw(size_t(im.h * (stride + 1)));
+  uLongf got = uLongf(raw.size());
+  if (uncompress(raw.data(), &got, z.data(), uLong(z.size())) != Z_OK || got != raw.size())
+    return kCorrupt;
+  std::vector<uint8_t> prev(static_cast<size_t>(stride), 0);
+  std::vector<uint8_t> cur(static_cast<size_t>(stride), 0);
+  for (int64_t y = 0; y < im.h; ++y) {
+    const uint8_t* row = raw.data() + y * (stride + 1);
+    int filter = row[0];
+    ++row;
+    for (int64_t i = 0; i < stride; ++i) {
+      int a = i >= ch ? cur[size_t(i - ch)] : 0, b = prev[size_t(i)];
+      int c = i >= ch ? prev[size_t(i - ch)] : 0;
+      int p;
+      switch (filter) {
+        case 0: p = 0; break;
+        case 1: p = a; break;
+        case 2: p = b; break;
+        case 3: p = (a + b) >> 1; break;
+        case 4: p = paeth(a, b, c); break;
+        default: return kCorrupt;
+      }
+      cur[size_t(i)] = uint8_t(row[i] + p);
+    }
+    uint8_t* o = out + y * im.w * out_ch;
+    for (int64_t x = 0; x < im.w; ++x) {
+      const uint8_t* s = cur.data() + x * ch;
+      int r = s[0], g = ch >= 3 ? s[1] : s[0], b = ch >= 3 ? s[2] : s[0];
+      if (out_ch == 1) {
+        o[x] = ch >= 3 ? png_gray(r, g, b) : uint8_t(r);
+      } else {
+        o[3 * x] = uint8_t(b);
+        o[3 * x + 1] = uint8_t(g);
+        o[3 * x + 2] = uint8_t(r);
+      }
+    }
+    std::swap(prev, cur);
+  }
+  return 0;
+}
+
+struct Bmp {
+  int64_t offset = 0, dib = 0, bpp = 0, colors = 0;
+  bool bottom_up = true;
+};
+
+int64_t bmp_header(const uint8_t* buf, int64_t n, Image* im, Bmp* bm) {
+  if (n < 54 || buf[0] != 'B' || buf[1] != 'M') return kBadFormat;
+  bm->offset = le32(buf + 10);
+  bm->dib = le32(buf + 14);
+  if (bm->dib < 40) return kUnsupported;  // OS/2 core headers
+  int32_t w = int32_t(le32(buf + 18)), h = int32_t(le32(buf + 22));
+  bm->bpp = le16(buf + 28);
+  uint32_t compression = le32(buf + 30);
+  bm->colors = le32(buf + 46);
+  if (bm->bpp != 8 && bm->bpp != 24 && bm->bpp != 32) return kUnsupported;
+  // bit fields only in the B, G, R byte order that cv2 writes 32-bit BMPs in
+  bool bgr_fields = bm->bpp == 32 && compression == 3 && n >= 66 &&
+                    le32(buf + 54) == 0x00ff0000u && le32(buf + 58) == 0x0000ff00u &&
+                    le32(buf + 62) == 0x000000ffu;
+  if (compression != 0 && !bgr_fields) return kUnsupported;  // RLE, other fields
+  if (bm->bpp == 8 && (bm->colors == 0 || bm->colors > 256)) bm->colors = 256;
+  bm->bottom_up = h > 0;
+  im->w = w;
+  im->h = h > 0 ? h : -int64_t(h);
+  if (im->w <= 0 || im->h <= 0) return kCorrupt;
+  int64_t row = (im->w * bm->bpp / 8 + 3) & ~int64_t(3);
+  if (bm->offset + row * im->h > n) return kCorrupt;
+  if (bm->bpp == 8 && 14 + bm->dib + 4 * bm->colors > n) return kCorrupt;
+  return 0;
+}
+
+int64_t bmp_decode(const uint8_t* buf, int64_t n, uint8_t* out, int out_ch) {
+  Image im;
+  Bmp bm;
+  int64_t err = bmp_header(buf, n, &im, &bm);
+  if (err) return err;
+  const uint8_t* pal = buf + 14 + bm.dib;  // B, G, R, 0 per entry
+  const int64_t row_bytes = (im.w * bm.bpp / 8 + 3) & ~int64_t(3);
+  const int step = int(bm.bpp / 8);
+  for (int64_t y = 0; y < im.h; ++y) {
+    const uint8_t* row = buf + bm.offset + (bm.bottom_up ? im.h - 1 - y : y) * row_bytes;
+    uint8_t* o = out + y * im.w * out_ch;
+    for (int64_t x = 0; x < im.w; ++x) {
+      const uint8_t* s = row + x * step;
+      if (bm.bpp == 8) {
+        if (*s >= bm.colors) return kCorrupt;
+        s = pal + 4 * int64_t(*s);
+      }
+      if (out_ch == 1) {
+        o[x] = bm.bpp == 32 ? bmp32_gray(s[0], s[1], s[2]) : bmp_gray(s[0], s[1], s[2]);
+      } else {
+        o[3 * x] = s[0];
+        o[3 * x + 1] = s[1];
+        o[3 * x + 2] = s[2];
+      }
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Height and width of a PNG or BMP held in `buf`; 0 or a negative code
+// (-2 not a PNG or BMP, -3 a variant the decoder does not read, -4 corrupt).
+int64_t image_dims(const uint8_t* buf, int64_t n, int64_t* hw) {
+  Image im;
+  int ch = 0;
+  Bmp bm;
+  int64_t err = png_header(buf, n, &im, &ch);
+  if (err == kBadFormat) err = bmp_header(buf, n, &im, &bm);
+  if (err) return err;
+  hw[0] = im.h;
+  hw[1] = im.w;
+  return 0;
+}
+
+// Decode into `out` (h, w, out_ch) uint8, out_ch 1 (gray) or 3 (BGR).
+int64_t image_decode(const uint8_t* buf, int64_t n, uint8_t* out, int out_ch) {
+  int64_t err = png_decode(buf, n, out, out_ch);
+  if (err == kBadFormat) err = bmp_decode(buf, n, out, out_ch);
+  return err;
 }
 
 }  // extern "C"

@@ -2,16 +2,20 @@
 
 The PyTorch counterparts of ``tpuseg/nn/layers.py`` (``ConvND``,
 ``ConvTransposeND``, ``ChannelDropout``, ``max_pool_nd``, ``ConvBlock``,
-``OutputHead``, ``upsample_nd`` and the V-Net vocabulary ``LUConv``,
-``InputTransition``, ``DownTransition``, ``UpTransition``), in the 3D modes
-the 3D zoo calls: stride-1 SAME convs, stride-2 SAME and VALID convs (XLA's
-SAME padding, low side first), dilated SAME convs, kernel-2 stride-2
-transpose convs, 2-window max pools, nearest and linear upsampling,
-``resize_half_linear`` (the antialiased x1/2 linear resize of
-``jax.image.resize``), GroupNorm(8) + ReLU and InstanceNorm
-(``InstanceNorm``, flax's ``GroupNorm(group_size=1)``), both through the
-fused kernel.  The 2D modes come with the slice that uses them.
-Activations are channels-last (N, D, H, W, C) at every ``forward``, as in
+``OutputHead``, ``upsample_nd``, ``global_avg_pool``, ``Dense`` and the
+V-Net vocabulary ``LUConv``, ``InputTransition``, ``DownTransition``,
+``UpTransition``), in 3D (``ndim=3``, the default) and 2D (``ndim=2``):
+stride-1 SAME convs, strided SAME and VALID convs (XLA's SAME padding, low
+side first: the 5x5 stride-2 convs of the pix2pix discriminator too),
+dilated SAME convs, kernel-2 stride-2 transpose convs, 2-window max pools,
+nearest and linear upsampling, ``resize_half_linear`` (the antialiased x1/2
+linear resize of ``jax.image.resize``, 3D), GroupNorm(8) + ReLU and
+InstanceNorm (``InstanceNorm``, flax's ``GroupNorm(group_size=1)``; the
+affine-free ``InstanceNormNoAffine`` of pix2pix), all through the fused
+kernel on maps of either rank.  Only the 3D stride-1 3x3x3 convs reach the
+hand-written conv kernel, as only they reached the TPU one; every 2D conv
+goes to cuDNN, as XLA ran them.
+Activations are channels-last (N, *spatial, C) at every ``forward``, as in
 tpuseg.  Parameters carry the reference PyTorch framework's names and
 layouts (conv ``weight`` (O, I, *k), transpose-conv ``weight`` (I, O, *k),
 GroupNorm ``weight``/``bias``), so reference ``.pth`` state_dicts load
@@ -68,8 +72,8 @@ def same_pads(n: int, kernel_size: int, stride: int) -> Tuple[int, int]:
 
 
 class ConvND(nn.Module):
-    """Channels-last 3D conv with a cubic kernel, SAME (XLA's padding) or
-    VALID.  ``padding`` defaults to VALID when the stride equals a kernel
+    """Channels-last conv over ``ndim`` (3 or 2) spatial axes with a cubic
+    (square) kernel, SAME (XLA's padding) or VALID.  ``padding`` defaults to VALID when the stride equals a kernel
     above 1 (the k2 s2 down convs) and to SAME otherwise.
     ``kernel_dilation`` spaces the taps (flax's field): SAME then pads the
     dilated extent (k - 1) * dilation + 1, (2, 2) for k3 at dilation 2.
@@ -77,8 +81,8 @@ class ConvND(nn.Module):
     An undilated stride-1 3x3x3 conv inside ``conv3d_small``'s supported
     range goes to the hand-written kernel (the convs the TPU kernel took,
     whose ``supported`` refuses dilation too); every other conv
-    goes to ``F.conv3d``, as XLA took them outside Pallas, with an explicit
-    pad where SAME is not symmetric.  On the card the
+    goes to ``F.conv3d`` / ``F.conv2d``, as XLA took them outside Pallas,
+    with an explicit pad where SAME is not symmetric.  On the card the
     kernel's packed weights (the forward's, and the transposed one of the
     backward's dX conv when a gradient will be asked for) are made once
     and made again only when the weight changes in place
@@ -87,8 +91,12 @@ class ConvND(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, stride: int = 1,
-                 padding: Optional[str] = None, kernel_dilation: int = 1):
+                 padding: Optional[str] = None, kernel_dilation: int = 1,
+                 ndim: int = 3):
         super().__init__()
+        if ndim not in (2, 3):
+            raise ValueError(f"ndim {ndim}: a conv is 2D or 3D")
+        self.ndim = ndim
         if padding is None:
             padding = "VALID" if stride == kernel_size > 1 else "SAME"
         if padding not in ("SAME", "VALID"):
@@ -96,7 +104,7 @@ class ConvND(nn.Module):
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.dilation = kernel_dilation
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, *(kernel_size,) * 3))
+            torch.empty(features, in_features, *(kernel_size,) * ndim))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(features))
         else:
@@ -120,8 +128,9 @@ class ConvND(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        w_dhwio = w.permute(2, 3, 4, 1, 0)  # view
-        if (self.stride == 1 and self.dilation == 1 and self.padding == "SAME"
+        w_dhwio = w.permute(2, 3, 4, 1, 0) if self.ndim == 3 else None  # view
+        if (w_dhwio is not None and self.stride == 1 and self.dilation == 1
+                and self.padding == "SAME"
                 and supported(tuple(x.shape), tuple(w_dhwio.shape))):
             packed = packed_t = None
             if x.is_cuda:
@@ -133,32 +142,35 @@ class ConvND(nn.Module):
         xc, pad = to_channels_first(x), 0
         if self.padding == "SAME":
             extent = (self.kernel_size - 1) * self.dilation + 1
-            pads = [same_pads(n, extent, self.stride) for n in x.shape[1:4]]
+            pads = [same_pads(n, extent, self.stride) for n in x.shape[1:-1]]
             if all(lo == hi for lo, hi in pads):
                 pad = tuple(lo for lo, _ in pads)
             else:  # F.pad takes the last axis first
                 xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
-        y = F.conv3d(xc, w, bias, stride=self.stride, padding=pad,
-                     dilation=self.dilation)
+        conv = F.conv3d if self.ndim == 3 else F.conv2d
+        y = conv(xc, w, bias, stride=self.stride, padding=pad, dilation=self.dilation)
         return to_channels_last(y)
 
 
 class ConvTransposeND(nn.Module):
-    """Channels-last 3D transpose conv, kernel 2 and stride 2 (the zoo's
-    upsampler).  ``weight`` is torch's (I, O, 2, 2, 2): flax's ConvTranspose
-    kernel is the spatially flipped one, and ``compat/weights.py`` applies
-    that flip when it converts a tpuseg tree."""
+    """Channels-last 3D (or, ``ndim=2``, 2D) transpose conv, kernel 2 and
+    stride 2 (the zoo's upsampler).  ``weight`` is torch's (I, O, 2, 2[, 2]):
+    flax's ConvTranspose kernel is the spatially flipped one, and
+    ``compat/weights.py`` applies that flip when it converts a tpuseg tree."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 ndim: int = 3):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(in_features, features, 2, 2, 2))
+        self.ndim = ndim
+        self.weight = nn.Parameter(torch.empty(in_features, features, *(2,) * ndim))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(features))
         else:
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose3d(
+        conv = F.conv_transpose3d if self.ndim == 3 else F.conv_transpose2d
+        y = conv(
             to_channels_first(x), self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype), stride=2,
         )
@@ -166,9 +178,10 @@ class ConvTransposeND(nn.Module):
 
 
 class ChannelDropout(nn.Module):
-    """torch Dropout3d semantics on channels-last maps: one keep/drop draw
-    per (sample, channel), broadcast over space.  Active only in training
-    mode; ``generator`` makes the draws reproducible."""
+    """torch Dropout3d / Dropout2d semantics on channels-last maps of either
+    rank: one keep/drop draw per (sample, channel), broadcast over space.
+    Active only in training mode; ``generator`` makes the draws
+    reproducible."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -180,27 +193,40 @@ class ChannelDropout(nn.Module):
         ``step_generator``); None draws from the global RNG."""
         if not self.training or self.rate == 0.0:
             return x
-        shape = (x.shape[0], 1, 1, 1, x.shape[-1])
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
         keep = torch.rand(shape, generator=generator, device=x.device) >= self.rate
         return x * (keep.to(x.dtype) / (1.0 - self.rate))
 
 
 def max_pool_nd(x: torch.Tensor) -> torch.Tensor:
-    """2x2x2 stride-2 VALID max pool of a channels-last map."""
-    return to_channels_last(F.max_pool3d(to_channels_first(x), 2))
+    """2-window stride-2 VALID max pool of a channels-last 3D or 2D map."""
+    pool = F.max_pool3d if x.dim() == 5 else F.max_pool2d
+    return to_channels_last(pool(to_channels_first(x), 2))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(N, *spatial, C) -> (N, C): the mean over every spatial axis."""
+    return x.mean(dim=tuple(range(1, x.dim() - 1)))
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with tpuseg's He-uniform kernel init
+    (``he_normal_init_``), under torch's ``nn.Linear`` names and (out, in)
+    layout."""
 
 
 def upsample_nd(x: torch.Tensor, factor: int = 2, method: str = "linear") -> torch.Tensor:
-    """Nearest or trilinear upsampling of a channels-last map by an integer
-    ``factor`` (``jax.image.resize``, which upsamples as torch's
-    ``align_corners=False``, half-pixel centers and edge clamping)."""
+    """Nearest or (tri|bi)linear upsampling of a channels-last 3D or 2D map
+    by an integer ``factor`` (``jax.image.resize``, which upsamples as
+    torch's ``align_corners=False``, half-pixel centers and edge clamping)."""
     if method not in ("nearest", "linear"):
         raise ValueError(f"upsample method {method!r} is not 'nearest' or 'linear'")
     xc = to_channels_first(x)
     if method == "nearest":
         y = F.interpolate(xc, scale_factor=factor, mode="nearest")
     else:
-        y = F.interpolate(xc, scale_factor=factor, mode="trilinear", align_corners=False)
+        mode = "trilinear" if x.dim() == 5 else "bilinear"
+        y = F.interpolate(xc, scale_factor=factor, mode=mode, align_corners=False)
     return to_channels_last(y)
 
 
@@ -272,6 +298,25 @@ class InstanceNorm(FusedGNReLU):
         super().__init__(features, features, eps)
 
 
+class InstanceNormNoAffine(nn.Module):
+    """flax ``GroupNorm(num_groups=None, group_size=1, use_bias=False,
+    use_scale=False)``, the pix2pix nets' norm: the fused kernel at
+    ``groups = C`` with no ReLU, its scale and bias ones and zeros held as
+    buffers outside the state_dict (the reference's affine-free
+    InstanceNorm2d has no tensors either)."""
+
+    def __init__(self, features: int, eps: float = GN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("scale", torch.ones(features), persistent=False)
+        self.register_buffer("shift", torch.zeros(features), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        return fused_group_norm_relu(x, self.scale.to(x.dtype), self.shift.to(x.dtype),
+                                     c, self.eps, relu=False)
+
+
 class ConvBlock(nn.Module):
     """(conv k3 no-bias -> GroupNorm(8) -> channel-dropout -> ReLU) x repeats.
 
@@ -282,13 +327,13 @@ class ConvBlock(nn.Module):
     framework's ``_block``."""
 
     def __init__(self, in_features: int, features: int, dropout: float = 0.2,
-                 repeats: int = 2, groups: int = 8, prefix: str = ""):
+                 repeats: int = 2, groups: int = 8, prefix: str = "", ndim: int = 3):
         super().__init__()
         self.names = []
         cin = in_features
         for i in range(1, repeats + 1):
             self.add_module(f"{prefix}conv{i}",
-                            ConvND(cin, features, 3, use_bias=False))
+                            ConvND(cin, features, 3, use_bias=False, ndim=ndim))
             self.add_module(f"{prefix}norm{i}", FusedGNReLU(features, groups))
             self.names.append((f"{prefix}conv{i}", f"{prefix}norm{i}"))
             cin = features
@@ -306,9 +351,9 @@ class LUConv(nn.Module):
     -> ReLU, the GroupNorm and ReLU fused (exact: dropout commutes with
     ReLU).  Reference names ``conv1`` / ``bn1``."""
 
-    def __init__(self, features: int, dropout: float = 0.2):
+    def __init__(self, features: int, dropout: float = 0.2, ndim: int = 3):
         super().__init__()
-        self.conv1 = ConvND(features, features, 3)
+        self.conv1 = ConvND(features, features, 3, ndim=ndim)
         self.bn1 = FusedGNReLU(features)
         self.drop = ChannelDropout(dropout)
 
@@ -322,10 +367,11 @@ class InputTransition(nn.Module):
     through ONE GroupNorm's parameters with its own statistics, summed.
     Reference names ``conv1`` (3^3), ``conv2`` (1^3), ``bn1``."""
 
-    def __init__(self, in_features: int, features: int, dropout: float = 0.2):
+    def __init__(self, in_features: int, features: int, dropout: float = 0.2,
+                 ndim: int = 3):
         super().__init__()
-        self.conv1 = ConvND(in_features, features, 3)
-        self.conv2 = ConvND(in_features, features, 1)
+        self.conv1 = ConvND(in_features, features, 3, ndim=ndim)
+        self.conv2 = ConvND(in_features, features, 1, ndim=ndim)
         self.bn1 = FusedGNReLU(features)
         self.drop = ChannelDropout(dropout)
 
@@ -342,12 +388,12 @@ class DownTransition(nn.Module):
     ``bn1``, ``ops.{j}``."""
 
     def __init__(self, in_features: int, features: int, n_convs: int,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, ndim: int = 3):
         super().__init__()
-        self.down_conv = ConvND(in_features, features, 2, stride=2)
+        self.down_conv = ConvND(in_features, features, 2, stride=2, ndim=ndim)
         self.bn1 = FusedGNReLU(features)
         self.drop = ChannelDropout(dropout)
-        self.ops = nn.ModuleList(LUConv(features, dropout) for _ in range(n_convs))
+        self.ops = nn.ModuleList(LUConv(features, dropout, ndim) for _ in range(n_convs))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -368,14 +414,14 @@ class UpTransition(nn.Module):
     same tensors (``compat/weights.py``)."""
 
     def __init__(self, in_features: int, features: int, n_convs: int,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, ndim: int = 3):
         super().__init__()
-        self.up_conv = ConvTransposeND(in_features, features)
+        self.up_conv = ConvTransposeND(in_features, features, ndim=ndim)
         self.bn = FusedGNReLU(features)
-        self.conv = ConvND(2 * features, features, 1)
+        self.conv = ConvND(2 * features, features, 1, ndim=ndim)
         self.bn2 = FusedGNReLU(features)
         self.drop = ChannelDropout(dropout)
-        self.ops = nn.ModuleList(LUConv(features, dropout) for _ in range(n_convs))
+        self.ops = nn.ModuleList(LUConv(features, dropout, ndim) for _ in range(n_convs))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -397,10 +443,10 @@ def probs_of(logits: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 class OutputHead(ConvND):
-    """1x1x1 conv head returning (logits, ``probs_of`` logits)."""
+    """1x1x1 (1x1) conv head returning (logits, ``probs_of`` logits)."""
 
-    def __init__(self, in_features: int, num_classes: int):
-        super().__init__(in_features, num_classes, 1)
+    def __init__(self, in_features: int, num_classes: int, ndim: int = 3):
+        super().__init__(in_features, num_classes, 1, ndim=ndim)
         self.num_classes = num_classes
 
     def forward(self, x: torch.Tensor):
@@ -412,8 +458,13 @@ class OutputHead(ConvND):
 def he_normal_init_(module: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
     """tpuseg's initialisation: He-normal conv kernels (fan_in over the
-    kernel taps and input channels), zero biases, ones/zeros norms."""
+    kernel taps and input channels), He-uniform dense kernels, zero biases,
+    ones/zeros norms."""
     for m in module.modules():
+        if isinstance(m, Dense):
+            bound = math.sqrt(6.0 / m.weight.shape[1])
+            m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound)
+            m.bias.zero_()
         if isinstance(m, (ConvND, ConvTransposeND)):
             w = m.weight
             cin = w.shape[1] if isinstance(m, ConvND) else w.shape[0]

@@ -1,15 +1,101 @@
 """Runnable recipes of the port (counterpart of ``examples/recipes.py``),
-those whose paths are ported:
+those whose paths are ported, with the JAX recipes' names and settings:
 
+    python -m tpuseg_torch.recipes trainbinaryunet2d train.csv val.csv log/b2d [epochs]
+    python -m tpuseg_torch.recipes trainmutilresnet2d train.csv val.csv log/cls [epochs]
+    python -m tpuseg_torch.recipes trainpix2pixgan2d train.csv val.csv log/gan [epochs]
+    python -m tpuseg_torch.recipes inferencebinaryvnet2d log/bv2d images.csv out/
     python -m tpuseg_torch.recipes trainregistration3d train.csv val.csv log/reg [epochs]
 
-Data paths are CSV manifests with a header row, as in the JAX package.
+Data paths are CSV manifests with a header row, as in the JAX package
+(Image,Mask; Image,Target; label,path for the classifier).
 """
 from __future__ import annotations
 
+import csv
+import os
 import sys
 
 from tpuseg_torch.data.dataset import read_manifest_csv
+
+
+def _train_seg2d(cls_name: str, loss: str, classes: int, train_csv, val_csv, model_dir,
+                 epochs, device):
+    from tpuseg_torch import compat
+
+    ti, tl = read_manifest_csv(train_csv)
+    vi, vl = read_manifest_csv(val_csv)
+    m = getattr(compat, cls_name)(512, 512, 1, classes, 8, loss, device=device)
+    return m.trainprocess(ti, tl, vi, vl, model_dir, epochs=int(epochs))
+
+
+def trainbinaryunet2d(train_csv, val_csv, model_dir, epochs=50, device="cuda"):
+    """BinaryUNet2dModel at 512x512, batch 8, BinaryCrossEntropyDiceLoss."""
+    return _train_seg2d("BinaryUNet2dModel", "BinaryCrossEntropyDiceLoss", 1, train_csv,
+                        val_csv, model_dir, epochs, device)
+
+
+def trainbinaryvnet2d(train_csv, val_csv, model_dir, epochs=50, device="cuda"):
+    """BinaryVNet2dModel at 512x512, batch 8, BinaryDiceLoss."""
+    return _train_seg2d("BinaryVNet2dModel", "BinaryDiceLoss", 1, train_csv, val_csv,
+                        model_dir, epochs, device)
+
+
+def trainmutilunet2d(train_csv, val_csv, model_dir, epochs=50, device="cuda"):
+    """MutilUNet2dModel at 512x512, 2 classes, batch 8, MutilDiceLoss."""
+    return _train_seg2d("MutilUNet2dModel", "MutilDiceLoss", 2, train_csv, val_csv,
+                        model_dir, epochs, device)
+
+
+def trainmutilvnet2d(train_csv, val_csv, model_dir, epochs=50, device="cuda"):
+    """MutilVNet2dModel at 512x512, 2 classes, batch 8, MutilDiceLoss."""
+    return _train_seg2d("MutilVNet2dModel", "MutilDiceLoss", 2, train_csv, val_csv,
+                        model_dir, epochs, device)
+
+
+def _label_path_csv(path: str):
+    """A classification manifest: a header naming ``label`` and ``path``
+    columns.  Returns (paths, labels)."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return [r["path"] for r in rows], [int(r["label"]) for r in rows]
+
+
+def trainmutilresnet2d(train_csv, val_csv, model_dir, epochs=50, device="cuda"):
+    """MNIST-style classification: MutilResNet2dModel at 28x28, 10 classes,
+    batch 64, MutilCrossEntropyLoss (label,path manifests)."""
+    from tpuseg_torch.compat import MutilResNet2dModel
+
+    tp, tl = _label_path_csv(train_csv)
+    vp, vl = _label_path_csv(val_csv)
+    m = MutilResNet2dModel(28, 28, 1, 10, 64, "MutilCrossEntropyLoss", device=device)
+    return m.trainprocess(tp, tl, vp, vl, model_dir, epochs=int(epochs))
+
+
+def trainpix2pixgan2d(train_csv, val_csv, model_dir, epochs=100, device="cuda"):
+    """Pixel2PixelGAN2dModel at 256x256, batch 4 (Image,Target manifests)."""
+    from tpuseg_torch.compat import Pixel2PixelGAN2dModel
+
+    ti, tt = read_manifest_csv(train_csv)
+    vi, vt = read_manifest_csv(val_csv)
+    m = Pixel2PixelGAN2dModel(256, 256, 1, 1, batch_size=4, device=device)
+    return m.trainprocess(ti, tt, vi, vt, model_dir, epochs=int(epochs))
+
+
+def inferencebinaryvnet2d(model_dir, in_csv, out_dir, device="cuda"):
+    """Per-image 2D inference with BinaryVNet2dModel (512x512) from
+    ``model_dir`` (a ``.pth``, a tpuseg run or the port's); masks written
+    as ``<out_dir>/<index>.png`` (x 255)."""
+    from tpuseg_torch.compat import BinaryVNet2dModel
+    from tpuseg_torch.io_native.image import imread, imwrite
+
+    images, _ = read_manifest_csv(in_csv)
+    m = BinaryVNet2dModel(512, 512, 1, 1, 8, "BinaryDiceLoss", inference=True,
+                          model_path=model_dir, device=device)
+    os.makedirs(out_dir, exist_ok=True)
+    for index, path in enumerate(images):
+        mask = m.inference(imread(path, 0))
+        imwrite(os.path.join(out_dir, f"{index}.png"), mask * 255)
 
 
 def _registration_pairs(csv_path: str):
@@ -51,7 +137,9 @@ def trainregistration3d(train_csv, val_csv, model_dir, epochs=100, device="cuda"
     return trainer.fit(lambda: iter(train), lambda: iter(val), model_dir)
 
 
-RECIPES = {"trainregistration3d": trainregistration3d}
+RECIPES = {f.__name__: f for f in (
+    trainbinaryunet2d, trainbinaryvnet2d, trainmutilunet2d, trainmutilvnet2d,
+    trainmutilresnet2d, trainpix2pixgan2d, inferencebinaryvnet2d, trainregistration3d)}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in RECIPES:

@@ -8,8 +8,10 @@ startup on the GPU and serve POST /predict and GET /getresult on
     curl -F "file=@case.nii.gz" http://localhost:8000/predict
     curl -o mask.nii.gz "http://localhost:8000/getresult?file=case_mask.nii.gz"
 
-``--infer.model_dir`` names a reference-named ``.pth`` file or a directory
-holding exactly one.  Without it the weights are random (seeded).
+``--infer.model_dir`` names a reference-named ``.pth`` file, a directory
+holding exactly one, or a tpuseg run (its directory with ``best/``, a
+checkpoint directory, or ``state.msgpack`` itself: the UNet parameter tree
+converted).  Without it the weights are random (seeded).
 """
 from __future__ import annotations
 

@@ -59,7 +59,7 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
                               accuracy_name: str = "dice",
                               config: Optional[TrainerConfig] = None,
                               device="cuda", packed_stem: bool = False,
-                              mesh=None) -> Trainer:
+                              mesh=None, viz_fn=None) -> Trainer:
     """A Trainer for ``model`` (a network returning (logits, probs), or
     (logits, probs, aux logits) for deep supervision) on ``loss_name`` with
     the dice (or "iou") metric.  ``packed_stem`` runs a ``UNet``, ``VNet``,
@@ -68,7 +68,7 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     graph) and in evaluation (cached); any other model raises ValueError.
     The loss stays in the fine domain: JAX's packed-grid losses are off by
     default and not ported (and never taken for ResUNet3d, whose twin
-    returns fine outputs)."""
+    returns fine outputs).  ``viz_fn`` goes to the Trainer."""
     if mesh is not None:
         raise NotImplementedError("mesh (data/spatial parallel training) is not ported yet")
     config = config or TrainerConfig()
@@ -98,4 +98,5 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     def metric_fn(outputs, batch):
         return metric(outputs["probs"], batch["label"])
 
-    return Trainer(model, apply_fn, loss_fn, metric_fn, config, device=device)
+    return Trainer(model, apply_fn, loss_fn, metric_fn, config, device=device,
+                   viz_fn=viz_fn)

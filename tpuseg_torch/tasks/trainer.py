@@ -16,7 +16,10 @@ package's kernels.  As in the JAX trainer:
 * the next batch's host-to-device copy is queued while the current step
   runs (pinned memory, one batch of lookahead);
 * checkpoints keep "best" (by validation metric) and "latest" with the
-  optimizer state, step, epoch and generator seed (``core/checkpoint.py``).
+  optimizer state, step, epoch and generator seed (``core/checkpoint.py``);
+* ``viz_fn(model_dir, epoch, outputs, batch)``, when set, sees the first
+  validation batch of each epoch (the mask bitmaps of
+  ``tools/visualization.py`` ``make_seg_viz``).
 """
 from __future__ import annotations
 
@@ -65,8 +68,10 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, apply_fn: Callable,
                  loss_fn: Callable, metric_fn: Callable, config: TrainerConfig,
-                 device="cuda", input_key: Optional[str] = "image"):
+                 device="cuda", input_key: Optional[str] = "image",
+                 viz_fn: Optional[Callable] = None):
         self.device = torch.device(device)
+        self.viz_fn = viz_fn
         self.input_key = input_key
         self.model = model.to(self.device)
         self.apply_fn = apply_fn
@@ -157,6 +162,8 @@ class Trainer:
                     m = self.eval_step(self._put(batch))
                     sums[2] = sums[2] + m["loss"]
                     sums[3] = sums[3] + m["metric"]
+                    if vn == 0 and self.viz_fn is not None:
+                        self.viz_fn(model_dir, epoch, m["outputs"], batch)
                     vn += 1
                 tr_loss, tr_met, va_loss, va_met = torch.stack(sums).tolist()  # one fetch
                 tr_loss, tr_met = (tr_loss / n, tr_met / n) if n else (0.0, 0.0)
