@@ -210,14 +210,39 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     median, device ms by family, busy share, peak memory), one forward's
     launches (K2 0 / K1 18 UNet2d, 0 / 34 VNet2d, 0 / 17 ResNet2d, 5 / 17
     ResNet3d), ``inference`` on a 600 x 480 image, ``predict`` and
-    ``Grad_CAM_Visual``.
+    ``Grad_CAM_Visual``;
+12. the remaining entry points and the 2D MLP nets, in float32:
+    ``tools/dataprep.py`` ``prepare_sampling_3d`` on three synthetic CT
+    NIfTI volumes with label masks at KiPA's 112x112x128 (and at
+    80x112x176 for the V-Net); the recipes ``trainmutilunet3d`` (one epoch:
+    2 train steps and a validation step, ``recipe_unet3d``) and
+    ``trainmutilvnet3d`` (176x112x80, 16 classes, ``recipe_vnet3d``; one
+    step of its net on its first batch held to the f64 step through the
+    plain versions, phase 10's gate), each step's launches checked;
+    ``python -m tpuseg_torch.inference`` through its ``main`` on two
+    volumes with the UNet3d run (the packed twin: K3 3, K2 7, K1 18 a
+    volume, ``folder_unet3d``; masks against the plain net through the
+    plain versions), ``inferencemutilvnet3d`` with the V-Net run (K2 11, K1
+    34 a volume, ``folder_vnet3d``; masks against the same net through the
+    plain versions) and
+    ``inferencemutilvnet2d`` on 512^2 PNGs (K1 34 an image,
+    ``folder_vnet2d``); ``SegmentationAug2D.run_offline`` on four 512^2 BMP
+    pairs on the card against the same augmenter on the CPU (masks equal,
+    images within one gray level); ``--train.profile true`` through
+    ``train.build`` / ``run`` (the Chrome trace names K1's and K2's
+    kernels); UNeXt2d and AmlpUNet2d (``models/unext2d.py``,
+    ``models/amlp_unet2d.py``) against the golden file's JAX logits, then
+    at 512^2, batch 8: one step's loss and gradients through the kernels
+    against the plain versions' f64 step (phase 10's gate), three steps with K1's
+    launches checked (7 / 6 each way, ``unext2d`` / ``amlp_unet2d``), a
+    timed step.
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
 launches on the served, training (plain and packed, UNet3d and VNet3d, f32
 and bf16; the zoo; online augmentation, registration and TPDDNet; the
-Model API's 2D, classification and GAN paths), bench, sliding-window and
-whole-volume paths (K3's dX and dW rows among them), error, times (one
+Model API's 2D, classification and GAN paths; the recipes and the 2D MLP
+nets), bench, sliding-window, whole-volume and folder-inference paths (K3's dX and dW rows among them), error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
@@ -3407,6 +3432,374 @@ def phase_model_api(torch, mods, workdir):
     return paths, norm_rows, resnet3d_rows
 
 
+# phase 12: the recipes' sizes ((x, y, z) of their prepared volumes: KiPA's
+# UNet3d and the V-Net recipe's (d, h, w) 176x112x80), the 2D augmenter's
+# BMP pairs, the 2D MLP nets at 512^2, batch 8, with K1's launches a
+# forward (UNeXt2d: 3 stems with the ReLU, 4 decoder stages without;
+# AmlpUNet2d: its 3 decoder blocks' 2 norms)
+RECIPE_VNET_XYZ, RECIPE_VNET_CLASSES = (80, 112, 176), 16
+AUG2D_HW, AUG2D_PAIRS, AUG2D_COPIES = (512, 512), 4, 3
+MLP2D_HW, MLP2D_BATCH, MLP2D_CLASSES = (512, 512), 8, 2
+MLP2D_NETS = {"unext2d": ("unext2d", 7), "amlp_unet2d": ("amlpunet2d", 6)}
+# an image of inferencemutilvnet2d: one VNet2d forward (phase 11's)
+FOLDER_VNET2D_LAUNCHES = dict({k: 0 for k in EXPECTED_LAUNCHES},
+                              fused_group_norm_relu=MODEL_API_FORWARD["seg_vnet2d"][1])
+
+
+@contextlib.contextmanager
+def _watch_trainer_class(mods, record: list, first: dict):
+    """Record the launches of every train/eval step of any ``Trainer`` (the
+    ones a recipe builds inside); ``first`` gets the trainer and the batch
+    of the first train step."""
+    trainer_cls = mods["Trainer"]
+    saved = {k: getattr(trainer_cls, k) for k in ("train_step", "eval_step")}
+
+    def watch(kind, step):
+        def watched(self, batch):
+            if kind == "train_step" and not first:
+                first.update(trainer=self, batch=batch)
+            c0 = counts(mods)
+            out = step(self, batch)
+            record.append((kind, delta(counts(mods), c0)))
+            return out
+        return watched
+
+    for kind, step in saved.items():
+        setattr(trainer_cls, kind, watch(kind, step))
+    try:
+        yield
+    finally:
+        for kind, step in saved.items():
+            setattr(trainer_cls, kind, step)
+
+
+def _label_ct(vol, rng):
+    """A label volume of a ``synthetic_ct`` volume: its two organs, its bone
+    column and an ellipsoid, labels 1-4, with the CT's geometry."""
+    hu = vol.array.astype(np.float32)
+    label = np.zeros(hu.shape, np.uint8)
+    label[(hu > 90) & (hu < 150)] = 1
+    label[(hu >= 150) & (hu < 300)] = 2
+    label[hu >= 500] = 3
+    d, h, w = hu.shape
+    zz, yy, xx = np.ogrid[:d, :h, :w]
+    cz, cy, cx = rng.uniform(0.3, 0.7, 3) * (d, h, w)
+    label[((zz - cz) / (d / 6)) ** 2 + ((yy - cy) / (h / 8)) ** 2
+          + ((xx - cx) / (w / 8)) ** 2 < 1] = 4
+    out = type(vol)(label)
+    out.copy_geometry_from(vol)
+    return out
+
+
+def _split_manifest(csv_path: str, n_train: int) -> tuple:
+    """A prepared manifest split into train (the first ``n_train`` rows)
+    and validation manifests."""
+    with open(csv_path, newline="") as f:
+        rows = list(csv.reader(f))
+    out = []
+    for name, part in (("train", rows[1:1 + n_train]), ("val", rows[1 + n_train:])):
+        path = csv_path.replace(".csv", f"_{name}.csv")
+        with open(path, "w", newline="") as f:
+            csv.writer(f).writerows([rows[0]] + part)
+        out.append(path)
+    return tuple(out)
+
+
+def _recipe_training(torch, mods, recipe, manifests, model_dir, expect: dict, tag: str):
+    """One epoch of a training recipe with counts from 0: every step's
+    launches, finite history, checkpoints.  Returns (the path's launches,
+    {"trainer", "batch"} of its first train step)."""
+    record, first = [], {}
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    with _watch_trainer_class(mods, record, first):
+        history = recipe(*manifests, model_dir, epochs=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts(mods)
+    for kind, got in record:
+        want = expect if kind == "train_step" else _forward_only(expect)
+        if got != want:
+            fail(f"{tag} {kind} launches {got} != {want}")
+    kinds = [k for k, _ in record]
+    if kinds.count("train_step") != 2 or kinds.count("eval_step") != 1:
+        fail(f"{tag} steps {kinds}")
+    if not all(np.isfinite(history["train_loss"] + history["valdation_loss"])):
+        fail(f"{tag} non-finite history {history}")
+    if not os.path.isfile(os.path.join(model_dir, "best", "state.pt")):
+        fail(f"{tag}: no best checkpoint")
+    say(f"  {tag}: 1 epoch (2 steps + validation) in {run_s:.2f} s, history "
+        f"{json.dumps({k: round(v[0], 5) for k, v in history.items()})}; launches per train "
+        f"step { {k: v for k, v in expect.items() if v} } on every step")
+    return launches, first
+
+
+def _trainer_step_gate(torch, mods, tag: str, trainer, net, batch) -> None:
+    """``_kernel_step_gate`` of one step of ``trainer``'s apply and loss on
+    ``batch``, each dtype's step through a fresh copy of ``net`` cast to
+    that dtype (torch's LayerNorm takes no parameters of another dtype than
+    its input's)."""
+    import copy
+
+    def loss_and_grads(dtype, scale=1.0):
+        model = copy.deepcopy(net).to(dtype).train()
+        model.zero_grad(set_to_none=True)
+        o = trainer.apply_fn(model, batch["image"].to(dtype) * scale, True,
+                             mods["step_generator"](SEED, 0, "cuda"))
+        loss = trainer.loss_fn(o, batch)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    _kernel_step_gate(torch, mods, tag, loss_and_grads)
+
+
+def _folder_inference(torch, mods, fn, per_input: dict, n: int, tag: str) -> dict:
+    """``fn()`` (a folder inference over ``n`` volumes or images) with counts
+    from 0: ``per_input`` launches each.  Returns the launches."""
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = counts(mods)
+    want = {k: v * n for k, v in per_input.items()}
+    if got != want:
+        fail(f"{tag}: launches {got} != {want} ({n} x {per_input})")
+    say(f"  {tag}: {n} inputs in {run_s:.2f} s, launches per input "
+        f"{ {k: v for k, v in per_input.items() if v} }")
+    return got
+
+
+def _recipes_and_inference(torch, mods, workdir):
+    """Data preparation, the 3D training recipes and the folder inferences.
+    Returns ({path: launches}, the KiPA train / validation manifests)."""
+    dataprep, recipes, inference = mods["dataprep"], mods["recipes"], mods["inference"]
+    rng = np.random.default_rng(SEED + 12)
+    src = os.path.join(workdir, "nifti")
+    os.makedirs(src)
+    images, masks = [], []
+    for i, size in enumerate(REQUEST_SIZES):
+        vol = mods["synthetic_ct"](size, rng)
+        images.append(os.path.join(src, f"case{i}.nii.gz"))
+        masks.append(os.path.join(workdir, f"case{i}_mask.nii.gz"))
+        mods["write_nifti"](vol, images[-1])
+        mods["write_nifti"](_label_ct(vol, rng), masks[-1])
+    t0 = time.perf_counter()
+    unet_csv = dataprep.prepare_sampling_3d(images, masks, os.path.join(workdir, "kipa"),
+                                            NEW_SIZE)
+    vnet_csv = dataprep.prepare_sampling_3d(images, masks, os.path.join(workdir, "amos"),
+                                            RECIPE_VNET_XYZ)
+    prep_s = time.perf_counter() - t0
+    arr = np.load(os.path.join(workdir, "kipa", "case_0000_img.npy"))
+    lab = np.load(os.path.join(workdir, "amos", "case_0000_msk.npy"))
+    if arr.shape != NEW_SIZE[::-1] or lab.shape != RECIPE_VNET_XYZ[::-1] or lab.max() != 4:
+        fail(f"prepare_sampling_3d: {arr.shape}, {lab.shape}, labels {np.unique(lab)}")
+    say(f"  prepare_sampling_3d: 3 cases at two sizes in {prep_s:.2f} s; z-scored image "
+        f"mean {arr.mean():.4f}, std {arr.std():.4f}")
+    paths = {}
+    run_u, run_v = os.path.join(workdir, "run_unet3d"), os.path.join(workdir, "run_vnet3d")
+    unet_manifests = _split_manifest(unet_csv, 2)
+    paths["recipe_unet3d"] = _recipe_training(
+        torch, mods, recipes.trainmutilunet3d, unet_manifests, run_u, TRAIN_LAUNCHES,
+        "recipe_unet3d")[0]
+    paths["recipe_vnet3d"], first = _recipe_training(
+        torch, mods, recipes.trainmutilvnet3d, _split_manifest(vnet_csv, 2), run_v,
+        VNET_TRAIN_LAUNCHES, "recipe_vnet3d")
+    # the recipe's own net and first batch: K1 and K2 at its extents
+    _trainer_step_gate(torch, mods, "recipe_vnet3d", first["trainer"], first["trainer"].model,
+                       first["batch"])
+    del first
+
+    folder = os.path.join(workdir, "folder")
+    os.makedirs(folder)
+    for i in (0, 1):
+        shutil.copy(images[i], folder)
+    out_u = os.path.join(workdir, "masks_unet3d")
+    argv = ["--infer.model_dir", run_u, "--model.num_classes", str(CLASSES),
+            "--model.features", str(FEATURES), "--infer.new_size",
+            json.dumps(list(NEW_SIZE)), folder, out_u]
+    paths["folder_unet3d"] = _folder_inference(
+        torch, mods, lambda: inference.main(argv), EXPECTED_LAUNCHES, 2, "folder_unet3d")
+    ref_model = mods["MutilUNet3dModel"](NEW_SIZE[2], NEW_SIZE[1], NEW_SIZE[0], 1, CLASSES,
+                                         inference=True, model_path=run_u)
+    for i in (0, 1):
+        got = mods["read_nifti"](os.path.join(out_u, f"case{i}_mask.nii.gz"))
+        vol = mods["read_nifti"](images[i])
+        with plain_kernels(mods), unpacked(ref_model):
+            ref = ref_model.inference(vol, NEW_SIZE).array
+        agree = float((got.array == ref).mean())
+        say(f"  folder_unet3d case{i}: labels {sorted(np.unique(got.array).tolist())}, "
+            f"agreement with the plain net through the plain versions {agree:.6f}")
+        if got.array.shape != vol.array.shape or not agree >= 0.999:
+            fail(f"folder_unet3d case{i}: shape {got.array.shape}, agreement {agree}")
+    out_v = os.path.join(workdir, "masks_vnet3d")
+    paths["folder_vnet3d"] = _folder_inference(
+        torch, mods, lambda: recipes.inferencemutilvnet3d(run_v, folder, out_v),
+        SWIN_VNET_LAUNCHES, 2, "folder_vnet3d")
+    # the recipe serves (d, h, w) 80x112x176: the transpose of its training size
+    ref_model = mods["MutilVNet3dModel"](*RECIPE_VNET_XYZ, 1, RECIPE_VNET_CLASSES,
+                                         inference=True, model_path=run_v)
+    for i in (0, 1):
+        got = mods["read_nifti"](os.path.join(out_v, f"case{i}_mask.nii.gz")).array
+        with plain_kernels(mods), unpacked(ref_model):
+            ref = ref_model.inference(mods["read_nifti"](images[i]),
+                                      RECIPE_VNET_XYZ[::-1]).array
+        agree = float((got == ref).mean())
+        say(f"  folder_vnet3d case{i}: labels {sorted(np.unique(got).tolist())}, agreement "
+            f"with the net through the plain versions {agree:.6f}")
+        if got.shape != REQUEST_SIZES[i][::-1] or not agree >= 0.999:
+            fail(f"folder_vnet3d case{i}: shape {got.shape}, agreement {agree}")
+    del ref_model
+
+    io_image = mods["io_image"]
+    pngs = [io_image.imwrite(os.path.join(workdir, f"slice{i}.png"), img)
+            for i, (img, _) in enumerate(_slices_2d(rng, 2, AUG2D_HW, 2))]
+    png_csv = os.path.join(workdir, "slices.csv")
+    with open(png_csv, "w", newline="") as f:
+        csv.writer(f).writerows([("Image", "Mask")] + [(p, p) for p in pngs])
+    net = mods["VNet"](2, features=FEATURES, ndim=2)
+    net.load_state_dict(mods["vnet_params_from_jax"](
+        mods["seeded_vnet_params"](SEED, FEATURES, 2, 1, ndim=2)), strict=True)
+    pth = os.path.join(workdir, "vnet2d.pth")
+    torch.save(net.state_dict(), pth)
+    out_2d = os.path.join(workdir, "masks_vnet2d")
+    paths["folder_vnet2d"] = _folder_inference(
+        torch, mods, lambda: recipes.inferencemutilvnet2d(pth, png_csv, out_2d),
+        FOLDER_VNET2D_LAUNCHES, 2, "folder_vnet2d")
+    for i in (0, 1):
+        mask = io_image.imread(os.path.join(out_2d, f"{i}.png"), 0)
+        if mask.shape != AUG2D_HW or mask.max() > 1:
+            fail(f"inferencemutilvnet2d mask {i}: {mask.shape}, max {mask.max()}")
+    return paths, unet_manifests
+
+
+def _augment2d(torch, mods, workdir) -> None:
+    """``run_offline`` on the card against the CPU, same seed."""
+    io_image, augment2d = mods["io_image"], mods["augment2d"]
+    rng = np.random.default_rng(SEED + 13)
+    rows = []
+    for i, (img, mask) in enumerate(_slices_2d(rng, AUG2D_PAIRS, AUG2D_HW, 1)):
+        rows.append((io_image.imwrite(os.path.join(workdir, f"aug{i}.bmp"), img),
+                     io_image.imwrite(os.path.join(workdir, f"aug{i}_mask.bmp"), mask)))
+    manifest = os.path.join(workdir, "aug.csv")
+    with open(manifest, "w", newline="") as f:
+        csv.writer(f).writerows([("Image", "Mask")] + rows)
+    times, dirs = {}, {}
+    for device in ("cuda", "cpu"):
+        dirs[device] = os.path.join(workdir, f"aug_{device}")
+        aug = augment2d.SegmentationAug2D(seed=SEED, p_blur=0.6, device=device)
+        t0 = time.perf_counter()
+        aug.run_offline(manifest, dirs[device], AUG2D_COPIES)
+        torch.cuda.synchronize()
+        times[device] = time.perf_counter() - t0
+    names = sorted(os.listdir(dirs["cpu"]))
+    if names != sorted(os.listdir(dirs["cuda"])) or len(names) != 2 * AUG2D_PAIRS * AUG2D_COPIES + 1:
+        fail(f"augment2d: files {names}")
+    exact = total = 0
+    for name in names:
+        if not name.endswith(".bmp"):
+            continue
+        a = io_image.imread(os.path.join(dirs["cuda"], name), 0)
+        b = io_image.imread(os.path.join(dirs["cpu"], name), 0)
+        diff = np.abs(a.astype(int) - b)
+        if diff.max() > (0 if name.endswith("_mask.bmp") else 1):
+            fail(f"augment2d: card and CPU differ by {diff.max()} in {name}")
+        if not name.endswith("_mask.bmp"):
+            exact += int((diff == 0).sum())
+            total += diff.size
+    n = AUG2D_PAIRS * AUG2D_COPIES
+    say(f"  SegmentationAug2D.run_offline: {n} copies of {AUG2D_HW[0]}x{AUG2D_HW[1]} pairs, "
+        f"card {times['cuda'] * 1e3 / n:.2f} ms a copy, CPU {times['cpu'] * 1e3 / n:.2f} ms "
+        f"(file reads and writes included); masks equal, images exact on "
+        f"{exact / total:.6f} of pixels and within one gray level on all")
+
+
+def _profile_flag(torch, mods, manifests, workdir) -> None:
+    """``--train.profile true``: the trace of three steps before the fit
+    names K1's and K2's kernels."""
+    train, parse_cli = mods["train"], mods["parse_cli"]
+    model_dir = os.path.join(workdir, "run_profile")
+    cfg = parse_cli(["--train.profile", "true", "--data.train_csv", manifests[0],
+                     "--data.val_csv", manifests[1], "--data.image_size",
+                     json.dumps(list(NEW_SIZE)), "--model.num_classes", str(CLASSES),
+                     "--train.epochs", "1", "--train.model_dir", model_dir])
+    trainer, tl, vl = train.build(cfg, device="cuda")
+    t0 = time.perf_counter()
+    history = train.run(cfg, trainer, tl, vl)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    path = os.path.join(model_dir, "trace", "trace.json")
+    if not os.path.isfile(path):
+        fail("--train.profile wrote no trace")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    k2 = sorted(k for k in kernels if "conv3d_" in k)
+    k1 = sorted(k for k in kernels if "gn_" in k)
+    if not k1 or not k2 or trainer.step != 4 + 2 or not np.isfinite(history["train_loss"][0]):
+        fail(f"--train.profile: K1 {k1}, K2 {k2}, step {trainer.step}, history {history}")
+    say(f"  --train.profile: a trace of 3 steps ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+        f"{len(kernels)} kernel names), then 1 epoch, in {run_s:.2f} s; K1 kernels "
+        f"{[k[:40] for k in k1]}, K2 kernels {[k[:40] for k in k2]}")
+
+
+def _mlp2d_golden(torch, mods) -> None:
+    """The nets on the card against the golden file's JAX f32 logits."""
+    gen = mods["mlp2d_golden"]
+    golden = gen.load()
+    for net in gen.CASES:
+        model = gen.port_net(net).cuda()
+        x = torch.from_numpy(gen.inputs(net)["image"]).cuda()
+        with torch.no_grad():
+            logits = model(x)[0].cpu().numpy()
+        ref = golden[f"{net}/logits"]
+        err, scale = float(np.abs(logits - ref).max()), float(np.abs(ref).max())
+        say(f"  {net} on the card vs the golden JAX logits {ref.shape}: max_abs_err "
+            f"{err:.3g} (scale {scale:.3g})")
+        if not err <= 1e-4 * scale:
+            fail(f"{net}: golden logits error {err} > 1e-4 x {scale}")
+
+
+def _mlp2d(torch, mods) -> dict:
+    """UNeXt2d and AmlpUNet2d at 512^2, batch 8: the kernels' step against
+    the plain versions' f64 step, three steps' launches, a timed step."""
+    rng = np.random.default_rng(SEED + 14)
+    pairs = _slices_2d(rng, MLP2D_BATCH, MLP2D_HW, MLP2D_CLASSES)
+    images = np.stack([(p[0] - p[0].mean()) / p[0].std() for p in pairs])[..., None]
+    host = {"image": images.astype(np.float32),
+            "label": np.stack([p[1] for p in pairs]).astype(np.int32)}
+    paths = {}
+    for tag, (name, k1) in MLP2D_NETS.items():
+        model = mods["build_model"](name, MLP2D_CLASSES,
+                                    generator=torch.Generator().manual_seed(SEED))
+        trainer = mods["make_segmentation_trainer"](
+            model, MLP2D_CLASSES, "MutilDiceLoss", alpha=[1.0] * MLP2D_CLASSES,
+            config=mods["TrainerConfig"](optimizer="adamw"), device="cuda")
+        batch = trainer._put(host)
+        _trainer_step_gate(torch, mods, tag, trainer, model, batch)
+        expect = dict({k: 0 for k in EXPECTED_LAUNCHES}, fused_group_norm_relu=k1,
+                      fused_group_norm_relu_bwd=k1)
+        paths[tag], _, _ = _steps(torch, mods, trainer, batch, expect, tag)
+        _timed_step(torch, mods, lambda: trainer.train_step(batch), tag)
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_entry_points(torch, mods, workdir) -> dict:
+    """Phase 12: data preparation, the 3D recipes, folder inference, the 2D
+    augmenter, ``--train.profile`` and the 2D MLP nets.  Returns {path:
+    launches}."""
+    t_phase = time.perf_counter()
+    paths, unet_manifests = _recipes_and_inference(torch, mods, workdir)
+    _augment2d(torch, mods, workdir)
+    _profile_flag(torch, mods, unet_manifests, workdir)
+    _mlp2d_golden(torch, mods)
+    paths.update(_mlp2d(torch, mods))
+    say(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _load_generator(name: str):
     """``tests/<name>.py``, a golden file's generator, as a module (its
     inputs, fingerprints and golden path; it imports JAX only inside the
@@ -3428,7 +3821,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
-    from tpuseg_torch import recipes, serve, train
+    from tpuseg_torch import inference, recipes, serve, train
     from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
     from tpuseg_torch.compat.seg_models import (MutilUNet3dModel, MutilVNet3dModel,
                                                 disable_tf32)
@@ -3437,7 +3830,7 @@ def main() -> int:
                                              unet_params_from_jax, vnet_params_from_jax)
     from tpuseg_torch.config import parse_cli
     from tpuseg_torch.core.prng import step_generator
-    from tpuseg_torch.data import augment3d
+    from tpuseg_torch.data import augment2d, augment3d
     from tpuseg_torch.data.geometry import resample_to_spacing
     from tpuseg_torch.data.nifti import read_nifti, write_nifti
     from tpuseg_torch.data.normalize import truncate_and_normalize
@@ -3457,7 +3850,9 @@ def main() -> int:
     from tpuseg_torch.nn import layers
     from tpuseg_torch.tasks.registration import make_registration_trainer
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
-    from tpuseg_torch.tools import evaluate
+    from tpuseg_torch.tasks.trainer import Trainer, TrainerConfig
+    from tpuseg_torch.tools import dataprep, evaluate
+    from tpuseg_torch.io_native import image as io_image
     from tpuseg_torch.tools.profiling import (conv_backward_split, request_stages,
                                               swin_forward_split, synthetic_ct, traced_busy,
                                               traced_split, train_step_kernel_split)
@@ -3465,6 +3860,7 @@ def main() -> int:
     zoo_golden = _load_generator("make_torch_port_zoo_golden")
     regtp_golden = _load_generator("make_torch_port_regtp_golden")
     model_api_golden = _load_generator("make_torch_port_model_api_golden")
+    mlp2d_golden = _load_generator("make_torch_port_mlp2d_golden")
     if "jax" in sys.modules:
         fail("jax was imported")
     disable_tf32()
@@ -3515,7 +3911,9 @@ def main() -> int:
         evaluate=evaluate, ssim=ssim, ms_ssim=ms_ssim,
         resize_volume_device=resize_volume_device,
         stunet_packed=stunet_packed, zoo_golden=zoo_golden, regtp_golden=regtp_golden,
-        model_api_golden=model_api_golden,
+        model_api_golden=model_api_golden, mlp2d_golden=mlp2d_golden,
+        inference=inference, augment2d=augment2d, dataprep=dataprep, io_image=io_image,
+        Trainer=Trainer, TrainerConfig=TrainerConfig,
         augment3d=augment3d, recipes=recipes, warp_3d=warp_3d,
         make_registration_trainer=make_registration_trainer,
         packed_resunet3d_apply=resunet_packed.packed_resunet3d_apply,
@@ -3573,6 +3971,13 @@ def main() -> int:
             torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 12: recipes, folder inference, augment2d, --train.profile, UNeXt2d and "
+        f"AmlpUNet2d ({smi})")
+    workdir = tempfile.mkdtemp(prefix="tpuseg_torch_smoke_")
+    try:
+        entry_paths = phase_entry_points(torch, mods, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -3608,7 +4013,8 @@ def main() -> int:
          "conv3d_small_dw_tf32.cu", k3_vjp),
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
-             **swin_launches, **host_paths, **augreg_paths, **model_api_paths}
+             **swin_launches, **host_paths, **augreg_paths, **model_api_paths,
+             **entry_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""

@@ -1247,3 +1247,52 @@ def test_2d_layers_leave_k2_alone(cuda):
     torch.cuda.synchronize()
     assert conv3d.LAUNCHES == k2 and fused_norm.LAUNCHES == k1 + 1
     assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+def test_segmentation_aug2d_on_card_matches_cpu(cuda):
+    """The 2D augmenter on the card against the same augmenter on the CPU
+    from the same seed, every step likely: masks equal, 8-bit images within
+    one gray level and >= 99.9 % exact, both generators in step."""
+    import numpy as np
+
+    from tpuseg_torch.data.augment2d import SegmentationAug2D
+
+    kw = {"p_blur": 0.8, "p_ssr": 0.9, "p_brightness": 0.8, "seed": 5}
+    card, host = SegmentationAug2D(device=cuda, **kw), SegmentationAug2D(device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    exact = total = 0
+    for t in range(12):
+        h, w = ((96, 120), (127, 64))[t % 2]
+        img = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        msk = (rng.random((h, w)) > 0.7).astype(np.uint8) * 255
+        ci, cm = card(img, msk)
+        pi, pm = host(img, msk)
+        assert np.array_equal(cm, pm)
+        assert np.abs(ci.astype(int) - pi).max() <= 1
+        exact += int((ci == pi).sum())
+        total += ci.size
+    assert exact / total >= 0.999
+    assert card.rng.random() == host.rng.random()
+
+
+@pytest.mark.parametrize("name, k1", [("unext2ds", (3, 4)), ("amlpunet2d", (6, 0))])
+def test_mlp2d_nets_forward_k1_matches_plain(cuda, monkeypatch, name, k1):
+    """UNeXt2dS and AmlpUNet2d (features 16) on 2 x 64^2: K1 launched at
+    each GroupNorm (with the ReLU, without), logits within 1e-4 of the same
+    forward through K1's plain version."""
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.nn import layers
+
+    kw = {"features": 16} if name == "amlpunet2d" else {}
+    net = build_model(name, 2, generator=torch.Generator().manual_seed(0), **kw).to(cuda).eval()
+    x = torch.randn((2, 64, 64, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    before = fused_norm.LAUNCHES
+    with torch.inference_mode():
+        got = net(x)[0]
+    torch.cuda.synchronize()
+    assert fused_norm.LAUNCHES == before + sum(k1)
+    monkeypatch.setattr(layers, "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain)
+    with torch.inference_mode():
+        ref = net(x)[0]
+    _close(got, ref, torch.float32)

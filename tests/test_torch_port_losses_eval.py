@@ -68,12 +68,26 @@ def test_seg_metric3d_matches_jax(spacing):
     assert port_metrics.Seg_Metirc3d is port_metrics.SegMetric3d is seg3d.SegMetric3d
 
 
-def test_seg_metric3d_empty_prediction_matches_jax():
+@pytest.fixture
+def signed_rvd(monkeypatch):
+    """JAX's ``get_RVD`` with the mask sums subtracted as signed integers,
+    as the port's does (its README's stated divergence: JAX's unsigned sums
+    wrap to ~1.8e19 when the prediction is the smaller); the other metrics
+    stay JAX's own."""
+    def get_rvd(self):
+        return (int(self.pred_mask.sum()) - int(self.real_mask.sum())) / float(
+            self.real_mask.sum())
+
+    monkeypatch.setattr(JSegMetric3d, "get_RVD", get_rvd)
+
+
+def test_seg_metric3d_empty_prediction_matches_jax(signed_rvd):
+    """An empty prediction: JAX's metrics, RVD -1."""
     real, _ = _masks(2)
     pred = np.zeros_like(real)
     ref = JSegMetric3d(real, pred, (1, 1, 1)).all_metrics()
     got = seg3d.SegMetric3d(real, pred, (1, 1, 1)).all_metrics()
-    assert got == ref
+    assert got == ref and got["rvd"] == -1.0
 
 
 def _write_cases(pred_dir, gt_dir, writer, vol_cls):
@@ -98,9 +112,10 @@ def _read_csv(path):
 
 
 @pytest.mark.parametrize("label", [0, 2])
-def test_evaluate_folders_and_cli_match_jax(tmp_path, label, capsys):
-    """``evaluate_folders`` yields JAX's rows (1e-9 relative), and the CLI
-    writes JAX's CSV columns and values, the MEAN row last, without pandas."""
+def test_evaluate_folders_and_cli_match_jax(tmp_path, label, capsys, signed_rvd):
+    """``evaluate_folders`` yields JAX's rows (1e-9 relative; RVD signed,
+    ``signed_rvd``), and the CLI writes JAX's CSV columns and values, the
+    MEAN row last, without pandas."""
     _write_cases(str(tmp_path / "pred"), str(tmp_path / "gt"), write_nifti, Volume)
     args = (str(tmp_path / "pred"), str(tmp_path / "gt"))
     got = list(evaluate.evaluate_folders(*args, label))
@@ -125,7 +140,7 @@ def test_evaluate_folders_and_cli_match_jax(tmp_path, label, capsys):
             assert abs(float(r[k]) - float(j[k])) <= 1e-9 * max(1.0, abs(float(j[k])))
 
 
-def test_evaluate_reads_the_jax_packages_files(tmp_path):
+def test_evaluate_reads_the_jax_packages_files(tmp_path, signed_rvd):
     _write_cases(str(tmp_path / "pred"), str(tmp_path / "gt"), jax_write_nifti, JVolume)
     args = (str(tmp_path / "pred"), str(tmp_path / "gt"))
     got = dict(evaluate.evaluate_folders(*args))

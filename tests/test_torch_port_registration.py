@@ -285,7 +285,10 @@ def test_trainregistration3d_recipe_trains(tmp_path):
     assert (tmp_path / "run" / "latest" / "state.pt").is_file()
     assert set(recipes.RECIPES) == {
         "trainregistration3d", "trainbinaryunet2d", "trainbinaryvnet2d", "trainmutilunet2d",
-        "trainmutilvnet2d", "trainmutilresnet2d", "trainpix2pixgan2d", "inferencebinaryvnet2d"}
+        "trainmutilvnet2d", "trainbinaryunet3d", "trainmutilunet3d", "trainmutilvnet3d",
+        "trainbinaryvnet3d", "trainmutilresnet2d", "trainmutilResNet2d", "trainpix2pixgan2d",
+        "inferencebinaryvnet2d", "inferencemutilvnet2d", "inferencebinaryvnet3d",
+        "inferencemutilvnet3d"}
 
 
 # ---------------------------------------------------------------- TPDDNet

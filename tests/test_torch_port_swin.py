@@ -161,11 +161,14 @@ def test_vnet_block_matches_jax(params, port_vnet, block):
 def test_conv_rejects_modes_the_port_lacks():
     """ConvND pads SAME as XLA does at any stride and kernel (the k3
     stride-2 SAME conv came with STUNet3d's dual path, an even kernel pads
-    (0, 1)) or VALID; any other padding raises."""
+    (0, 1)), VALID, or by an int on every side (flax's ``padding=p``, the
+    7x7 stride-4 embedding of AmlpUNet2d); any other padding raises."""
     with pytest.raises(ValueError):
         pl.ConvND(8, 8, 3, padding="CIRCULAR")
     with pytest.raises(ValueError):
-        pl.ConvND(8, 8, 3, stride=2, padding=1)
+        pl.ConvND(8, 8, 3, stride=2, padding=(1, 1))
+    assert pl.ConvND(8, 8, 3, stride=2, padding=1)(torch.zeros(1, 6, 6, 6, 8)).shape == (
+        1, 3, 3, 3, 8)
     assert pl.ConvND(8, 8, 3, stride=2).padding == "SAME"
     assert pl.ConvND(8, 8, 2, stride=2).padding == "VALID"
     assert pl.same_pads(8, 2, 1) == (0, 1)

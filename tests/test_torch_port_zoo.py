@@ -260,13 +260,17 @@ def test_build_model_names_and_refusals():
                "resunet3d": ("ResUNet3d", 3), "stunet3d": ("STUNet3d", 3),
                "kiunet3d": ("KiUNet3d", 3), "kiunet3dthin": ("KiUNet3d", 3)}
     assert set(classes) | {"tpddnet", "vnet3dregistration", "resnet2d", "resnet3d",
-                           "resnet"} == set(PORTED)
+                           "resnet", "unext2d", "unext2ds", "amlpunet2d"} == set(PORTED)
     for name, (cls, nd) in classes.items():
         m = build_model(name.upper(), 3, features=8, dropout=0.1, in_channels=2)
         assert type(m).__name__ == cls and m.num_classes == 3 and m.features == 8
         assert getattr(m, "ndim", 3) == nd
     m = build_model("TPDDNet", 3, in_channels=2)
     assert type(m).__name__ == "TPDDNet" and m.num_classes == 3
+    for name, cls in (("UNeXt2d", "UNeXt"), ("unext2ds", "UNeXt"),
+                      ("AmlpUNet2d", "AmlpUNet2d")):
+        m = build_model(name, 3, in_channels=2)
+        assert type(m).__name__ == cls and m.num_classes == 3 and m.ndim == 2
     m = build_model("vnet3dregistration", 3, features=8, dropout=0.1)
     assert type(m).__name__ == "VNet3dRegistration" and m.features == 8
     for name, ndim, nd in (("unet", 2, 2), ("vnet", 2, 2), ("resnet", 2, 2),

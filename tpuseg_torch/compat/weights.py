@@ -491,12 +491,91 @@ def _pix2pix_discriminator_rows():
             + _conv_rows("head", (f"ConvND_{n}",), False))
 
 
+def _dense_rows(key: str, node: Tuple[str, ...], bias: bool = True):
+    """flax Dense (in, out) -> torch Linear (out, in): the conv rule at 0 taps."""
+    rows = [(f"{key}.weight", node + ("kernel",), "conv")]
+    if bias:
+        rows.append((f"{key}.bias", node + ("bias",), "vec"))
+    return rows
+
+
+def _ln_rows(key: str, node: Tuple[str, ...]):
+    return [(f"{key}.weight", node + ("scale",), "vec"), (f"{key}.bias", node + ("bias",), "vec")]
+
+
+def _unext_rows():
+    def block(key, node):
+        mlp = node + ("ShiftMLP_0",)
+        return (_ln_rows(f"{key}.norm", node + ("LayerNorm_0",))
+                + _dense_rows(f"{key}.mlp.fc1", mlp + ("Dense_0",))
+                + _conv_rows(f"{key}.mlp.dwconv", mlp + ("ConvND_0",), True)
+                + _dense_rows(f"{key}.mlp.fc2", mlp + ("Dense_1",)))
+
+    def stage(key, node):  # a stem or a decoder stage: conv, GroupNorm
+        return (_conv_rows(f"{key}.conv", (node, "ConvND_0"), True)
+                + _gn_rows(f"{key}.norm", (node, "GroupNorm_0")))
+
+    rows = []
+    for i in range(3):
+        rows += stage(f"stems.{i}", f"_Stem_{i}")
+    for i in range(2):
+        node = (f"OverlapPatchEmbed_{i}",)
+        rows += (_conv_rows(f"embed{i + 1}.proj", node + ("ConvND_0",), True)
+                 + _ln_rows(f"embed{i + 1}.norm", node + ("LayerNorm_0",))
+                 + block(f"block{i + 1}", (f"ShiftedBlock_{i}",))
+                 + _ln_rows(f"norm{i + 1}", (f"LayerNorm_{i}",)))
+    for i in range(2):
+        rows += (stage(f"dec{i + 1}", f"_DecoderStage_{i}")
+                 + block(f"dblock{i + 1}", (f"ShiftedBlock_{2 + i}",))
+                 + _ln_rows(f"dnorm{i + 1}", (f"LayerNorm_{2 + i}",)))
+    rows += stage("dec3", "_DecoderStage_2") + stage("dec4", "_DecoderStage_3")
+    return (rows + _conv_rows("final", ("ConvND_0",), True)
+            + _conv_rows("head", ("ConvND_1",), True))
+
+
+def _amlp_unet_rows():
+    from tpuseg_torch.models.amlp_unet2d import DEPTHS, offset_blocks
+
+    enc = ("ActiveMLPEncoder_0",)
+    rows = _conv_rows("encoder.embed", enc + ("ConvND_0",), True)
+    peg = blk = 0
+    for i, depth in enumerate(DEPTHS):
+        for j in range(depth):
+            if j in offset_blocks(depth):
+                rows += _conv_rows(f"encoder.pegs.{i}_{j}.conv",
+                                   enc + (f"_PEG_{peg}", "ConvND_0"), True)
+                off = enc + (f"_OffsetLayer_{peg}",)
+                rows += (_ln_rows(f"encoder.offsets.{i}_{j}.norm", off + ("LayerNorm_0",))
+                         + _dense_rows(f"encoder.offsets.{i}_{j}.fc", off + ("Dense_0",)))
+                peg += 1
+            key, node = f"encoder.blocks.{i}.{j}", enc + (f"ActiveBlock_{blk}",)
+            atm = node + ("ATMLayer_0",)
+            rows += _ln_rows(f"{key}.norm1", node + ("LayerNorm_0",))
+            for d, name in enumerate(("mlp_w", "mlp_h", "mlp_c", "reweight1", "reweight2",
+                                      "proj")):
+                rows += _dense_rows(f"{key}.atm.{name}", atm + (f"Dense_{d}",), name != "mlp_c")
+            rows += (_ln_rows(f"{key}.norm2", node + ("LayerNorm_1",))
+                     + _dense_rows(f"{key}.mlp.fc1", node + ("_Mlp_0", "Dense_0"))
+                     + _dense_rows(f"{key}.mlp.fc2", node + ("_Mlp_0", "Dense_1")))
+            blk += 1
+        rows += _ln_rows(f"encoder.norms.{i}", enc + (f"LayerNorm_{i}",))
+        if i < len(DEPTHS) - 1:
+            rows += _conv_rows(f"encoder.downs.{i}", enc + (f"ConvND_{i + 1}",), True)
+    for n, lvl in enumerate((3, 2, 1)):
+        rows += _conv_rows(f"up{lvl}", (f"ConvTransposeND_{n}",), True, "ConvTranspose_0",
+                           "tconv")
+        rows += _block_rows(f"dec{lvl}", (f"_DecBlock_{n}",))
+    return rows + [("head.weight", ("ConvTranspose_0", "kernel"), "tconv"),
+                   ("head.bias", ("ConvTranspose_0", "bias"), "vec")]
+
+
 ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
             "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows,
             "vnet3dregistration": _registration_rows, "tpddnet": _tpddnet_rows,
             "resnet2d": _resnet_rows, "resnet3d": _resnet_rows,
             "pix2pix_generator": _pix2pix_generator_rows,
-            "pix2pix_discriminator": _pix2pix_discriminator_rows}
+            "pix2pix_discriminator": _pix2pix_discriminator_rows,
+            "unext2d": _unext_rows, "unext2ds": _unext_rows, "amlpunet2d": _amlp_unet_rows}
 
 
 def _from_jax(net: str, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
@@ -639,6 +718,32 @@ def pix2pix_discriminator_params_from_jax(tree: Mapping,
                                           dtype=np.float32) -> Dict[str, torch.Tensor]:
     """As ``resunet_params_from_jax``, for ``Discriminator2d``."""
     return _from_jax("pix2pix_discriminator", tree, dtype)
+
+
+def unext2d_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``UNeXt2d`` and ``UNeXt2dS`` (the
+    widths are in the kernels' shapes): flax Dense and LayerNorm to torch
+    Linear and LayerNorm, the depthwise kernels (3, 3, 1, C) to (C, 1, 3, 3)."""
+    return _from_jax("unext2d", tree, dtype)
+
+
+def amlp_unet2d_params_from_jax(tree: Mapping, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """As ``unext2d_params_from_jax``, for ``AmlpUNet2d`` (its 8x8 stride-4
+    transpose-conv head flipped as the kernel-2 ones are)."""
+    return _from_jax("amlpunet2d", tree, dtype)
+
+
+def seeded_unext2d_params(seed: int, num_classes: int, in_ch: int = 1,
+                          small: bool = False) -> dict:
+    """As ``seeded_resunet_params``, for ``UNeXt2d`` (``UNeXt2dS`` when
+    ``small``)."""
+    return _seeded("unext2ds" if small else "unext2d", seed, num_classes, in_channels=in_ch)
+
+
+def seeded_amlp_unet2d_params(seed: int, num_classes: int, in_ch: int = 1,
+                              features: int = 64) -> dict:
+    """As ``seeded_resunet_params``, for ``AmlpUNet2d``."""
+    return _seeded("amlpunet2d", seed, num_classes, features=features, in_channels=in_ch)
 
 
 def seeded_resnet_params(seed: int, num_classes: int, in_ch: int = 1, ndim: int = 2,

@@ -77,10 +77,9 @@ def _encode_bmp(img: np.ndarray) -> bytes:
     pixels = np.zeros((h, row), np.uint8)
     pixels[:, :w * bpp // 8] = img.reshape(h, -1)
     body = pixels[::-1].tobytes()  # bottom-up rows
-    colors = 0 if color else 256
+    # image size and palette count 0 (the defaults), as cv2 writes them
     return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
-            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, 0, len(body), 0, 0,
-                          colors, 0)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, 0, 0, 0, 0, 0, 0)
             + palette + body)
 
 

@@ -23,7 +23,9 @@ def build_loss(name: str, num_classes: int = 1, alpha=None,
         "BinaryTverskyLoss": binary.tversky_loss,
         "BinaryCrossEntropyLoss": binary.bce_with_logits,
         "BinaryCrossEntropyDiceLoss": binary.bce_dice_loss,
-        "MCCLoss": binary.mcc_loss,
+        # mcc_loss takes probabilities: the JAX registry hands it logits
+        # (NaN in training); the port passes sigmoid(logits)
+        "MCCLoss": lambda logits, t: binary.mcc_loss(torch.sigmoid(logits), t),
     }
     if name in binary_map:
         return binary_map[name]

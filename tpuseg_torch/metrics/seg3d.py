@@ -68,7 +68,9 @@ class SegMetric3d:
         return 1.0 - self.get_jaccard_index()
 
     def get_RVD(self):
-        return float(self.pred_mask.sum() - self.real_mask.sum()) / float(
+        # signed: the unsigned sums of the JAX package wrap around when the
+        # prediction is the smaller
+        return (int(self.pred_mask.sum()) - int(self.real_mask.sum())) / float(
             self.real_mask.sum())
 
     def get_FNR(self):

@@ -5,20 +5,22 @@ from __future__ import annotations
 # the registry's names of the ported nets, and the JAX registry's other names
 PORTED = ("unet2d", "unet3d", "unet", "unet3dthin", "unetthin", "vnet2d", "vnet3d",
           "vnet", "resnet2d", "resnet3d", "resnet", "resunet3d", "stunet3d", "kiunet3d",
-          "kiunet3dthin", "tpddnet", "vnet3dregistration")
-NOT_PORTED = ("unext2d", "unext2ds", "amlpunet2d", "smt", "vsnet")
+          "kiunet3dthin", "tpddnet", "vnet3dregistration", "unext2d", "unext2ds",
+          "amlpunet2d")
+NOT_PORTED = ("smt", "vsnet")
 
 
 def build_model(name: str, num_classes: int, ndim: int = 3, **kw):
     """The port's net called ``name`` (case-insensitive), as the JAX
     ``build_model`` names it: unet2d / unet3d / unet, unet3dthin / unetthin,
     vnet2d / vnet3d / vnet, resnet2d / resnet3d / resnet (the classifier),
-    resunet3d, stunet3d, kiunet3d / kiunet3dthin, tpddnet and
-    vnet3dregistration (which, as in JAX, ignores ``num_classes``).  A name
-    without its rank takes ``ndim``.  ``kw`` go to the module (``features``,
-    ``dropout``, ``in_channels``, ``generator``; TPDDNet takes only the last
-    two).  Every other name raises NotImplementedError naming the ported
-    ones."""
+    resunet3d, stunet3d, kiunet3d / kiunet3dthin, tpddnet,
+    vnet3dregistration (which, as in JAX, ignores ``num_classes``), and the
+    2D MLP nets unext2d, unext2ds and amlpunet2d.  A name without its rank
+    takes ``ndim``.  ``kw`` go to the module (``features``, ``dropout``,
+    ``in_channels``, ``generator``; TPDDNet and the UNeXt nets take only the
+    last two, AmlpUNet2d also ``features``).  Every other name raises
+    NotImplementedError naming the ported ones."""
     from tpuseg_torch.models.kiunet3d import KiUNet3d
     from tpuseg_torch.models.registration import VNet3dRegistration
     from tpuseg_torch.models.resnet import ResNetClassifier
@@ -37,6 +39,14 @@ def build_model(name: str, num_classes: int, ndim: int = 3, **kw):
         return (UNet if name.startswith("unet") else VNet)(num_classes, ndim=nd, **kw)
     if name == "vnet3dregistration":
         return VNet3dRegistration(**kw)
+    if name in ("unext2d", "unext2ds"):
+        from tpuseg_torch.models.unext2d import UNeXt2d, UNeXt2dS
+
+        return (UNeXt2dS if name == "unext2ds" else UNeXt2d)(num_classes, **kw)
+    if name == "amlpunet2d":
+        from tpuseg_torch.models.amlp_unet2d import AmlpUNet2d
+
+        return AmlpUNet2d(num_classes, **kw)
     cls = {"unet3dthin": UNetThin, "unetthin": UNetThin,
            "resunet3d": ResUNet3d, "stunet3d": STUNet3d,
            "kiunet3d": KiUNet3d, "kiunet3dthin": KiUNet3d, "tpddnet": TPDDNet}.get(name)

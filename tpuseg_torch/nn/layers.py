@@ -7,10 +7,12 @@ V-Net vocabulary ``LUConv``, ``InputTransition``, ``DownTransition``,
 ``UpTransition``), in 3D (``ndim=3``, the default) and 2D (``ndim=2``):
 stride-1 SAME convs, strided SAME and VALID convs (XLA's SAME padding, low
 side first: the 5x5 stride-2 convs of the pix2pix discriminator too),
-dilated SAME convs, kernel-2 stride-2 transpose convs, 2-window max pools,
+explicitly padded and depthwise (``groups``) convs, dilated SAME convs,
+kernel-2 stride-2 transpose convs and flax's SAME transpose convs (the
+8x8 stride-4 head of AmlpUNet2d), 2-window max pools,
 nearest and linear upsampling, ``resize_half_linear`` (the antialiased x1/2
-linear resize of ``jax.image.resize``, 3D), GroupNorm(8) + ReLU and
-InstanceNorm (``InstanceNorm``, flax's ``GroupNorm(group_size=1)``; the
+linear resize of ``jax.image.resize``, 3D), GroupNorm(8) with and without
+the ReLU and InstanceNorm (``InstanceNorm``, flax's ``GroupNorm(group_size=1)``; the
 affine-free ``InstanceNormNoAffine`` of pix2pix), all through the fused
 kernel on maps of either rank.  Only the 3D stride-1 3x3x3 convs reach the
 hand-written conv kernel, as only they reached the TPU one; every 2D conv
@@ -34,7 +36,7 @@ backend returns another layout.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +79,9 @@ class ConvND(nn.Module):
     above 1 (the k2 s2 down convs) and to SAME otherwise.
     ``kernel_dilation`` spaces the taps (flax's field): SAME then pads the
     dilated extent (k - 1) * dilation + 1, (2, 2) for k3 at dilation 2.
+    An int ``padding`` pads every side by it (flax's ``padding=p``);
+    ``groups`` is flax's ``feature_group_count`` (``groups = C``: a
+    depthwise conv, weight (C, 1, *k)).
 
     An undilated stride-1 3x3x3 conv inside ``conv3d_small``'s supported
     range goes to the hand-written kernel (the convs the TPU kernel took,
@@ -91,20 +96,21 @@ class ConvND(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, stride: int = 1,
-                 padding: Optional[str] = None, kernel_dilation: int = 1,
-                 ndim: int = 3):
+                 padding: Optional[Union[str, int]] = None, kernel_dilation: int = 1,
+                 ndim: int = 3, groups: int = 1):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"ndim {ndim}: a conv is 2D or 3D")
         self.ndim = ndim
         if padding is None:
             padding = "VALID" if stride == kernel_size > 1 else "SAME"
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding {padding!r}: a conv is SAME or VALID")
+        if padding not in ("SAME", "VALID") and not isinstance(padding, int):
+            raise ValueError(f"padding {padding!r}: a conv is SAME, VALID or an int")
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.dilation = kernel_dilation
+        self.groups = groups  # flax's feature_group_count
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, *(kernel_size,) * ndim))
+            torch.empty(features, in_features // groups, *(kernel_size,) * ndim))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(features))
         else:
@@ -130,7 +136,7 @@ class ConvND(nn.Module):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0) if self.ndim == 3 else None  # view
         if (w_dhwio is not None and self.stride == 1 and self.dilation == 1
-                and self.padding == "SAME"
+                and self.padding == "SAME" and self.groups == 1
                 and supported(tuple(x.shape), tuple(w_dhwio.shape))):
             packed = packed_t = None
             if x.is_cuda:
@@ -140,7 +146,9 @@ class ConvND(nn.Module):
             y = conv3d_small(x, w_dhwio, packed, packed_t)
             return y if bias is None else y + bias
         xc, pad = to_channels_first(x), 0
-        if self.padding == "SAME":
+        if isinstance(self.padding, int):  # the same pad on both sides of every axis
+            pad = self.padding
+        elif self.padding == "SAME":
             extent = (self.kernel_size - 1) * self.dilation + 1
             pads = [same_pads(n, extent, self.stride) for n in x.shape[1:-1]]
             if all(lo == hi for lo, hi in pads):
@@ -148,21 +156,43 @@ class ConvND(nn.Module):
             else:  # F.pad takes the last axis first
                 xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
         conv = F.conv3d if self.ndim == 3 else F.conv2d
-        y = conv(xc, w, bias, stride=self.stride, padding=pad, dilation=self.dilation)
+        y = conv(xc, w, bias, stride=self.stride, padding=pad, dilation=self.dilation,
+                 groups=self.groups)
         return to_channels_last(y)
+
+
+def transpose_same_pad(kernel_size: int, stride: int) -> int:
+    """torch's ``padding`` for flax's ``ConvTranspose(padding="SAME")``
+    (``lax.conv_transpose``: the input dilated by the stride, padded by
+    pad_a = ceil((k + s - 2) / 2) low and k + s - 2 - pad_a high, unless
+    s > k - 1, then k - 1 low), where torch pads k - 1 - p on both sides;
+    0 (VALID) when the kernel equals the stride."""
+    if kernel_size == stride:
+        return 0
+    total = kernel_size + stride - 2
+    low = kernel_size - 1 if stride > kernel_size - 1 else -(-total // 2)
+    if low != total - low:
+        raise ValueError(f"ConvTranspose k{kernel_size} s{stride} SAME pads "
+                         f"({low}, {total - low}): not symmetric")
+    return kernel_size - 1 - low
 
 
 class ConvTransposeND(nn.Module):
     """Channels-last 3D (or, ``ndim=2``, 2D) transpose conv, kernel 2 and
-    stride 2 (the zoo's upsampler).  ``weight`` is torch's (I, O, 2, 2[, 2]):
-    flax's ConvTranspose kernel is the spatially flipped one, and
-    ``compat/weights.py`` applies that flip when it converts a tpuseg tree."""
+    stride 2 by default (the zoo's upsampler; VALID), or flax's SAME
+    padding at another kernel and stride (AmlpUNet2d's k8 s4 head).
+    ``weight`` is torch's (I, O, *k): flax's ConvTranspose kernel is the
+    spatially flipped one, and ``compat/weights.py`` applies that flip when
+    it converts a tpuseg tree."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 ndim: int = 3):
+                 ndim: int = 3, kernel_size: int = 2, stride: int = 2):
         super().__init__()
         self.ndim = ndim
-        self.weight = nn.Parameter(torch.empty(in_features, features, *(2,) * ndim))
+        self.stride = stride
+        self.pad = transpose_same_pad(kernel_size, stride)
+        self.weight = nn.Parameter(
+            torch.empty(in_features, features, *(kernel_size,) * ndim))
         if use_bias:
             self.bias = nn.Parameter(torch.empty(features))
         else:
@@ -172,7 +202,8 @@ class ConvTransposeND(nn.Module):
         conv = F.conv_transpose3d if self.ndim == 3 else F.conv_transpose2d
         y = conv(
             to_channels_first(x), self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype), stride=2,
+            None if self.bias is None else self.bias.to(x.dtype), stride=self.stride,
+            padding=self.pad,
         )
         return to_channels_last(y)
 
@@ -285,6 +316,13 @@ class FusedGNReLU(nn.Module):
         return fused_group_norm_relu(x, self.weight.to(x.dtype),
                                      self.bias.to(x.dtype), self.groups,
                                      self.eps, relu=self.relu)
+
+
+class GroupNorm(FusedGNReLU):
+    """flax ``nn.GroupNorm(num_groups=8)`` (eps 1e-6) without the ReLU, on
+    the fused kernel."""
+
+    relu = False
 
 
 class InstanceNorm(FusedGNReLU):
@@ -464,7 +502,8 @@ def he_normal_init_(module: nn.Module,
         if isinstance(m, Dense):
             bound = math.sqrt(6.0 / m.weight.shape[1])
             m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         if isinstance(m, (ConvND, ConvTransposeND)):
             w = m.weight
             cin = w.shape[1] if isinstance(m, ConvND) else w.shape[0]

@@ -50,6 +50,7 @@ class TrainerConfig:
     lr: float = 1e-3
     optimizer: str = "adamw"  # reference 2D models use AdamW, 3D use Adam
     grad_clip: Optional[float] = None
+    ckpt_mode: str = "max"  # best = highest validation metric ("min": lowest)
     early_stop_patience: Optional[int] = None
     compute_dtype: torch.dtype = torch.float32
     seed: int = 0  # base seed of the per-step dropout generators
@@ -130,9 +131,9 @@ class Trainer:
             resume: bool = False) -> Dict[str, list]:
         """Epoch loop; ``train_batches`` / ``val_batches`` return a fresh
         iterator of host (numpy) batches per epoch.  Best is the highest
-        validation metric."""
+        validation metric (the lowest with ``config.ckpt_mode="min"``)."""
         os.makedirs(model_dir, exist_ok=True)
-        manager = ckpt_lib.CheckpointManager(model_dir)
+        manager = ckpt_lib.CheckpointManager(model_dir, mode=self.config.ckpt_mode)
         start_epoch = 0
         if resume:
             restored = manager.restore("latest")
@@ -250,7 +251,8 @@ class Trainer:
         return self.eval_step(self._put(batch))
 
     def load(self, model_dir: str, which: str = "best") -> dict:
-        restored = ckpt_lib.CheckpointManager(model_dir).restore(which)
+        restored = ckpt_lib.CheckpointManager(
+            model_dir, mode=self.config.ckpt_mode).restore(which)
         if restored is None:
             raise FileNotFoundError(f"no '{which}' checkpoint under {model_dir}")
         state, meta = restored

@@ -33,6 +33,13 @@ launch outside any op).  It prints one JSON object, with the card's
 
 ``synthetic_ct`` makes the request volumes; ``chip_smoke.py`` sends the
 same ones.
+
+The training half of ``tpuseg/tools/profiling.py``: ``trace_steps``
+writes a ``torch.profiler`` Chrome trace of a few train steps
+(``python -m tpuseg_torch.train --train.profile true`` runs it before
+``fit``), ``StepTimer`` gives per-step wall-clock statistics that wait for
+the device.  JAX's ``dump_hlo`` (XLA's optimized HLO of a jitted function)
+has no counterpart in an eager program and is not ported.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -116,6 +123,67 @@ def request_stages(model, src: str, dst: str, new_size=NEW_SIZE) -> dict:
     lap("write_nifti")
     ms["total"] = sum(ms.values())
     return ms
+
+
+def _cycle(loader) -> Iterator[dict]:
+    """The loader's batches, pass after pass."""
+    while True:
+        empty = True
+        for batch in loader:
+            empty = False
+            yield batch
+        if empty:
+            raise ValueError("trace_steps: the loader yields no batch")
+
+
+def trace_steps(trainer, loader, out_dir: str, n_steps: int = 3) -> str:
+    """One train step outside the trace, then ``n_steps`` traced by
+    ``torch.profiler`` (CPU ops, and the card's kernels when the trainer
+    runs on one), written as a Chrome trace to ``<out_dir>/trace.json``;
+    returns its path.  As in JAX, the 1 + ``n_steps`` steps update the
+    trainer's weights, optimizer state and step count: a ``fit`` after it
+    goes on from them.  A loader shorter than that starts another pass."""
+    os.makedirs(out_dir, exist_ok=True)
+    batches = _cycle(loader)
+    m = trainer.train_step(trainer._put(next(batches)))
+    float(m["loss"])
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n_steps):
+            m = trainer.train_step(trainer._put(next(batches)))
+        float(m["loss"])
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profiling] trace written to {path}")
+    return path
+
+
+class StepTimer:
+    """Wall-clock step statistics; ``stop(value)`` first waits for the
+    device by fetching one element of ``value``."""
+
+    def __init__(self):
+        self.times = []
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, sync_value=None):
+        if sync_value is not None:
+            float(torch.as_tensor(sync_value).reshape(-1)[0])
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> dict:
+        t = np.asarray(self.times)
+        if len(t) == 0:
+            return {}
+        return {"steps": len(t), "mean_s": float(t.mean()),
+                "p50_s": float(np.percentile(t, 50)),
+                "p95_s": float(np.percentile(t, 95)),
+                "steps_per_sec": float(1.0 / t.mean())}
 
 
 def _device_us(event, attrs=("self_device_time_total", "self_cuda_time_total")) -> float:

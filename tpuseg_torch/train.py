@@ -18,7 +18,9 @@ twin of unet3d, vnet3d, resunet3d or stunet3d (the JAX package's headline
 training step); resunet3d and kiunet3d train with deep supervision;
 ``--data.online_augment true`` gives every training sample a fresh random
 affine on the card (``data/augment3d.py``); ``--train.resume true``
-continues from ``<model_dir>/latest``.  tpddnet and vnet3dregistration
+continues from ``<model_dir>/latest``; ``--train.profile true`` first
+writes a ``torch.profiler`` trace of three train steps to
+``<model_dir>/trace/trace.json`` (``tools/profiling.py`` ``trace_steps``).  tpddnet and vnet3dregistration
 do not train here, as in the JAX package's script: TPDDNet takes neither
 ``features`` nor ``dropout`` (train it through
 ``tasks.segmentation.make_segmentation_trainer``), the registration net
@@ -96,8 +98,14 @@ def build(cfg: Config, device="cuda"):
 
 
 def run(cfg: Config, trainer, train_loader, val_loader) -> dict:
-    """Fit, then write the curves and the config next to the checkpoints."""
+    """Fit (after ``--train.profile``'s traced steps, which update the
+    weights as JAX's do), then write the curves and the config next to the
+    checkpoints."""
     model_dir = cfg.train.model_dir
+    if cfg.train.profile:
+        from tpuseg_torch.tools.profiling import trace_steps
+
+        trace_steps(trainer, train_loader, os.path.join(model_dir, "trace"))
     history = trainer.fit(lambda: iter(train_loader), lambda: iter(val_loader),
                           model_dir, resume=cfg.train.resume)
     plot_result(model_dir, history["train_loss"], history["valdation_loss"],
