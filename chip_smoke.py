@@ -235,14 +235,27 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     at 512^2, batch 8: one step's loss and gradients through the kernels
     against the plain versions' f64 step (phase 10's gate), three steps with K1's
     launches checked (7 / 6 each way, ``unext2d`` / ``amlp_unet2d``), a
-    timed step.
+    timed step;
+13. the attention zoo, in float32: SMTSeg3d and VSNet
+    (``models/smt.py``, ``models/vsnet.py``) against the golden file's JAX
+    outputs; smt_t (15 classes, 128^3: ``smt``, K2 4 / K1 20 a forward),
+    one eval forward each of smt_s, smt_b and smt_l at 128^3, and VSNet
+    (feature_size 24, 96^3: ``vsnet``, K2 6 / K1 25, three of them over
+    one channel) through the kernels against the plain versions
+    (probabilities within 1e-4, masks equal outside near-ties); one step
+    of each (``make_segmentation_trainer``, ``make_vsnet_trainer`` with
+    both optional targets) against the plain versions' f64 step (phase
+    10's gate), three steps with each step's launches checked, a timed
+    step; K2 (forward, dX, dW) and K1 (forward, backward) at the shapes
+    those forwards hand them against their plain versions, timed, and K2
+    dW's signed mean error over its rms there.
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
 launches on the served, training (plain and packed, UNet3d and VNet3d, f32
 and bf16; the zoo; online augmentation, registration and TPDDNet; the
 Model API's 2D, classification and GAN paths; the recipes and the 2D MLP
-nets), bench, sliding-window, whole-volume and folder-inference paths (K3's dX and dW rows among them), error, times (one
+nets; the attention nets), bench, sliding-window, whole-volume and folder-inference paths (K3's dX and dW rows among them), error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
@@ -556,9 +569,9 @@ def stem_cases():
     return [("unet", (1,) + TRAIN_DHW + (1,), 1), ("vnet", (1,) + VNET_TRAIN_DHW + (1,), 1)]
 
 
-def time_ms(torch, fn, iters: int = 20) -> float:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms per call of fn with CUDA events, after a warmup."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -584,12 +597,12 @@ def _check_row(results, name, dtype_name, what, err, scale, ms, plain_ms,
         fail(f"{name} {dtype_name} {what}: error {err} > {TOL[dtype_name]} * {scale}")
 
 
-def _off_the_kink(torch, x, gamma, beta, g):
+def _off_the_kink(torch, x, gamma, beta, g, groups: int = 8):
     """g with zeros where the GroupNorm output lies within 1e-3 of the ReLU
     kink, where the kernel's and the plain statistics (equal to fp32
     rounding) may put an element on either side."""
     n, c = x.shape[0], x.shape[-1]
-    xg = x.double().reshape(n, -1, 8, c // 8)
+    xg = x.double().reshape(n, -1, groups, c // groups)
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
     v = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(n, -1, c) * gamma.double() \
         + beta.double()
@@ -3800,6 +3813,276 @@ def phase_entry_points(torch, mods, workdir) -> dict:
     return paths
 
 
+# phase 13: the attention zoo at its published widths, f32: smt_t (15
+# classes) on 1x1x128^3 (the reference's smoke input,
+# networks/smt.py:415-424), one eval forward of smt_s, smt_b and smt_l
+# there, and VSNet's defaults (feature_size 24) on 1x1x96^3
+# (networks/VSNet.py:1066-1079).  A forward's launches (each way in a train
+# step), (K2, K1): smt_t K2 the stem's 32 -> 64 conv, enc1's two 64 -> 64 and
+# dec0's second, K1 the stem's norm (with the ReLU), the CA blocks' (5;
+# smt_s 16, smt_b and smt_l 24) and the 14 UNETR norms; smt_l (embed 96)
+# has no conv in K2's range.  VSNet: K2 its six UNETR convs at 24-48
+# channels, K1 its 8 encoder, 8 decoder and 9 gate norms (3 over one channel)
+ATTN_SMT_DHW, ATTN_SMT_CLASSES = (128, 128, 128), 15
+ATTN_VSNET_DHW = (96, 96, 96)
+ATTN_FORWARD = {"smt": (4, 20), "smt_s": (4, 31), "smt_b": (4, 39), "smt_l": (0, 39),
+                "vsnet": (6, 25)}
+
+
+def _attn_golden(torch, mods) -> None:
+    """Both nets on the card against the golden file's JAX f32 outputs
+    (16^3, small widths)."""
+    gen = mods["attn_golden"]
+    golden = gen.load()
+    for net in gen.CASES:
+        model = gen.port_net(net).cuda()
+        with torch.no_grad():
+            out = model(torch.from_numpy(gen.inputs(net)["image"]).cuda())
+        pairs = [(out[0], golden[f"{net}/logits"])] + [
+            (a, golden[f"{net}/aux{i}"]) for i, a in enumerate(out[2] if len(out) == 3 else ())]
+        worst = max(float(np.abs(a.cpu().numpy() - r).max()) / float(np.abs(r).max())
+                    for a, r in pairs)
+        say(f"  {net} on the card vs the golden JAX outputs (16^3, {len(pairs)} heads): "
+            f"max_abs_err over the scale {worst:.3g}")
+        if not worst <= 1e-4:
+            fail(f"{net}: golden outputs error {worst} > 1e-4 of the scale")
+
+
+def _attn_batch(torch, net: str, dhw, classes: int) -> dict:
+    """A seeded batch on the card: blob labels (8^3 blocks of random
+    classes), an image that shows them; VSNet's also a regression target
+    (the foreground) and an edge label (its boundary)."""
+    rng = np.random.default_rng(SEED + 13)
+    blocks = rng.integers(0, classes, (8, 8, 8))
+    label = blocks.repeat(dhw[0] // 8, 0).repeat(dhw[1] // 8, 1).repeat(dhw[2] // 8, 2)
+    image = (rng.standard_normal(dhw) + label / classes).astype(np.float32)
+    batch = {"image": image[None, ..., None], "label": label[None].astype(np.int32)}
+    if net == "vsnet":
+        fg = label > 0
+        edge = np.zeros_like(fg)
+        for axis in range(3):
+            edge |= fg != np.roll(fg, 1, axis)
+        batch["reg_target"] = fg[None, ..., None].astype(np.float32)
+        batch["edge_label"] = (edge & fg)[None].astype(np.int32)
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _record_kernel_shapes(mods, record: dict):
+    """Record the K2 (x shape, weight shape) and K1 (x shape, groups, ReLU)
+    of every call the models make, with its count."""
+    layers = mods["layers"]
+    conv, norm = layers.conv3d_small, layers.fused_group_norm_relu
+
+    def conv_rec(x, w, *a):
+        key = ("conv3d_small", tuple(x.shape), tuple(w.shape))
+        record[key] = record.get(key, 0) + 1
+        return conv(x, w, *a)
+
+    def norm_rec(x, gamma, beta, groups=8, eps=1e-6, relu=True):
+        key = ("fused_group_norm_relu", tuple(x.shape), groups, relu)
+        record[key] = record.get(key, 0) + 1
+        return norm(x, gamma, beta, groups, eps, relu=relu)
+
+    layers.conv3d_small, layers.fused_group_norm_relu = conv_rec, norm_rec
+    try:
+        yield
+    finally:
+        layers.conv3d_small, layers.fused_group_norm_relu = conv, norm
+
+
+def _attn_forward(torch, mods, tag: str, model, x) -> dict:
+    """One eval forward with counts from 0 against ATTN_FORWARD, its K1 / K2
+    shapes recorded; probabilities against the same net through the plain
+    versions (within 1e-4, masks equal outside near-ties: phase 8's rule);
+    kernels' and plain versions' ms, each of one call after the checked one
+    (the presets' forwards take up to 1.3 s).  Returns (launches, {shape
+    key: uses})."""
+    shapes = {}
+    reset_counts(mods)
+    with torch.inference_mode(), _record_kernel_shapes(mods, shapes):
+        probs = model(x)[1]
+    launches = counts(mods)
+    got = (launches["conv3d_small"], launches["fused_group_norm_relu"])
+    if got != ATTN_FORWARD[tag] or sum(launches.values()) != sum(got):
+        fail(f"{tag} forward launches {launches}, expected K2, K1 {ATTN_FORWARD[tag]}")
+    with torch.inference_mode(), plain_kernels(mods):
+        ref = model(x)[1]
+    agree, bad, err = _masks_agree(torch, probs, ref, 1e-4)
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: model(x)[1].argmax(-1), iters=1, warmup=0)
+        with plain_kernels(mods):
+            plain_ms = time_ms(torch, lambda: model(x)[1].argmax(-1), iters=1, warmup=0)
+    say(f"  {tag} forward {'x'.join(map(str, x.shape[1:4]))}: K2 {got[0]}, K1 {got[1]}; "
+        f"kernels vs plain: probs max_abs_err {err:.3g}, mask agreement {agree:.7f}, "
+        f"mismatches outside near-ties {bad}; {ms:.3f} ms (plain versions {plain_ms:.3f}), "
+        f"{mods['smi']}")
+    if bad or not err <= 1e-4 or not torch.isfinite(probs).all():
+        fail(f"{tag} forward kernels vs plain")
+    return launches, shapes
+
+
+def _attn_kernel_rows(torch, mods, shapes: dict, rows: dict, dw_drift: dict) -> None:
+    """K2 (forward, dX, dW) and K1 (forward, backward) at the shapes one
+    forward handed them, f32, against their plain versions and timed (uses:
+    a forward's calls; K2 3 calls a turn: cuDNN's fp32 wgrad takes 0.6 s
+    at 24 -> 48 on 96^3); K2 dW's signed mean error over its rms against
+    the float64 plain dW."""
+    conv3d, fused_norm = mods["conv3d"], mods["fused_norm"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for key, uses in sorted(shapes.items(), key=str):
+        if key[0] == "conv3d_small":
+            xs, ws = key[1], key[2]
+            cin, cout = ws[3], ws[4]
+            vox = int(np.prod(xs[:4]))
+            x = torch.randn(xs, generator=gen, device="cuda")
+            g = torch.randn(xs[:4] + (cout,), generator=gen, device="cuda")
+            wt = torch.randn(ws, generator=gen, device="cuda") * (2.0 / (27 * cin)) ** 0.5
+            bound = bound_ms(2.0 * 27 * cin * cout * vox, (cin + cout) * vox * 4
+                             + 27 * cin * cout * 4, "tf32x3")
+            what = f"{cin}->{cout} @{'x'.join(map(str, xs[1:4]))}"
+            packed, packed_t = conv3d.pack_weight(wt, torch.float32), conv3d.pack_weight_t(
+                wt, torch.float32)
+            for name, fn, plain, label in (
+                    ("conv3d_small", lambda: conv3d.conv3d_small(x, wt, packed),
+                     lambda: conv3d.conv3d_small_plain(x, wt), what),
+                    ("conv3d_small_dx", lambda: conv3d._launch_dx(g, packed_t, cin),
+                     lambda: conv3d.conv3d_small_dx_plain(g, wt), what + " dX"),
+                    ("conv3d_small_dw", lambda: conv3d._launch_dw(x, g),
+                     lambda: conv3d.conv3d_small_dw_plain(x, g), what + " dW")):
+                got, ref = fn(), plain()
+                torch.cuda.synchronize()
+                ms, plain_ms = time_pair(torch, fn, plain, iters=3)
+                _check_row(rows, name, "float32", "attention " + label, *rel_err(got, ref),
+                           ms, plain_ms, uses, bound, plain_ms)
+            ref64 = conv3d.conv3d_small_dw_plain(x.double(), g.double())
+            dw = conv3d._launch_dw(x, g).double()
+            dw_drift[what] = float((dw - ref64).mean() / ref64.pow(2).mean().sqrt())
+        else:
+            xs, groups, relu = key[1], key[2], key[3]
+            c, n_el = xs[-1], int(np.prod(xs))
+            x = torch.randn(xs, generator=gen, device="cuda") * 2 + 0.5
+            gamma = torch.randn(c, generator=gen, device="cuda")
+            beta = torch.randn(c, generator=gen, device="cuda")
+            g = torch.randn(xs, generator=gen, device="cuda")
+            if relu:
+                g = _off_the_kink(torch, x, gamma, beta, g, groups)
+            what = (f"attention C{c} groups {groups}{' ReLU' if relu else ''} "
+                    f"@{'x'.join(map(str, xs[1:-1]))}")
+            xl = x.movedim(-1, 1).contiguous().requires_grad_()
+            gl, bl = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
+            lib_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+                xl.detach(), groups, gamma, beta, 1e-6))
+            yl = torch.nn.functional.group_norm(xl, groups, gl, bl, 1e-6)
+            g_lib = g.movedim(-1, 1).contiguous()
+            lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                yl, (xl, gl, bl), g_lib, retain_graph=True))
+            del xl, gl, bl, yl, g_lib
+
+            def fwd():
+                return fused_norm.fused_group_norm_relu(x, gamma, beta, groups, 1e-6, relu)
+
+            def fwd_plain():
+                return fused_norm.fused_group_norm_relu_plain(x, gamma, beta, groups, 1e-6,
+                                                              relu)
+
+            got, ref = fwd(), fwd_plain()
+            torch.cuda.synchronize()
+            ms, plain_ms = time_pair(torch, fwd, fwd_plain)
+            _check_row(rows, "fused_group_norm_relu", "float32", what, *rel_err(got, ref), ms,
+                       plain_ms, uses, bound_ms(10.0 * n_el, 2 * n_el * 4, "float32"), lib_ms,
+                       " (F.group_norm)")
+            _, stats = fused_norm._launch(x, gamma, beta, groups, 1e-6, relu)
+
+            def bwd():
+                return fused_norm._launch_backward(x, g, stats, gamma, beta, groups, relu)
+
+            def bwd_plain():
+                return fused_norm.fused_group_norm_relu_backward_plain(
+                    x, gamma, beta, g, groups, 1e-6, relu)
+
+            got, ref = bwd(), bwd_plain()
+            torch.cuda.synchronize()
+            err, scale = max((rel_err(a, b) for a, b in zip(got, ref)),
+                             key=lambda e: e[0] / e[1])
+            ms, plain_ms = time_pair(torch, bwd, bwd_plain)
+            _check_row(rows, "fused_group_norm_relu_bwd", "float32",
+                       what + " (dx, dgamma, dbeta)", err, scale, ms, plain_ms, uses,
+                       bound_ms(20.0 * n_el, 3 * n_el * 4, "float32"), lib_bwd_ms,
+                       " (F.group_norm's autograd backward)")
+
+
+def _attn_train(torch, mods, tag: str, trainer, batch) -> dict:
+    """The kernels' f32 step against the plain versions' f64 step (phase
+    10's gate), three steps with each step's launches checked, a timed
+    step, its longest kernels and cuDNN's conv backward by shape.  Returns
+    the steps' launches."""
+    _trainer_step_gate(torch, mods, f"train_{tag}", trainer, trainer.model, batch)
+    k2, k1 = ATTN_FORWARD[tag]
+    launches, _, _ = _steps(torch, mods, trainer, batch, _zoo_step(k2, k1), f"train_{tag}")
+    _timed_step(torch, mods, lambda: trainer.train_step(batch), f"train_{tag}", steps=3)
+    _step_split(torch, mods, f"train_{tag}", lambda: trainer.train_step(batch))
+    return launches
+
+
+def phase_attention(torch, mods):
+    """Phase 13: SMT (smt_t forward and steps, smt_s / smt_b / smt_l
+    forwards) at 128^3 and VSNet at 96^3, f32.  Returns ({path: launches},
+    {kernel: rows at the attention nets' shapes})."""
+    t_phase = time.perf_counter()
+    _attn_golden(torch, mods)
+    paths, shapes, dw_drift = {}, {}, {}
+    rows = {k: [] for k in ("conv3d_small", "conv3d_small_dx", "conv3d_small_dw",
+                            "fused_group_norm_relu", "fused_group_norm_relu_bwd")}
+    cpu_gen = torch.Generator().manual_seed(SEED)
+
+    smt = mods["smt_presets"]["smt_t"](ATTN_SMT_CLASSES, generator=cpu_gen)
+    batch = _attn_batch(torch, "smt", ATTN_SMT_DHW, ATTN_SMT_CLASSES)
+    trainer = mods["make_segmentation_trainer"](
+        smt, ATTN_SMT_CLASSES, "MutilDiceLoss", alpha=[1.0] * ATTN_SMT_CLASSES,
+        config=mods["TrainerConfig"](optimizer="adam", lr=1e-3), device="cuda")
+    paths["fwd_smt"], shapes["smt"] = _attn_forward(torch, mods, "smt", smt.eval(),
+                                                    batch["image"])
+    paths["train_smt"] = _attn_train(torch, mods, "smt", trainer, batch)
+    x = batch["image"]
+    del trainer, smt, batch
+    torch.cuda.empty_cache()
+    laps = {"smt_t": time.perf_counter() - t_phase}
+    for tag in ("smt_s", "smt_b", "smt_l"):
+        model = mods["smt_presets"][tag](ATTN_SMT_CLASSES, generator=cpu_gen).cuda().eval()
+        (paths[f"fwd_{tag}"], _), peak = _peak(torch, lambda: _attn_forward(
+            torch, mods, tag, model, x))
+        say(f"  {tag}: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+            f"peak {peak:.2f} GiB")
+        del model
+        torch.cuda.empty_cache()
+    del x
+    laps["smt_s/b/l"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    trainer = mods["make_vsnet_trainer"]((1,) + ATTN_VSNET_DHW + (1,), feature_size=24,
+                                         device="cuda", seed=SEED)
+    batch = _attn_batch(torch, "vsnet", ATTN_VSNET_DHW, 3)
+    paths["fwd_vsnet"], shapes["vsnet"] = _attn_forward(torch, mods, "vsnet",
+                                                        trainer.model.eval(), batch["image"])
+    paths["train_vsnet"] = _attn_train(torch, mods, "vsnet", trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    laps["vsnet"] = time.perf_counter() - t_phase - sum(laps.values())
+
+    merged = {}
+    for s in shapes.values():
+        for k, v in s.items():
+            merged[k] = merged.get(k, 0) + v
+    _attn_kernel_rows(torch, mods, merged, rows, dw_drift)
+    say(f"  K2 f32 dW signed mean error over its rms at the attention nets' shapes: "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in dw_drift.items()})} (phase 3's "
+        f"level-0 shapes: the ROADMAP precision note)")
+    laps["kernel rows"] = time.perf_counter() - t_phase - sum(laps.values())
+    say(f"  phase 13 in {time.perf_counter() - t_phase:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in laps.items())})")
+    return paths, rows
+
+
 def _load_generator(name: str):
     """``tests/<name>.py``, a golden file's generator, as a module (its
     inputs, fingerprints and golden path; it imports JAX only inside the
@@ -3815,9 +4098,9 @@ def _load_generator(name: str):
     return mod
 
 
-def main() -> int:
-    import torch
-
+def setup(torch):
+    """Phases 1 and 2 (the card, the build) and the modules the phases
+    take: returns (mods, nvidia-smi line).  Fails without a CUDA card."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
@@ -3845,9 +4128,11 @@ def main() -> int:
     from tpuseg_torch.metrics import seg3d, ssim
     from tpuseg_torch.models import (build_model, resunet_packed, stunet_packed, unet_packed,
                                      vnet_packed)
+    from tpuseg_torch.models.smt import PRESETS as smt_presets
     from tpuseg_torch.models.unet import UNet
     from tpuseg_torch.models.vnet import VNet
     from tpuseg_torch.nn import layers
+    from tpuseg_torch.tasks.multitask import make_vsnet_trainer
     from tpuseg_torch.tasks.registration import make_registration_trainer
     from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
     from tpuseg_torch.tasks.trainer import Trainer, TrainerConfig
@@ -3861,6 +4146,7 @@ def main() -> int:
     regtp_golden = _load_generator("make_torch_port_regtp_golden")
     model_api_golden = _load_generator("make_torch_port_model_api_golden")
     mlp2d_golden = _load_generator("make_torch_port_mlp2d_golden")
+    attn_golden = _load_generator("make_torch_port_attn_golden")
     if "jax" in sys.modules:
         fail("jax was imported")
     disable_tf32()
@@ -3912,6 +4198,7 @@ def main() -> int:
         resize_volume_device=resize_volume_device,
         stunet_packed=stunet_packed, zoo_golden=zoo_golden, regtp_golden=regtp_golden,
         model_api_golden=model_api_golden, mlp2d_golden=mlp2d_golden,
+        attn_golden=attn_golden, smt_presets=smt_presets, make_vsnet_trainer=make_vsnet_trainer,
         inference=inference, augment2d=augment2d, dataprep=dataprep, io_image=io_image,
         Trainer=Trainer, TrainerConfig=TrainerConfig,
         augment3d=augment3d, recipes=recipes, warp_3d=warp_3d,
@@ -3929,6 +4216,13 @@ def main() -> int:
                                    zoo_weights.registration_params_from_jax),
             "tpddnet": (zoo_weights.seeded_tpddnet_params,
                         zoo_weights.tpddnet_params_from_jax)})
+    return mods, smi
+
+
+def main() -> int:
+    import torch
+
+    mods, smi = setup(torch)
     say(f"phase 3: kernels vs plain ({smi})")
     kernels = phase_kernels(torch, mods)
 
@@ -3978,6 +4272,8 @@ def main() -> int:
         entry_paths = phase_entry_points(torch, mods, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    say(f"phase 13: the attention zoo, SMT and VSNet ({smi})")
+    attn_paths, attn_rows = phase_attention(torch, mods)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -4014,7 +4310,7 @@ def main() -> int:
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
              **swin_launches, **host_paths, **augreg_paths, **model_api_paths,
-             **entry_paths}
+             **entry_paths, **attn_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""
@@ -4069,6 +4365,12 @@ def main() -> int:
             entry["model_api_2d"] = dict(
                 pass_fields(mrows), library_ms=per_pass(mrows, "library_ms"),
                 max_abs_err=max(r["max_abs_err"] for r in mrows))
+        if dtype_name == "float32" and attn_rows.get(key):
+            # phase 13: one smt_t forward's and one VSNet forward's calls
+            arows = attn_rows[key]
+            entry["attention"] = dict(
+                pass_fields(arows), library_ms=per_pass(arows, "library_ms"),
+                max_abs_err=max(r["max_abs_err"] for r in arows))
         if (key, dtype_name) in resnet3d_rows:
             # phase 11: one ResNet3d forward's calls at 2 x 96^3
             entry["model_api_resnet3d"] = resnet3d_rows[(key, dtype_name)]

@@ -1296,3 +1296,84 @@ def test_mlp2d_nets_forward_k1_matches_plain(cuda, monkeypatch, name, k1):
     with torch.inference_mode():
         ref = net(x)[0]
     _close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 12, 10, 9, 1), (2, 6, 5, 4, 1), (1, 1, 1, 3, 1)])
+def test_fused_gn_one_channel(cuda, dtype, shape):
+    """K1 over one channel (VSNet's gates' last InstanceNorm: groups = C =
+    1, no ReLU), forward and backward against the plain versions, one
+    launch each, no fallback."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 - 1).to(dtype)
+    gamma = torch.randn(1, generator=gen, device=cuda)
+    beta = torch.randn(1, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    before = fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES
+    y = fused_norm.fused_group_norm_relu(xr, gr, br, 1, 1e-6, False)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _close(y, fused_norm.fused_group_norm_relu_plain(x, gamma, beta, 1, 1e-6, False), dtype)
+    for got, ref in zip((xr.grad, gr.grad, br.grad),
+                        fused_norm.fused_group_norm_relu_backward_plain(
+                            x, gamma, beta, g, 1, 1e-6, False)):
+        _close(got, ref, dtype)
+
+
+# the attention nets' K2 widths (VSNet's UNETR blocks at feature_size 24,
+# SMT's stem and enc1), on small odd maps
+ATTN_CONV_CASES = [((1, 5, 6, 7, 24), 24), ((1, 4, 5, 9, 24), 48), ((2, 3, 4, 6, 48), 48),
+                   ((1, 5, 3, 11, 48), 24), ((1, 4, 6, 5, 32), 64), ((1, 3, 7, 6, 64), 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_shape, cout", ATTN_CONV_CASES)
+def test_conv3d_small_attention_widths_match_plain(cuda, dtype, x_shape, cout):
+    """K2's forward, dX and dW at the attention nets' widths against the
+    plain versions, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x = torch.randn(x_shape, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, 3, x_shape[-1], cout), generator=gen, device=cuda)
+         * (2.0 / (27 * x_shape[-1])) ** 0.5).to(dtype)
+    g = torch.randn(x_shape[:4] + (cout,), generator=gen, device=cuda).to(dtype)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES
+    y = conv3d.conv3d_small(xr, wr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (conv3d.LAUNCHES, conv3d.DX_LAUNCHES, conv3d.DW_LAUNCHES) == tuple(
+        b + 1 for b in before)
+    _close(y, conv3d.conv3d_small_plain(x, w), dtype)
+    dx, dw = conv3d.conv3d_small_backward_plain(x, w, g)
+    _close(xr.grad, dx, dtype)
+    _close(wr.grad, dw, dtype)
+
+
+@pytest.mark.parametrize("name, k2, k1", [("smt", 12, 18), ("vsnet", 10, 25)])
+def test_attention_nets_forward_kernels_match_plain(cuda, monkeypatch, name, k2, k1):
+    """SMT (embed (16, 32, 64, 128), depths (1, 1, 2, 1)) and VSNet
+    (feature_size 12) on 1 x 32^3: K2 and K1 launched at every conv and
+    norm in their ranges (the counts of the same forward on the CPU),
+    probabilities within 1e-4 of the same forward through the plain
+    versions."""
+    from tpuseg_torch.kernels.conv3d import conv3d_small_plain
+    from tpuseg_torch.models import build_model
+    from tpuseg_torch.nn import layers
+
+    kw = ({"embed_dims": (16, 32, 64, 128), "depths": (1, 1, 2, 1)} if name == "smt"
+          else {"feature_size": 12, "img_size": (32, 32, 32)})
+    net = build_model(name, 3, generator=torch.Generator().manual_seed(0), **kw).to(cuda).eval()
+    x = torch.randn((1, 32, 32, 32, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    before = conv3d.LAUNCHES, fused_norm.LAUNCHES
+    with torch.inference_mode():
+        got = net(x)[1]
+    torch.cuda.synchronize()
+    assert (conv3d.LAUNCHES, fused_norm.LAUNCHES) == (before[0] + k2, before[1] + k1)
+    monkeypatch.setattr(layers, "fused_group_norm_relu", fused_norm.fused_group_norm_relu_plain)
+    monkeypatch.setattr(layers, "conv3d_small", lambda x, w, *a: conv3d_small_plain(x, w))
+    with torch.inference_mode():
+        ref = net(x)[1]
+    _close(got, ref, torch.float32)

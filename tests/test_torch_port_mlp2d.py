@@ -26,8 +26,9 @@ from tpuseg.models.unext2d import _spatial_shift
 from tpuseg_torch.compat import weights as w
 from tpuseg_torch.data.dataset import DataLoader
 from tpuseg_torch.models.amlp_unet2d import sample_1d_offset
-from tpuseg_torch.models.unext2d import gelu, layer_norm, spatial_shift
+from tpuseg_torch.models.unext2d import spatial_shift
 from tpuseg_torch.nn import layers
+from tpuseg_torch.nn.layers import gelu, layer_norm
 from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
 from tpuseg_torch.tasks.trainer import TrainerConfig
 

@@ -316,9 +316,9 @@ def test_cli_parses_the_serve_flags():
 def test_serve_imports_no_jax():
     """Neither entry point of the port (serve, train, augmain, recipes,
     inference) nor its packed twins, its zoo and registry (``build_model``
-    builds each net), its augmentation (3D and 2D), data preparation and
-    registration modules, its kernel modules and its probe modules import
-    JAX."""
+    builds each net), its augmentation (3D and 2D), data preparation,
+    registration and multi-task modules, its kernel modules and its probe
+    modules import JAX."""
     code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train, "
             "tpuseg_torch.models.unet_packed, tpuseg_torch.kernels.packed_conv, "
             "tpuseg_torch.kernels.slab_conv, tpuseg_torch.kernels.flat_conv, "
@@ -331,9 +331,11 @@ def test_serve_imports_no_jax():
             "tpuseg_torch.models.registration, tpuseg_torch.models.tpddnet, "
             "tpuseg_torch.tasks.registration, tpuseg_torch.inference, "
             "tpuseg_torch.data.augment2d, tpuseg_torch.tools.dataprep, "
-            "tpuseg_torch.models.unext2d, tpuseg_torch.models.amlp_unet2d; "
+            "tpuseg_torch.models.unext2d, tpuseg_torch.models.amlp_unet2d, "
+            "tpuseg_torch.models.smt, tpuseg_torch.models.vsnet, "
+            "tpuseg_torch.tasks.multitask; "
             "from tpuseg_torch.models import PORTED, build_model; "
-            "[build_model(n, 2, **({} if n in ('tpddnet', 'unext2d', 'unext2ds') "
-            "else {'features': 8})) for n in PORTED]; "
+            "[build_model(n, 2, **({} if n in ('tpddnet', 'unext2d', 'unext2ds', 'smt', "
+            "'vsnet') else {'features': 8})) for n in PORTED]; "
             "assert 'jax' not in sys.modules and 'tpuseg' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

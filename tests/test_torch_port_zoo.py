@@ -260,7 +260,8 @@ def test_build_model_names_and_refusals():
                "resunet3d": ("ResUNet3d", 3), "stunet3d": ("STUNet3d", 3),
                "kiunet3d": ("KiUNet3d", 3), "kiunet3dthin": ("KiUNet3d", 3)}
     assert set(classes) | {"tpddnet", "vnet3dregistration", "resnet2d", "resnet3d",
-                           "resnet", "unext2d", "unext2ds", "amlpunet2d"} == set(PORTED)
+                           "resnet", "unext2d", "unext2ds", "amlpunet2d", "smt",
+                           "vsnet"} == set(PORTED)
     for name, (cls, nd) in classes.items():
         m = build_model(name.upper(), 3, features=8, dropout=0.1, in_channels=2)
         assert type(m).__name__ == cls and m.num_classes == 3 and m.features == 8

@@ -43,6 +43,11 @@ same for ``ResNetClassifier`` (2D or 3D; flax's Dense (in, out) kernels to
 torch's (out, in)) and the pix2pix nets (affine-free norms: convs only).
 The UNet and VNet converters and seeds take either rank (``ndim``).
 
+``smt_params_from_jax``, ``vsnet_params_from_jax``, ``seeded_smt_params``
+and ``seeded_vsnet_params`` do the same for the attention nets, whose rows
+follow the module's configuration (``ATTN_ROWS``: depths, CA / SA blocks,
+projections, Swin depth).
+
 ``params_from_jax(net, tree)`` dispatches by the name a Model class or a
 run directory carries (``core/checkpoint.py`` ``read_run``).
 """
@@ -569,6 +574,151 @@ def _amlp_unet_rows():
                    ("head.bias", ("ConvTranspose_0", "bias"), "vec")]
 
 
+def _unetr_rows(key: str, node: Tuple[str, ...], block):
+    """A ``UnetrBasicBlock``: flax's ``ConvND_0`` is the projection when
+    the port's block has one (``res``), then the two 3^3 convs."""
+    rows, i = [], 0
+    if block.res is not None:
+        rows, i = _conv_rows(f"{key}.res", node + ("ConvND_0",), True), 1
+    for j in (1, 2):
+        rows += _conv_rows(f"{key}.conv{j}", node + (f"ConvND_{i + j - 1}",), True)
+        rows += _gn_rows(f"{key}.norm{j}", node + (f"GroupNorm_{j - 1}",))
+    return rows
+
+
+def _unetr_up_rows(key: str, node: Tuple[str, ...], up):
+    return (_conv_rows(f"{key}.up", node + ("ConvTransposeND_0",), True, "ConvTranspose_0",
+                       "tconv")
+            + _unetr_rows(f"{key}.block", node + ("UnetrBasicBlock_0",), up.block))
+
+
+def _smt_block_rows(key: str, node: Tuple[str, ...], blk):
+    """An SMT ``Block``: its LayerNorms, its CA or SA attention, its MLP."""
+    mlp = node + ("_Mlp_0",)
+    rows = (_ln_rows(f"{key}.norm1", node + ("LayerNorm_0",))
+            + _ln_rows(f"{key}.norm2", node + ("LayerNorm_1",))
+            + _dense_rows(f"{key}.mlp.fc1", mlp + ("Dense_0",))
+            + _conv_rows(f"{key}.mlp.dwconv", mlp + ("_DWConv3_0", "ConvND_0"), True)
+            + _dense_rows(f"{key}.mlp.fc2", mlp + ("Dense_1",)))
+    if blk.ca:
+        return rows + _ca_rows(f"{key}.attn", node + ("_CAAttention_0",), blk.attn)
+    return rows + _sa_rows(f"{key}.attn", node + ("_SAAttention_0",))
+
+
+def _ca_rows(key: str, node: Tuple[str, ...], attn):
+    """``CAAttention``: per-head depthwise convs ``ConvND_0..heads-1``, the
+    expand and contraction after them, ``Dense_0..2`` v, s, proj."""
+    h = len(attn.local_convs)
+    rows = [r for k in range(h)
+            for r in _conv_rows(f"{key}.local_convs.{k}", node + (f"ConvND_{k}",), True)]
+    rows += (_conv_rows(f"{key}.expand", node + (f"ConvND_{h}",), True)
+             + _gn_rows(f"{key}.norm", node + ("GroupNorm_0",))
+             + _conv_rows(f"{key}.contract", node + (f"ConvND_{h + 1}",), True))
+    return rows + [r for d, name in enumerate(("v", "s", "proj"))
+                   for r in _dense_rows(f"{key}.{name}", node + (f"Dense_{d}",))]
+
+
+def _sa_rows(key: str, node: Tuple[str, ...]):
+    """``SAAttention``: ``Dense_0..2`` q, kv, proj and the depthwise conv."""
+    rows = _conv_rows(f"{key}.dwconv", node + ("_DWConv3_0", "ConvND_0"), True)
+    return rows + [r for d, name in enumerate(("q", "kv", "proj"))
+                   for r in _dense_rows(f"{key}.{name}", node + (f"Dense_{d}",))]
+
+
+def _smt_rows(m):
+    """``SMTSeg3d`` ``m``'s rows (its depths, CA/SA pattern and heads)."""
+    rows = (_conv_rows("stages.0.embed.conv1", ("ConvND_0",), False)
+            + _gn_rows("stages.0.embed.norm", ("GroupNorm_0",))
+            + _conv_rows("stages.0.embed.conv2", ("ConvND_1",), True))
+    b = 0
+    for i, stage in enumerate(m.stages):
+        if i:
+            rows += _conv_rows(f"stages.{i}.embed", (f"ConvND_{i + 1}",), True)
+        rows += (_ln_rows(f"stages.{i}.norm1", (f"LayerNorm_{2 * i}",))
+                 + _ln_rows(f"stages.{i}.norm2", (f"LayerNorm_{2 * i + 1}",)))
+        for j, blk in enumerate(stage.blocks):
+            rows += _smt_block_rows(f"stages.{i}.blocks.{j}", (f"_Block_{b}",), blk)
+            b += 1
+    for k in range(4):
+        rows += _unetr_rows(f"enc{k + 1}", (f"UnetrBasicBlock_{k}",), getattr(m, f"enc{k + 1}"))
+    for k, name in enumerate(("dec2", "dec1", "dec0")):
+        rows += _unetr_up_rows(name, (f"UnetrUpBlock_{k}",), getattr(m, name))
+    return (rows + _conv_rows("up", ("ConvTransposeND_0",), True, "ConvTranspose_0", "tconv")
+            + _conv_rows("head", (f"ConvND_{len(m.stages) + 1}",), True))
+
+
+def _gate_rows(key: str, node: Tuple[str, ...]):
+    """VSNet's ``Gate``: ``ConvND_0..2`` conv1, conv2, psi, the raw
+    ``ConvTranspose_0`` (no bias), ``GroupNorm_0..2``."""
+    rows = (_conv_rows(f"{key}.conv1", node + ("ConvND_0",), True)
+            + _conv_rows(f"{key}.up", node, False, "ConvTranspose_0", "tconv")
+            + _conv_rows(f"{key}.conv2", node + ("ConvND_1",), True)
+            + _conv_rows(f"{key}.psi", node + ("ConvND_2",), True))
+    return rows + [r for j in range(3)
+                   for r in _gn_rows(f"{key}.norm{j + 1}", node + (f"GroupNorm_{j}",))]
+
+
+def _deptran_rows(key: str, node: Tuple[str, ...]):
+    return [r for j in range(3)
+            for r in _conv_rows(f"{key}.conv{j + 1}", node + (f"ConvND_{j}",), True)]
+
+
+def _swin_block_rows(key: str, node: Tuple[str, ...]):
+    """A ``SwinBlock3D``: the bias table ``rel_pos_bias`` as it is."""
+    att = node + ("WindowAttention3D_0",)
+    return (_ln_rows(f"{key}.norm1", node + ("LayerNorm_0",))
+            + _dense_rows(f"{key}.attn.qkv", att + ("Dense_0",))
+            + _dense_rows(f"{key}.attn.proj", att + ("Dense_1",))
+            + [(f"{key}.attn.rel_pos_bias", att + ("rel_pos_bias",), "vec")]
+            + _ln_rows(f"{key}.norm2", node + ("LayerNorm_1",))
+            + _dense_rows(f"{key}.fc1", node + ("Dense_0",))
+            + _dense_rows(f"{key}.fc2", node + ("Dense_1",)))
+
+
+def _merge_rows(key: str, node: Tuple[str, ...]):
+    return (_ln_rows(f"{key}.norm", node + ("LayerNorm_0",))
+            + _dense_rows(f"{key}.reduction", node + ("Dense_0",)))
+
+
+def _vsnet_rows(m):
+    """``VSNet`` ``m``'s rows (its input width and Swin depth)."""
+    rows = []
+    for k in range(4):
+        rows += _unetr_rows(f"enc{k + 1}", (f"UnetrBasicBlock_{k}",), getattr(m, f"enc{k + 1}"))
+    for k in range(3):
+        rows += _gate_rows(f"gate{k + 1}", (f"Gate_{k}",))
+    stage = ("SwinStage3D_0",)
+    for i in range(len(m.swin.blocks)):
+        rows += _swin_block_rows(f"swin.blocks.{i}", stage + (f"SwinBlock3D_{i}",))
+    rows += (_merge_rows("swin.merge", stage + ("PatchMerging3D_0",))
+             + _ln_rows("csa.norm", ("CSA_0", "LayerNorm_0"))
+             + _conv_rows("csa.qkv", ("CSA_0", "ConvND_0"), True)
+             + _ln_rows("ssa.norm", ("SSA_0", "LayerNorm_0"))
+             + _dense_rows("ssa.qkv", ("SSA_0", "Dense_0"), bias=False)
+             + _dense_rows("ssa.proj", ("SSA_0", "Dense_1")))
+    for k, name in enumerate(("dep5", "dep4", "dep3", "dep2")):
+        rows += _deptran_rows(name, (f"DepTran_{k}",))
+    for k, name in enumerate(("up4", "up3", "up2", "up1")):
+        rows += _unetr_up_rows(name, (f"UnetrUpBlock_{k}",), getattr(m, name))
+    for k, name in enumerate(("seg", "reg", "edge", "deep2", "deep3")):
+        rows += _conv_rows(f"out_{name}", (f"_OutLayer_{k}", "ConvND_0"), True)
+    return rows
+
+
+# the attention nets' rows depend on the module's configuration: a function
+# of the port's module
+ATTN_ROWS = {"smt": _smt_rows, "vsnet": _vsnet_rows}
+
+
+def _attn_rows(net: str, build_kw: Mapping):
+    """``ATTN_ROWS[net]`` of the port's net built from ``build_kw`` (on the
+    meta device)."""
+    from tpuseg_torch.models import build_model
+
+    with torch.device("meta"):
+        return ATTN_ROWS[net](build_model(net, 2, **build_kw))
+
+
 ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
             "kiunet3d": _kiunet_rows, "unet3dthin": _unet_thin_rows,
             "vnet3dregistration": _registration_rows, "tpddnet": _tpddnet_rows,
@@ -578,17 +728,20 @@ ZOO_ROWS = {"resunet3d": _resunet_rows, "stunet3d": _stunet_rows,
             "unext2d": _unext_rows, "unext2ds": _unext_rows, "amlpunet2d": _amlp_unet_rows}
 
 
-def _from_jax(net: str, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
+def _from_jax(net: str, tree: Mapping, dtype, rows=None) -> Dict[str, torch.Tensor]:
+    """``tree`` through ``rows`` (``ZOO_ROWS[net]()`` by default), strictly
+    both ways."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
+    rows = ZOO_ROWS[net]() if rows is None else rows
     leaves = _flatten(tree)
     sd = {}
-    for key, path, kind in ZOO_ROWS[net]():
+    for key, path, kind in rows:
         if path not in leaves:
             raise KeyError(f"{net} params lack {'/'.join(path)} (for {key})")
         a = np.asarray(leaves[path], dtype)
         sd[key] = {"conv": _conv_to_torch, "tconv": _tconv_to_torch}.get(kind, np.asarray)(a)
-    leftover = sorted("/".join(p) for p in set(leaves) - {p for _, p, _ in ZOO_ROWS[net]()})
+    leftover = sorted("/".join(p) for p in set(leaves) - {p for _, p, _ in rows})
     if leftover:
         raise ValueError(
             f"{net} params hold {len(leftover)} tensors the converter does not "
@@ -639,7 +792,8 @@ def _seeded(net: str, seed: int, num_classes: int = 2, **build_kw) -> dict:
     """A flax tree for ``net`` drawn from ``numpy.random.default_rng(seed)``
     in ``ZOO_ROWS`` order: He-normal kernels, biases 0.05 N(0, 1), GroupNorm
     scales 1 + 0.1 N(0, 1) and biases 0.1 N(0, 1) (so that a norm shared in
-    the wrong place would show).  Shapes from the port's module
+    the wrong place would show; Swin bias tables 0.5 N(0, 1), so that a
+    wrong index would show).  Shapes from the port's module
     (``build_model(net, num_classes, **build_kw)``, or the pix2pix net's
     class with ``build_kw``), made on the meta device."""
     from tpuseg_torch.models import build_model
@@ -651,12 +805,15 @@ def _seeded(net: str, seed: int, num_classes: int = 2, **build_kw) -> dict:
         net_module = (pix2pix[net](**build_kw) if net in pix2pix
                       else build_model(net, num_classes, **build_kw))
         shapes = {k: tuple(v.shape) for k, v in net_module.state_dict().items()}
+        rows = ATTN_ROWS[net](net_module) if net in ATTN_ROWS else ZOO_ROWS[net]()
     rng = np.random.default_rng(seed)
     tree: dict = {}
-    for key, path, kind in ZOO_ROWS[net]():
+    for key, path, kind in rows:
         s = shapes[key]
         if kind == "vec":
-            if path[-1] == "scale":
+            if path[-1] == "rel_pos_bias":
+                a = 0.5 * rng.standard_normal(s)
+            elif path[-1] == "scale":
                 a = 1.0 + 0.1 * rng.standard_normal(s)
             else:
                 a = (0.1 if path[-2].startswith("GroupNorm") else 0.05) * rng.standard_normal(s)
@@ -768,18 +925,51 @@ def seeded_pix2pix_discriminator_params(seed: int, out_channels: int = 1,
                    in_channels=in_ch, features=features)
 
 
+def smt_params_from_jax(tree: Mapping, dtype=np.float32, **build_kw) -> Dict[str, torch.Tensor]:
+    """As ``resunet_params_from_jax``, for ``SMTSeg3d`` built with
+    ``build_kw`` (``embed_dims``, ``depths``, ``ca_heads``, ...; smt_t's by
+    default), which fix its rows: flax Dense (in, out) to torch Linear (out,
+    in), the depthwise and grouped kernels (k, k, k, Cin / g, Cout) to
+    (Cout, Cin / g, k, k, k), LayerNorm ``scale`` to ``weight``."""
+    return _from_jax("smt", tree, dtype, _attn_rows("smt", build_kw))
+
+
+def vsnet_params_from_jax(tree: Mapping, dtype=np.float32,
+                          **build_kw) -> Dict[str, torch.Tensor]:
+    """As ``smt_params_from_jax``, for ``VSNet`` built with ``build_kw``
+    (``in_channels`` and ``swin_depth`` fix its rows): the Swin bias tables
+    ``rel_pos_bias`` as they are, the gates' raw ``ConvTranspose`` (no
+    bias) flipped as the other transpose convs are."""
+    return _from_jax("vsnet", tree, dtype, _attn_rows("vsnet", build_kw))
+
+
+def seeded_smt_params(seed: int, num_classes: int = 15, in_ch: int = 1, **build_kw) -> dict:
+    """As ``seeded_resunet_params``, for ``SMTSeg3d(num_classes,
+    **build_kw)``."""
+    return _seeded("smt", seed, num_classes, in_channels=in_ch, **build_kw)
+
+
+def seeded_vsnet_params(seed: int, in_ch: int = 1, **build_kw) -> dict:
+    """As ``seeded_resunet_params``, for ``VSNet(**build_kw)`` (its bias
+    tables sized by ``img_size``)."""
+    return _seeded("vsnet", seed, in_channels=in_ch, **build_kw)
+
+
 def params_from_jax(net: str, tree: Mapping, levels: int = 4,
                     dtype=np.float32) -> Dict[str, torch.Tensor]:
     """The port's state_dict of a tpuseg parameter tree of ``net``: "unet",
     "vnet" (either rank), "resnet", "pix2pix_generator",
-    "pix2pix_discriminator", or a ``ZOO_ROWS`` name."""
+    "pix2pix_discriminator", a ``ZOO_ROWS`` name, or "smt" / "vsnet" at
+    their default configurations."""
     if net == "unet":
         return unet_params_from_jax(tree, levels=levels, dtype=dtype)
     if net == "vnet":
         return vnet_params_from_jax(tree, dtype=dtype)
     if net == "resnet":
         net = "resnet2d"
+    if net in ATTN_ROWS:
+        return _from_jax(net, tree, dtype, _attn_rows(net, {}))
     if net not in ZOO_ROWS:
         raise ValueError(f"no converter for {net!r} (unet, vnet, resnet, "
-                         f"{', '.join(sorted(ZOO_ROWS))})")
+                         f"{', '.join(sorted(ZOO_ROWS) + sorted(ATTN_ROWS))})")
     return _from_jax(net, tree, dtype)

@@ -6,8 +6,8 @@ from __future__ import annotations
 PORTED = ("unet2d", "unet3d", "unet", "unet3dthin", "unetthin", "vnet2d", "vnet3d",
           "vnet", "resnet2d", "resnet3d", "resnet", "resunet3d", "stunet3d", "kiunet3d",
           "kiunet3dthin", "tpddnet", "vnet3dregistration", "unext2d", "unext2ds",
-          "amlpunet2d")
-NOT_PORTED = ("smt", "vsnet")
+          "amlpunet2d", "smt", "vsnet")
+NOT_PORTED = ()
 
 
 def build_model(name: str, num_classes: int, ndim: int = 3, **kw):
@@ -15,12 +15,16 @@ def build_model(name: str, num_classes: int, ndim: int = 3, **kw):
     ``build_model`` names it: unet2d / unet3d / unet, unet3dthin / unetthin,
     vnet2d / vnet3d / vnet, resnet2d / resnet3d / resnet (the classifier),
     resunet3d, stunet3d, kiunet3d / kiunet3dthin, tpddnet,
-    vnet3dregistration (which, as in JAX, ignores ``num_classes``), and the
-    2D MLP nets unext2d, unext2ds and amlpunet2d.  A name without its rank
-    takes ``ndim``.  ``kw`` go to the module (``features``, ``dropout``,
-    ``in_channels``, ``generator``; TPDDNet and the UNeXt nets take only the
-    last two, AmlpUNet2d also ``features``).  Every other name raises
-    NotImplementedError naming the ported ones."""
+    vnet3dregistration (which, as in JAX, ignores ``num_classes``), the
+    2D MLP nets unext2d, unext2ds and amlpunet2d, and the attention nets
+    smt (``SMTSeg3d``, smt_t's widths unless ``kw`` say otherwise) and
+    vsnet (``VSNet``, which, as in JAX, ignores ``num_classes``).  A name
+    without its rank takes ``ndim``.  ``kw`` go to the module
+    (``features``, ``dropout``, ``in_channels``, ``generator``; TPDDNet and
+    the UNeXt nets take only the last two, AmlpUNet2d also ``features``;
+    SMTSeg3d and VSNet their own fields, ``in_channels`` and
+    ``generator``).  Every other name raises NotImplementedError naming
+    the ported ones."""
     from tpuseg_torch.models.kiunet3d import KiUNet3d
     from tpuseg_torch.models.registration import VNet3dRegistration
     from tpuseg_torch.models.resnet import ResNetClassifier
@@ -47,6 +51,14 @@ def build_model(name: str, num_classes: int, ndim: int = 3, **kw):
         from tpuseg_torch.models.amlp_unet2d import AmlpUNet2d
 
         return AmlpUNet2d(num_classes, **kw)
+    if name == "smt":
+        from tpuseg_torch.models.smt import SMTSeg3d
+
+        return SMTSeg3d(num_classes, **kw)
+    if name == "vsnet":
+        from tpuseg_torch.models.vsnet import VSNet
+
+        return VSNet(**kw)
     cls = {"unet3dthin": UNetThin, "unetthin": UNetThin,
            "resunet3d": ResUNet3d, "stunet3d": STUNet3d,
            "kiunet3d": KiUNet3d, "kiunet3dthin": KiUNet3d, "tpddnet": TPDDNet}.get(name)

@@ -25,13 +25,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tpuseg_torch.models.unext2d import gelu, layer_norm
 from tpuseg_torch.nn.layers import (
     ConvND,
     ConvTransposeND,
     Dense,
     FusedGNReLU,
+    gelu,
     he_normal_init_,
+    layer_norm,
     probs_of,
 )
 

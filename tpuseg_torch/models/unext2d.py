@@ -19,16 +19,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpuseg_torch.nn.layers import (
-    GN_EPS,
     ConvND,
     Dense,
     FusedGNReLU,
     GroupNorm,
+    gelu,
     he_normal_init_,
+    layer_norm,
     max_pool_nd,
     probs_of,
     upsample_nd,
@@ -57,15 +57,6 @@ def spatial_shift(x: torch.Tensor, axis: int, shift_size: int = SHIFT_SIZE) -> t
         else:
             out.append(torch.cat([part.narrow(axis, size - n, n), zeros], dim=axis))
     return torch.cat(out, dim=-1)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
-
-
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=GN_EPS)
 
 
 class ShiftMLP(nn.Module):

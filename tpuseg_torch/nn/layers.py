@@ -2,7 +2,8 @@
 
 The PyTorch counterparts of ``tpuseg/nn/layers.py`` (``ConvND``,
 ``ConvTransposeND``, ``ChannelDropout``, ``max_pool_nd``, ``ConvBlock``,
-``OutputHead``, ``upsample_nd``, ``global_avg_pool``, ``Dense`` and the
+``OutputHead``, ``upsample_nd``, ``global_avg_pool``, ``Dense``,
+``LayerNorm`` (with ``layer_norm`` and the tanh ``gelu`` of flax) and the
 V-Net vocabulary ``LUConv``, ``InputTransition``, ``DownTransition``,
 ``UpTransition``), in 3D (``ndim=3``, the default) and 2D (``ndim=2``):
 stride-1 SAME convs, strided SAME and VALID convs (XLA's SAME padding, low
@@ -243,7 +244,33 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 class Dense(nn.Linear):
     """flax ``nn.Dense`` with tpuseg's He-uniform kernel init
     (``he_normal_init_``), under torch's ``nn.Linear`` names and (out, in)
-    layout."""
+    layout; the parameters cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` over the last axis (epsilon 1e-6), under
+    torch's names; the parameters cast to the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = GN_EPS):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+def layer_norm(dim: int) -> LayerNorm:
+    """flax ``nn.LayerNorm()`` over ``dim`` channels."""
+    return LayerNorm(dim)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def upsample_nd(x: torch.Tensor, factor: int = 2, method: str = "linear") -> torch.Tensor:

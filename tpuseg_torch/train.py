@@ -53,6 +53,11 @@ ELSEWHERE = {
     "vnet3dregistration": "the registration net trains on moving/fixed pairs: "
                           "tpuseg_torch.tasks.registration.make_registration_trainer, "
                           "or python -m tpuseg_torch.recipes trainregistration3d",
+    "smt": "SMTSeg3d takes neither features nor dropout: train it through "
+           "tpuseg_torch.tasks.segmentation.make_segmentation_trainer("
+           "build_model('smt', num_classes), ...)",
+    "vsnet": "VSNet takes neither features nor dropout, and trains on its five heads: "
+             "tpuseg_torch.tasks.multitask.make_vsnet_trainer",
 }
 
 
