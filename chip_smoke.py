@@ -248,14 +248,38 @@ and PyTorch built for CUDA.  It imports nothing of JAX.  Phases:
     10's gate), three steps with each step's launches checked, a timed
     step; K2 (forward, dX, dW) and K1 (forward, backward) at the shapes
     those forwards hand them against their plain versions, timed, and K2
-    dW's signed mean error over its rms there.
+    dW's signed mean error over its rms there;
+14. parallelism: 2 processes on the one card (gloo over a file store, each
+    naming cuda:0; NCCL refuses two ranks on one device, which the phase
+    shows) make one world and three meshes of it.  Space 2: the z-sharded
+    UNet3d (features 16, 5 classes, 128x112x112 split 64 + 64) train step
+    in f32 and bf16, the packed x spatial UNet3d f32 step, and the VNet3d
+    (96^3, 48 + 48) forward and f32 / bf16 steps: per rank the launches
+    (K2 on the halo'd shards, K1 split, K3 for the packed twin) checked
+    each step, the global loss and gradients against one process's step on
+    the card (phase 10's gate against the f64 step through the plain
+    versions, the bf16 step as the control), step ms per rank; data 2: a
+    batch of 2 with MutilDiceLoss (pooled statistics) and LovaszLoss
+    (gathered logits), dropout off, gated the same way; model 2: the
+    UNet3d's 256-channel bottleneck kernels sharded, its step gated, a
+    sharded checkpoint both ranks write restored in this process bit for
+    bit, and ``pipeline_apply`` (2 stages) against
+    ``sequential_reference``; ``spatial_partition_infer`` of a conv net
+    against its whole forward; K1 split against its plain version on each
+    rank's shard, forward and backward, in f32 and bf16, timed (on the
+    2-rank line, whose gather gloo stages through the host, and on a line
+    of one: the kernels) beside ``F.group_norm``; then NCCL at world 1
+    through ``torchrun``'s environment variables (an all_reduce, one
+    mesh-path train step).  The collectives' times are gloo's on one card,
+    not NCCL's.
 
 Before its last line it prints the stem GEMM's rows (``stem_dw_gemm``,
 not a kernel of the package) and one JSON object with each kernel's
 launches on the served, training (plain and packed, UNet3d and VNet3d, f32
 and bf16; the zoo; online augmentation, registration and TPDDNet; the
 Model API's 2D, classification and GAN paths; the recipes and the 2D MLP
-nets; the attention nets), bench, sliding-window, whole-volume and folder-inference paths (K3's dX and dW rows among them), error, times (one
+nets; the attention nets; the parallel paths, with K1 split's entries),
+bench, sliding-window, whole-volume and folder-inference paths (K3's dX and dW rows among them), error, times (one
 forward's or train step's worth of calls: in f32, and for the conv's
 tensor-core kernels in bf16), the least time the card could take for that work
 and the time of the PyTorch library call that computes the same function
@@ -4083,6 +4107,643 @@ def phase_attention(torch, mods):
     return paths, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: parallelism (2 ranks on the one card over gloo)
+# ---------------------------------------------------------------------------
+
+# the phase's world: 2 processes on the one card, gloo (NCCL refuses two
+# ranks on one device), each naming cuda:0; its volumes (d, h, w)
+PAR_WORLD = 2
+PAR_DHW = (128, 112, 112)  # UNet3d: z split 64 + 64
+PAR_VNET_DHW = (96, 96, 96)  # VNet3d: 48 + 48
+# per rank and step (the z-sharded twins; K1 split's own counters): the
+# plain UNet3d's 10 K2 convs and 18 GroupNorms, the packed twin's K3 3 / 4
+# / 4, K2 7, the VNet3d's K2 11 and GroupNorms 34
+PAR_UNET_LAUNCHES = {"conv3d_small": 10, "conv3d_small_dx": 10, "conv3d_small_dw": 10,
+                     "fused_group_norm_relu": 0, "fused_group_norm_relu_bwd": 0,
+                     "fused_group_norm_relu_split": 18, "fused_group_norm_relu_split_bwd": 18}
+PAR_PACKED_LAUNCHES = dict(PAR_UNET_LAUNCHES, conv3d_small=7, conv3d_small_dx=7,
+                           conv3d_small_dw=7, packed_conv3d_structured=3,
+                           packed_conv3d_structured_dx=4, packed_conv3d_structured_dw=4,
+                           stem_dw_gemm=1)
+PAR_VNET_LAUNCHES = dict(PAR_UNET_LAUNCHES, conv3d_small=11, conv3d_small_dx=11,
+                         conv3d_small_dw=11, fused_group_norm_relu_split=34,
+                         fused_group_norm_relu_split_bwd=34)
+# K1 split held against its plain version on a rank's shard (C, groups)
+PAR_SPLIT_CASES = ((16, 8), (64, 8))
+
+
+def split_counts(mods) -> dict:
+    fn = mods["fused_norm"]
+    return dict(counts(mods), fused_group_norm_relu_split=fn.SPLIT_LAUNCHES,
+                fused_group_norm_relu_split_bwd=fn.SPLIT_BWD_LAUNCHES)
+
+
+def _par_mods():
+    """The modules a rank of phase 14 takes (no build: the library is the
+    parent's)."""
+    sys.path.insert(0, ROOT)
+    from tpuseg_torch.compat.weights import (seeded_unet_params, seeded_vnet_params,
+                                             unet_params_from_jax, vnet_params_from_jax)
+    from tpuseg_torch.core import checkpoint, distributed
+    from tpuseg_torch.core.mesh import MeshContext, make_mesh
+    from tpuseg_torch.core.prng import step_generator
+    from tpuseg_torch.kernels import conv3d, flat_conv, fused_norm, packed_conv, slab_conv
+    from tpuseg_torch.models import vnet_packed
+    from tpuseg_torch.models.unet import UNet
+    from tpuseg_torch.models.vnet import VNet
+    from tpuseg_torch.nn import layers
+    from tpuseg_torch.parallel import pipeline, spatial
+    from tpuseg_torch.tasks.segmentation import make_segmentation_trainer
+    from tpuseg_torch.tasks.trainer import TrainerConfig
+
+    return dict(conv3d=conv3d, fused_norm=fused_norm, packed_conv=packed_conv,
+                vnet_packed=vnet_packed, slab_conv=slab_conv, flat_conv=flat_conv,
+                layers=layers, UNet=UNet, VNet=VNet, seeded_unet_params=seeded_unet_params,
+                unet_params_from_jax=unet_params_from_jax, seeded_vnet_params=seeded_vnet_params,
+                vnet_params_from_jax=vnet_params_from_jax, checkpoint=checkpoint,
+                distributed=distributed, MeshContext=MeshContext, make_mesh=make_mesh,
+                step_generator=step_generator, pipeline=pipeline, spatial=spatial,
+                make_segmentation_trainer=make_segmentation_trainer,
+                TrainerConfig=TrainerConfig)
+
+
+def _par_net(torch, mods, kind: str, dropout: float = 0.2):
+    """The seeded UNet3d (features 16, 5 classes) or VNet3d (2 classes) on
+    the card."""
+    if kind == "vnet":
+        net = mods["VNet"](VNET_CLASSES, features=FEATURES, dropout=dropout)
+        net.load_state_dict(mods["vnet_params_from_jax"](
+            mods["seeded_vnet_params"](SEED, FEATURES, VNET_CLASSES, 1)), strict=True)
+    else:
+        net = mods["UNet"](CLASSES, features=FEATURES, dropout=dropout)
+        net.load_state_dict(mods["unet_params_from_jax"](
+            mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1)), strict=True)
+    return net.cuda()
+
+
+def _par_batch(kind: str, n: int = 1) -> dict:
+    """A seeded host batch: the UNet3d's (5 classes) or the VNet3d's (2)."""
+    dhw, k = (PAR_VNET_DHW, VNET_CLASSES) if kind == "vnet" else (PAR_DHW, CLASSES)
+    rng = np.random.default_rng(SEED + 14)
+    image = rng.standard_normal((n,) + dhw + (1,)).astype(np.float32)
+    zz = np.arange(dhw[0])[:, None, None] // (dhw[0] // k)
+    label = np.broadcast_to(np.minimum(zz, k - 1), dhw)[None].repeat(n, 0).astype(np.int64)
+    return {"image": image, "label": label}
+
+
+def _par_loss_grads(torch, mods, trainer, net, batch, dtype):
+    """One step's loss and global gradients (summed over the (data, space)
+    ranks) of ``trainer``'s apply and loss on its part of ``batch``, the
+    weights unchanged, with step 0's dropout generator (folded with the data
+    index on a data axis above one, as the trainer's steps are)."""
+    from tpuseg_torch.core.mesh import DATA_AXIS, SPACE_AXIS
+
+    net.train()
+    net.zero_grad(set_to_none=True)
+    b = trainer._put(trainer.shard_batch(batch))
+    gen = mods["step_generator"](trainer._dropout_seed(), 0, "cuda")
+    out = trainer.apply_fn(net, b["image"].to(dtype), True, gen)
+    out = {k: v.float() for k, v in out.items()}
+    loss = trainer.loss_fn(out, b)
+    loss.backward()
+    if trainer.mesh is not None:
+        mods["spatial"].sum_grads_(net.parameters(), trainer.mesh.group(DATA_AXIS, SPACE_AXIS))
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()}
+
+
+def _par_timed(torch, trainer, batch, n: int = 3) -> float:
+    """Min ms of ``n`` train steps on this rank's part of ``batch``."""
+    b = trainer._put(trainer.shard_batch(batch))
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return min(ms)
+
+
+def _par_counted(torch, mods, fn):
+    """fn()'s result and the launches it made (counters from 0)."""
+    reset_counts(mods)
+    mods["fused_norm"].SPLIT_LAUNCHES = mods["fused_norm"].SPLIT_BWD_LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, split_counts(mods)
+
+
+def _par_split_rows(torch, mods, group) -> list:
+    """K1 split on this rank's shard against its plain version (the JAX
+    formula with the same collectives), forward and backward, and times:
+    the call on the 2-rank line (its gather staged through the host by
+    gloo), the same call on a line of one (kernels only), the plain
+    version and F.group_norm of the shard."""
+    from tpuseg_torch.core.distributed import SOLO
+
+    fn = mods["fused_norm"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140 + group.index)
+    shared = torch.Generator(device="cuda").manual_seed(SEED + 140)  # the parameters'
+    rows = []
+    d, h, w = PAR_DHW[0] // PAR_WORLD, PAR_DHW[1], PAR_DHW[2]
+    for c, groups in PAR_SPLIT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((1, d, h, w, c), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=shared, device="cuda")
+            beta = torch.randn(c, generator=shared, device="cuda")
+            g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            # g zero where the whole map's GroupNorm output lies within 1e-3
+            # of the ReLU kink (``_off_the_kink``, with the global statistics)
+            v = fn.fused_group_norm_relu_split_plain(x.double(), gamma.double(), beta.double(),
+                                                     groups, 1e-6, False, group)
+            g = g * (v.abs() > 1e-3).to(dtype)
+            got = fn.fused_group_norm_relu_split(x, gamma, beta, groups, 1e-6, True, group)
+            ref = fn.fused_group_norm_relu_split_plain(x, gamma, beta, groups, 1e-6, True, group)
+            err = rel_err(got, ref)
+            y, stats = fn._launch_split(x, gamma, beta, groups, 1e-6, True, group)
+            got_b = fn._launch_split_backward(x, g, stats, gamma, beta, groups, True, group)
+            ref_b = fn.fused_group_norm_relu_split_backward_plain(x, gamma, beta, g, groups,
+                                                                  1e-6, True, group)
+            err_b = max((rel_err(a, b) for a, b in zip(got_b, ref_b)),
+                        key=lambda e: e[0] / e[1])
+            ms = time_ms(torch, lambda: fn._launch_split(x, gamma, beta, groups, 1e-6, True,
+                                                         group), iters=5)
+            ms_b = time_ms(torch, lambda: fn._launch_split_backward(
+                x, g, stats, gamma, beta, groups, True, group), iters=5)
+            ms1 = time_ms(torch, lambda: fn._launch_split(x, gamma, beta, groups, 1e-6, True,
+                                                          SOLO))
+            ms1_b = time_ms(torch, lambda: fn._launch_split_backward(
+                x, g, stats, gamma, beta, groups, True, SOLO))
+            plain_ms = time_ms(torch, lambda: fn.fused_group_norm_relu_split_plain(
+                x, gamma, beta, groups, 1e-6, True, group), iters=5)
+            plain_b = time_ms(torch, lambda: fn.fused_group_norm_relu_split_backward_plain(
+                x, gamma, beta, g, groups, 1e-6, True, group), iters=5)
+            xl = x.permute(0, 4, 1, 2, 3).contiguous().requires_grad_()
+            gl, bl = (t.to(dtype).detach().requires_grad_() for t in (gamma, beta))
+            lib_ms = time_ms(torch, lambda: torch.nn.functional.group_norm(
+                xl.detach(), groups, gl.detach(), bl.detach(), 1e-6))
+            yl = torch.nn.functional.group_norm(xl, groups, gl, bl, 1e-6)
+            g_lib = g.permute(0, 4, 1, 2, 3).contiguous()
+            lib_b = time_ms(torch, lambda: torch.autograd.grad(yl, (xl, gl, bl), g_lib,
+                                                               retain_graph=True))
+            n_el, size = x.numel(), x.element_size()
+            dtype_name = "float32" if dtype == torch.float32 else "bfloat16"
+            rows.append(dict(
+                c=c, dtype=dtype_name, shape=list(x.shape), fwd_err=err, bwd_err=err_b,
+                ms=ms1, ms_gloo=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bound_ms(10.0 * n_el, 2 * n_el * size, dtype_name),
+                bwd_ms=ms1_b, bwd_ms_gloo=ms_b, bwd_plain_ms=plain_b, bwd_library_ms=lib_b,
+                bwd_bound=bound_ms(20.0 * n_el, 3 * n_el * size, dtype_name)))
+    return rows
+
+
+def _par_rank(torch, rank: int, workdir: str) -> dict:
+    """Everything phase 14 runs on one rank of the 2-rank world."""
+    from tpuseg_torch.core.mesh import DATA_AXIS, MODEL_AXIS, SPACE_AXIS
+
+    mods = _par_mods()
+    out = {}
+    mc, mm = mods["MeshContext"], mods["make_mesh"]
+    meshes = {"space": mm(data=1, space=PAR_WORLD, device="cuda:0"),
+              "data": mm(data=PAR_WORLD, device="cuda:0"),
+              "model": mm(data=1, model=PAR_WORLD, device="cuda:0")}
+    cfg = mods["TrainerConfig"]
+
+    def trainer(kind, mesh, dtype=torch.float32, packed=False, loss="MutilDiceLoss",
+                dropout=0.2):
+        net = _par_net(torch, mods, kind, dropout)
+        k = VNET_CLASSES if kind == "vnet" else CLASSES
+        tr = mods["make_segmentation_trainer"](
+            net, k, loss, alpha=[1.0] * k, config=cfg(optimizer="adam", compute_dtype=dtype),
+            device="cuda", packed_stem=packed, mesh=None if mesh is None else mc(mesh))
+        return tr, tr.model
+
+    # the z-sharded steps: loss, global gradients, launches, step ms
+    unet_b, vnet_b = _par_batch("unet"), _par_batch("vnet")
+    for tag, kind, dtype, packed, batch in (
+            ("unet_f32", "unet", torch.float32, False, unet_b),
+            ("unet_bf16", "unet", torch.bfloat16, False, unet_b),
+            ("packed_f32", "unet", torch.float32, True, unet_b),
+            ("vnet_f32", "vnet", torch.float32, False, vnet_b),
+            ("vnet_bf16", "vnet", torch.bfloat16, False, vnet_b)):
+        tr, net = trainer(kind, meshes["space"], dtype, packed)
+        if tag == "vnet_f32":  # the eval forward at the seeded weights
+            with torch.no_grad():
+                net.eval()
+                b = tr._put(tr.shard_batch(batch))
+                probs = tr.apply_fn(net, b["image"], False, None)["probs"]
+                parts = mods["distributed"].all_gather(probs.contiguous(),
+                                                       meshes["space"].group(SPACE_AXIS))
+                out["sp/vnet_fwd"] = torch.cat(list(parts.unbind(0)), dim=1).cpu()
+        (loss, grads), launches = _par_counted(
+            torch, mods, lambda: _par_loss_grads(torch, mods, tr, net, batch, dtype))
+        out[f"sp/{tag}"] = dict(loss=loss, grads=grads if rank == 0 else None,
+                                launches=launches, ms=_par_timed(torch, tr, batch))
+        del tr, net
+        torch.cuda.empty_cache()
+
+    # data parallel: a batch of 2 on 2 ranks, a pooled and a gathered loss
+    # (dropout off: each data rank draws its own masks)
+    dp_b = _par_batch("unet", 2)
+    for loss_name in ("MutilDiceLoss", "LovaszLoss"):
+        for dtype in (torch.float32, torch.bfloat16):
+            tr, net = trainer("unet", meshes["data"], dtype, loss=loss_name, dropout=0.0)
+            loss, grads = _par_loss_grads(torch, mods, tr, net, dp_b, dtype)
+            tag = f"dp/{loss_name}_{'f32' if dtype == torch.float32 else 'bf16'}"
+            out[tag] = dict(loss=loss, grads=grads if rank == 0 else None,
+                            ms=_par_timed(torch, tr, dp_b))
+            del tr, net
+            torch.cuda.empty_cache()
+
+    # tensor parallel: model 2, the 256-channel bottleneck kernels sharded
+    tr, net = trainer("unet", meshes["model"])
+    loss, grads = _par_loss_grads(torch, mods, tr, net, unet_b, torch.float32)
+    out["tp"] = dict(loss=loss, grads=grads, spec=dict(tr.tp_spec),
+                     ms=_par_timed(torch, tr, unet_b))
+    path = os.path.join(workdir, "tp_ckpt")
+    tr._checkpoints(path).save_latest(tr.state_dict(), tr.step, 0.0, epoch=1)
+    out["tp/ckpt"] = dict(path=os.path.join(path, "latest"),
+                          model={k: v.cpu() for k, v in tr.state_dict()["model"].items()})
+    del tr, net
+    torch.cuda.empty_cache()
+
+    # GPipe over the model axis, against the sequential reference
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 141)
+    params = {"w": torch.randn((PAR_WORLD, 256, 256), generator=gen, device="cuda") * 0.06,
+              "b": torch.randn((PAR_WORLD, 256), generator=gen, device="cuda") * 0.1}
+    mb = torch.randn((8, 64, 256), generator=gen, device="cuda")
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    pipe = mods["pipeline"].pipeline_apply(stage_fn, params, mb,
+                                           meshes["model"].group(MODEL_AXIS))
+    seq = mods["pipeline"].sequential_reference(stage_fn, params, mb)
+    out["pipe"] = rel_err(pipe, seq)
+
+    # overlap-tile inference of a conv net (K2 inside), against the whole
+    layers = mods["layers"]
+    convs = [layers.ConvND(1, 16, 3), layers.ConvND(16, 16, 3), layers.ConvND(16, 2, 3)]
+    torch.manual_seed(SEED)
+    for c in convs:
+        layers.he_normal_init_(c)
+        c.cuda()
+
+    @torch.no_grad()
+    def conv_net(t):
+        y = t[None].cuda()
+        for i, c in enumerate(convs):
+            y = c(y)
+            y = torch.tanh(y) if i < len(convs) - 1 else y
+        return y[0]
+
+    vol = torch.from_numpy(unet_b["image"][0])
+    reset_counts(mods)
+    sharded = mods["spatial"].spatial_partition_infer(vol, conv_net,
+                                                      meshes["space"].group(SPACE_AXIS),
+                                                      margin=8, device="cuda")
+    k2 = counts(mods)["conv3d_small"]
+    out["infer"] = (rel_err(sharded, conv_net(vol)), k2)
+
+    # K1 split against its plain version on the card, each rank's shard
+    out["split_rows"] = _par_split_rows(torch, mods, meshes["space"].group(SPACE_AXIS))
+    return out
+
+
+def _par_child(rank: int, workdir: str, queue) -> None:
+    """A rank of phase 14's world: gloo over a file store, cuda:0."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        sys.path.insert(0, ROOT)
+        from tpuseg_torch.compat.seg_models import disable_tf32
+
+        disable_tf32()
+        dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                                world_size=PAR_WORLD)
+        try:
+            out = _par_rank(torch, rank, workdir)
+        finally:
+            dist.barrier()
+            dist.destroy_process_group()
+        # through a file: a tensor put on the queue would be shared by a
+        # file descriptor that dies with this process
+        path = os.path.join(workdir, f"rank{rank}.pt")
+        torch.save(out, path)
+        queue.put((rank, path, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _spawn(target, args_of, n: int, timeout_s: float):
+    """Run ``target(*args_of(i), queue)`` in ``n`` spawned processes; their
+    results in rank order.  Any rank's failure fails the script."""
+    import multiprocessing as mp
+    import queue as queue_lib
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(*args_of(i), q)) for i in range(n)]
+    for p in procs:
+        p.start()
+    results, errors, done = [None] * n, [], set()
+    t_end = time.monotonic() + timeout_s
+    try:
+        while len(done) < n and not errors:
+            try:
+                rank, out, err = q.get(timeout=1.0)
+            except queue_lib.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in done and p.exitcode is not None]
+                if dead or time.monotonic() > t_end:
+                    errors.append(f"ranks {dead or 'all'} gave no result")
+                continue
+            done.add(rank)
+            results[rank] = out
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail("phase 14: " + "\n".join(errors))
+    return results
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_child(rank: int, world: int, port: int, queue) -> None:
+    """torchrun's environment for ``world`` ranks on cuda:0, the NCCL
+    backend, one all_reduce (and with world 1 one train step of the mesh
+    path and K1 split on its one-rank line)."""
+    import traceback
+
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, ROOT)
+        from tpuseg_torch.compat.seg_models import disable_tf32
+
+        disable_tf32()
+        mods = _par_mods()
+        device = "cuda:0" if world > 1 else None
+        _, n, dev = mods["distributed"].initialize("nccl", device=device)
+        t = torch.ones(4, device=dev) * (rank + 1)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out = {"backend": dist.get_backend(), "world": n, "sum": t[0].item()}
+        if world == 1:
+            mesh = mods["make_mesh"](device=dev)
+            tr = mods["make_segmentation_trainer"](
+                _par_net(torch, mods, "unet"), CLASSES, "MutilDiceLoss", alpha=[1.0] * CLASSES,
+                config=mods["TrainerConfig"](optimizer="adam"), device=dev,
+                mesh=mods["MeshContext"](mesh))
+            out["ms"] = _par_timed(torch, tr, _par_batch("unet"))
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _nccl_probe(torch, mods) -> dict:
+    """NCCL on this card: two ranks on one device (expected refused), and
+    one rank through torchrun's environment variables."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_nccl_child, args=(r, 2, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    outcome, t_end = [], time.monotonic() + 60
+    for _ in range(2):
+        try:
+            rank, out, err = q.get(timeout=max(1.0, t_end - time.monotonic()))
+            outcome.append(err.strip().splitlines()[-1] if err else f"rank {rank} {out}")
+        except Exception:
+            outcome.append("no answer within 60 s")
+    for p in procs:
+        p.join(timeout=10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    say(f"  NCCL, two ranks on one card: {outcome}")
+    port = _free_port()
+    one = _spawn(_nccl_child, lambda r: (r, 1, port), 1, 300)[0]
+    if one["backend"] != "nccl" or one["sum"] != 1.0:
+        fail(f"NCCL world 1: {one}")
+    say(f"  NCCL world 1 through torchrun's variables: backend {one['backend']}, "
+        f"all_reduce ok, mesh-path UNet3d f32 step {one['ms']:.3f} ms ({mods['smi']})")
+    return {"two_ranks_one_card": outcome, "world1": one}
+
+
+def _par_gate(torch, mods, tag: str, got, control, single) -> tuple:
+    """``_kernel_step_gate``'s gate for a sharded step: ``got`` (loss,
+    grads) of the sharded f32 step through the kernels, ``control`` a bf16
+    one, ``single(dtype, scale)`` one process's step; the sharded step
+    must lie within phase 6's gate of the f64 step through the plain
+    versions, or no farther than twice the plain f32 step's distance from
+    it (and from itself with the input scaled by 1 + 1e-7)."""
+    def summary(errs):
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst, float(np.median(list(errs.values())))
+
+    with plain_kernels(mods):
+        loss_ref, ref = single(torch.float64)
+        grads_p = single(torch.float32)[1]
+        own = summary(_param_errors(single(torch.float32, 1.0 + 1e-7)[1], grads_p))
+    k, p, c = (summary(_param_errors(g, ref)) for g in (got[1], grads_p, control[1]))
+    gate = (max(STEP_GRAD_TOL, 2 * max(p[0], own[0])), max(1e-3, 2 * max(p[2], own[2])))
+    rel = abs(got[0] - loss_ref) / max(abs(loss_ref), 1e-12)
+    say(f"  {tag} sharded step vs one process's f64 step (plain versions): loss "
+        f"{got[0]:.7f} vs {loss_ref:.7f} (relative {rel:.3g}, tol 1e-5); grad error / "
+        f"max(its max |g|, 1e-3 of the largest), worst and median: sharded {k[0]:.3g} "
+        f"({k[1]}), {k[2]:.3g}; plain f32 {p[0]:.3g}, {p[2]:.3g}; gate {gate[0]:.3g}, "
+        f"{gate[1]:.3g}; bf16 control {c[0]:.3g}, {c[2]:.3g}")
+    if not rel <= 1e-5 or not k[0] <= gate[0] or not k[2] <= gate[1]:
+        fail(f"{tag}: sharded step vs one process's step mismatch")
+    if not (c[0] > gate[0] or c[2] > gate[1]):
+        fail(f"{tag}: the gate does not tell a bf16 step from an f32 one")
+    return k, gate
+
+
+def _par_single(torch, mods, kind: str, batch: dict, loss_name: str = "MutilDiceLoss",
+                dropout: float = 0.2):
+    """fn(dtype, scale=1.0) -> (loss, grads) of one process's step at step
+    0's dropout generator (the plain trainer's apply and loss; each result
+    made once, under whichever kernel routing is on at its first call),
+    and the process's f32 train step ms through the kernels."""
+    import copy
+
+    k = VNET_CLASSES if kind == "vnet" else CLASSES
+    net = _par_net(torch, mods, kind, dropout)
+    tr = mods["make_segmentation_trainer"](
+        copy.deepcopy(net), k, loss_name, alpha=[1.0] * k,
+        config=mods["TrainerConfig"](optimizer="adam"), device="cuda")
+    b = tr._put(batch)
+    made = {}
+
+    def loss_and_grads(dtype, scale=1.0):
+        if (dtype, scale) not in made:
+            model = copy.deepcopy(net).to(dtype).train()
+            o = tr.apply_fn(model, b["image"].to(dtype) * scale, True,
+                            mods["step_generator"](SEED, 0, "cuda"))
+            loss = tr.loss_fn({n: v.float() for n, v in o.items()}, b)
+            loss.backward()
+            made[(dtype, scale)] = (loss.item(), {n: p.grad.detach().cpu()
+                                                  for n, p in model.named_parameters()})
+        return made[(dtype, scale)]
+
+    return loss_and_grads, _par_timed(torch, tr, batch)
+
+
+def phase_parallel(torch, mods) -> tuple:
+    """Phase 14: the parallel paths on 2 ranks on the one card (gloo), each
+    step gated against one process's; returns (launches by path, the K1
+    split rows)."""
+    workdir = tempfile.mkdtemp(prefix="tpuseg_torch_par_")
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        ranks = [torch.load(path, weights_only=False)
+                 for path in _spawn(_par_child, lambda r: (r, workdir), PAR_WORLD, 900)]
+        r0 = ranks[0]
+        for r, res in enumerate(ranks):
+            for tag, expect in (("unet_f32", PAR_UNET_LAUNCHES), ("unet_bf16", PAR_UNET_LAUNCHES),
+                                ("packed_f32", PAR_PACKED_LAUNCHES),
+                                ("vnet_f32", PAR_VNET_LAUNCHES), ("vnet_bf16", PAR_VNET_LAUNCHES)):
+                got = res[f"sp/{tag}"]["launches"]
+                if any(got.get(k, 0) != v for k, v in expect.items()):
+                    fail(f"phase 14 rank {r} {tag} launches {got}, expected {expect}")
+            if res["sp/unet_f32"]["loss"] != r0["sp/unet_f32"]["loss"]:
+                fail("phase 14: the ranks' global losses differ")
+        say(f"  launches per rank and step: UNet3d { {k: v for k, v in PAR_UNET_LAUNCHES.items() if v} }"
+            f"; packed { {k: v for k, v in PAR_PACKED_LAUNCHES.items() if v} }; VNet3d "
+            f"{ {k: v for k, v in PAR_VNET_LAUNCHES.items() if v} } on both ranks")
+        for r, res in enumerate(ranks):
+            say(f"  rank {r} step ms: " + ", ".join(
+                f"{t} {res[f'sp/{t}']['ms']:.3f}" for t in
+                ("unet_f32", "unet_bf16", "packed_f32", "vnet_f32", "vnet_bf16"))
+                + ", " + ", ".join(f"{t} {res[t]['ms']:.3f}" for t in
+                                   ("dp/MutilDiceLoss_f32", "dp/MutilDiceLoss_bf16",
+                                    "dp/LovaszLoss_f32", "tp")) + f" ({mods['smi']})")
+
+        unet_b, vnet_b = _par_batch("unet"), _par_batch("vnet")
+        single, single_ms = _par_single(torch, mods, "unet", unet_b)
+        control = (r0["sp/unet_bf16"]["loss"], r0["sp/unet_bf16"]["grads"])
+        gates = {}
+        gates["unet"] = _par_gate(torch, mods, "spatial UNet3d f32",
+                                  (r0["sp/unet_f32"]["loss"], r0["sp/unet_f32"]["grads"]),
+                                  control, single)
+        gates["packed"] = _par_gate(torch, mods, "packed x spatial UNet3d f32",
+                                    (r0["sp/packed_f32"]["loss"], r0["sp/packed_f32"]["grads"]),
+                                    control, single)
+        # the bf16 sharded step against one process's bf16 step through the kernels
+        _, g_bf = single(torch.bfloat16)
+        with plain_kernels(mods):
+            ref = single(torch.float64)[1]
+        d_sh = max(_param_errors(control[1], ref).values())
+        d_one = max(_param_errors(g_bf, ref).values())
+        say(f"  spatial UNet3d bf16: worst grad error vs the f64 step, sharded {d_sh:.3g}, "
+            f"one process {d_one:.3g}")
+        if not d_sh <= 2 * d_one + STEP_GRAD_TOL:
+            fail("spatial UNet3d bf16 step farther from the f64 step than one process's")
+        # tensor parallel: the shards gathered into whole gradients
+        tp = dict(r0["tp"]["grads"])
+        for name, dim in r0["tp"]["spec"].items():
+            tp[name] = torch.cat([res["tp"]["grads"][name] for res in ranks], dim=dim)
+        say(f"  tensor parallel: sharded {sorted(r0['tp']['spec'])}")
+        gates["tp"] = _par_gate(torch, mods, "tensor-parallel UNet3d f32",
+                                (r0["tp"]["loss"], tp), control, single)
+        del single
+
+        vsingle, vsingle_ms = _par_single(torch, mods, "vnet", vnet_b)
+        gates["vnet"] = _par_gate(torch, mods, "spatial VNet3d f32",
+                                  (r0["sp/vnet_f32"]["loss"], r0["sp/vnet_f32"]["grads"]),
+                                  (r0["sp/vnet_bf16"]["loss"], r0["sp/vnet_bf16"]["grads"]),
+                                  vsingle)
+        net = _par_net(torch, mods, "vnet").eval()
+        with torch.no_grad():
+            probs = net(torch.from_numpy(vnet_b["image"]).cuda())[1].cpu()
+        err = rel_err(r0["sp/vnet_fwd"], probs)
+        say(f"  spatial VNet3d forward (96^3, 48 + 48): probs vs one process's, max_abs_err "
+            f"{err[0]:.3g} (tol 1e-4)")
+        if not err[0] <= 1e-4:
+            fail("spatial VNet3d forward vs one process's")
+        del vsingle, net
+
+        dp_b = _par_batch("unet", 2)
+        for loss_name in ("MutilDiceLoss", "LovaszLoss"):
+            dsingle, dms = _par_single(torch, mods, "unet", dp_b, loss_name, dropout=0.0)
+            gates[f"dp_{loss_name}"] = _par_gate(
+                torch, mods, f"data-parallel UNet3d f32 ({loss_name}, batch 2)",
+                (r0[f"dp/{loss_name}_f32"]["loss"], r0[f"dp/{loss_name}_f32"]["grads"]),
+                (r0[f"dp/{loss_name}_bf16"]["loss"], r0[f"dp/{loss_name}_bf16"]["grads"]),
+                dsingle)
+            say(f"  one process's batch-2 {loss_name} step {dms:.3f} ms")
+            del dsingle
+
+        say(f"  pipeline_apply (2 stages, 8 microbatches) vs sequential_reference: "
+            f"max_abs_err {r0['pipe'][0]:.3g}")
+        err, k2 = r0["infer"]
+        say(f"  spatial_partition_infer (conv net, margin 8) vs the whole forward: "
+            f"max_abs_err {err[0]:.3g} (scale {err[1]:.3g}), K2 {k2} launches on rank 0")
+        if not (r0["pipe"][0] <= 1e-5 and err[0] <= 1e-4 * err[1] and k2 > 0):
+            fail("pipeline or spatial_partition_infer mismatch")
+
+        from tpuseg_torch.core.checkpoint import restore_sharded
+
+        state = restore_sharded(r0["tp/ckpt"]["path"])
+        spec = r0["tp"]["spec"]
+        for name, v in state["model"].items():
+            want = (torch.cat([res["tp/ckpt"]["model"][name] for res in ranks], dim=spec[name])
+                    if name in spec else r0["tp/ckpt"]["model"][name])
+            if not torch.equal(v, want):
+                fail(f"sharded checkpoint {name} differs after the restore")
+        say(f"  sharded checkpoint: written by 2 ranks (model 2), restored in one process, "
+            f"{len(state['model'])} tensors equal bit for bit")
+
+        for r, res in enumerate(ranks):
+            for row in res["split_rows"]:
+                bad = [e for e in (row["fwd_err"], row["bwd_err"])
+                       if not e[0] <= TOL[row["dtype"]] * e[1]]
+                say(f"  rank {r} K1 split {row['dtype']} C{row['c']} {row['shape']}: "
+                    f"max_abs_err fwd {row['fwd_err'][0]:.3g} bwd {row['bwd_err'][0]:.3g}; "
+                    f"ms fwd {row['ms']:.4f} (with the gloo gather {row['ms_gloo']:.3f}), "
+                    f"plain {row['plain_ms']:.4f}, F.group_norm {row['library_ms']:.4f}, "
+                    f"bound {row['bound'][0]:.4f}; bwd {row['bwd_ms']:.4f} (gloo "
+                    f"{row['bwd_ms_gloo']:.3f}), plain {row['bwd_plain_ms']:.4f}, library "
+                    f"{row['bwd_library_ms']:.4f}, bound {row['bwd_bound'][0]:.4f}")
+                if bad:
+                    fail(f"K1 split vs plain on rank {r}: {row}")
+        say(f"  one process's UNet3d f32 step {single_ms:.3f} ms, VNet3d {vsingle_ms:.3f} ms; "
+            f"the collectives are gloo's on one card (staged through the host), not NCCL's "
+            f"({mods['smi']})")
+        nccl = _nccl_probe(torch, mods)
+        paths = {f"par_{t}": r0[f"sp/{t}"]["launches"] for t in
+                 ("unet_f32", "unet_bf16", "packed_f32", "vnet_f32", "vnet_bf16")}
+        return paths, r0["split_rows"], nccl
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _load_generator(name: str):
     """``tests/<name>.py``, a golden file's generator, as a module (its
     inputs, fingerprints and golden path; it imports JAX only inside the
@@ -4274,6 +4935,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     say(f"phase 13: the attention zoo, SMT and VSNet ({smi})")
     attn_paths, attn_rows = phase_attention(torch, mods)
+    say(f"phase 14: parallelism, 2 ranks on the one card over gloo ({smi})")
+    par_paths, split_rows, nccl = phase_parallel(torch, mods)
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -4310,7 +4973,7 @@ def main() -> int:
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
              **swin_launches, **host_paths, **augreg_paths, **model_api_paths,
-             **entry_paths, **attn_paths}
+             **entry_paths, **attn_paths, **par_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""
@@ -4418,6 +5081,38 @@ def main() -> int:
             "variants": {tag: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                  "bound_by")} for tag, r in rows.items()},
         })
+    # K1 split (phase 14): per call on a rank's z-shard of the UNet3d's
+    # finest level, f32 (the bf16 call beside it); ms is the split call on
+    # a line of one (its kernels), ms_with_gloo_gather the same call on the
+    # 2-rank line of one card, the all-gather staged through the host
+    for name, pre, source in (
+            ("fused_group_norm_relu_split", "", "fused_norm.cu"),
+            ("fused_group_norm_relu_split_bwd", "bwd_", "fused_norm_bwd.cu")):
+        by_path = {p: c.get(name, 0) for p, c in paths.items() if c.get(name, 0)}
+        if not by_path:
+            fail(f"{name} was not launched on the parallel paths")
+
+        def fields(row):
+            return {"ms": row[f"{pre}ms"], "ms_with_gloo_gather": row[f"{pre}ms_gloo"],
+                    "plain_ms": row[f"{pre}plain_ms"], "bound_ms": row[f"{pre}bound"][0],
+                    "bound_by": row[f"{pre}bound"][1],
+                    "library_ms": row[f"{pre}library_ms"]}
+
+        rows = [r for r in split_rows if r["c"] == PAR_SPLIT_CASES[0][0]]
+        f32 = next(r for r in rows if r["dtype"] == "float32")
+        summary.append({
+            "name": name, "route": "cuda", "dtype": "float32",
+            "source": f"tpuseg_torch/kernels/csrc/{source}",
+            "replaces": ("tpuseg/kernels/fused_norm.py:85,102 around the psum of "
+                         "tpuseg/parallel/spatial.py:174-196" if not pre else
+                         "tpuseg/kernels/fused_norm.py:137 (the VJP across the psum)"),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r[f"{'bwd' if pre else 'fwd'}_err"][0] for r in split_rows),
+            **fields(f32), "shape": f32["shape"],
+            "bfloat16": fields(next(r for r in rows if r["dtype"] == "bfloat16")),
+            "c64": fields(next(r for r in split_rows if r["c"] == PAR_SPLIT_CASES[1][0]
+                               and r["dtype"] == "float32"))})
+    say("nccl " + json.dumps(nccl, default=str))
     # the stem's one-product weight gradient (torch.matmul, not a kernel of
     # the package), a train step's calls of each packed net beside cuDNN's
     stem = {f"{r['path']} {r['dtype']}": {f: r[f] for f in ("ms", "plain_ms", "bound_ms",

@@ -1377,3 +1377,86 @@ def test_attention_nets_forward_kernels_match_plain(cuda, monkeypatch, name, k2,
     with torch.inference_mode():
         ref = net(x)[1]
     _close(got, ref, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K1 split (fused_group_norm_relu_split) and K2 / K3 on halo'd z-shards
+# ---------------------------------------------------------------------------
+
+SPLIT_CASES = [((2, 6, 7, 9, 16), 8, True), ((1, 4, 5, 6, 64), 8, False),
+               ((2, 3, 4, 5, 12), 4, True), ((1, 2, 3, 3, 1), 1, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, groups, relu", SPLIT_CASES)
+def test_k1_split_on_one_rank_is_the_fused_op_bit_for_bit(cuda, dtype, shape, groups, relu):
+    """On a group of one rank the split kernels (pass 1, the gather, pass 2,
+    each way) give the fused kernels' bits: output, dx, dgamma, dbeta."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 4 + 50).to(dtype)
+    gamma = torch.randn(shape[-1], device=cuda, generator=gen).to(dtype)
+    beta = torch.randn(shape[-1], device=cuda, generator=gen).to(dtype)
+    g = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    outs = []
+    before = fused_norm.SPLIT_LAUNCHES, fused_norm.SPLIT_BWD_LAUNCHES
+    for fn in (fused_norm.fused_group_norm_relu, fused_norm.fused_group_norm_relu_split):
+        xs, gs, bs = (t.clone().requires_grad_() for t in (x, gamma, beta))
+        y = fn(xs, gs, bs, groups, 1e-6, relu)
+        y.backward(g)
+        outs.append((y.detach(), xs.grad, gs.grad, bs.grad))
+    assert (fused_norm.SPLIT_LAUNCHES, fused_norm.SPLIT_BWD_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_k1_split_two_halves_merged_on_the_host(cuda):
+    """Pass 1 on the two z-halves of one map, their buffers stacked on the
+    host as two ranks' would be gathered, pass 2 on each half: the
+    statistics equal the whole map's fused ones within 1e-6 (f32), and each
+    half's output the whole output's planes."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((2, 8, 9, 10, 32), device=cuda, generator=gen) * 3 + 100
+    gamma = torch.randn(32, device=cuda, generator=gen)
+    beta = torch.randn(32, device=cuda, generator=gen)
+    y_whole, stats_whole = fused_norm._launch(x, gamma, beta, 8, 1e-6, True)
+    halves = [x[:, :4].contiguous(), x[:, 4:].contiguous()]
+    firsts = [fused_norm._split_partials(h, 8) for h in halves]
+    gathered = torch.stack([buf.cpu() for _, buf, _ in firsts]).to(cuda)
+    for i, (h, (y, _, plan)) in enumerate(zip(halves, firsts)):
+        stats = fused_norm._split_apply(h, y, gathered, plan, gamma, beta, 8, 1e-6, True)
+        rel = ((stats - stats_whole).abs() / stats_whole.abs().clamp(min=1e-30)).max().item()
+        assert rel <= 1e-6, rel
+        _close(y, y_whole[:, 4 * i:4 * (i + 1)], torch.float32)
+
+
+def _zero_halo(x, lo: int, hi: int):
+    """Planes [lo - 1, hi + 1) of x along z, zero outside the volume: the
+    halo'd shard a space rank holds."""
+    d = x.shape[1]
+    parts = [x[:, max(lo - 1, 0):min(hi + 1, d)]]
+    if lo == 0:
+        parts.insert(0, torch.zeros_like(x[:, :1]))
+    if hi == d:
+        parts.append(torch.zeros_like(x[:, :1]))
+    return torch.cat(parts, dim=1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_on_halo_shards_equal_the_whole_volume(cuda, dtype):
+    """K2 and K3 run SAME on a z-shard with one halo plane a side (zeros at
+    the volume's ends), the halo planes cropped, equal the whole volume's
+    conv on the shard's planes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 8, 6, 20, 16), device=cuda, generator=gen).to(dtype)
+    w = (torch.randn((3, 3, 3, 16, 16), device=cuda, generator=gen) * 0.1).to(dtype)
+    whole = conv3d.conv3d_small(x, w)
+    xp = torch.randn((1, 8, 6, 10, 8 * 16), device=cuda, generator=gen).to(dtype)
+    w3 = packed_conv.pack_k3_axes(
+        torch.randn((3, 3, 3, 16, 16), device=cuda, generator=gen) * 0.05).to(dtype)
+    whole_p = packed_conv.packed_conv3d_structured([xp], [w3])
+    for lo, hi in ((0, 4), (4, 8)):
+        got = conv3d.conv3d_small(_zero_halo(x, lo, hi), w)[:, 1:-1]
+        _close(got, whole[:, lo:hi], dtype)
+        got_p = packed_conv.packed_conv3d_structured([_zero_halo(xp, lo, hi)], [w3])[:, 1:-1]
+        _close(got_p, whole_p[:, lo:hi], dtype)

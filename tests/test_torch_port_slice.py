@@ -305,20 +305,22 @@ def test_cli_parses_the_serve_flags():
     for bad in (["--model.num_classes"], ["model.num_classes", "5"],
                 ["--train.nope", "1"], ["--infer.new_size", "[1,2]"],
                 ["--train.resume", "maybe"], ["--train.packed_stem", "maybe"],
-                ["--train.mesh_data", "2"], ["--data.online_augment", "maybe"]):
+                ["--train.mesh_data", "two"], ["--data.online_augment", "maybe"]):
         with pytest.raises(ValueError):
             parse_cli(bad)
     assert parse_cli(["--data.online_augment", "1"]).data.online_augment is True
     assert parse_cli(["--train.packed_stem", "false"]).train.packed_stem is False
     assert parse_cli(["--train.packed_stem", "true"]).train.packed_stem is True
+    assert parse_cli(["--train.mesh_data", "2"]).train.mesh_data == 2
 
 
 def test_serve_imports_no_jax():
     """Neither entry point of the port (serve, train, augmain, recipes,
     inference) nor its packed twins, its zoo and registry (``build_model``
     builds each net), its augmentation (3D and 2D), data preparation,
-    registration and multi-task modules, its kernel modules and its probe
-    modules import JAX."""
+    registration and multi-task modules, its kernel modules, its probe
+    modules and its parallel modules (mesh, collectives, spatial, pipeline,
+    tensor parallel, the spatial trainer) import JAX."""
     code = ("import sys, tpuseg_torch.serve, tpuseg_torch.train, "
             "tpuseg_torch.models.unet_packed, tpuseg_torch.kernels.packed_conv, "
             "tpuseg_torch.kernels.slab_conv, tpuseg_torch.kernels.flat_conv, "
@@ -333,7 +335,10 @@ def test_serve_imports_no_jax():
             "tpuseg_torch.data.augment2d, tpuseg_torch.tools.dataprep, "
             "tpuseg_torch.models.unext2d, tpuseg_torch.models.amlp_unet2d, "
             "tpuseg_torch.models.smt, tpuseg_torch.models.vsnet, "
-            "tpuseg_torch.tasks.multitask; "
+            "tpuseg_torch.tasks.multitask, tpuseg_torch.core.mesh, "
+            "tpuseg_torch.core.distributed, tpuseg_torch.parallel.spatial, "
+            "tpuseg_torch.parallel.pipeline, tpuseg_torch.parallel.tensor, "
+            "tpuseg_torch.tasks.spatial, tpuseg_torch.models.unet_packed_sp; "
             "from tpuseg_torch.models import PORTED, build_model; "
             "[build_model(n, 2, **({} if n in ('tpddnet', 'unext2d', 'unext2ds', 'smt', "
             "'vsnet') else {'features': 8})) for n in PORTED]; "

@@ -3,8 +3,7 @@
 
 Overrides take the JAX package's form, ``--section.field value`` or
 ``--section.field=value``; tuples, lists and fields that default to None
-are given as JSON.  Fields the port cannot honour yet (the mesh) raise
-when set to anything but their default.
+are given as JSON.
 """
 from __future__ import annotations
 
@@ -48,9 +47,11 @@ class TrainConfig:
     early_stop_patience: Optional[int] = None
     model_dir: str = "log/run"
     resume: bool = False
-    mesh_data: int = -1  # not ported yet
-    mesh_model: int = 1  # not ported yet
-    mesh_space: int = 1  # not ported yet
+    # the (data, model, space) mesh over torchrun's ranks (core/mesh.py);
+    # data -1 takes the ranks model x space leaves
+    mesh_data: int = -1
+    mesh_model: int = 1
+    mesh_space: int = 1
     packed_stem: bool = False  # train through the space-to-depth packed twin
     profile: bool = False  # a torch.profiler trace of 3 steps before fit
     compute_dtype: str = "float32"  # "bfloat16": f32 master weights, bf16 compute
@@ -72,13 +73,6 @@ class Config:
     def to_json(self) -> str:
         return json.dumps({f.name: vars(getattr(self, f.name)) for f in fields(self)},
                           indent=2)
-
-
-# settings whose paths are not ported yet: they must keep these defaults
-NOT_PORTED = {
-    ("train", "mesh_data"): -1, ("train", "mesh_model"): 1,
-    ("train", "mesh_space"): 1,
-}
 
 
 def _parse(current, value: str):
@@ -122,8 +116,5 @@ def parse_cli(argv: Optional[Sequence[str]] = None) -> Config:
             parsed = _parse(getattr(section, field_name), value)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from None
-        if NOT_PORTED.get((section_name, field_name), parsed) != parsed:
-            raise ValueError(f"--{path} {value}: not ported yet (only the default "
-                             f"{NOT_PORTED[(section_name, field_name)]!r} runs)")
         setattr(section, field_name, parsed)
     return cfg

@@ -19,6 +19,19 @@ extension types), in Python and numpy, and ``read_run`` finds
 ``state.msgpack`` in a run directory (``<dir>/best``, falling back to
 ``best.old`` as the JAX restore does) and returns the decoded train state,
 whose parameter tree ``compat/weights.py`` converts.
+
+The sharded path (``save_sharded``, ``restore_sharded``,
+``read_meta_sharded``, ``CheckpointManager(sharded=True)``), for a run
+whose tensors are split over ranks (tensor parallel: a conv kernel's
+output channels over the mesh's model axis), writes through
+``torch.distributed.checkpoint``: every rank passes its own tensors, a
+shard under its key and its index (``<key>@<i>``), a replicated tensor
+under its key (written once), and ``meta.json`` records each sharded
+key's dimension, count and whole shape.  A restore reads the shards it
+needs and lays them out for the target's ``ShardLayout``, whatever layout
+wrote them (a model-2 run restores on one process, a space-2 run on a
+data-2 mesh).  Every rank of the writing world calls the save; the
+restore's ranks may be another world.
 """
 from __future__ import annotations
 
@@ -27,10 +40,14 @@ import os
 import shutil
 import struct
 import tempfile
-from typing import Any, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from tpuseg_torch.core.distributed import SOLO, AxisGroup, barrier, is_primary
 
 
 def save(path: str, state: dict, meta: Optional[dict] = None) -> None:
@@ -75,26 +92,177 @@ def exists(path: str) -> bool:
     return os.path.isfile(os.path.join(_resolve(path), "state.pt"))
 
 
+# ------------------------------------------------------------ sharded runs
+
+
+@dataclass
+class ShardLayout:
+    """How a state's tensors lie over the ranks: {flat key: the sharded
+    dimension} (flat keys join nested dict keys with "/", an int key i as
+    "#i"), split ``group.size`` ways, this rank holding ``group.index``;
+    every other tensor is replicated."""
+
+    spec: Dict[str, int] = field(default_factory=dict)
+    group: AxisGroup = SOLO
+
+
+def _flatten(state: dict, prefix: str = ""):
+    tensors, extra = {}, {}
+    for k, v in state.items():
+        key = prefix + (f"#{k}" if isinstance(k, int) else str(k))
+        if isinstance(v, dict):
+            t, e = _flatten(v, key + "/")
+            tensors.update(t)
+            extra.update(e)
+        elif torch.is_tensor(v):
+            tensors[key] = v
+        else:
+            extra[key] = v
+    return tensors, extra
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        parts = [int(p[1:]) if p.startswith("#") else p for p in key.split("/")]
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _dcp():
+    import torch.distributed.checkpoint as dcp
+
+    return dcp
+
+
+def save_sharded(path: str, state: dict, meta: Optional[dict] = None,
+                 layout: Optional[ShardLayout] = None) -> None:
+    """Write ``state`` (nested dicts of tensors and JSON values, each rank
+    its own shards per ``layout``) as a ``torch.distributed.checkpoint``
+    directory; every rank of the process group calls it.  Written under a
+    temporary name and swapped in by the primary rank."""
+    layout = layout or ShardLayout()
+    tensors, extra = _flatten(state)
+    path = os.path.abspath(path)
+    tmp, old = path + ".tmp", path + ".old"
+    if is_primary():
+        shutil.rmtree(tmp, ignore_errors=True)
+    barrier()
+    sd, shards = {}, {}
+    n, i = layout.group.size, layout.group.index
+    for key, t in tensors.items():
+        t = t.detach().cpu()
+        dim = layout.spec.get(key)
+        if dim is None or n == 1:
+            sd[key] = t
+        else:
+            sd[f"{key}@{i}"] = t
+            whole = list(t.shape)
+            whole[dim] *= n
+            shards[key] = [dim, n, whole]
+    _dcp().save(sd, checkpoint_id=tmp)
+    barrier()
+    if is_primary():
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"meta": meta or {}, "extra": extra, "shards": shards}, f, indent=2,
+                      default=float)
+        if os.path.isdir(path):
+            shutil.rmtree(old, ignore_errors=True)
+            os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old, ignore_errors=True)
+    barrier()
+
+
+def _resolve_sharded(path: str) -> str:
+    path = os.path.abspath(path)
+    if not os.path.isfile(os.path.join(path, "meta.json")) and os.path.isfile(
+            os.path.join(path + ".old", "meta.json")):
+        return path + ".old"
+    return path
+
+
+def read_meta_sharded(path: str) -> dict:
+    """The meta a ``save_sharded`` call was given ({} if none)."""
+    with open(os.path.join(_resolve_sharded(path), "meta.json")) as f:
+        return json.load(f)["meta"]
+
+
+def exists_sharded(path: str) -> bool:
+    return os.path.isfile(os.path.join(_resolve_sharded(path), "meta.json"))
+
+
+def restore_sharded(path: str, layout: Optional[ShardLayout] = None) -> dict:
+    """The state ``save_sharded`` wrote, laid out for ``layout`` (this
+    rank's shard of each tensor the layout shards, the whole of every
+    other), CPU tensors; any layout may have written it.  Every rank of the
+    reading process group calls it."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    layout = layout or ShardLayout()
+    path = _resolve_sharded(path)
+    with open(os.path.join(path, "meta.json")) as f:
+        info = json.load(f)
+    stored = FileSystemReader(path).read_metadata().state_dict_metadata
+    bufs = {k: torch.empty(tuple(md.size), dtype=md.properties.dtype)
+            for k, md in stored.items()}
+    _dcp().load(bufs, checkpoint_id=path)
+    flat = {}
+    for key, (dim, n, _) in info["shards"].items():
+        flat[key] = torch.cat([bufs[f"{key}@{i}"] for i in range(n)], dim=dim)
+    flat.update({k: v for k, v in bufs.items() if "@" not in k})
+    n, i = layout.group.size, layout.group.index
+    for key, dim in layout.spec.items():
+        if key in flat and n > 1:
+            k = flat[key].shape[dim] // n
+            flat[key] = flat[key].narrow(dim, i * k, k).clone()
+    flat.update(info["extra"])
+    return _unflatten(flat)
+
+
 class CheckpointManager:
     """Best (highest metric, or lowest with ``mode="min"``) + latest
-    retention."""
+    retention.  ``sharded``: every rank of the process group calls each
+    save and restore, and the checkpoints are ``save_sharded`` directories
+    of ``layout``.  ``write=False``: a rank that keeps the best metric and
+    restores but leaves the writing to another."""
 
-    def __init__(self, directory: str, mode: str = "max"):
+    def __init__(self, directory: str, mode: str = "max", sharded: bool = False,
+                 layout: Optional[ShardLayout] = None, write: bool = True):
         if mode not in ("max", "min"):
             raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
         self.directory = directory
         self.mode = mode
+        self.sharded = sharded
+        self.layout = layout
+        # False on the ranks that only follow (keep the best metric, write nothing)
+        self.write = write
         self._best: Optional[float] = None
-        os.makedirs(directory, exist_ok=True)
+        if write:
+            os.makedirs(directory, exist_ok=True)
         best = os.path.join(directory, "best")
-        if exists(best):
+        if sharded and exists_sharded(best):
+            self._best = read_meta_sharded(best).get("metric")
+        elif not sharded and exists(best):
             self._best = read_meta(best).get("metric")
+
+    def _save(self, name: str, state: dict, meta: dict) -> None:
+        path = os.path.join(self.directory, name)
+        if not self.write:
+            return
+        if self.sharded:
+            save_sharded(path, state, meta, self.layout)
+        else:
+            save(path, state, meta)
 
     def save_latest(self, state: dict, step: int,
                     metric: Optional[float] = None, **extra) -> None:
         meta = {"step": int(step), "metric": metric}
         meta.update(extra)
-        save(os.path.join(self.directory, "latest"), state, meta)
+        self._save("latest", state, meta)
 
     def maybe_save_best(self, state: dict, step: int, metric: float,
                         **extra) -> bool:
@@ -104,12 +272,16 @@ class CheckpointManager:
             self._best = float(metric)
             meta = {"step": int(step), "metric": float(metric)}
             meta.update(extra)
-            save(os.path.join(self.directory, "best"), state, meta)
+            self._save("best", state, meta)
         return better
 
     def restore(self, which: str = "latest") -> Optional[Tuple[dict, dict]]:
         """(state, meta) of ``<dir>/<which>``, or None if there is none."""
         path = os.path.join(self.directory, which)
+        if self.sharded:
+            if not exists_sharded(path):
+                return None
+            return restore_sharded(path, self.layout), read_meta_sharded(path)
         if not exists(path):
             return None
         return restore(path), read_meta(path)

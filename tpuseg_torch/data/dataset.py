@@ -166,26 +166,34 @@ class DataLoader:
     Each ``iter()`` is one epoch; the shuffle order of epoch e comes from
     ``default_rng(seed + e)``.  A thread assembles up to PREFETCH batches
     ahead of the consumer, each passed through ``transform`` (batch dict ->
-    batch dict) when one is given."""
+    batch dict) when one is given.  ``host_shard`` (index, count): this
+    process iterates every count-th sample of each epoch's order from
+    ``index`` (``core/distributed.py`` ``host_shard``), as JAX's loader
+    does for multi-host training."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, transform: Optional[Callable] = None):
+                 seed: int = 0, transform: Optional[Callable] = None,
+                 host_shard: Optional[tuple] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.transform = transform
+        self.host_shard = tuple(host_shard or (0, 1))
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        idx, cnt = self.host_shard
+        return len(range(idx, len(self.dataset), cnt)) // self.batch_size
 
     def _chunks(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        idx, cnt = self.host_shard
+        order = order[idx::cnt]
         return [order[i:i + self.batch_size]
                 for i in range(0, len(order) - self.batch_size + 1, self.batch_size)]
 

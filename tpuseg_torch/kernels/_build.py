@@ -70,6 +70,21 @@ _SIGNATURES = {
     # groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream
     "tpuseg_group_norm_relu_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the split forward: x, partial, n, v, c, groups, rows_per_chunk,
+    # n_chunks, ve, dtype, stream; then x, partial, shifts, world, gamma,
+    # beta, y, stats, n, v, c, groups, rows_per_chunk, n_chunks, eps, relu,
+    # ve, dtype, stream
+    "tpuseg_group_norm_partial": [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P],
+    "tpuseg_group_norm_apply": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                _I, _I, _F, _I, _I, _I, _P],
+    # the split backward: x, grad_y, stats, gamma, beta, partial, n, v, c,
+    # groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream; then x,
+    # grad_y, stats, gamma, beta, dx, dgamma, dbeta, partial, merged, world,
+    # n, v, c, groups, rows_per_chunk, n_chunks, relu, ve, dtype, stream
+    "tpuseg_group_norm_bwd_partial": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                      _I, _I, _I, _I, _I, _P],
+    "tpuseg_group_norm_bwd_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
     # xa, xb, c8a, c8b, p, rows, wt, bias, y, n, d, h, w, k, n_pad, f8,
     # relu, stream (bf16, and float32 by 3xTF32)
     "tpuseg_packed_conv3d_bf16": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I,

@@ -26,6 +26,16 @@
 //     and dbeta; then one elementwise pass reads x and g and writes dx.  Its blocks take the
 //     chunks in reverse, so that the first read what pass 1 read last,
 //     still in L2.
+//
+// Split across ranks (a z-sharded map, one shard a rank): the same two
+// kernels as two entry points, tpuseg_group_norm_bwd_partial (pass 1) and
+// tpuseg_group_norm_bwd_apply (pass 2), with the caller's all-gather of
+// every rank's partials between them, laid out (n, world, n_chunks, c, 2):
+// each sample's rows of every rank in rank order, which pass 2 merges as
+// one column of world x n_chunks rows (on one rank, the fused call's sums
+// to the bit).  A and B take the whole map's count; dgamma and dbeta stay
+// this rank's, from its own partials, for the caller to add across ranks
+// with the other parameter gradients.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,10 +149,14 @@ template <typename T, int VE>
 __global__ void __launch_bounds__(max_threads(VE))
     gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                         const float* __restrict__ stats, const float* __restrict__ partial,
+                        const float* __restrict__ merged, int world,
                         const float* __restrict__ gamma, const float* __restrict__ beta,
                         T* __restrict__ dx, float* __restrict__ dgamma,
                         float* __restrict__ dbeta, int N, long long V, int C, int G,
                         int rows_per_chunk, int n_chunks, int relu) {
+  // partial (N, n_chunks, C, 2): this rank's (for dgamma, dbeta); merged
+  // (N, world, n_chunks, C, 2): every rank's (for A and B); the same
+  // pointer with world 1
   // [blockDim.x] double2 for column_sums, then [C] double2: the sample's
   // (sum gh, sum gh xh) per channel, then [G] double2: A, B per group
   extern __shared__ double2 sm2[];
@@ -160,8 +174,9 @@ __global__ void __launch_bounds__(max_threads(VE))
     }
     __syncthreads();
   }
-  column_sums(part + (size_t)n * n_chunks * C, n_chunks, C, sm2, csum);
-  const double inv_count = 1.0 / ((double)V * cg);
+  column_sums(reinterpret_cast<const float2*>(merged) + (size_t)n * world * n_chunks * C,
+              (long long)world * n_chunks, C, sm2, csum);
+  const double inv_count = 1.0 / ((double)V * cg * world);
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
     double a = 0.0, b = 0.0;
     for (int c = g * cg; c < (g + 1) * cg; ++c) {
@@ -223,40 +238,73 @@ __global__ void __launch_bounds__(max_threads(VE))
   }
 }
 
+// which passes a launch runs: both (the fused call), pass 1 or pass 2
+enum Passes { kBoth = 0, kPartial = 1, kApply = 2 };
+
 template <typename T, int VE>
 int launch(const T* x, const T* gy, const float* stats, const float* gamma, const float* beta,
-           T* dx, float* dgamma, float* dbeta, float* partial, int n, long long v, int c,
-           int groups, int rows_per_chunk, int n_chunks, int relu, cudaStream_t s) {
+           T* dx, float* dgamma, float* dbeta, float* partial, const float* merged, int world,
+           int n, long long v, int c, int groups, int rows_per_chunk, int n_chunks, int relu,
+           int passes, cudaStream_t s) {
   const int threads = block_threads(c / VE);
   const int r = threads / (c / VE);
   const dim3 grid(n_chunks, n);
-  gn_bwd_partial_kernel<T, VE><<<grid, threads, (size_t)r * c * sizeof(float2), s>>>(
-      x, gy, stats, gamma, beta, partial, v, c, groups, rows_per_chunk, n_chunks, relu);
-  gn_bwd_apply_kernel<T, VE><<<grid, threads, (threads + c + groups) * sizeof(double2),
-                               s>>>(x, gy, stats, partial, gamma, beta, dx, dgamma, dbeta, n,
-                                    v, c, groups, rows_per_chunk, n_chunks, relu);
+  if (passes != kApply)
+    gn_bwd_partial_kernel<T, VE><<<grid, threads, (size_t)r * c * sizeof(float2), s>>>(
+        x, gy, stats, gamma, beta, partial, v, c, groups, rows_per_chunk, n_chunks, relu);
+  if (passes != kPartial)
+    gn_bwd_apply_kernel<T, VE><<<grid, threads, (threads + c + groups) * sizeof(double2),
+                                 s>>>(x, gy, stats, partial, merged, world, gamma, beta, dx,
+                                      dgamma, dbeta, n, v, c, groups, rows_per_chunk, n_chunks,
+                                      relu);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int ve, const void* x, const void* gy, const float* stats, const float* gamma,
-             const float* beta, void* dx, float* dgamma, float* dbeta, float* partial, int n,
-             long long v, int c, int groups, int rows_per_chunk, int n_chunks, int relu,
-             cudaStream_t s) {
+             const float* beta, void* dx, float* dgamma, float* dbeta, float* partial,
+             const float* merged, int world, int n, long long v, int c, int groups,
+             int rows_per_chunk, int n_chunks, int relu, int passes, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(gy);
   T* dp = static_cast<T*>(dx);
   switch (ve) {
-    case 1: return launch<T, 1>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, n, v,
-                                c, groups, rows_per_chunk, n_chunks, relu, s);
-    case 2: return launch<T, 2>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, n, v,
-                                c, groups, rows_per_chunk, n_chunks, relu, s);
-    case 4: return launch<T, 4>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, n, v,
-                                c, groups, rows_per_chunk, n_chunks, relu, s);
+    case 1: return launch<T, 1>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, merged,
+                                world, n, v, c, groups, rows_per_chunk, n_chunks, relu, passes,
+                                s);
+    case 2: return launch<T, 2>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, merged,
+                                world, n, v, c, groups, rows_per_chunk, n_chunks, relu, passes,
+                                s);
+    case 4: return launch<T, 4>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta, partial, merged,
+                                world, n, v, c, groups, rows_per_chunk, n_chunks, relu, passes,
+                                s);
     default: return launch<T, 16 / sizeof(T)>(xp, gp, stats, gamma, beta, dp, dgamma, dbeta,
-                                              partial, n, v, c, groups, rows_per_chunk,
-                                              n_chunks, relu, s);
+                                              partial, merged, world, n, v, c, groups,
+                                              rows_per_chunk, n_chunks, relu, passes, s);
   }
+}
+
+int run(const void* x, const void* gy, const void* stats, const void* gamma, const void* beta,
+        void* dx, void* dgamma, void* dbeta, void* partial, const void* merged, int world, int n,
+        long long v, int c, int groups, int rows_per_chunk, int n_chunks, int relu, int ve,
+        int dtype, int passes, void* stream) {
+  const int es = dtype == kFloat32 ? 4 : 2;
+  if (!valid_args(x, dx ? dx : x, n, v, c, groups, rows_per_chunk, n_chunks, ve, dtype) ||
+      reinterpret_cast<uintptr_t>(gy) % ((uintptr_t)ve * es) != 0 || world < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(stats);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+  float* pa = static_cast<float*>(partial);
+  const float* me = static_cast<const float*>(merged);
+  if (dtype == kFloat32)
+    return dispatch<float>(ve, x, gy, st, ga, be, dx, dg, db, pa, me, world, n, v, c, groups,
+                           rows_per_chunk, n_chunks, relu, passes, s);
+  return dispatch<__nv_bfloat16>(ve, x, gy, st, ga, be, dx, dg, db, pa, me, world, n, v, c,
+                                 groups, rows_per_chunk, n_chunks, relu, passes, s);
 }
 
 }  // namespace
@@ -271,20 +319,30 @@ extern "C" int tpuseg_group_norm_relu_bwd(const void* x, const void* gy, const v
                                           long long v, int c, int groups, int rows_per_chunk,
                                           int n_chunks, int relu, int ve, int dtype,
                                           void* stream) {
-  const int es = dtype == kFloat32 ? 4 : 2;
-  if (!valid_args(x, dx, n, v, c, groups, rows_per_chunk, n_chunks, ve, dtype) ||
-      reinterpret_cast<uintptr_t>(gy) % ((uintptr_t)ve * es) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* st = static_cast<const float*>(stats);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float* pa = static_cast<float*>(partial);
-  if (dtype == kFloat32)
-    return dispatch<float>(ve, x, gy, st, ga, be, dx, dg, db, pa, n, v, c, groups,
-                           rows_per_chunk, n_chunks, relu, s);
-  return dispatch<__nv_bfloat16>(ve, x, gy, st, ga, be, dx, dg, db, pa, n, v, c, groups,
-                                 rows_per_chunk, n_chunks, relu, s);
+  return run(x, gy, stats, gamma, beta, dx, dgamma, dbeta, partial, partial, 1, n, v, c,
+             groups, rows_per_chunk, n_chunks, relu, ve, dtype, kBoth, stream);
+}
+
+// Pass 1 of a split call: partial (n, n_chunks, c, 2) fp32, this rank's
+// (sum gh, sum gh xh) per (sample, chunk, channel).
+extern "C" int tpuseg_group_norm_bwd_partial(const void* x, const void* gy, const void* stats,
+                                             const void* gamma, const void* beta, void* partial,
+                                             int n, long long v, int c, int groups,
+                                             int rows_per_chunk, int n_chunks, int relu, int ve,
+                                             int dtype, void* stream) {
+  return run(x, gy, stats, gamma, beta, nullptr, nullptr, nullptr, partial, nullptr, 1, n, v, c,
+             groups, rows_per_chunk, n_chunks, relu, ve, dtype, kPartial, stream);
+}
+
+// Pass 2 of a split call over `world` ranks of equal shards: partial this
+// rank's pass-1 partials (dgamma, dbeta), merged (n, world, n_chunks, c, 2)
+// every rank's in rank order (A, B); the rest as tpuseg_group_norm_relu_bwd's.
+extern "C" int tpuseg_group_norm_bwd_apply(const void* x, const void* gy, const void* stats,
+                                           const void* gamma, const void* beta, void* dx,
+                                           void* dgamma, void* dbeta, const void* partial,
+                                           const void* merged, int world, int n, long long v,
+                                           int c, int groups, int rows_per_chunk, int n_chunks,
+                                           int relu, int ve, int dtype, void* stream) {
+  return run(x, gy, stats, gamma, beta, dx, dgamma, dbeta, const_cast<void*>(partial), merged,
+             world, n, v, c, groups, rows_per_chunk, n_chunks, relu, ve, dtype, kApply, stream);
 }

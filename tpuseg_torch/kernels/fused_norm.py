@@ -42,17 +42,42 @@ model, uses 1e-6, while the JAX fused path runs at 1e-5.
 ``fused_group_norm_relu`` is an autograd node: on CPU tensors its forward
 and backward run the plain versions; on CUDA tensors they launch the
 kernels or raise.
+
+K1 split (``fused_group_norm_relu_split``): the same op on a map sharded
+over the ranks of an ``AxisGroup`` (a z-sharded volume of the spatial
+twins, ``parallel/spatial.py``), the statistics those of the whole map.
+The JAX package puts a ``psum`` between its two Pallas calls; the port
+runs its two passes as two entry points each way and all-gathers the
+partials between them (``csrc/fused_norm.cu`` ``tpuseg_group_norm_partial``
+/ ``tpuseg_group_norm_apply``, ``csrc/fused_norm_bwd.cu``
+``tpuseg_group_norm_bwd_partial`` / ``tpuseg_group_norm_bwd_apply``).
+Each rank's pass 1 shifts its sums by its own first value of the group, so
+the ranks' sums are not simply added: pass 2 moves each rank's float64 sums
+onto rank 0's shift (the first value of the whole map) and adds them in
+rank order, so every rank, and every run, gets the same bits; on one rank
+the result is the fused call's to the bit.  The backward's per-channel
+sums of g·mask and g·mask·x̂ are gathered likewise and merged in rank
+order; dγ and dβ stay local (the caller adds them across ranks with the
+other parameter gradients).  Its plain version is the JAX formula
+(``gn_fine_sp``: fast-variance sums all-reduced, clamped at 0) with the
+collectives of ``core/distributed.py``.  Every rank's shard must have the
+same shape.
 """
 from __future__ import annotations
 
 import torch
 
+from tpuseg_torch.core.distributed import SOLO, AxisGroup, all_gather, all_reduce_sum
 from tpuseg_torch.kernels import _build
 
 # kernel launches by `fused_group_norm_relu` in this process, forward (one
 # per call) and backward; plain calls not counted
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# launches of the split op (``fused_group_norm_relu_split``), forward and
+# backward, one per call each way; plain calls not counted
+SPLIT_LAUNCHES = 0
+SPLIT_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIZES = {torch.float32: 4, torch.bfloat16: 2}
@@ -254,3 +279,210 @@ def fused_group_norm_relu(x, gamma, beta, groups: int = 8, eps: float = 1e-6,
     if not on_cpu and not x.is_contiguous():
         raise ValueError("fused_group_norm_relu: x must be contiguous")
     return _FusedGroupNormReLU.apply(x, gamma, beta, groups, eps, relu)
+
+
+# ---------------------------------------------------------------------------
+# K1 split across the ranks of a sharded map
+# ---------------------------------------------------------------------------
+
+
+def _split_stats_plain(x, groups: int, eps: float, group: AxisGroup):
+    """The JAX formula: (mean, rstd), each (N, G) in the statistics dtype,
+    of the whole map from every rank's shard."""
+    n, c = x.shape[0], x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(n, -1, groups, c // groups).to(acc)
+    sums = torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))])
+    sums = all_reduce_sum(sums, group)
+    count = xg.shape[1] * xg.shape[3] * group.size
+    mean = sums[0] / count
+    var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def fused_group_norm_relu_split_plain(x, gamma, beta, groups: int = 8,
+                                      eps: float = 1e-6, relu: bool = True,
+                                      group: AxisGroup = SOLO):
+    """Plain version of the split op: ``x`` one rank's shard (N, *S, C),
+    statistics over every rank's shard (``all_reduce_sum`` of the sums)."""
+    n, c = x.shape[0], x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    mean, rstd = _split_stats_plain(x, groups, eps, group)
+    xg = x.reshape(n, -1, groups, c // groups).to(acc)
+    y = ((xg - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(n, -1, c)
+    y = y * gamma.to(acc) + beta.to(acc)
+    if relu:
+        y = torch.relu(y)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def fused_group_norm_relu_split_backward_plain(x, gamma, beta, grad_y, groups: int = 8,
+                                               eps: float = 1e-6, relu: bool = True,
+                                               group: AxisGroup = SOLO):
+    """Plain backward of the split op: (dx, this rank's dgamma, this rank's
+    dbeta); the group means of γĝ and γĝx̂ over every rank's shard."""
+    n, c = x.shape[0], x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    mean, rstd = _split_stats_plain(x, groups, eps, group)
+    xg = x.reshape(n, -1, groups, c // groups).to(acc)
+    xh = (xg - mean[:, None, :, None]) * rstd[:, None, :, None]
+    xhat = xh.reshape(n, -1, c)
+    g = grad_y.reshape(n, -1, c).to(acc)
+    if relu:
+        g = g * (xhat * gamma.to(acc) + beta.to(acc) > 0)
+    dbeta = g.sum(dim=(0, 1))
+    dgamma = (g * xhat).sum(dim=(0, 1))
+    dxhat = (g * gamma.to(acc)).reshape(xg.shape)
+    sums = all_reduce_sum(torch.stack([dxhat.sum(dim=(1, 3)), (dxhat * xh).sum(dim=(1, 3))]),
+                          group)
+    count = xg.shape[1] * xg.shape[3] * group.size
+    a, b = sums[0] / count, sums[1] / count
+    dx = rstd[:, None, :, None] * (dxhat - a[:, None, :, None] - xh * b[:, None, :, None])
+    return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype))
+
+
+def _split_partials(x, groups: int):
+    """Pass 1 of the split forward on this rank's shard: (y's buffer, the
+    partials then the shifts in one fp32 buffer, the chunking)."""
+    n, c = x.shape[0], x.shape[-1]
+    v = x.numel() // (n * c)
+    rows, n_chunks = _chunking(n, v, c)
+    y = torch.empty_like(x)
+    ve = _vec_for(c, x, y)
+    npart = n * n_chunks * groups * 2
+    buf = torch.empty(npart + n * groups, dtype=torch.float32, device=x.device)
+    with _build.on_device(x):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _build.library().tpuseg_group_norm_partial(
+            x.data_ptr(), buf.data_ptr(), n, v, c, groups, rows, n_chunks, ve,
+            _DTYPES[x.dtype], stream)
+    _build.check(err, "fused_group_norm_relu_split pass 1")
+    buf[npart:] = x.reshape(n, v, c)[:, 0, ::c // groups].float().reshape(-1)
+    return y, buf, (v, rows, n_chunks, ve, npart)
+
+
+def _split_apply(x, y, gathered, plan, gamma32, beta32, groups: int, eps: float,
+                 relu: bool):
+    """Pass 2 of the split forward: ``gathered`` (world, len(buf)) every
+    rank's pass-1 buffer in rank order; writes y, returns the stats."""
+    n, c = x.shape[0], x.shape[-1]
+    v, rows, n_chunks, ve, npart = plan
+    part = gathered[:, :npart].contiguous()
+    shifts = gathered[:, npart:].contiguous()
+    stats = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    with _build.on_device(x):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _build.library().tpuseg_group_norm_apply(
+            x.data_ptr(), part.data_ptr(), shifts.data_ptr(), gathered.shape[0],
+            gamma32.data_ptr(), beta32.data_ptr(), y.data_ptr(), stats.data_ptr(), n, v, c,
+            groups, rows, n_chunks, float(eps), int(bool(relu)), ve, _DTYPES[x.dtype], stream)
+    _build.check(err, "fused_group_norm_relu_split pass 2")
+    return stats
+
+
+def _launch_split(x, gamma32, beta32, groups: int, eps: float, relu: bool,
+                  group: AxisGroup):
+    """The split forward's launches around the all-gather; (y, stats)."""
+    global SPLIT_LAUNCHES
+    y, buf, plan = _split_partials(x, groups)
+    stats = _split_apply(x, y, all_gather(buf, group), plan, gamma32, beta32, groups, eps,
+                         relu)
+    SPLIT_LAUNCHES += 1
+    return y, stats
+
+
+def _launch_split_backward(x, grad_y, stats, gamma32, beta32, groups: int, relu: bool,
+                           group: AxisGroup):
+    """The split backward's launches around the all-gather; (dx, this
+    rank's dgamma, this rank's dbeta), the last two fp32."""
+    global SPLIT_BWD_LAUNCHES
+    n, c = x.shape[0], x.shape[-1]
+    v = x.numel() // (n * c)
+    rows, n_chunks = _chunking(n, v, c)
+    dx = torch.empty_like(x)
+    ve = _vec_for(c, x, grad_y, dx)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    partial = torch.empty((n, n_chunks, c, 2), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with _build.on_device(x):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tpuseg_group_norm_bwd_partial(
+            x.data_ptr(), grad_y.data_ptr(), stats.data_ptr(), gamma32.data_ptr(),
+            beta32.data_ptr(), partial.data_ptr(), n, v, c, groups, rows, n_chunks,
+            int(bool(relu)), ve, _DTYPES[x.dtype], stream)
+        _build.check(err, "fused_group_norm_relu_split backward pass 1")
+        # (n, world, n_chunks, c, 2): each sample's rows of every rank in order
+        merged = all_gather(partial, group).transpose(0, 1).contiguous()
+        err = lib.tpuseg_group_norm_bwd_apply(
+            x.data_ptr(), grad_y.data_ptr(), stats.data_ptr(), gamma32.data_ptr(),
+            beta32.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            partial.data_ptr(), merged.data_ptr(), group.size, n, v, c, groups, rows, n_chunks,
+            int(bool(relu)), ve, _DTYPES[x.dtype], stream)
+    _build.check(err, "fused_group_norm_relu_split backward pass 2")
+    SPLIT_BWD_LAUNCHES += 1
+    return dx, dgamma, dbeta
+
+
+class _SplitGroupNormReLU(torch.autograd.Function):
+    """The split op as an autograd node: the split kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, relu, group):
+        ctx.groups, ctx.eps, ctx.relu, ctx.group = groups, eps, relu, group
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, gamma, beta)
+            return fused_group_norm_relu_split_plain(x, gamma, beta, groups, eps, relu, group)
+        gamma32 = gamma.float().contiguous()
+        beta32 = beta.float().contiguous()
+        y, stats = _launch_split(x, gamma32, beta32, groups, eps, relu, group)
+        ctx.save_for_backward(x, gamma, beta, stats, gamma32, beta32)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        if grad_y.device.type == "cpu":
+            x, gamma, beta = ctx.saved_tensors
+            return fused_group_norm_relu_split_backward_plain(
+                x, gamma, beta, grad_y, ctx.groups, ctx.eps, ctx.relu, ctx.group) \
+                + (None,) * 4
+        x, gamma, beta, stats, gamma32, beta32 = ctx.saved_tensors
+        dx, dgamma, dbeta = _launch_split_backward(
+            x, grad_y.to(x.dtype).contiguous(), stats, gamma32, beta32, ctx.groups, ctx.relu,
+            ctx.group)
+        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)) + (None,) * 4
+
+
+def fused_group_norm_relu_split(x, gamma, beta, groups: int = 8, eps: float = 1e-6,
+                                relu: bool = True, group: AxisGroup = SOLO):
+    """``fused_group_norm_relu`` of the map whose shards ``group``'s ranks
+    hold, on this rank's shard ``x`` (N, *S, C), every shard of one shape:
+    the statistics of the whole map, this rank's part of the output.
+    ``gamma`` and ``beta`` are the same on every rank (replicated
+    parameters: the backward merges the ranks' sums of g·mask before it
+    scales them by this rank's gamma).  Differentiable; dgamma and dbeta
+    are this rank's contributions.  CPU
+    tensors take the plain versions; CUDA tensors the split kernels (also
+    on a group of one rank, where they equal the fused call to the bit)."""
+    on_cpu = (x.device.type == "cpu" and gamma.device.type == "cpu"
+              and beta.device.type == "cpu")
+    if not on_cpu and (x.device.type != "cuda" or gamma.device != x.device
+                       or beta.device != x.device):
+        raise ValueError(
+            f"fused_group_norm_relu_split: x on {x.device}, gamma on {gamma.device}, "
+            f"beta on {beta.device}; all must be on one CUDA device")
+    if not on_cpu and x.dtype not in _DTYPES:
+        raise TypeError(f"fused_group_norm_relu_split: x dtype {x.dtype} not in "
+                        f"{list(_DTYPES)}")
+    c = x.shape[-1]
+    if x.dim() < 2 or c > _MAX_C or groups < 1 or c % groups:
+        raise ValueError(
+            f"fused_group_norm_relu_split: shape {tuple(x.shape)} with {groups} groups "
+            f"(C must divide into groups and be <= {_MAX_C})")
+    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
+        raise ValueError("fused_group_norm_relu_split: gamma and beta must be (C,)")
+    if not on_cpu and not x.is_contiguous():
+        raise ValueError("fused_group_norm_relu_split: x must be contiguous")
+    return _SplitGroupNormReLU.apply(x, gamma, beta, groups, eps, relu, group)

@@ -288,18 +288,20 @@ def _stem_dw_perm(ci: int) -> np.ndarray:
     return perm.reshape(-1)
 
 
-def stem_dw_gemm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def stem_dw_gemm(x: torch.Tensor, g: torch.Tensor, zpad: int = 1) -> torch.Tensor:
     """The weight gradient (4, 4, 4, Cin, Cout) of the k4 stride-2 stem conv
     (``conv_k4s2_fine2packed``) as ONE product, [64·Cin, Npos] @ [Npos,
     Cout] (JAX ``_stem_dw_gemm``): the input padded (1, 3) per axis (the
     conv's high pad 2 and one zero never read), space-to-depth by 2 (8·Cin
     channels), its 8 block shifts stacked (64·Cin), against the output
-    gradient at all n·d2·h2·w2 positions; sums in fp32 (fp64 for fp64)."""
+    gradient at all n·d2·h2·w2 positions; sums in fp32 (fp64 for fp64).
+    ``zpad`` 0: the conv of a z-shard with its one-plane halos, which pads
+    no z (``models/unet_packed_sp.py``): z padded (0, 2) instead."""
     n, d, h, w, ci = x.shape
     d2, h2, w2, co = g.shape[1:]
     acc = torch.promote_types(x.dtype, torch.float32)
-    xp = F.pad(x, (0, 0, 1, 3, 1, 3, 1, 3))
-    dp, hp, wp = (d + 4) // 2, (h + 4) // 2, (w + 4) // 2
+    xp = F.pad(x, (0, 0, 1, 3, 1, 3, zpad, 2 + zpad))
+    dp, hp, wp = (d + 2 + 2 * zpad) // 2, (h + 4) // 2, (w + 4) // 2
     xe = xp.reshape(n, dp, 2, hp, 2, wp, 2, ci).permute(0, 1, 3, 5, 2, 4, 6, 7)
     xe = xe.reshape(n, dp, hp, wp, 8 * ci)
     xs = torch.cat([xe[:, a:a + d2, b:b + h2, c:c + w2]
@@ -316,11 +318,13 @@ class _StemConv(torch.autograd.Function):
     their gradients come back in their own dtype."""
 
     @staticmethod
-    def forward(ctx, x, w4, bias):
+    def forward(ctx, x, w4, bias, zpad=1):
         ctx.save_for_backward(x, w4)
         ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.zpad = zpad
         return _conv(x, w4.to(x.dtype).permute(4, 3, 0, 1, 2),
-                     None if bias is None else bias.to(x.dtype), stride=2, padding=1)
+                     None if bias is None else bias.to(x.dtype), stride=2,
+                     padding=(zpad, 1, 1))
 
     @staticmethod
     def backward(ctx, g):
@@ -332,15 +336,15 @@ class _StemConv(torch.autograd.Function):
             n, d, h, w, c = x.shape
             dx = torch.nn.grad.conv3d_input(
                 (n, c, d, h, w), w4.to(x.dtype).permute(4, 3, 0, 1, 2),
-                g.permute(0, 4, 1, 2, 3), stride=2, padding=1)
+                g.permute(0, 4, 1, 2, 3), stride=2, padding=(ctx.zpad, 1, 1))
             dx = dx.permute(0, 2, 3, 4, 1).contiguous()
         if ctx.needs_input_grad[1]:
-            dw = stem_dw_gemm(x, g).to(w4.dtype)
+            dw = stem_dw_gemm(x, g, ctx.zpad).to(w4.dtype)
             STEM_DW_PRODUCTS += 1
         if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
             acc = torch.promote_types(g.dtype, torch.float32)
             db = g.to(acc).sum(dim=(0, 1, 2, 3)).to(ctx.bias_dtype)
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 def conv_k4s2_fine2packed(x: torch.Tensor, w4: torch.Tensor,

@@ -133,8 +133,15 @@ class ConvND(nn.Module):
         return self._packed_t[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This layer's conv of ``x`` with ``weight`` / ``bias`` in its
+        place (the tensor-parallel layers pass their output-channel shard
+        and no bias, ``parallel/tensor.py``)."""
+        w = weight.to(x.dtype)
+        bias = None if bias is None else bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0) if self.ndim == 3 else None  # view
         if (w_dhwio is not None and self.stride == 1 and self.dilation == 1
                 and self.padding == "SAME" and self.groups == 1
@@ -200,10 +207,15 @@ class ConvTransposeND(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This layer's transpose conv with ``weight`` / ``bias`` in its place."""
         conv = F.conv_transpose3d if self.ndim == 3 else F.conv_transpose2d
         y = conv(
-            to_channels_first(x), self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype), stride=self.stride,
+            to_channels_first(x), weight.to(x.dtype),
+            None if bias is None else bias.to(x.dtype), stride=self.stride,
             padding=self.pad,
         )
         return to_channels_last(y)

@@ -8,12 +8,24 @@ supervision: its aux logits, coarsest first, join the loss weighted 1/8,
 1/4, 1/2 (``ds_extra``).  With ``packed_stem=True`` a UNet3d, VNet3d,
 ResUNet3d or STUNet3d trains and evaluates through its space-to-depth
 packed twin (``models/*_packed.py``): the same parameters, checkpoints and
-fine-domain loss, the finest level(s) run packed.  Spatial (mesh) training
-is not ported yet and raises.
+fine-domain loss, the finest level(s) run packed.
+
+On a mesh (``mesh=``): a space axis above one (with model 1) trains the
+z-sharded twin (``tasks/spatial.py``); otherwise the batch is sharded over
+the data axis and the loss and metric are the GLOBAL batch's, as the JAX
+trainer's on its mesh: the ``SPATIAL_LOSS_NAMES`` losses sum their class
+statistics over the data ranks (``spatial_seg_loss``), every other loss
+(Lovasz, clDice, the binary losses, SSIM, the deep-supervision terms) runs
+whole on the logits and labels gathered from the data ranks (an autograd
+all-gather whose backward is this rank's slice), and the metric runs on
+the gathered probabilities.  A model axis above one shards the large conv
+kernels (``parallel/tensor.py``).
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from tpuseg_torch import metrics as metrics_lib
 from tpuseg_torch.losses import build_loss
@@ -68,10 +80,19 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     graph) and in evaluation (cached); any other model raises ValueError.
     The loss stays in the fine domain: JAX's packed-grid losses are off by
     default and not ported (and never taken for ResUNet3d, whose twin
-    returns fine outputs).  ``viz_fn`` goes to the Trainer."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (data/spatial parallel training) is not ported yet")
+    returns fine outputs).  ``viz_fn`` goes to the Trainer.  ``mesh`` (a
+    ``core/mesh.py`` Mesh or MeshContext): the parallel trainer (module
+    doc); ``device`` is then this rank's."""
     config = config or TrainerConfig()
+    if mesh is not None:
+        from tpuseg_torch.core.mesh import SPACE_AXIS, as_mesh
+
+        if as_mesh(mesh).shape[SPACE_AXIS] > 1:
+            from tpuseg_torch.tasks.spatial import make_spatial_segmentation_trainer
+
+            return make_spatial_segmentation_trainer(
+                model, num_classes, loss_name, alpha=alpha, gamma=gamma, config=config,
+                mesh=mesh, device=device, viz_fn=viz_fn, packed_stem=packed_stem)
     loss = build_loss(loss_name, num_classes, alpha=alpha, gamma=gamma)
 
     if packed_stem:
@@ -98,5 +119,36 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     def metric_fn(outputs, batch):
         return metric(outputs["probs"], batch["label"])
 
+    if mesh is not None:
+        loss_fn, metric_fn = _global_batch(loss_fn, metric_fn, mesh, loss_name, alpha, gamma)
     return Trainer(model, apply_fn, loss_fn, metric_fn, config, device=device,
-                   viz_fn=viz_fn)
+                   viz_fn=viz_fn, mesh=mesh)
+
+
+def _global_batch(loss_fn, metric_fn, mesh, loss_name: str, alpha, gamma: float):
+    """The loss and metric of the global batch from this rank's data shard
+    (module doc)."""
+    from tpuseg_torch.core.mesh import DATA_AXIS, as_mesh
+    from tpuseg_torch.parallel.spatial import (SPATIAL_LOSS_NAMES, all_gather_ad,
+                                               spatial_seg_loss)
+
+    group = as_mesh(mesh).group(DATA_AXIS)
+    if group.size == 1:
+        return loss_fn, metric_fn
+
+    def gathered(outputs, batch):
+        outs = {k: tuple(all_gather_ad(t, group) for t in v) if isinstance(v, tuple)
+                else all_gather_ad(v, group) for k, v in outputs.items()}
+        return outs, {"label": all_gather_ad(batch["label"], group)}
+
+    def global_loss(outputs, batch):
+        if loss_name in SPATIAL_LOSS_NAMES and not outputs.get("ds_logits"):
+            return spatial_seg_loss(outputs["logits"], batch["label"], loss_name, group,
+                                    alpha, gamma)
+        return loss_fn(*gathered(outputs, batch))
+
+    def global_metric(outputs, batch):
+        with torch.no_grad():
+            return metric_fn(*gathered({"probs": outputs["probs"]}, batch))
+
+    return global_loss, global_metric

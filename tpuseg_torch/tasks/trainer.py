@@ -20,6 +20,19 @@ package's kernels.  As in the JAX trainer:
 * ``viz_fn(model_dir, epoch, outputs, batch)``, when set, sees the first
   validation batch of each epoch (the mask bitmaps of
   ``tools/visualization.py`` ``make_seg_viz``).
+
+On a mesh (``mesh=``, ``core/mesh.py``; every rank runs the same loop on
+the same global batches), as the JAX trainer on its mesh: each rank takes
+its data-axis slice of every batch (``shard_batch``), the task's loss and
+metric are the global batch's (``tasks/segmentation.py``), each rank's
+parameter gradients are its local contributions and are summed over the
+(data, space) ranks before the update, and a model axis above one shards
+the large conv kernels (``parallel/tensor.py``), their optimizer state
+with them.  With dropout on, each data rank draws its own masks (the seed
+folded with its data index), so the step equals one process's with
+dropout off.  Only the primary rank prints, logs and writes checkpoints,
+except that a model-sharded run writes ``core/checkpoint.py``'s sharded
+checkpoints from every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +46,8 @@ import numpy as np
 import torch
 
 from tpuseg_torch.core import checkpoint as ckpt_lib
+from tpuseg_torch.core.distributed import all_reduce_sum, barrier, is_primary
+from tpuseg_torch.core.mesh import DATA_AXIS, MODEL_AXIS, SPACE_AXIS, as_mesh
 from tpuseg_torch.core.optim import clip_grad_global_norm, make_optimizer
 from tpuseg_torch.core.prng import step_generator
 
@@ -54,6 +69,9 @@ class TrainerConfig:
     early_stop_patience: Optional[int] = None
     compute_dtype: torch.dtype = torch.float32
     seed: int = 0  # base seed of the per-step dropout generators
+    # the tensor-parallel rule's threshold: kernels with at least this many
+    # output channels are sharded over a model axis above one
+    model_axis_min_size: int = 256
 
 
 class Trainer:
@@ -70,11 +88,17 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, apply_fn: Callable,
                  loss_fn: Callable, metric_fn: Callable, config: TrainerConfig,
                  device="cuda", input_key: Optional[str] = "image",
-                 viz_fn: Optional[Callable] = None):
+                 viz_fn: Optional[Callable] = None, mesh=None):
         self.device = torch.device(device)
         self.viz_fn = viz_fn
         self.input_key = input_key
+        self.mesh = None if mesh is None else as_mesh(mesh)
         self.model = model.to(self.device)
+        self.tp_spec = {}
+        if self.mesh is not None and self.mesh.shape[MODEL_AXIS] > 1:
+            from tpuseg_torch.parallel.tensor import shard_model
+
+            self.tp_spec = shard_model(self.model, self.mesh, config.model_axis_min_size)
         self.apply_fn = apply_fn
         self.loss_fn = loss_fn
         self.metric_fn = metric_fn
@@ -89,15 +113,23 @@ class Trainer:
         metric as device scalars (no host sync)."""
         cfg = self.config
         self.model.train()
-        generator = step_generator(cfg.seed, self.step, self.device)
+        generator = step_generator(self._dropout_seed(), self.step, self.device)
         outputs = self.apply_fn(self.model, self._inputs(batch, cfg.compute_dtype),
                                 True, generator)
         outputs = _tree_map(lambda v: v.float(), outputs)
         loss = self.loss_fn(outputs, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            from tpuseg_torch.parallel.spatial import sum_grads_
+
+            sum_grads_(self.model.parameters(), self.mesh.group(DATA_AXIS, SPACE_AXIS))
+        if self.tp_spec:
+            from tpuseg_torch.parallel.tensor import sync_replicated_grads_
+
+            sync_replicated_grads_(self.model, self.tp_spec, self.mesh.group(MODEL_AXIS))
         if cfg.grad_clip:
-            clip_grad_global_norm(self.model.parameters(), cfg.grad_clip)
+            self._clip(cfg.grad_clip)
         self.optimizer.step()
         with torch.no_grad():
             metric = self.metric_fn(_tree_map(lambda v: v.detach(), outputs), batch)
@@ -112,6 +144,77 @@ class Trainer:
         outputs = _tree_map(lambda v: v.float(), outputs)
         return {"loss": self.loss_fn(outputs, batch),
                 "metric": self.metric_fn(outputs, batch), "outputs": outputs}
+
+    def _dropout_seed(self) -> int:
+        """The dropout generators' seed: the run's, folded with the data
+        index on a data axis above one."""
+        seed = self.config.seed
+        if self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
+            seed = int(np.random.SeedSequence(
+                [seed, self.mesh.coords[DATA_AXIS]]).generate_state(1)[0])
+        return seed
+
+    def _clip(self, max_norm: float) -> None:
+        """``clip_grad_global_norm`` over the whole model: on a model axis
+        above one the sharded kernels' squared norms are summed over it."""
+        if not self.tp_spec:
+            clip_grad_global_norm(self.model.parameters(), max_norm)
+            return
+        with torch.no_grad():
+            sq = {"rep": [], "tp": []}
+            for name, p in self.model.named_parameters():
+                if p.grad is not None:
+                    sq["tp" if name in self.tp_spec else "rep"].append(
+                        p.grad.double().pow(2).sum())
+            zero = torch.zeros((), dtype=torch.float64, device=self.device)
+            tp = all_reduce_sum(torch.stack(sq["tp"]).sum() if sq["tp"] else zero,
+                                self.mesh.group(MODEL_AXIS))
+            norm = torch.sqrt(tp + (torch.stack(sq["rep"]).sum() if sq["rep"] else zero))
+            scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(scale.to(p.grad.dtype))
+
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's part of a global host batch: its data-axis slice of
+        the batch rows (all of them without a mesh)."""
+        if self.mesh is None or self.mesh.shape[DATA_AXIS] == 1:
+            return batch
+        n, i = self.mesh.shape[DATA_AXIS], self.mesh.coords[DATA_AXIS]
+
+        def rows(v):
+            v = np.asarray(v)
+            if v.shape[0] % n:
+                raise ValueError(f"batch of {v.shape[0]} does not split over {n} data ranks")
+            b = v.shape[0] // n
+            return v[i * b:(i + 1) * b]
+
+        return {k: rows(v) for k, v in batch.items()}
+
+    def _checkpoints(self, model_dir: str) -> "ckpt_lib.CheckpointManager":
+        """The run's checkpoints: written by the primary rank, or by every
+        rank (sharded) when the model axis shards kernels."""
+        if self.tp_spec:
+            return ckpt_lib.CheckpointManager(
+                model_dir, mode=self.config.ckpt_mode, sharded=True,
+                layout=ckpt_lib.ShardLayout(self._flat_tp_spec(), self.mesh.group(MODEL_AXIS)))
+        return ckpt_lib.CheckpointManager(model_dir, mode=self.config.ckpt_mode,
+                                          write=is_primary())
+
+    # the optimizers' per-parameter tensors (Adam / AdamW moments, SGD's
+    # momentum), sharded with their parameter
+    _MOMENTS = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "momentum_buffer")
+
+    def _flat_tp_spec(self) -> dict:
+        """The sharded tensors of ``state_dict()`` as flat checkpoint keys:
+        each sharded kernel and its optimizer moments."""
+        spec = {}
+        for i, (name, _) in enumerate(self.model.named_parameters()):
+            if name in self.tp_spec:
+                spec[f"model/{name}"] = self.tp_spec[name]
+                for k in self._MOMENTS:
+                    spec[f"optimizer/state/#{i}/{k}"] = self.tp_spec[name]
+        return spec
 
     # -------------------------------------------------------------- state
     def state_dict(self) -> dict:
@@ -132,8 +235,11 @@ class Trainer:
         """Epoch loop; ``train_batches`` / ``val_batches`` return a fresh
         iterator of host (numpy) batches per epoch.  Best is the highest
         validation metric (the lowest with ``config.ckpt_mode="min"``)."""
-        os.makedirs(model_dir, exist_ok=True)
-        manager = ckpt_lib.CheckpointManager(model_dir, mode=self.config.ckpt_mode)
+        writes = is_primary()
+        if writes:
+            os.makedirs(model_dir, exist_ok=True)
+        barrier()
+        manager = self._checkpoints(model_dir)
         start_epoch = 0
         if resume:
             restored = manager.restore("latest")
@@ -141,8 +247,9 @@ class Trainer:
                 state, meta = restored
                 self.load_state_dict(state)
                 start_epoch = int(meta.get("epoch", 0))
-                print(f"[tpuseg_torch] resumed from step {self.step} epoch {start_epoch}")
-        writer = _make_writer(model_dir)
+                if writes:
+                    print(f"[tpuseg_torch] resumed from step {self.step} epoch {start_epoch}")
+        writer = _make_writer(model_dir) if writes else None
 
         history = {"train_loss": [], "train_accuracy": [],
                    "valdation_loss": [], "valdation_accuracy": []}
@@ -154,16 +261,16 @@ class Trainer:
                 zero = torch.zeros((), device=self.device)
                 sums = [zero, zero, zero, zero]  # train loss/metric, val loss/metric
                 n = vn = 0
-                for dev_batch in self._prefetch_put(train_batches()):
+                for dev_batch in self._prefetch_put(map(self.shard_batch, train_batches())):
                     m = self.train_step(dev_batch)
                     sums[0] = sums[0] + m["loss"]
                     sums[1] = sums[1] + m["metric"]
                     n += 1
                 for batch in val_batches():
-                    m = self.eval_step(self._put(batch))
+                    m = self.eval_step(self._put(self.shard_batch(batch)))
                     sums[2] = sums[2] + m["loss"]
                     sums[3] = sums[3] + m["metric"]
-                    if vn == 0 and self.viz_fn is not None:
+                    if vn == 0 and self.viz_fn is not None and writes:
                         self.viz_fn(model_dir, epoch, m["outputs"], batch)
                     vn += 1
                 tr_loss, tr_met, va_loss, va_met = torch.stack(sums).tolist()  # one fetch
@@ -173,10 +280,11 @@ class Trainer:
                 history["train_accuracy"].append(tr_met)
                 history["valdation_loss"].append(va_loss)
                 history["valdation_accuracy"].append(va_met)
-                print(f"[INFO] EPOCH: {epoch + 1}/{self.config.epochs}  "
-                      f"Train loss: {tr_loss:.5f}, Train accu: {tr_met:.5f}, "
-                      f"validation loss: {va_loss:.5f}, validation accu: "
-                      f"{va_met:.5f}  ({time.time() - te:.1f}s)")
+                if writes:
+                    print(f"[INFO] EPOCH: {epoch + 1}/{self.config.epochs}  "
+                          f"Train loss: {tr_loss:.5f}, Train accu: {tr_met:.5f}, "
+                          f"validation loss: {va_loss:.5f}, validation accu: "
+                          f"{va_met:.5f}  ({time.time() - te:.1f}s)")
                 if writer is not None:
                     writer.add_scalar("Train/Loss", tr_loss, epoch + 1)
                     writer.add_scalar("Train/accu", tr_met, epoch + 1)
@@ -187,14 +295,17 @@ class Trainer:
                 if manager.maybe_save_best(state, self.step, va_met, epoch=epoch + 1):
                     best_epoch = epoch
                 manager.save_latest(state, self.step, va_met, epoch=epoch + 1)
+                barrier()
                 patience = self.config.early_stop_patience
                 if patience and (epoch - best_epoch) >= patience:
-                    print(f"[INFO] early stop at epoch {epoch + 1}")
+                    if writes:
+                        print(f"[INFO] early stop at epoch {epoch + 1}")
                     break
         finally:
             if writer is not None:
                 writer.close()
-        print(f"[INFO] total time taken to train the model: {time.time() - t0:.2f}s")
+        if writes:
+            print(f"[INFO] total time taken to train the model: {time.time() - t0:.2f}s")
         return history
 
     def fit_resilient(self, train_batches, val_batches, model_dir: str,
@@ -248,11 +359,10 @@ class Trainer:
             yield pending
 
     def predict_batch(self, batch: dict):
-        return self.eval_step(self._put(batch))
+        return self.eval_step(self._put(self.shard_batch(batch)))
 
     def load(self, model_dir: str, which: str = "best") -> dict:
-        restored = ckpt_lib.CheckpointManager(
-            model_dir, mode=self.config.ckpt_mode).restore(which)
+        restored = self._checkpoints(model_dir).restore(which)
         if restored is None:
             raise FileNotFoundError(f"no '{which}' checkpoint under {model_dir}")
         state, meta = restored

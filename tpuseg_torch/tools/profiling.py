@@ -142,17 +142,18 @@ def trace_steps(trainer, loader, out_dir: str, n_steps: int = 3) -> str:
     runs on one), written as a Chrome trace to ``<out_dir>/trace.json``;
     returns its path.  As in JAX, the 1 + ``n_steps`` steps update the
     trainer's weights, optimizer state and step count: a ``fit`` after it
-    goes on from them.  A loader shorter than that starts another pass."""
+    goes on from them.  A loader shorter than that starts another pass.  On
+    a mesh each rank takes its part of every batch (``shard_batch``)."""
     os.makedirs(out_dir, exist_ok=True)
     batches = _cycle(loader)
-    m = trainer.train_step(trainer._put(next(batches)))
+    m = trainer.train_step(trainer._put(trainer.shard_batch(next(batches))))
     float(m["loss"])
     activities = [torch.profiler.ProfilerActivity.CPU]
     if trainer.device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(n_steps):
-            m = trainer.train_step(trainer._put(next(batches)))
+            m = trainer.train_step(trainer._put(trainer.shard_batch(next(batches))))
         float(m["loss"])
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)

@@ -28,6 +28,21 @@ trains on image pairs (``tasks.registration``, ``recipes
 trainregistration3d``).  The run writes ``best/`` and ``latest/``
 checkpoints, the loss and accuracy curves, and ``config.json`` into
 ``model_dir``.  It runs on the GPU.
+
+Launched by ``torchrun``, it trains on the (data, model, space) mesh of
+``--train.mesh_data`` / ``--train.mesh_model`` / ``--train.mesh_space``
+(``core/mesh.py``; data -1 takes the ranks the other two leave), one card
+a rank over NCCL:
+
+    torchrun --nproc_per_node 4 -m tpuseg_torch.train --train.mesh_space 2 ...
+
+Every rank reads the same global batches and trains on its part: its
+batch rows on the data axis, its volume planes on the space axis (the
+z-sharded twin, ``tasks/spatial.py``), its output channels of the large
+kernels on the model axis.  The primary rank writes the curves,
+``config.json`` and the checkpoints (a model-sharded run's checkpoints are
+written by every rank).  Without ``torchrun`` the run is one process on
+one card, as before.
 """
 from __future__ import annotations
 
@@ -37,6 +52,8 @@ import torch
 
 from tpuseg_torch.compat.seg_models import disable_tf32
 from tpuseg_torch.config import Config, parse_cli
+from tpuseg_torch.core import distributed
+from tpuseg_torch.core.mesh import MeshContext, make_mesh
 from tpuseg_torch.data.augment3d import make_batch_augmenter
 from tpuseg_torch.data.dataset import DataLoader, SegDataset3D, read_manifest_csv
 from tpuseg_torch.models import build_model
@@ -61,6 +78,19 @@ ELSEWHERE = {
 }
 
 
+def make_run_mesh(cfg: Config, device="cuda"):
+    """(mesh or None, this rank's device): the ``--train.mesh_*`` mesh over
+    ``torchrun``'s ranks (NCCL for a CUDA ``device``, gloo for the CPU), or
+    None for one process at the default flags (the single-device path)."""
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    explicit = device if torch.device(device).type == "cpu" else None
+    _, world, dev = distributed.initialize(backend, device=explicit)
+    t = cfg.train
+    if world == 1 and (t.mesh_data, t.mesh_model, t.mesh_space) in ((-1, 1, 1), (1, 1, 1)):
+        return None, device
+    return MeshContext(make_mesh(t.mesh_data, t.mesh_model, t.mesh_space, device=dev)), dev
+
+
 def build(cfg: Config, device="cuda"):
     """(trainer, train_loader, val_loader) for ``cfg``."""
     if len(cfg.data.image_size) != 3:
@@ -71,6 +101,7 @@ def build(cfg: Config, device="cuda"):
     if cfg.model.name.lower() in ELSEWHERE:
         raise ValueError(f"--model.name {cfg.model.name}: "
                          f"{ELSEWHERE[cfg.model.name.lower()]}")
+    mesh, device = make_run_mesh(cfg, device)
     model = build_model(
         cfg.model.name, cfg.model.num_classes, features=cfg.model.features,
         dropout=cfg.model.dropout, in_channels=cfg.model.image_channel,
@@ -98,7 +129,7 @@ def build(cfg: Config, device="cuda"):
             optimizer=cfg.train.optimizer, grad_clip=cfg.train.grad_clip,
             early_stop_patience=cfg.train.early_stop_patience,
             compute_dtype=COMPUTE_DTYPES[cfg.train.compute_dtype]),
-        device=device, packed_stem=cfg.train.packed_stem)
+        device=device, packed_stem=cfg.train.packed_stem, mesh=mesh)
     return trainer, train_loader, val_loader
 
 
@@ -113,6 +144,8 @@ def run(cfg: Config, trainer, train_loader, val_loader) -> dict:
         trace_steps(trainer, train_loader, os.path.join(model_dir, "trace"))
     history = trainer.fit(lambda: iter(train_loader), lambda: iter(val_loader),
                           model_dir, resume=cfg.train.resume)
+    if not distributed.is_primary():
+        return history
     plot_result(model_dir, history["train_loss"], history["valdation_loss"],
                 "train_loss", "valdation_loss", "loss")
     plot_result(model_dir, history["train_accuracy"], history["valdation_accuracy"],
