@@ -4744,6 +4744,373 @@ def phase_parallel(torch, mods) -> tuple:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# phase 15: the opt-in variants.  Per 27-patch VNet3d forward (features
+# 16, 2 classes): under int8_inference every ConvND of the plain net runs
+# on the int8 kernel (its 31 convs; K2 none, K1 its 34 GroupNorms); under
+# int8_packed_inference the twin at packed_levels 2 sends JAX's ``_conv``
+# sites with Cin >= 32 to it (29: the packed k3s instead of K3, the packed
+# 1x1s, the packing convs, the fine levels' convs instead of K2); the shift
+# form runs the twin's packed k3s on cuDNN (K3 none); k4s2 the last LUConv
+# as a depth-to-space and the k4 stride-2 conv (K3 4)
+VAR_VNET_LAUNCHES = {
+    "vnet_f32": dict(SWIN_VNET_LAUNCHES, conv_int8=0),
+    "vnet_int8": dict(SWIN_VNET_LAUNCHES, conv3d_small=0, conv_int8=31),
+    "vnet_packed_f32": dict(SWIN_VNET_PACKED_LAUNCHES, conv_int8=0),
+    "vnet_packed_int8": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=0,
+                             conv3d_small=0, conv_int8=29),
+    "vnet_packed_shift": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=0,
+                              conv_int8=0),
+    "vnet_packed_k4s2": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=4,
+                             conv_int8=0),
+}
+# per UNet3d train step at 112x112x128, 5 classes: the packed twin with
+# the fine loss and with each packed loss runs phase 6's launches; the
+# shift form none of K3's; the plain net, with and without
+# USE_GEMM_FASTPATH, phase 6's plain launches (its transpose convs are
+# products under the flag)
+VAR_TRAIN_LAUNCHES = {
+    "train_packed_fine": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
+    "train_packed_class_loss": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
+    "train_packed_grid_loss": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
+    "train_packed_shift": dict(TRAIN_PACKED_LAUNCHES, packed_conv3d_structured=0,
+                               packed_conv3d_structured_dx=0, packed_conv3d_structured_dw=0,
+                               conv_int8=0),
+    "train_plain": dict(TRAIN_LAUNCHES, conv_int8=0),
+    "train_plain_gemm_fastpath": dict(TRAIN_LAUNCHES, conv_int8=0),
+}
+# JAX's own bars for int8 masks against the float net (tests/test_int8.py,
+# tests/test_vnet_packed.py)
+INT8_AGREE = {"vnet_int8": 0.98, "vnet_packed_int8": 0.97}
+# NVIDIA H100 SXM data sheet: dense int8 on the tensor cores
+PEAK_INT8_OPS = 1979e12
+
+
+def _var_counts(mods) -> dict:
+    return dict(counts(mods), conv_int8=mods["conv_int8"].LAUNCHES)
+
+
+def _var_reset(mods) -> None:
+    reset_counts(mods)
+    mods["conv_int8"].LAUNCHES = 0
+
+
+@contextlib.contextmanager
+def _flag(mod, name: str, value):
+    prev = getattr(mod, name)
+    setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        setattr(mod, name, prev)
+
+
+def _int8_rows(torch, mods, calls: dict, tag: str) -> list:
+    """conv_int8 at each recorded call shape of a path (random int8
+    operands, the same epilogue): bit for bit against its plain version,
+    kernel, plain (the float64 conv on the card) and cuDNN's bf16 conv of
+    the same shape timed, the bound from the int8 rate and the bytes."""
+    ci = mods["conv_int8"]
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for (xs, ws, st, pads, dtype_name, bias_mode), uses in calls.items():
+        dtype = getattr(torch, dtype_name)
+        xq = torch.randint(-127, 128, xs, generator=g, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, ws, generator=g, device="cuda", dtype=torch.int8)
+        scale = torch.rand(ws[-1], generator=g, device="cuda") * 1e-4
+        bias = torch.randn(ws[-1], generator=g, device="cuda") if bias_mode else None
+        packed = ci.pack_weight(wq if wq.dim() == 5 else wq.unsqueeze(0))
+
+        def kern():
+            return ci.conv_int8(xq, wq, scale, bias, st, pads, dtype, bias_mode, packed)
+
+        y = kern()
+        ref = ci.conv_int8_plain(xq, wq, scale, bias, st, pads, dtype, bias_mode)
+        if not torch.equal(y, ref):
+            fail(f"conv_int8 {tag} {xs} x {ws}: not equal to its plain version "
+                 f"(max diff {(y.float() - ref.float()).abs().max().item()})")
+        ms = time_ms(torch, kern, iters=10)
+        plain_ms = time_ms(torch, lambda: ci.conv_int8_plain(
+            xq, wq, scale, bias, st, pads, dtype, bias_mode), iters=1, warmup=0)
+        # cuDNN's bf16 conv of the same shape (the (low, high) pads applied first)
+        x3 = xq.to(torch.bfloat16) if xq.dim() == 5 else xq.unsqueeze(1).to(torch.bfloat16)
+        w3 = wq.to(torch.bfloat16) if wq.dim() == 5 else wq.unsqueeze(0).to(torch.bfloat16)
+        p3 = pads if len(pads) == 3 else ((0, 0),) + tuple(pads)
+        s3 = st if len(st) == 3 else (1,) + tuple(st)
+        xc = F.pad(x3.permute(0, 4, 1, 2, 3), [q for lo_hi in reversed(p3) for q in lo_hi])
+        wc = w3.permute(4, 3, 0, 1, 2).contiguous()
+        library_ms = time_ms(torch, lambda: F.conv3d(xc, wc, stride=s3), iters=10)
+        out = y.numel() // y.shape[-1]
+        taps_cin = int(np.prod(ws[:-1]))
+        ops = 2.0 * out * taps_cin * ws[-1]
+        nbytes = xq.numel() + wq.numel() + y.numel() * y.element_size()
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+        bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+        rows.append(dict(shape=[list(xs), list(ws), list(st), [list(p) for p in pads]],
+                         dtype=dtype_name, uses=uses, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                         library_ms=library_ms, tops=ops / ms / 1e9))
+        say(f"  conv_int8 {tag} x {xs} w {ws} stride {st} pads {pads} -> {dtype_name} "
+            f"(x{uses}): equal to plain; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), "
+            f"plain {plain_ms:.3f} ms, cuDNN bf16 {library_ms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+        del xq, wq, xc, wc, y, ref, packed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _record_int8_calls(mods, calls: dict):
+    """Wrap conv_int8 to count each (shape, stride, pads, dtype, bias mode)
+    it is called with; returns the undo."""
+    ci = mods["conv_int8"]
+    orig = ci.conv_int8
+
+    def rec(xq, wq, scale, bias=None, stride=1, padding="VALID", out_dtype=None,
+            bias_mode=None, packed=None):
+        x3, w3, st, pad = ci._as3d(xq, wq, stride, padding)
+        pads, _ = ci._geometry(x3.shape, w3.shape, st, pad)
+        if xq.dim() == 4:
+            st, pads = st[1:], pads[1:]
+        key = (tuple(xq.shape), tuple(wq.shape), tuple(st), tuple(pads),
+               str(out_dtype).replace("torch.", ""), bias_mode if bias is not None else None)
+        calls[key] = calls.get(key, 0) + 1
+        return orig(xq, wq, scale, bias, stride, padding, out_dtype, bias_mode, packed)
+
+    ci.conv_int8 = rec
+    return lambda: setattr(ci, "conv_int8", orig)
+
+
+def _var_inference(torch, mods):
+    """The VNet3d variants through MutilVNet3dModel.inference_patch at
+    bench.py's primary (160x160x192 at 0.5 mm, 27 patches of 96^3 in one
+    batch): launches per path, masks against the flag-off route, volume
+    times; one 27-patch forward of each in f32 and bf16; the int8 kernel's
+    rows at the shapes of both int8 paths; K3 beside the shift form's cuDNN
+    conv at the twin's two k3 grids."""
+    import copy
+
+    layers, pvp = mods["layers"], mods["vnet_packed"]
+    model = mods["MutilVNet3dModel"](*SWIN_PATCH, 1, SWIN_CLASSES, features=FEATURES,
+                                     device="cuda")
+    model.load_jax_params(mods["seeded_vnet_params"](SEED, FEATURES, SWIN_CLASSES, 1))
+    rng = np.random.default_rng(SEED)
+    ct = mods["synthetic_ct"](SWIN_VOL[::-1], rng)
+    ct.spacing = (0.5, 0.5, 0.5)
+
+    def patch_run(packed: bool, ctx):
+        def run():
+            model.packed_inference = packed
+            with ctx():
+                return model.inference_patch(ct, (0.5, 0.5, 0.5), batch_size=SWIN_BATCH).array
+        return run
+
+    none = contextlib.nullcontext
+    runs = {
+        "vnet_f32": patch_run(False, none),
+        "vnet_int8": patch_run(False, layers.int8_inference),
+        "vnet_packed_f32": patch_run(True, none),
+        "vnet_packed_int8": patch_run(True, pvp.int8_packed_inference),
+        "vnet_packed_shift": patch_run(True, lambda: _flag(pvp, "USE_SHIFT_PACKED_K3", True)),
+        "vnet_packed_k4s2": patch_run(True, lambda: _flag(pvp, "LUCONV96_MODE", "k4s2")),
+    }
+    for run in runs.values():
+        run()  # each path's derived weights
+    launches, masks, calls = {}, {}, {}
+    for path, run in runs.items():
+        undo = _record_int8_calls(mods, calls.setdefault(path, {}))
+        _var_reset(mods)
+        try:
+            masks[path] = run()
+        finally:
+            undo()
+        launches[path] = _var_counts(mods)
+        if launches[path] != VAR_VNET_LAUNCHES[path]:
+            fail(f"{path}: launches {launches[path]} != {VAR_VNET_LAUNCHES[path]}")
+    agree = {p: float((masks[p] == masks["vnet_f32" if p == "vnet_int8" else
+                                          "vnet_packed_f32"]).mean())
+             for p in runs if p not in ("vnet_f32", "vnet_packed_f32")}
+    agree["vnet_packed_f32_vs_plain"] = float((masks["vnet_packed_f32"]
+                                               == masks["vnet_f32"]).mean())
+    for p, bar in INT8_AGREE.items():
+        if not agree[p] >= bar:
+            fail(f"{p}: mask agreement with the float route {agree[p]} < {bar}")
+    for p in ("vnet_packed_shift", "vnet_packed_k4s2"):
+        if not agree[p] >= PACKED_AGREE["float32"]:
+            fail(f"{p}: mask agreement with the dense twin {agree[p]}")
+    best, med = interleaved(torch, runs, reps=3)
+    model.packed_inference = True
+    say(f"  inference_patch {ct.array.shape} at 0.5 mm, {SWIN_BATCH} patches of {SWIN_PATCH} "
+        f"in one batch: launches per volume {json.dumps(launches)}; mask agreement with the "
+        f"flag-off route {json.dumps(agree)} (gates: int8 {json.dumps(INT8_AGREE)}, shift and "
+        f"k4s2 >= {PACKED_AGREE['float32']}); volume wall ms (host clock, min / median of 3 "
+        f"interleaved): " + ", ".join(f"{k} {best[k] * 1e3:.1f} / {med[k] * 1e3:.1f}"
+                                      for k in runs))
+
+    # one 27-patch forward of each route, f32 and bf16 (the bf16 on a copy
+    # of the net in bf16), masks against the dense twin in the same dtype
+    net = model.model
+    net_bf16 = copy.deepcopy(net)
+    x = torch.randn((SWIN_BATCH, *SWIN_PATCH, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    fwd = {}
+    with torch.inference_mode():
+        for dtype_name, n in (("float32", net), ("bfloat16", net_bf16)):
+            xb = x.to(getattr(torch, dtype_name))
+
+            def twin(ctx, lv=2, n=n, xb=xb):
+                def f():
+                    with ctx():
+                        return pvp.packed_vnet3d_apply(n, xb, packed_levels=lv)[1]
+                return f
+
+            variants = {
+                "plain": lambda n=n, xb=xb: n(xb)[1],
+                "packed": twin(none),
+                "packed_shift": twin(lambda: _flag(pvp, "USE_SHIFT_PACKED_K3", True)),
+                "packed_k4s2": twin(lambda: _flag(pvp, "LUCONV96_MODE", "k4s2")),
+                "packed_int8": twin(pvp.int8_packed_inference),
+            }
+            if dtype_name == "float32":
+                variants["plain_int8"] = lambda: _int8_plain(layers, net, x)
+            ref = variants["packed"]().argmax(-1)
+            for k in ("packed_shift", "packed_k4s2"):
+                a = float((variants[k]().argmax(-1) == ref).mean(dtype=torch.float32))
+                if not a >= PACKED_AGREE[dtype_name]:
+                    fail(f"{k} {dtype_name} forward: mask agreement {a} with the dense twin")
+            for k, f in variants.items():
+                fwd[f"{dtype_name} {k}"] = time_ms(torch, f, iters=3)
+    mods["conv_int8"].LAUNCHES = 0
+    say("  27-patch forward device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fwd.items()))
+    del net_bf16, x
+
+    # K3 beside the shift form's one cuDNN conv at the twin's k3 grids
+    k3_rows = {}
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    for grid, axes, shape in (("full8", (True, True, True), (SWIN_BATCH, 48, 48, 48)),
+                              ("part4", (False, True, True), (SWIN_BATCH, 48, 24, 24))):
+        c = 16 if grid == "full8" else 32
+        p = 8 if grid == "full8" else 4
+        w = torch.randn((3, 3, 3, c, c), generator=g) * 0.1
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            k3 = pvp.Derive(dtype, "cuda", False).k3([w], axes, torch.zeros(c))
+            xk = torch.randn((*shape, p * c), device="cuda", dtype=dtype)
+            with torch.inference_mode():
+                k3_ms = time_ms(torch, lambda: k3(xk), iters=5)
+                with _flag(pvp, "USE_SHIFT_PACKED_K3", True):
+                    shift = k3(xk)
+                    shift_ms = time_ms(torch, lambda: k3(xk), iters=5)
+                err, scale = rel_err(shift, k3(xk))
+            if not err <= TOL[dtype_name] * scale:
+                fail(f"shift form {grid} {dtype_name}: {err} against K3")
+            k3_rows[f"{grid} {dtype_name}"] = {"k3_ms": k3_ms, "shift_cudnn_ms": shift_ms,
+                                                "max_abs_err": err}
+            del xk, shift
+    say("  K3 vs the shift form's cuDNN conv, one 27-patch call: " + json.dumps(k3_rows))
+    rows = {p: _int8_rows(torch, mods, calls[p], p) for p in ("vnet_int8", "vnet_packed_int8")}
+    del model, net
+    torch.cuda.empty_cache()
+    return launches, rows, {"volume_ms": {k: best[k] * 1e3 for k in runs},
+                            "forward_ms": fwd, "k3_vs_shift": k3_rows, "agree": agree}
+
+
+def _int8_plain(layers, net, x):
+    with layers.int8_inference():
+        return net(x)[1]
+
+
+def _var_training(torch, mods):
+    """UNet3d (features 16, 5 classes) at 112x112x128: one Adam step each
+    through the packed twin with the fine loss, each packed loss and the
+    shift form, and the plain net with and without USE_GEMM_FASTPATH;
+    launches per step, the first step's loss against the fine route's,
+    step times."""
+    import copy
+
+    layers, seg = mods["layers"], sys.modules["tpuseg_torch.tasks.segmentation"]
+    pvp = mods["vnet_packed"]
+    net = mods["UNet"](CLASSES, FEATURES, dropout=0.0).cuda()
+    net.load_state_dict(mods["unet_params_from_jax"](
+        mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1)), strict=True)
+    rng = np.random.default_rng(SEED)
+    batch = {"image": torch.from_numpy(rng.standard_normal(
+                 (1, *TRAIN_DHW, 1)).astype(np.float32)).cuda(),
+             "label": torch.from_numpy(rng.integers(0, CLASSES, (1, *TRAIN_DHW))).cuda()}
+    none = contextlib.nullcontext
+    cases = {
+        "train_packed_fine": (True, none),
+        "train_packed_class_loss": (True, lambda: _flag(seg, "USE_PACKED_CLASS_LOSS", True)),
+        "train_packed_grid_loss": (True, lambda: _flag(seg, "USE_PACKED_GRID_LOSS", True)),
+        "train_packed_shift": (True, lambda: _flag(pvp, "USE_SHIFT_PACKED_K3", True)),
+        "train_plain": (False, none),
+        "train_plain_gemm_fastpath": (False, lambda: _flag(layers, "USE_GEMM_FASTPATH", True)),
+    }
+    d2s = {"n": 0}
+    orig_d2s = layers.depth_to_space
+
+    def counted_d2s(*a, **kw):
+        d2s["n"] += 1
+        return orig_d2s(*a, **kw)
+
+    layers.depth_to_space = counted_d2s
+    trainers, launches, first = {}, {}, {}
+    try:
+        for path, (packed, ctx) in cases.items():
+            with ctx():
+                tr = mods["make_segmentation_trainer"](
+                    copy.deepcopy(net), CLASSES, "MutilDiceLoss", device="cuda",
+                    packed_stem=packed, config=mods["TrainerConfig"](optimizer="adam",
+                                                                    lr=1e-4))
+                _var_reset(mods)
+                d2s["n"] = 0
+                m = tr.train_step(batch)
+                torch.cuda.synchronize()
+                launches[path] = _var_counts(mods)
+                first[path] = (float(m["loss"]), float(m["metric"]))
+                if path == "train_plain_gemm_fastpath" and d2s["n"] != 4:
+                    fail(f"{path}: {d2s['n']} depth-to-space products, not the UNet's 4")
+            if launches[path] != VAR_TRAIN_LAUNCHES[path]:
+                fail(f"{path}: launches {launches[path]} != {VAR_TRAIN_LAUNCHES[path]}")
+            trainers[path] = (tr, ctx)
+    finally:
+        layers.depth_to_space = orig_d2s
+    ref = first["train_packed_fine"]
+    for path, (loss, metric) in first.items():
+        tol = 1e-5 if path.endswith("loss") else 1e-4
+        if not (abs(loss - ref[0]) <= tol * max(1.0, abs(ref[0])) and np.isfinite(loss)):
+            fail(f"{path}: first loss {loss} against the fine route's {ref[0]}")
+    steps = {}
+    for path, (tr, ctx) in trainers.items():
+        def step(tr=tr, ctx=ctx):
+            with ctx():
+                for _ in range(3):
+                    tr.train_step(batch)
+        steps[path] = step
+    for f in steps.values():
+        f()
+    best, med = interleaved(torch, steps, reps=3)
+    say(f"  UNet3d {TRAIN_DHW} train step: launches per step {json.dumps(launches)}; first "
+        f"(loss, metric) {json.dumps(first)} (gate 1e-5 of the fine route's for the packed "
+        f"losses, 1e-4 for the others); ms per step (3-step passes, "
+        f"min / median of 3 interleaved): "
+        + ", ".join(f"{k} {best[k] * 1e3 / 3:.2f} / {med[k] * 1e3 / 3:.2f}" for k in steps))
+    del trainers, steps, net
+    torch.cuda.empty_cache()
+    return launches, {k: best[k] * 1e3 / 3 for k in cases}
+
+
+def phase_variants(torch, mods):
+    """Phase 15: the opt-in variants (module comment above).  Returns
+    ({path: launches}, {path: conv_int8 rows}, numbers)."""
+    if mods["conv_int8"].LAUNCHES:
+        fail(f"conv_int8 launched {mods['conv_int8'].LAUNCHES} times with every flag off")
+    launches, rows, numbers = _var_inference(torch, mods)
+    train_launches, step_ms = _var_training(torch, mods)
+    launches.update(train_launches)
+    numbers["step_ms"] = step_ms
+    return launches, rows, numbers
+
+
 def _load_generator(name: str):
     """``tests/<name>.py``, a golden file's generator, as a module (its
     inputs, fingerprints and golden path; it imports JAX only inside the
@@ -4782,8 +5149,8 @@ def setup(torch):
     from tpuseg_torch.infer.serving import SegServer
     from tpuseg_torch.infer.volume import hu_code_volume, infer_volume, infer_volume_device
     from tpuseg_torch import io_native
-    from tpuseg_torch.kernels import (_build, conv3d, flat_conv, fused_norm, packed_conv,
-                                      slab_conv)
+    from tpuseg_torch.kernels import (_build, conv3d, conv_int8, flat_conv, fused_norm,
+                                      packed_conv, slab_conv)
     from tpuseg_torch.kernels.resample import resize_volume_device, warp_3d
     from tpuseg_torch.losses import build_loss, ms_ssim
     from tpuseg_torch.metrics import seg3d, ssim
@@ -4835,6 +5202,7 @@ def setup(torch):
     mods = dict(
         serve=serve, train=train, parse_cli=parse_cli, SegServer=SegServer,
         conv3d=conv3d, fused_norm=fused_norm, packed_conv=packed_conv, layers=layers,
+        conv_int8=conv_int8,
         unet_packed=unet_packed, vnet_packed=vnet_packed,
         packed_unet3d_apply=unet_packed.packed_unet3d_apply,
         pack_k3_to_k3_coarse=vnet_packed.pack_k3_to_k3_coarse,
@@ -4937,6 +5305,10 @@ def main() -> int:
     attn_paths, attn_rows = phase_attention(torch, mods)
     say(f"phase 14: parallelism, 2 ranks on the one card over gloo ({smi})")
     par_paths, split_rows, nccl = phase_parallel(torch, mods)
+    say(f"phase 15: the opt-in variants: int8, the shift form, k4s2, the packed losses, "
+        f"the GEMM fast path ({smi})")
+    var_paths, int8_rows, var_numbers = phase_variants(torch, mods)
+    say("variants " + json.dumps(var_numbers))
 
     summary = []
     # (name in the line, phase 3 rows, dtype, source, what it replaces): the
@@ -4973,7 +5345,7 @@ def main() -> int:
     ]
     paths = {"serve": serve_launches, **train_paths, "bench": bench_launches,
              **swin_launches, **host_paths, **augreg_paths, **model_api_paths,
-             **entry_paths, **attn_paths, **par_paths}
+             **entry_paths, **attn_paths, **par_paths, **var_paths}
 
     def per_pass(rows, field):
         """One forward's (or train step's) worth of calls at the path shapes."""
@@ -5112,6 +5484,28 @@ def main() -> int:
             "bfloat16": fields(next(r for r in rows if r["dtype"] == "bfloat16")),
             "c64": fields(next(r for r in split_rows if r["c"] == PAR_SPLIT_CASES[1][0]
                                and r["dtype"] == "float32"))})
+    # the W8A8 int8 conv (phase 15): one 27-patch forward's calls of the
+    # packed twin under int8_packed_inference, the plain net's under
+    # int8_inference beside it
+    by_path = {p: c["conv_int8"] for p, c in var_paths.items() if c["conv_int8"]}
+    if not by_path:
+        fail("conv_int8 was not launched on the int8 paths")
+
+    def int8_fields(rows):
+        return dict(pass_fields(rows), library_ms=per_pass(rows, "library_ms"),
+                    bound_by=max(rows, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
+                    max_abs_err=max(r["max_abs_err"] for r in rows))
+
+    summary.append({
+        "name": "conv_int8", "route": "cuda", "dtype": "int8",
+        "source": "tpuseg_torch/kernels/csrc/conv_int8.cu",
+        "replaces": ("tpuseg/models/vnet_packed.py:396 and tpuseg/nn/layers.py:152 "
+                     "(lax.conv_general_dilated on int8, an XLA op: no Pallas kernel)"),
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **int8_fields(int8_rows["vnet_packed_int8"]), "peak_tops": PEAK_INT8_OPS / 1e12,
+        "library": "cuDNN bf16 conv3d of the same shape",
+        "vnet_int8": int8_fields(int8_rows["vnet_int8"]),
+        "rows": int8_rows})
     say("nccl " + json.dumps(nccl, default=str))
     # the stem's one-product weight gradient (torch.matmul, not a kernel of
     # the package), a train step's calls of each packed net beside cuDNN's

@@ -1460,3 +1460,72 @@ def test_k2_k3_on_halo_shards_equal_the_whole_volume(cuda, dtype):
         _close(got, whole[:, lo:hi], dtype)
         got_p = packed_conv.packed_conv3d_structured([_zero_halo(xp, lo, hi)], [w3])[:, 1:-1]
         _close(got_p, whole_p[:, lo:hi], dtype)
+
+
+# ------------------------------------------------ the W8A8 int8 conv (kernels/conv_int8.py)
+
+# (x shape, kernel shape, stride, padding, out dtype, bias mode): the zoo's
+# shapes at small sizes: the packed k3 (128 -> 128), the packed 1x1s and
+# the concat squeeze (256 -> 128), the packing convs ((1, 2, 2) s(1, 2, 2),
+# (2, 1, 1) s(2, 1, 1)), the shift form's k2 with (1, 1) on a fine axis,
+# the plain net's 16 -> 16 k3 and k2 s2 down convs, the stem (Cin 1, padded
+# to 16), ResNet's 2D k7 s2 (Cin 3), the 2D k3 s2 SAME with its (0, 1)
+# pads, ragged M and Cout not a multiple of the block width
+INT8_CASES = [
+    ((1, 12, 12, 12, 128), (3, 3, 3, 128, 128), 1, "SAME", torch.float32, "out"),
+    ((2, 6, 6, 6, 256), (1, 1, 1, 256, 128), 1, "VALID", torch.float32, "out"),
+    ((1, 6, 12, 12, 128), (1, 2, 2, 128, 128), (1, 2, 2), "VALID", torch.bfloat16, "out"),
+    ((1, 12, 6, 6, 128), (2, 1, 1, 128, 64), (2, 1, 1), "VALID", torch.float32, "out"),
+    ((1, 7, 6, 6, 128), (3, 2, 2, 128, 128), 1, [(1, 1), (0, 0), (0, 0)], torch.float32,
+     "out"),
+    ((2, 9, 10, 11, 16), (3, 3, 3, 16, 16), 1, "SAME", torch.float32, "fp32"),
+    ((1, 10, 10, 10, 16), (2, 2, 2, 16, 32), 2, "VALID", torch.bfloat16, "fp32"),
+    ((1, 9, 8, 7, 1), (3, 3, 3, 1, 16), 1, "SAME", torch.float32, "fp32"),
+    ((2, 33, 31, 3), (7, 7, 3, 64), 2, "SAME", torch.float32, "fp32"),
+    ((2, 16, 14, 40), (3, 3, 40, 17), 2, "SAME", torch.bfloat16, None),
+    ((1, 5, 7, 9, 48), (1, 1, 1, 48, 5), 1, "VALID", torch.float32, "fp32"),
+]
+
+
+@pytest.mark.parametrize("x_shape, w_shape, stride, padding, dtype, bias_mode", INT8_CASES)
+def test_conv_int8_matches_plain_bit_for_bit(cuda, x_shape, w_shape, stride, padding, dtype,
+                                             bias_mode):
+    """The int32 sums are exact, and the epilogue rounds as the plain
+    version: the outputs are equal bit for bit."""
+    from tpuseg_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(x_shape, generator=g, device=cuda)
+    w = torch.randn(w_shape, generator=g, device=cuda)
+    bias = torch.randn(w_shape[-1], generator=g, device=cuda) if bias_mode else None
+    xq, a_scale = conv_int8.quantize_activation(x)
+    wq, w_scale = conv_int8.quantize_weight(w)
+    before = conv_int8.LAUNCHES
+    y = conv_int8.conv_int8(xq, wq, a_scale * w_scale, bias, stride, padding, dtype, bias_mode)
+    assert conv_int8.LAUNCHES == before + 1
+    ref = conv_int8.conv_int8_plain(xq, wq, a_scale * w_scale, bias, stride, padding, dtype,
+                                    bias_mode)
+    assert y.dtype == dtype and y.shape == ref.shape
+    assert torch.equal(y, ref)
+
+
+def test_int8_routes_launch_the_kernel_not_k2_or_k3(cuda):
+    """Under int8_inference a VNet forward runs every conv on the int8
+    kernel (no K2); under int8_packed_inference the packed twin's k3s run
+    on it (no K3)."""
+    from tpuseg_torch.kernels import conv_int8
+    from tpuseg_torch.models import vnet_packed
+    from tpuseg_torch.nn import layers
+
+    torch.manual_seed(0)
+    net = _seeded_vnet(cuda)
+    x = torch.randn(1, 32, 32, 32, 1, device=cuda)
+    with torch.no_grad():
+        k2, i8 = conv3d.LAUNCHES, conv_int8.LAUNCHES
+        with layers.int8_inference():
+            net(x)
+        assert conv3d.LAUNCHES == k2 and conv_int8.LAUNCHES > i8
+        k3, i8 = packed_conv.LAUNCHES, conv_int8.LAUNCHES
+        with vnet_packed.int8_packed_inference():
+            vnet_packed.packed_vnet3d_apply(net, x)
+        assert packed_conv.LAUNCHES == k3 and conv_int8.LAUNCHES > i8

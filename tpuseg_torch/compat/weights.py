@@ -1,6 +1,6 @@
 """Weights for the port's zoo (UNet and VNet in 3D and 2D, ResUNet3d,
 STUNet3d, KiUNet3d, UNetThin, VNet3dRegistration, TPDDNet, the ResNet
-classifiers, the pix2pix generator and discriminator): from tpuseg's flax
+classifiers, the pix2pix generator and discriminator): out of tpuseg's flax
 trees, from seeds, from reference-named ``.pth`` state_dicts (UNet, VNet,
 ResNet, the pix2pix generator).
 
@@ -61,13 +61,38 @@ import torch
 from tpuseg_torch.models.vnet import DOWN_STAGES, UP_STAGES
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+def _flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out.update(_flatten(v, prefix + (k,)))
+            out.update(_flatten_tree(v, prefix + (k,)))
         else:
             out[prefix + (k,)] = v
+    return out
+
+
+# the GEMM fast path's names (``tpuseg/nn/layers.py`` USE_GEMM_FASTPATH): a
+# ConvND built under it holds ``kernel_s2d`` / ``bias_s2d`` where nn.Conv
+# holds ``Conv_0/kernel`` / ``Conv_0/bias``, a ConvTransposeND ``kernel_d2s``
+# / ``bias_d2s`` for ``ConvTranspose_0/...``, of the same shapes and
+# layouts (the d2s kernel is flax's flipped transpose kernel too)
+_GEMM_NAMES = {"kernel_s2d": ("Conv_0", "kernel"), "bias_s2d": ("Conv_0", "bias"),
+               "kernel_d2s": ("ConvTranspose_0", "kernel"),
+               "bias_d2s": ("ConvTranspose_0", "bias")}
+
+
+def _flatten(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    """A flax tree's leaves by path, the fast path's names folded onto the
+    ordinary ones; a layer holding both raises."""
+    out = {}
+    leaves = _flatten_tree(tree)
+    for path, v in leaves.items():
+        if path[-1] in _GEMM_NAMES:
+            path = path[:-1] + _GEMM_NAMES[path[-1]]
+            if path in leaves:
+                raise ValueError(f"params hold both {'/'.join(path)} and the GEMM fast "
+                                 "path's name for it")
+        out[path] = v
     return out
 
 

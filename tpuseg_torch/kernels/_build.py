@@ -91,6 +91,9 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_packed_conv3d_tf32x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_packed, scale, bias, y, n, d, h, w, cin, od, oh, ow, cout, kd,
+    # kh, kw, sd, sh, sw, pd, ph, pw, k_pad, bn, bias_mode, out_dtype, stream
+    "tpuseg_conv_int8": [_P] * 5 + [_I] * 22 + [_P],
     # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream
     "tpuseg_slab_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],

@@ -30,6 +30,7 @@ from tpuseg_torch.models.vnet_packed import (
     channel_dropout,
     depth_to_space3d,
     exact_transform,
+    fine_route,
     gn_fine,
     gn_packed,
     pack_down_k2s2_to_1x1,
@@ -93,20 +94,21 @@ def packed_resunet3d_apply(net: ResUNet3d, x: torch.Tensor, *,
 
     long1p = _block_packed(x, net.enc[0], wts.stem, wts.k3_enc, rate, generator)
     dn = net.down[0]
-    s = channel_dropout(gn_fine(torch.matmul(long1p, wts.down), dn.norm.weight,
+    s = channel_dropout(gn_fine(_matmul(long1p, wts.down, None), dn.norm.weight,
                                 dn.norm.bias, relu=True), rate, generator, 1)
-    longs = [long1p, net.enc[1](s, generator) + s]
-    for i in range(1, 4):
-        s = net.down[i](longs[-1], generator)
-        longs.append(net.enc[i + 1](s, generator) + s)
-    y, aux = longs[4], []
-    for j in range(3):
-        u = net.up[j](y, generator)
-        y = net.dec[j](torch.cat([u, longs[3 - j]], dim=-1), generator) + u
-        aux.append(net.heads[j](y))
+    with fine_route():
+        longs = [long1p, net.enc[1](s, generator) + s]
+        for i in range(1, 4):
+            s = net.down[i](longs[-1], generator)
+            longs.append(net.enc[i + 1](s, generator) + s)
+        y, aux = longs[4], []
+        for j in range(3):
+            u = net.up[j](y, generator)
+            y = net.dec[j](torch.cat([u, longs[3 - j]], dim=-1), generator) + u
+            aux.append(net.heads[j](y))
 
     up = net.up[3]
-    u4p = channel_dropout(gn_packed(torch.matmul(y, wts.up), up.norm.weight, up.norm.bias,
+    u4p = channel_dropout(gn_packed(_matmul(y, wts.up, None), up.norm.weight, up.norm.bias,
                                     relu=True), rate, generator, 8)
     d4p = _block_packed_concat(u4p, long1p, net.dec[3], wts.k3_cat, wts.k3_dec, rate,
                                generator) + u4p

@@ -41,14 +41,16 @@ from tpuseg_torch.models.vnet_packed import (
     GN_EPS,
     Derive,
     PackedHead,
-    _conv,
     _matmul,
     _deltas,
     block_diag_1x1_packed,
     channel_dropout,
     conv_k4s2_fine2packed,
     depth_to_space3d,
+    _int8_on,
+    _pconv,
     exact_transform,
+    fine_route,
     pack_k1_to_k2s2,
     pack_k3_to_k4s2,
     packed_softmax,
@@ -164,31 +166,37 @@ def packed_stunet3d_apply(net: STUNet3d, x: torch.Tensor, *,
     # stem (stride 1), fine -> packed: both paths through the one norm
     nm = net.stem.norm
     a = F.leaky_relu(in_packed(conv_k4s2_fine2packed(x, *wts.stem_a), nm.weight, nm.bias))
-    b = F.leaky_relu(in_packed(_conv(x, *wts.stem_b, stride=2), nm.weight, nm.bias))
+    b = F.leaky_relu(in_packed(_pconv(x, *wts.stem_b, 2, 0), nm.weight, nm.bias))
     skip0p = F.leaky_relu(a + b)  # (N, D/2, H/2, W/2, 8f)
 
     # the first down stage's dual path reads the packed map
     stage = net.downs[0]
     nm = stage.dual.norm
     w_a, b_a = wts.down_a
-    a = _conv(F.pad(skip0p, (0, 0, 0, 1, 0, 1, 0, 1)), w_a, b_a, stride=1)
+    a = _pconv(skip0p, w_a, b_a, 1, [(0, 1)] * 3)
     a = F.leaky_relu(in_fine(a, nm.weight, nm.bias))
     b = F.leaky_relu(in_fine(_matmul(skip0p, *wts.down_b), nm.weight, nm.bias))
     down = F.leaky_relu(a + b)
     out = down
-    for op in stage.ops:
-        out = op(out, generator)
-    skips = [skip0p, F.leaky_relu(out + down)]
-    for stage in net.downs[1:]:
-        skips.append(stage(skips[-1], generator))
-    cur = skips[4]
-    for j, stage in enumerate(net.ups[:3]):
-        cur = stage(cur, skips[3 - j], generator)
-
-    # the last decoder stage, packed
-    last = net.ups[3]
-    upc = torch.matmul(last.up_conv(cur), wts.cat_up)  # coarse: tiles onto the deltas
-    catp = _matmul(skip0p, *wts.cat_skip) + upc.repeat(1, 1, 1, 1, 8)
+    with fine_route():
+        for op in stage.ops:
+            out = op(out, generator)
+        skips = [skip0p, F.leaky_relu(out + down)]
+        for stage in net.downs[1:]:
+            skips.append(stage(skips[-1], generator))
+        cur = skips[4]
+        for j, stage in enumerate(net.ups[:3]):
+            cur = stage(cur, skips[3 - j], generator)
+        # the last decoder stage, packed
+        last = net.ups[3]
+        upf = last.up_conv(cur)
+    w_skip, b_cat = wts.cat_skip
+    if _int8_on(16 * upf.shape[-1]):  # JAX's int8 1x1 of [tiled up; skip], as one
+        catp = _matmul(upf.repeat(1, 1, 1, 1, 8), block_diag_1x1_packed(wts.cat_up), b_cat,
+                       skip0p, w_skip)
+    else:
+        upc = torch.matmul(upf, wts.cat_up)  # coarse: tiles onto the deltas
+        catp = _matmul(skip0p, w_skip, b_cat) + upc.repeat(1, 1, 1, 1, 8)
     op = last.ops[0]
     out = in_packed(wts.k3(catp), op.norm.weight, op.norm.bias)
     out = F.leaky_relu(channel_dropout(out, rate, generator, 8))

@@ -35,10 +35,12 @@ from tpuseg_torch.models.unet import UNet
 from tpuseg_torch.models.vnet_packed import (
     Derive,
     PackedHead,
+    _matmul,
     channel_dropout,
     conv_k4s2_fine2packed,
     depth_to_space3d,
     exact_transform,
+    fine_route,
     gn_packed,
     pack_k3_to_k4s2,
     pack_transpose_k2s2_to_1x1,
@@ -171,20 +173,21 @@ def packed_unet3d_apply(net: UNet, x: torch.Tensor, *,
         y = sp.reshape(n, d2, h2, w2, 8, c8 // 8).amax(dim=-2)
 
     skips = []
-    for lvl in range(packed_levels, levels):
-        y = getattr(net, f"encoder{lvl + 1}")(y, generator)
-        skips.append(y)
-        y = max_pool_nd(y)
-    y = net.bottleneck(y, generator)
-    for lvl in reversed(range(packed_levels, levels)):
-        y = getattr(net, f"upconv{lvl + 1}")(y)
-        y = torch.cat([y, skips[lvl - packed_levels]], dim=-1)
-        y = getattr(net, f"decoder{lvl + 1}")(y, generator)
+    with fine_route():
+        for lvl in range(packed_levels, levels):
+            y = getattr(net, f"encoder{lvl + 1}")(y, generator)
+            skips.append(y)
+            y = max_pool_nd(y)
+        y = net.bottleneck(y, generator)
+        for lvl in reversed(range(packed_levels, levels)):
+            y = getattr(net, f"upconv{lvl + 1}")(y)
+            y = torch.cat([y, skips[lvl - packed_levels]], dim=-1)
+            y = getattr(net, f"decoder{lvl + 1}")(y, generator)
 
     for lvl in reversed(range(packed_levels)):
         up_w, up_b, k3_cat, k3 = wts.dec[lvl]
         blk = getattr(net, f"decoder{lvl + 1}")
-        up = torch.matmul(y, up_w) + up_b
+        up = _matmul(y, up_w, up_b)
         y = _block_packed_concat(up, skips_p[lvl], blk, k3_cat, k3, rate(blk),
                                  generator)
         if lvl > 0:
@@ -192,7 +195,7 @@ def packed_unet3d_apply(net: UNet, x: torch.Tensor, *,
 
     layout = packed_layout if return_packed else "delta"
     wp, bp = wts.head(layout)
-    logitsp = torch.matmul(y, wp) + bp
+    logitsp = _matmul(y, wp, bp)
     probsp = packed_softmax(logitsp, net.num_classes, layout=layout)
     if return_packed:
         return logitsp, probsp

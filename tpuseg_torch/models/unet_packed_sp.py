@@ -70,9 +70,10 @@ def stem_conv_sp(x, w4, group: AxisGroup):
 def packed_k3_conv_sp(k3, parts, group: AxisGroup):
     """A packed -> packed k3 conv (``PackedK3``: K3) of z-sharded packed
     parts: each part halo'd by one packed cell, SAME on the halo'd grid,
-    the interior kept."""
+    the interior kept.  K3 whatever the opt-in flags: the JAX package
+    does not run this twin under them."""
     halo = [halo_exchange_axis(x, group, 1, axis=1) for x in parts]
-    return k3(*halo)[:, 1:-1].contiguous()
+    return k3.kernel(*halo)[:, 1:-1].contiguous()
 
 
 def _block_packed_sp(x, blk, stem, k3, rate, generator, group):

@@ -40,6 +40,7 @@ stride-2 conv takes its weight gradient as one matrix product
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -47,9 +48,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.kernels.conv_int8 import as_dhwio, int8_conv, int8_weight, quantized
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
 from tpuseg_torch.kernels.packed_conv import (  # noqa: F401  (pack_k3_axes re-exported)
     FULL,
+    _axis_select,
     deltas,
     exact_transform,
     pack_k3_axes,
@@ -59,6 +62,7 @@ from tpuseg_torch.kernels.packed_conv import (  # noqa: F401  (pack_k3_axes re-e
     packed_conv3d_train,
 )
 from tpuseg_torch.models.vnet import VNet
+from tpuseg_torch.nn import layers
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's default, as the plain net
 GROUPS = 8
@@ -246,6 +250,97 @@ def channel_dropout(x: torch.Tensor, rate: float,
 # the packed VNet's level B: packed along H and W, fine along D
 B_AXES = (False, True, True)
 
+# Opt-in variants, as tpuseg's flags of the same names; read at call time.
+# USE_INT8_PACKED: every conv the JAX twins send through ``_conv`` with
+# Cin >= _INT8_MIN_CIN runs W8A8 on the int8 kernel (``kernels/
+# conv_int8.py``): the packed k3s (on ``pack_k3_axes``'s weight, instead of
+# K3), the packed 1x1s, the strided packing convs and the convs of the
+# plain stages a twin calls; the k4 stem, the transpose convs and Cin < 32
+# stay as they are.  Inference only; switch it with
+# ``int8_packed_inference()``.  USE_SHIFT_PACKED_K3: the packed k3 runs
+# as the shift-stack k2 form on cuDNN (``shift_stack``) instead of K3.
+# LUCONV96_MODE "k4s2": the packed VNet's last LUConv is a depth-to-space
+# and the k4 stride-2 conv instead of the packed k3 ("k3dense").
+USE_INT8_PACKED = False
+_INT8_MIN_CIN = 32
+USE_SHIFT_PACKED_K3 = False
+LUCONV96_MODE = "k3dense"
+
+
+@contextlib.contextmanager
+def int8_packed_inference(enable: bool = True):
+    """Run the packed twins' convs W8A8 inside the context (restored on
+    exit, an exception too).  Inference only: a gradient asked of an int8
+    conv raises (JAX's ``round`` would give a silent zero)."""
+    global USE_INT8_PACKED
+    prev = USE_INT8_PACKED
+    USE_INT8_PACKED = enable
+    try:
+        yield
+    finally:
+        USE_INT8_PACKED = prev
+
+
+def _int8_on(cin: int) -> bool:
+    """Whether JAX's ``_conv`` takes a conv of ``cin`` input channels int8."""
+    return USE_INT8_PACKED and cin >= _INT8_MIN_CIN
+
+
+def fine_route():
+    """The route of the plain modules a twin calls for its fine levels:
+    their convs as JAX's ``_conv`` (``nn/layers.py`` ``twin_conv_route``)."""
+    return layers.twin_conv_route(_INT8_MIN_CIN if USE_INT8_PACKED else None)
+
+
+def _axis_select_shift() -> np.ndarray:
+    """A2[v, din, dout, t] = 1 iff t = 2v - din - dout + 1 lands in [0, 3):
+    the 2-tap window of the shifted input along a packed axis."""
+    a = np.zeros((2, 2, 2, 3), np.float32)
+    for v in range(2):
+        for din in range(2):
+            for dout in range(2):
+                t = 2 * v - din - dout + 1
+                if 0 <= t < 3:
+                    a[v, din, dout, t] = 1.0
+    return a
+
+
+def _pack_k3_axes_shift_einsum(w: torch.Tensor, axes) -> torch.Tensor:
+    sel = [torch.as_tensor(_axis_select_shift() if p else _axis_select(False),
+                           dtype=w.dtype, device=w.device) for p in axes]
+    c, f = w.shape[-2:]
+    w2 = torch.einsum("aAdt,bBeu,cCgv,tuvxy->abcABCxdegy", *sel, w)
+    p = int(np.prod([s.shape[1] for s in sel]))
+    return w2.reshape(*(s.shape[0] for s in sel), p * c, p * f)
+
+
+def pack_k3_axes_shift(w: torch.Tensor, axes: Sequence[bool] = FULL) -> torch.Tensor:
+    """(3, 3, 3, C, F) fine k3 -> the shift-stack kernel: size 2 along the
+    packed ``axes``, 3 along the fine ones, channels (P·C, P·F) delta-major
+    as ``pack_k3_axes``.  It reads ``shift_stack(x, axes)``, VALID along
+    the packed axes and SAME along the fine ones (an exact gather)."""
+    return exact_transform(_pack_k3_axes_shift_einsum, w, tuple(bool(a) for a in axes))
+
+
+def shift_stack(x: torch.Tensor, axes: Sequence[bool] = FULL) -> torch.Tensor:
+    """(N, D, H, W, P·C) delta-major packed -> the per-delta shifted stack:
+    along each packed axis the channel group with sub-position din gets a
+    (din, 1 - din) zero pad (extent + 1); the fine axes stay."""
+    packed = [i for i, a in enumerate(axes) if a]
+    n = len(packed)
+    c = x.shape[-1] // 2 ** n
+    group = torch.arange(x.shape[-1], device=x.device) // c
+    out = x
+    for j, ax in enumerate(packed):
+        upper = ((group >> (n - 1 - j)) & 1) == 1
+        lo = [0, 0] * 4
+        hi = [0, 0] * 4
+        slot = 2 * (3 - ax)  # F.pad names the last axis first: C, W, H, D
+        lo[slot + 1] = 1     # (0, 1): pad after
+        hi[slot] = 1         # (1, 0): pad before
+        out = torch.where(upper, F.pad(out, hi), F.pad(out, lo))
+    return out
+
 
 def pack_k3_to_k3_coarse(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, C, F) -> (3, 3, 3, 8C, 8F), the fully packed -> packed k3
@@ -256,15 +351,27 @@ def pack_k3_to_k3_coarse(w: torch.Tensor) -> torch.Tensor:
 def packed_k3_conv(parts: Sequence[torch.Tensor], w_fine: torch.Tensor,
                    axes: Sequence[bool] = FULL,
                    in_perm: Optional[np.ndarray] = None) -> torch.Tensor:
-    """The packed k3 conv in its dense form (the JAX function with
-    ``USE_SHIFT_PACKED_K3`` off): K3's plain version on the channel concat
-    of ``parts`` with ``pack_k3_axes(w_fine, axes)``, whose input rows
-    ``in_perm`` (optional) permutes from (delta, c) order onto the concat
-    layout.  The packed twins run the K3 kernel instead, with each part's
-    own kernel (``kernels/packed_conv.py``)."""
+    """The packed k3 conv of JAX's ``packed_k3_conv`` on the channel concat
+    of ``parts``: the dense form (K3's plain version with
+    ``pack_k3_axes(w_fine, axes)``), or under ``USE_SHIFT_PACKED_K3`` the
+    shift-stack form (``shift_stack`` and ``pack_k3_axes_shift``, one conv),
+    either conv int8 under ``USE_INT8_PACKED`` (Cin >= 32).  ``in_perm``
+    (optional) permutes the kernel's input rows from (delta, c) order onto
+    the concat layout, for both forms.  The packed twins run ``PackedK3``
+    (the K3 kernel, with each part's own kernel) instead."""
+    perm = None if in_perm is None else torch.as_tensor(in_perm, dtype=torch.long,
+                                                         device=w_fine.device)
+    if USE_SHIFT_PACKED_K3:
+        w2 = pack_k3_axes_shift(w_fine, axes)
+        w2 = w2 if perm is None else w2[:, :, :, perm]
+        xs = torch.cat([shift_stack(t, axes) for t in parts], dim=-1)
+        pad = [(0, 0) if a else (1, 1) for a in axes]
+        return _pconv(xs, w2, None, 1, pad, layout="dhwio", cache=False)
     w3 = pack_k3_axes(w_fine, axes)
-    if in_perm is not None:
-        w3 = w3[:, :, :, torch.as_tensor(in_perm, dtype=torch.long, device=w3.device)]
+    w3 = w3 if perm is None else w3[:, :, :, perm]
+    if _int8_on(sum(t.shape[-1] for t in parts)):
+        return _pconv(torch.cat(list(parts), dim=-1), w3, None, 1, "SAME", layout="dhwio",
+                      cache=False)
     return packed_conv3d_plain(parts, [w3])
 
 
@@ -519,21 +626,60 @@ class PackedK3:
     channels) and the fine bias.  Serving: each part's dense coarse kernel
     (the plain version's), the packed bias, and on the card the structural
     weight and row table (the kernel's), made once.  Training: the fine
-    weights and bias as they are, through ``packed_conv3d_train``."""
+    weights and bias as they are, through ``packed_conv3d_train``.
+
+    Under ``USE_SHIFT_PACKED_K3`` it runs the shift-stack form instead
+    (``shift_stack`` of each part, the ``pack_k3_axes_shift`` kernels,
+    one cuDNN conv; differentiable), and under ``USE_INT8_PACKED`` the
+    dense or shift form's conv is the int8 one when Cin >= 32 (JAX's
+    ``packed_k3_conv``); K3 runs in neither."""
 
     def __init__(self, w_parts, derive: Derive, axes: Sequence[bool] = FULL,
                  bias: Optional[torch.Tensor] = None):
         self.axes, self.train = tuple(axes), derive.train
+        self._derive, self._variants = derive, {}
         if self.train:
             self.w_fines, self.bias = tuple(w_parts), bias
             return
+        self.w_fines = tuple(w.clone() for w in w_parts)
         self.w3s = tuple(pack_k3_axes(w, self.axes).to(derive.device) for w in w_parts)
         self.bias = (None if bias is None else
                      derive.to(tile_channel_packed(bias, deltas(self.axes))))
         self.packed = (pack_tc(self.w3s, derive.dtype, self.axes)
                        if derive.device.type == "cuda" else None)
 
+    def _variant(self, form: str):
+        """(DHWIO kernel over the concat of the parts, packed bias) of the
+        "dense" or "shift" form; made once when serving."""
+        if form in self._variants:
+            return self._variants[form]
+        d = self._derive
+        make = pack_k3_axes if form == "dense" else pack_k3_axes_shift
+        w = torch.cat([make(w, self.axes) for w in self.w_fines], dim=3)
+        bias = self.bias
+        if self.train:
+            w = w.to(d.dtype)
+            if bias is not None:
+                bias = tile_channel_packed(bias, deltas(self.axes)).to(d.dtype)
+            return w, bias
+        self._variants[form] = (d.to(w), bias)
+        return self._variants[form]
+
     def __call__(self, *parts: torch.Tensor) -> torch.Tensor:
+        cin = sum(p.shape[-1] for p in parts)
+        if USE_SHIFT_PACKED_K3:
+            w, bias = self._variant("shift")
+            x = torch.cat([shift_stack(p, self.axes) for p in parts], dim=-1)
+            pad = [(0, 0) if a else (1, 1) for a in self.axes]
+            return _pconv(x, w, bias, 1, pad, layout="dhwio", cache=not self.train)
+        if _int8_on(cin):
+            w, bias = self._variant("dense")
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            return _pconv(x, w, bias, 1, "SAME", layout="dhwio", cache=not self.train)
+        return self.kernel(*parts)
+
+    def kernel(self, *parts: torch.Tensor) -> torch.Tensor:
+        """The conv on K3, whatever the flags."""
         if self.train:
             return packed_conv3d_train(parts, self.w_fines, self.bias, self.axes)
         return packed_conv3d_structured(parts, self.w3s, self.bias, packed=self.packed,
@@ -593,15 +739,53 @@ def _conv_t(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor, stride) -> to
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def _matmul(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
             x2: Optional[torch.Tensor] = None, w2: Optional[torch.Tensor] = None):
-    """A 1x1 conv of channels-last ``x`` as one matrix product plus bias;
-    with ``x2``/``w2`` the conv of the channel concat [x; x2] as two
-    products into one sum, without the concat."""
-    y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), w)
+    """A 1x1 conv of channels-last ``x`` as one matrix product plus bias
+    (if any); with ``x2``/``w2`` the conv of the channel concat [x; x2] as
+    two products into one sum, without the concat.  Under ``USE_INT8_PACKED``
+    (Cin >= 32 over the concat) the int8 1x1 conv of the concat, its
+    activation scale over all of it, as JAX's ``_conv``."""
+    cin = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
+    if _int8_on(cin):
+        if x2 is not None:
+            x, w = torch.cat([x, x2], dim=-1), torch.cat([w, w2], dim=0)
+            return int8_conv(x, as_dhwio(w, "io"), bias, 1, "VALID", "out",
+                             quantized(as_dhwio(w, "io")))
+        return int8_conv(x, as_dhwio(w, "io"), bias, 1, "VALID", "out",
+                         int8_weight(w, "io"))
+    if bias is None:
+        y = x.reshape(-1, x.shape[-1]) @ w
+    else:
+        y = torch.addmm(bias, x.reshape(-1, x.shape[-1]), w)
     if x2 is not None:
         y.addmm_(x2.reshape(-1, x2.shape[-1]), w2)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def _pconv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride,
+           padding, layout: str = "oi", cache: bool = True) -> torch.Tensor:
+    """A twin's conv as JAX's ``_conv``: int8 under ``USE_INT8_PACKED`` for
+    Cin >= 32 (the bias added in x's dtype after), else cuDNN.  ``w`` in
+    torch's (O, I, *k) ``layout`` or DHWIO; ``padding`` an int, "SAME",
+    "VALID" or (low, high) per axis (cuDNN: symmetric ones only).
+    ``cache``: ``w`` lives across calls, so its quantized form is kept."""
+    if _int8_on(x.shape[-1]):
+        wd = as_dhwio(w, layout)
+        qw = int8_weight(w, layout) if cache else quantized(wd)
+        return int8_conv(x, wd, bias, stride, padding, "out", qw)
+    w = w.permute(4, 3, 0, 1, 2) if layout == "dhwio" else w
+    if padding == "SAME":
+        padding = tuple((k - 1) // 2 for k in w.shape[2:])
+    elif padding == "VALID":
+        padding = 0
+    elif not isinstance(padding, int):
+        if any(lo != hi for lo, hi in padding):  # F.pad names the last axis first
+            x = F.pad(x, [0, 0] + [q for lo_hi in reversed(padding) for q in lo_hi])
+            padding = 0
+        else:
+            padding = tuple(lo for lo, _ in padding)
+    return _conv(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype), stride, padding)
 
 
 class _VNetWeights:
@@ -649,6 +833,9 @@ class _VNetWeights:
                          d.bias(u32.up_conv, 8))
         self.sq32 = squeeze(u32, 8)
         self.lu32_up = lus(u32, FULL)
+        op = u32.ops[0]  # its one LUConv, for LUCONV96_MODE "k4s2"
+        self.lu96_k4s2 = (d.to(exact_transform(pack_k3_to_k4s2, d.dhwio(op.conv1.weight))),
+                          d.bias(op.conv1, 8))
         self.head = PackedHead(net.out_tr.conv, net.num_classes, net.features, d)
 
 
@@ -725,30 +912,33 @@ def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
     it = net.in_tr
     a = drop(gn_packed(conv_k4s2_fine2packed(x, *wts.stem3), it.bn1.weight, it.bn1.bias,
                        relu=True), 8)
-    b = drop(gn_packed(_conv(x, *wts.stem1, stride=2), it.bn1.weight, it.bn1.bias,
+    b = drop(gn_packed(_pconv(x, *wts.stem1, 2, 0), it.bn1.weight, it.bn1.bias,
                        relu=True), 8)
     out16p = a + b  # (N, D/2, H/2, W/2, 8f): the packed skip
 
     d32, d64 = net.down_tr32, net.down_tr64
     if packed_levels >= 2:
         # DownTransition 32 onto the (H, W) grid, its LUConvs on K3 there
-        down = drop(gn_packed(_conv(out16p, *wts.down32, stride=(1, 2, 2)), d32.bn1.weight,
+        down = drop(gn_packed(_pconv(out16p, *wts.down32, (1, 2, 2), 0), d32.bn1.weight,
                               d32.bn1.bias, relu=True, p=4), 4)
         out32p = _packed_lus(down, wts.lu32, d32, 4, rate, generator) + down
         # DownTransition 64's entry reads the (H, W)-packed map
-        down = drop(gn_fine(_conv(out32p, *wts.down64, stride=(2, 1, 1)), d64.bn1.weight,
+        down = drop(gn_fine(_pconv(out32p, *wts.down64, (2, 1, 1), 0), d64.bn1.weight,
                             d64.bn1.bias, relu=True), 1)
-        out64 = _fine_lus(down, d64, generator) + down
+        with fine_route():
+            out64 = _fine_lus(down, d64, generator) + down
     else:
         down = drop(gn_fine(_matmul(out16p, *wts.down32), d32.bn1.weight, d32.bn1.bias,
                             relu=True), 1)
-        out32 = _fine_lus(down, d32, generator) + down
-        out64 = d64(out32, generator)
+        with fine_route():
+            out32 = _fine_lus(down, d32, generator) + down
+            out64 = d64(out32, generator)
 
-    out128 = net.down_tr128(out64, generator)
-    out256 = net.down_tr256(out128, generator)
-    up = net.up_tr256(out256, out128, generator)
-    up = net.up_tr128(up, out64, generator)
+    with fine_route():
+        out128 = net.down_tr128(out64, generator)
+        out256 = net.down_tr256(out128, generator)
+        up = net.up_tr256(out256, out128, generator)
+        up = net.up_tr128(up, out64, generator)
 
     if packed_levels >= 2:
         u64 = net.up_tr64
@@ -760,7 +950,9 @@ def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
         up48p = _packed_lus(cat, wts.lu64, u64, 4, rate, generator) + cat
         upp = _conv_t(up48p, *wts.up32, stride=(1, 2, 2))
     else:
-        upp = _matmul(net.up_tr64(up, out32, generator), *wts.up32)
+        with fine_route():
+            up = net.up_tr64(up, out32, generator)
+        upp = _matmul(up, *wts.up32)
 
     # UpTransition 32, packed: the concat's 1x1 squeeze as two products, the
     # LUConv on K3
@@ -769,7 +961,14 @@ def packed_vnet3d_apply(net: VNet, x: torch.Tensor, *,
     w_up, w_skip, b_sq = wts.sq32
     catp = drop(gn_packed(_matmul(upp, w_up, b_sq, out16p, w_skip), u32.bn2.weight,
                           u32.bn2.bias, relu=True), 8)
-    outp = _packed_lus(catp, wts.lu32_up, u32, 8, rate, generator) + catp
+    if LUCONV96_MODE == "k3dense":
+        outp = _packed_lus(catp, wts.lu32_up, u32, 8, rate, generator) + catp
+    elif LUCONV96_MODE == "k4s2":  # depth-to-space, then the k4 stride-2 conv
+        op = u32.ops[0]
+        lu = conv_k4s2_fine2packed(depth_to_space3d(catp), *wts.lu96_k4s2)
+        outp = drop(gn_packed(lu, op.bn1.weight, op.bn1.bias, relu=True), 8) + catp
+    else:
+        raise ValueError(f"LUCONV96_MODE {LUCONV96_MODE!r} is not 'k3dense' or 'k4s2'")
 
     layout = packed_layout if return_packed else "delta"
     wp, bp = wts.head(layout)

@@ -36,6 +36,7 @@ backend returns another layout.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
@@ -49,10 +50,84 @@ from tpuseg_torch.kernels.conv3d import (
     pack_weight_t,
     supported,
 )
+from tpuseg_torch.kernels.conv_int8 import int8_conv, quantized
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
 
 # flax nn.GroupNorm's epsilon: the JAX model's default (served) path
 GN_EPS = 1e-6
+
+# Opt-in variants, as tpuseg's flags of the same names; read at call time.
+# USE_GEMM_FASTPATH: a kernel-2 stride-2 conv (transpose conv) runs as a
+# space-to-depth (depth-to-space) and one matrix product.  USE_INT8_CONV:
+# every ungrouped undilated 2D or 3D ConvND runs W8A8 on the int8 kernel
+# (``kernels/conv_int8.py``), inference only; switch it with
+# ``int8_inference()``.
+USE_GEMM_FASTPATH = False
+USE_INT8_CONV = False
+
+
+@contextlib.contextmanager
+def int8_inference(enable: bool = True):
+    """Run ConvND through the int8 route inside the context (restored on
+    exit, an exception too).  Inference only: a gradient asked of an int8
+    conv raises."""
+    global USE_INT8_CONV
+    prev = USE_INT8_CONV
+    USE_INT8_CONV = enable
+    try:
+        yield
+    finally:
+        USE_INT8_CONV = prev
+
+
+# Inside a packed twin the plain modules it calls route their convs as the
+# JAX twin's ``_conv`` does: never the fast path, int8 for Cin >= the bound
+# (``USE_INT8_PACKED``), else as usual; ``_TWIN_ROUTE`` holds the bound
+# (None: no int8) while ``twin_conv_route`` is entered.
+_TWIN_ROUTE: Optional[Tuple[Optional[int]]] = None
+
+
+@contextlib.contextmanager
+def twin_conv_route(int8_min_cin: Optional[int]):
+    """The route of the convs of the plain modules a packed twin calls."""
+    global _TWIN_ROUTE
+    prev = _TWIN_ROUTE
+    _TWIN_ROUTE = (int8_min_cin,)
+    try:
+        yield
+    finally:
+        _TWIN_ROUTE = prev
+
+
+def space_to_depth(x: torch.Tensor, ndim: int, block: int = 2) -> torch.Tensor:
+    """(N, *S, C) -> (N, *S/b, b^n C), channel order (d_1 .. d_n, c)."""
+    n, spatial, c = x.shape[0], x.shape[1:1 + ndim], x.shape[-1]
+    shape = [n]
+    for s in spatial:
+        shape += [s // block, block]
+    x = x.reshape(shape + [c])
+    perm = [0] + [1 + 2 * i for i in range(ndim)] + [2 + 2 * i for i in range(ndim)] \
+        + [1 + 2 * ndim]
+    return x.permute(perm).reshape([n] + [s // block for s in spatial]
+                                   + [block ** ndim * c])
+
+
+def depth_to_space(x: torch.Tensor, ndim: int, block: int = 2) -> torch.Tensor:
+    """(N, *S, b^n C) -> (N, *S b, C), the inverse of ``space_to_depth``."""
+    n, spatial = x.shape[0], x.shape[1:1 + ndim]
+    c = x.shape[-1] // block ** ndim
+    x = x.reshape([n] + list(spatial) + [block] * ndim + [c])
+    perm = [0]
+    for i in range(ndim):
+        perm += [1 + i, 1 + ndim + i]
+    return x.permute(perm + [1 + 2 * ndim]).reshape([n] + [s * block for s in spatial] + [c])
+
+
+def _fast(override: Optional[bool]) -> bool:
+    """Whether a module with this ``use_gemm_fastpath`` takes the fast path."""
+    if _TWIN_ROUTE is not None:
+        return False
+    return USE_GEMM_FASTPATH if override is None else override
 
 
 def to_channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -93,13 +168,22 @@ class ConvND(nn.Module):
     backward's dX conv when a gradient will be asked for) are made once
     and made again only when the weight changes in place
     (``load_state_dict``, an optimizer step) or moves; a write through
-    ``weight.data`` is not seen."""
+    ``weight.data`` is not seen.
+
+    The opt-in routes come first, in JAX's order: a kernel-2 stride-2
+    ungrouped undilated conv on even sides under ``USE_GEMM_FASTPATH`` (or
+    ``use_gemm_fastpath=True``; False keeps it off) is a space-to-depth and
+    one ``torch.matmul``; then under ``USE_INT8_CONV`` every ungrouped
+    undilated conv is the W8A8 int8 conv (bias added in fp32 before the
+    cast, as ``_Int8Conv``), so K2 does not run there."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, stride: int = 1,
                  padding: Optional[Union[str, int]] = None, kernel_dilation: int = 1,
-                 ndim: int = 3, groups: int = 1):
+                 ndim: int = 3, groups: int = 1,
+                 use_gemm_fastpath: Optional[bool] = None):
         super().__init__()
+        self.use_gemm_fastpath = use_gemm_fastpath
         if ndim not in (2, 3):
             raise ValueError(f"ndim {ndim}: a conv is 2D or 3D")
         self.ndim = ndim
@@ -118,6 +202,7 @@ class ConvND(nn.Module):
             self.register_parameter("bias", None)
         self._packed = None    # (key, pack_weight result)
         self._packed_t = None  # (key, pack_weight_t result)
+        self._int8_w = None    # (key, conv_int8.quantized result)
 
     def _key(self, dtype: torch.dtype):
         return self.weight._version, self.weight.data_ptr(), dtype
@@ -135,11 +220,47 @@ class ConvND(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x, self.weight, self.bias)
 
+    def _int8_route(self, x: torch.Tensor) -> bool:
+        if self.groups != 1 or self.dilation != 1:
+            return False
+        if _TWIN_ROUTE is not None:
+            return _TWIN_ROUTE[0] is not None and x.shape[-1] >= _TWIN_ROUTE[0]
+        return USE_INT8_CONV
+
+    def _int8(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The W8A8 conv; the quantized weight made once per weight
+        version and dtype (for this layer's own weight)."""
+        w = weight.to(x.dtype).permute(*range(2, 2 + self.ndim), 1, 0)
+        if weight is self.weight:
+            key = self._key(x.dtype) + (x.device,)
+            if self._int8_w is None or self._int8_w[0] != key:
+                self._int8_w = (key, quantized(w))
+            qweight = self._int8_w[1]
+        else:
+            qweight = quantized(w)
+        twin = _TWIN_ROUTE is not None  # JAX's twin adds the bias in x's dtype
+        return int8_conv(x, w, bias, self.stride, self.padding,
+                         "out" if twin else "fp32", qweight)
+
+    def _gemm(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """k2 s2 as space-to-depth and one product (JAX ``kernel_s2d``)."""
+        w = weight.to(x.dtype).permute(*range(2, 2 + self.ndim), 1, 0)
+        y = torch.matmul(space_to_depth(x, self.ndim), w.reshape(-1, w.shape[-1]))
+        return y if bias is None else y + bias.to(x.dtype)
+
     def conv(self, x: torch.Tensor, weight: torch.Tensor,
              bias: Optional[torch.Tensor]) -> torch.Tensor:
         """This layer's conv of ``x`` with ``weight`` / ``bias`` in its
         place (the tensor-parallel layers pass their output-channel shard
         and no bias, ``parallel/tensor.py``)."""
+        if (_fast(self.use_gemm_fastpath) and self.kernel_size == self.stride == 2
+                and self.groups == 1 and self.dilation == 1
+                and all(s % 2 == 0 for s in x.shape[1:-1])):
+            return self._gemm(x, weight, bias)
+        if self._int8_route(x):
+            return self._int8(x, weight, bias)
         w = weight.to(x.dtype)
         bias = None if bias is None else bias.to(x.dtype)
         w_dhwio = w.permute(2, 3, 4, 1, 0) if self.ndim == 3 else None  # view
@@ -191,12 +312,18 @@ class ConvTransposeND(nn.Module):
     padding at another kernel and stride (AmlpUNet2d's k8 s4 head).
     ``weight`` is torch's (I, O, *k): flax's ConvTranspose kernel is the
     spatially flipped one, and ``compat/weights.py`` applies that flip when
-    it converts a tpuseg tree."""
+    it converts a tpuseg tree.  Under ``USE_GEMM_FASTPATH`` (or
+    ``use_gemm_fastpath=True``) the kernel-2 stride-2 case is one
+    ``torch.matmul`` onto 2^n x the channels and a depth-to-space (JAX's
+    ``kernel_d2s``, which holds flax's flipped kernel as this weight does)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 ndim: int = 3, kernel_size: int = 2, stride: int = 2):
+                 ndim: int = 3, kernel_size: int = 2, stride: int = 2,
+                 use_gemm_fastpath: Optional[bool] = None):
         super().__init__()
         self.ndim = ndim
+        self.kernel_size = kernel_size
+        self.use_gemm_fastpath = use_gemm_fastpath
         self.stride = stride
         self.pad = transpose_same_pad(kernel_size, stride)
         self.weight = nn.Parameter(
@@ -212,6 +339,12 @@ class ConvTransposeND(nn.Module):
     def conv(self, x: torch.Tensor, weight: torch.Tensor,
              bias: Optional[torch.Tensor]) -> torch.Tensor:
         """This layer's transpose conv with ``weight`` / ``bias`` in its place."""
+        if _fast(self.use_gemm_fastpath) and self.kernel_size == self.stride == 2:
+            w = weight.to(x.dtype).permute(0, *range(2, 2 + self.ndim), 1)
+            y = torch.matmul(x, w.reshape(w.shape[0], -1))  # channels (delta, out)
+            if bias is not None:
+                y = y + bias.to(x.dtype).repeat(2 ** self.ndim)
+            return depth_to_space(y, self.ndim)
         conv = F.conv_transpose3d if self.ndim == 3 else F.conv_transpose2d
         y = conv(
             to_channels_first(x), weight.to(x.dtype),

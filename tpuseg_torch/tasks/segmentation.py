@@ -8,7 +8,10 @@ supervision: its aux logits, coarsest first, join the loss weighted 1/8,
 1/4, 1/2 (``ds_extra``).  With ``packed_stem=True`` a UNet3d, VNet3d,
 ResUNet3d or STUNet3d trains and evaluates through its space-to-depth
 packed twin (``models/*_packed.py``): the same parameters, checkpoints and
-fine-domain loss, the finest level(s) run packed.
+loss, the finest level(s) run packed.  The loss is the fine domain's
+unless one of the opt-in packed losses is on (``USE_PACKED_CLASS_LOSS``,
+``USE_PACKED_GRID_LOSS``, tpuseg's flags of the same names, read when the
+trainer is made), which take the twin's packed outputs as they are.
 
 On a mesh (``mesh=``): a space axis above one (with model 1) trains the
 z-sharded twin (``tasks/spatial.py``); otherwise the batch is sharded over
@@ -29,15 +32,31 @@ import torch
 
 from tpuseg_torch import metrics as metrics_lib
 from tpuseg_torch.losses import build_loss
+from tpuseg_torch.losses.packed_class import (build_packed_loss,
+                                              multiclass_dice_coeff as packed_dice,
+                                              multiclass_iou_coeff as packed_iou)
 from tpuseg_torch.models.resunet3d import ResUNet3d
 from tpuseg_torch.models.resunet_packed import packed_resunet3d_apply
 from tpuseg_torch.models.stunet3d import STUNet3d
 from tpuseg_torch.models.stunet_packed import packed_stunet3d_apply
 from tpuseg_torch.models.unet import UNet
-from tpuseg_torch.models.unet_packed import packed_unet3d_apply
+from tpuseg_torch.models.unet_packed import packed_unet3d_apply, space_to_depth_labels
 from tpuseg_torch.models.vnet import VNet
 from tpuseg_torch.models.vnet_packed import packed_vnet3d_apply
 from tpuseg_torch.tasks.trainer import Trainer, TrainerConfig
+
+# Opt-in packed losses for ``packed_stem`` training (tpuseg's flags).
+# USE_PACKED_GRID_LOSS: the loss and metric read the twin's delta-major
+# packed logits and probabilities, each voxel paired with its label by
+# merging (w, delta) (``_grid``), so no depth-to-space runs in the step;
+# not for clDice (it skeletonizes spatially), a ``viz_fn`` or ResUNet3d.
+# USE_PACKED_CLASS_LOSS: the class-major twins of the categorical losses
+# and the dice / IoU metric (``losses/packed_class.py``) on class-major
+# packed logits, where the loss has one, for more than one class and a
+# dice or iou accuracy; not with a ``viz_fn`` or for ResUNet3d.  Every
+# other case keeps the fine-domain loss.
+USE_PACKED_GRID_LOSS = False
+USE_PACKED_CLASS_LOSS = False
 
 # the nets ``packed_stem`` takes, and their twins
 PACKED_TWINS = ((UNet, packed_unet3d_apply), (VNet, packed_vnet3d_apply),
@@ -78,9 +97,9 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     ``ResUNet3d`` or ``STUNet3d`` through its packed twin at the twin's
     default packed_levels, in training (derived weights in the autograd
     graph) and in evaluation (cached); any other model raises ValueError.
-    The loss stays in the fine domain: JAX's packed-grid losses are off by
-    default and not ported (and never taken for ResUNet3d, whose twin
-    returns fine outputs).  ``viz_fn`` goes to the Trainer.  ``mesh`` (a
+    The loss stays in the fine domain unless ``USE_PACKED_CLASS_LOSS`` or
+    ``USE_PACKED_GRID_LOSS`` takes it packed (module doc; JAX's conditions,
+    and without a ``mesh``).  ``viz_fn`` goes to the Trainer.  ``mesh`` (a
     ``core/mesh.py`` Mesh or MeshContext): the parallel trainer (module
     doc); ``device`` is then this rank's."""
     config = config or TrainerConfig()
@@ -95,14 +114,24 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
                 mesh=mesh, device=device, viz_fn=viz_fn, packed_stem=packed_stem)
     loss = build_loss(loss_name, num_classes, alpha=alpha, gamma=gamma)
 
+    packed_loss_fn, packed_grid = None, False
     if packed_stem:
         twin = next((fn for cls, fn in PACKED_TWINS if isinstance(model, cls)), None)
         if twin is None:
             raise ValueError("packed_stem=True supports the 3D UNet, VNet, ResUNet3d and "
                              f"STUNet3d; got {type(model).__name__}")
+        fine_only = viz_fn is not None or isinstance(model, ResUNet3d) or mesh is not None
+        if (USE_PACKED_CLASS_LOSS and not fine_only and num_classes > 1
+                and accuracy_name in ("dice", "iou")):
+            packed_loss_fn = build_packed_loss(loss_name, num_classes, alpha=alpha,
+                                               gamma=gamma)
+        packed_grid = packed_loss_fn is not None or (
+            USE_PACKED_GRID_LOSS and not fine_only and "ClDice" not in loss_name)
+        layout = "class" if packed_loss_fn is not None else "delta"
 
         def apply_fn(net, image, train, generator):
-            return _outputs(twin(net, image, generator=generator if train else None))
+            return _outputs(twin(net, image, generator=generator if train else None,
+                                 return_packed=packed_grid, packed_layout=layout))
     else:
         def apply_fn(net, image, train, generator):
             return _outputs(net(image, generator if train else None))
@@ -119,10 +148,38 @@ def make_segmentation_trainer(model, num_classes: int, loss_name: str,
     def metric_fn(outputs, batch):
         return metric(outputs["probs"], batch["label"])
 
+    if packed_loss_fn is not None:  # class-major packed outputs, packed labels
+        packed_metric = packed_dice if accuracy_name == "dice" else packed_iou
+
+        def loss_fn(outputs, batch):  # noqa: F811
+            return packed_loss_fn(outputs["logits"], space_to_depth_labels(batch["label"]))
+
+        def metric_fn(outputs, batch):  # noqa: F811
+            return packed_metric(outputs["probs"], space_to_depth_labels(batch["label"]),
+                                 num_classes=num_classes)
+    elif packed_grid:  # delta-major packed outputs, each voxel beside its label
+        def loss_fn(outputs, batch):  # noqa: F811
+            return loss(*_grid(outputs["logits"], batch["label"]))
+
+        def metric_fn(outputs, batch):  # noqa: F811
+            return metric(*_grid(outputs["probs"], batch["label"]))
+
     if mesh is not None:
         loss_fn, metric_fn = _global_batch(loss_fn, metric_fn, mesh, loss_name, alpha, gamma)
     return Trainer(model, apply_fn, loss_fn, metric_fn, config, device=device,
                    viz_fn=viz_fn, mesh=mesh)
+
+
+def _grid(chan: torch.Tensor, labels: torch.Tensor):
+    """Packed delta-major (N, d, h, w, 8K) channels and fine labels (N, D,
+    H, W) (or (N, D, H, W, 1) binary) -> (N, d, h, 8w, K) and the labels in
+    the same voxel order (N, d, h, 8w): both delta-major, so (w, delta)
+    merge alike (JAX's ``_grid``)."""
+    n, d, h, w, ck = chan.shape
+    if labels.dim() == 5:
+        labels = labels[..., 0]
+    lb = space_to_depth_labels(labels).reshape(n, d, h, w * 8)
+    return chan.reshape(n, d, h, w * 8, ck // 8), lb
 
 
 def _global_batch(loss_fn, metric_fn, mesh, loss_name: str, alpha, gamma: float):
