@@ -4746,22 +4746,37 @@ def phase_parallel(torch, mods) -> tuple:
 
 # phase 15: the opt-in variants.  Per 27-patch VNet3d forward (features
 # 16, 2 classes): under int8_inference every ConvND of the plain net runs
-# on the int8 kernel (its 31 convs; K2 none, K1 its 34 GroupNorms); under
+# on the int8 kernel's dense mode (its 31 convs, each input quantized by
+# the quantizer kernel; K2 none, K1 its 34 GroupNorms); under
 # int8_packed_inference the twin at packed_levels 2 sends JAX's ``_conv``
-# sites with Cin >= 32 to it (29: the packed k3s instead of K3, the packed
-# 1x1s, the packing convs, the fine levels' convs instead of K2); the shift
-# form runs the twin's packed k3s on cuDNN (K3 none); k4s2 the last LUConv
-# as a depth-to-space and the k4 stride-2 conv (K3 4)
+# sites with Cin >= 32 to it (29: the five packed k3s in the structured
+# mode instead of K3, the packed 1x1s, the packing convs and the fine
+# levels' convs in the dense mode instead of K2; 29 quantizer calls); the
+# shift form runs the twin's packed k3s on cuDNN (K3 none); k4s2 the last
+# LUConv as a depth-to-space and the k4 stride-2 conv (K3 4).  No call
+# shape of these paths takes the mma.sync kernel (``conv_int8_sync``)
+INT8_NONE = {"conv_int8": 0, "conv_int8_structured": 0, "conv_int8_sync": 0,
+             "quantize_int8": 0}
+# per plain UNet3d forward (features 16, 5 classes, phase 8's batch of 8
+# patches of 128x112x112) under int8_inference: its 19 ConvNDs on the int8
+# route, 18 in the wgmma kernel's dense mode and the 256 -> 128 decoder k3
+# at 16x14x14, whose brick does not fit a block, on the mma.sync kernel;
+# 19 quantizer calls; K1 its 18 GroupNorms; K2 none
+UNET_INT8_FORWARD = dict({k: 0 for k in EXPECTED_LAUNCHES}, fused_group_norm_relu=18,
+                         **dict(INT8_NONE, conv_int8=18, conv_int8_sync=1, quantize_int8=19))
 VAR_VNET_LAUNCHES = {
-    "vnet_f32": dict(SWIN_VNET_LAUNCHES, conv_int8=0),
-    "vnet_int8": dict(SWIN_VNET_LAUNCHES, conv3d_small=0, conv_int8=31),
-    "vnet_packed_f32": dict(SWIN_VNET_PACKED_LAUNCHES, conv_int8=0),
+    "vnet_f32": dict(SWIN_VNET_LAUNCHES, **INT8_NONE),
+    "vnet_int8": dict(SWIN_VNET_LAUNCHES, **dict(INT8_NONE, conv_int8=31, quantize_int8=31),
+                      conv3d_small=0),
+    "vnet_packed_f32": dict(SWIN_VNET_PACKED_LAUNCHES, **INT8_NONE),
     "vnet_packed_int8": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=0,
-                             conv3d_small=0, conv_int8=29),
+                             conv3d_small=0, **dict(INT8_NONE, conv_int8=24,
+                                                    conv_int8_structured=5,
+                                                    quantize_int8=29)),
     "vnet_packed_shift": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=0,
-                              conv_int8=0),
+                              **INT8_NONE),
     "vnet_packed_k4s2": dict(SWIN_VNET_PACKED_LAUNCHES, packed_conv3d_structured=4,
-                             conv_int8=0),
+                             **INT8_NONE),
 }
 # per UNet3d train step at 112x112x128, 5 classes: the packed twin with
 # the fine loss and with each packed loss runs phase 6's launches; the
@@ -4769,14 +4784,14 @@ VAR_VNET_LAUNCHES = {
 # USE_GEMM_FASTPATH, phase 6's plain launches (its transpose convs are
 # products under the flag)
 VAR_TRAIN_LAUNCHES = {
-    "train_packed_fine": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
-    "train_packed_class_loss": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
-    "train_packed_grid_loss": dict(TRAIN_PACKED_LAUNCHES, conv_int8=0),
+    "train_packed_fine": dict(TRAIN_PACKED_LAUNCHES, **INT8_NONE),
+    "train_packed_class_loss": dict(TRAIN_PACKED_LAUNCHES, **INT8_NONE),
+    "train_packed_grid_loss": dict(TRAIN_PACKED_LAUNCHES, **INT8_NONE),
     "train_packed_shift": dict(TRAIN_PACKED_LAUNCHES, packed_conv3d_structured=0,
                                packed_conv3d_structured_dx=0, packed_conv3d_structured_dw=0,
-                               conv_int8=0),
-    "train_plain": dict(TRAIN_LAUNCHES, conv_int8=0),
-    "train_plain_gemm_fastpath": dict(TRAIN_LAUNCHES, conv_int8=0),
+                               **INT8_NONE),
+    "train_plain": dict(TRAIN_LAUNCHES, **INT8_NONE),
+    "train_plain_gemm_fastpath": dict(TRAIN_LAUNCHES, **INT8_NONE),
 }
 # JAX's own bars for int8 masks against the float net (tests/test_int8.py,
 # tests/test_vnet_packed.py)
@@ -4785,13 +4800,20 @@ INT8_AGREE = {"vnet_int8": 0.98, "vnet_packed_int8": 0.97}
 PEAK_INT8_OPS = 1979e12
 
 
+def _int8_counts(mods) -> dict:
+    ci = mods["conv_int8"]
+    return {"conv_int8": ci.LAUNCHES, "conv_int8_structured": ci.LAUNCHES_STRUCTURED,
+            "conv_int8_sync": ci.LAUNCHES_SYNC, "quantize_int8": ci.QUANTIZE_LAUNCHES}
+
+
 def _var_counts(mods) -> dict:
-    return dict(counts(mods), conv_int8=mods["conv_int8"].LAUNCHES)
+    return dict(counts(mods), **_int8_counts(mods))
 
 
 def _var_reset(mods) -> None:
     reset_counts(mods)
-    mods["conv_int8"].LAUNCHES = 0
+    ci = mods["conv_int8"]
+    ci.LAUNCHES = ci.LAUNCHES_STRUCTURED = ci.LAUNCHES_SYNC = ci.QUANTIZE_LAUNCHES = 0
 
 
 @contextlib.contextmanager
@@ -4804,80 +4826,179 @@ def _flag(mod, name: str, value):
         setattr(mod, name, prev)
 
 
+def _bound(ops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _int_mm_ms(torch, xs, wq):
+    """torch._int_mm (int8 x int8 -> int32, the same sums) of a 1x1 conv's
+    concat and weight, or None where its shape rules refuse the shape."""
+    a = torch.cat(xs, dim=-1).reshape(-1, wq.shape[-2])
+    b = wq.reshape(wq.shape[-2], wq.shape[-1])
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        return None
+    return time_ms(torch, lambda: torch._int_mm(a, b), iters=10)
+
+
 def _int8_rows(torch, mods, calls: dict, tag: str) -> list:
     """conv_int8 at each recorded call shape of a path (random int8
-    operands, the same epilogue): bit for bit against its plain version,
-    kernel, plain (the float64 conv on the card) and cuDNN's bf16 conv of
-    the same shape timed, the bound from the int8 rate and the bytes."""
-    ci = mods["conv_int8"]
+    operands, the same epilogue), in the mode it runs (dense, structured,
+    or the mma.sync kernel, read from the counter it moves): bit for bit against
+    its plain version (the dense mode: the float64 conv on the card; the
+    structured mode: the float64 sums of its K-row table, and the float64
+    conv too), kernel and plain timed, the bound from the int8 rate and
+    the bytes; as the library, torch._int_mm where the conv is a 1x1 its
+    shape rules take, and cuDNN's bf16 conv of the shape as a labelled
+    reference (another function).  The structured rows also time the
+    dense mode on the same inputs."""
+    ci, pc = mods["conv_int8"], mods["packed_conv"]
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for (xs, ws, st, pads, dtype_name, bias_mode), uses in calls.items():
+    for (xs, ws, st, pads, dtype_name, bias_mode, axes, c2), uses in calls.items():
         dtype = getattr(torch, dtype_name)
-        xq = torch.randint(-127, 128, xs, generator=g, device="cuda", dtype=torch.int8)
-        wq = torch.randint(-127, 128, ws, generator=g, device="cuda", dtype=torch.int8)
+        xqs = [torch.randint(-127, 128, xs, generator=g, device="cuda", dtype=torch.int8)]
+        if c2:
+            xqs.append(torch.randint(-127, 128, xs[:-1] + (c2,), generator=g, device="cuda",
+                                     dtype=torch.int8))
+        cins = tuple(x.shape[-1] for x in xqs)
+        if axes is None:
+            wq = torch.randint(-127, 128, ws, generator=g, device="cuda", dtype=torch.int8)
+            packed = ci.pack_dense(wq)
+        else:  # a packed k3's weight: pack_k3_axes of random fine weights, quantized
+            p = pc.deltas(axes)
+            w3 = torch.cat([pc.pack_k3_axes(torch.randn(
+                (3, 3, 3, c // p, ws[-1] // p), generator=g, device="cuda"), axes)
+                for c in cins], dim=3)
+            wq = ci.quantize_weight(w3)[0]
+            packed = ci.pack_int8(wq, ci.structured_pieces(cins, axes), True)
         scale = torch.rand(ws[-1], generator=g, device="cuda") * 1e-4
         bias = torch.randn(ws[-1], generator=g, device="cuda") if bias_mode else None
-        packed = ci.pack_weight(wq if wq.dim() == 5 else wq.unsqueeze(0))
+        two = xqs[1] if c2 else None
 
         def kern():
-            return ci.conv_int8(xq, wq, scale, bias, st, pads, dtype, bias_mode, packed)
+            return ci.conv_int8(xqs[0], wq, scale, bias, st, pads, dtype, bias_mode, packed,
+                                axes=axes, xq2=two)
 
+        before = _int8_counts(mods)
         y = kern()
-        ref = ci.conv_int8_plain(xq, wq, scale, bias, st, pads, dtype, bias_mode)
+        mode = next(m for m, n in _int8_counts(mods).items() if n != before[m])
+        mode = {"conv_int8": "dense", "conv_int8_structured": "structured",
+                "conv_int8_sync": "sync"}[mode]
+        xcat = torch.cat(xqs, dim=-1) if c2 else xqs[0]
+        ref = ci.conv_int8_plain(xcat, wq, scale, bias, st, pads, dtype, bias_mode)
         if not torch.equal(y, ref):
-            fail(f"conv_int8 {tag} {xs} x {ws}: not equal to its plain version "
+            fail(f"conv_int8 {tag} {xs} x {ws} axes {axes}: not equal to its plain version "
                  f"(max diff {(y.float() - ref.float()).abs().max().item()})")
         ms = time_ms(torch, kern, iters=10)
-        plain_ms = time_ms(torch, lambda: ci.conv_int8_plain(
-            xq, wq, scale, bias, st, pads, dtype, bias_mode), iters=1, warmup=0)
+        if axes is None:
+            plain = lambda: ci.conv_int8_plain(xcat, wq, scale, bias, st, pads, dtype, bias_mode)
+        else:
+            def plain():
+                acc = ci.int32_sums_table_plain(xqs, wq, packed.pieces, 1, "SAME")
+                return ci._epilogue(acc, scale, bias, bias_mode, dtype)
+
+            if not torch.equal(plain(), y):
+                fail(f"conv_int8 {tag} {xs} structured: not equal to its table's plain sums")
+        plain_ms = time_ms(torch, plain, iters=1, warmup=0)
         # cuDNN's bf16 conv of the same shape (the (low, high) pads applied first)
-        x3 = xq.to(torch.bfloat16) if xq.dim() == 5 else xq.unsqueeze(1).to(torch.bfloat16)
-        w3 = wq.to(torch.bfloat16) if wq.dim() == 5 else wq.unsqueeze(0).to(torch.bfloat16)
+        x3 = xcat.to(torch.bfloat16) if xcat.dim() == 5 else xcat.unsqueeze(1).to(torch.bfloat16)
+        w3b = wq.to(torch.bfloat16) if wq.dim() == 5 else wq.unsqueeze(0).to(torch.bfloat16)
         p3 = pads if len(pads) == 3 else ((0, 0),) + tuple(pads)
         s3 = st if len(st) == 3 else (1,) + tuple(st)
         xc = F.pad(x3.permute(0, 4, 1, 2, 3), [q for lo_hi in reversed(p3) for q in lo_hi])
-        wc = w3.permute(4, 3, 0, 1, 2).contiguous()
-        library_ms = time_ms(torch, lambda: F.conv3d(xc, wc, stride=s3), iters=10)
+        wc = w3b.permute(4, 3, 0, 1, 2).contiguous()
+        cudnn_ms = time_ms(torch, lambda: F.conv3d(xc, wc, stride=s3), iters=10)
+        library_ms = (_int_mm_ms(torch, xqs, wq) if all(k == 1 for k in ws[:-2])
+                      and all(s == 1 for s in st) else None)
         out = y.numel() // y.shape[-1]
-        taps_cin = int(np.prod(ws[:-1]))
-        ops = 2.0 * out * taps_cin * ws[-1]
-        nbytes = xq.numel() + wq.numel() + y.numel() * y.element_size()
-        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
-        bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-        rows.append(dict(shape=[list(xs), list(ws), list(st), [list(p) for p in pads]],
-                         dtype=dtype_name, uses=uses, max_abs_err=0.0, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
-                         library_ms=library_ms, tops=ops / ms / 1e9))
-        say(f"  conv_int8 {tag} x {xs} w {ws} stride {st} pads {pads} -> {dtype_name} "
-            f"(x{uses}): equal to plain; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), "
-            f"plain {plain_ms:.3f} ms, cuDNN bf16 {library_ms:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]})")
-        del xq, wq, xc, wc, y, ref, packed
-    torch.cuda.empty_cache()
+        k_rows = 16 * len(packed.pieces) if packed.pieces else int(np.prod(ws[:-1]))
+        ops = 2.0 * out * k_rows * ws[-1]
+        nbytes = sum(x.numel() for x in xqs) + k_rows * ws[-1] + y.numel() * y.element_size()
+        bound = _bound(ops, nbytes)
+        row = dict(shape=[list(xs), list(ws), list(st), [list(p) for p in pads]],
+                   parts=list(cins), mode=mode,
+                   dtype=dtype_name, uses=uses, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+                   cudnn_bf16_ms=cudnn_ms, k_rows=k_rows, tops=ops / ms / 1e9)
+        extra = ""
+        if axes is not None:
+            dense = ci.pack_dense(wq)
+            row["dense_mode_ms"] = time_ms(torch, lambda: ci.conv_int8(
+                xcat, wq, scale, bias, st, pads, dtype, bias_mode, dense), iters=10)
+            extra = f", the dense mode {row['dense_mode_ms']:.4f} ms"
+        rows.append(row)
+        say(f"  conv_int8 {tag} {row['mode']} x {xs} parts {list(cins)} w {ws} stride {st} "
+            f"pads {pads} -> {dtype_name} (x{uses}): equal to plain; kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s over K {k_rows}){extra}, plain {plain_ms:.3f} ms, "
+            f"torch._int_mm {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+            f"cuDNN bf16 (another function) {cudnn_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]})")
+        del xqs, xcat, wq, xc, wc, y, ref, packed
+        torch.cuda.empty_cache()
     return rows
 
 
-def _record_int8_calls(mods, calls: dict):
-    """Wrap conv_int8 to count each (shape, stride, pads, dtype, bias mode)
-    it is called with; returns the undo."""
+def _quant_rows(torch, mods, calls: dict, tag: str) -> list:
+    """The quantizer at each recorded (parts, dtype) of a path: random maps,
+    the kernel bit for bit against its plain version (PyTorch's ops on the
+    card, dividing by a tensor: true division as on the CPU), both timed;
+    bound: each input byte read once and each int8 written once."""
     ci = mods["conv_int8"]
-    orig = ci.conv_int8
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for (shapes, dtype_name), uses in calls.items():
+        dtype = getattr(torch, dtype_name)
+        parts = [(torch.randn(s, generator=g, device="cuda") * 3).to(dtype) for s in shapes]
+        qs, scale = ci.quantize_parts(parts)
+        whole = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        want, wscale = ci.quantize_activation_plain(whole)
+        if not (torch.equal(torch.cat(qs, dim=-1), want) and torch.equal(scale, wscale)):
+            fail(f"quantize_int8 {tag} {shapes} {dtype_name}: not equal to its plain version")
+        ms = time_ms(torch, lambda: ci.quantize_parts(parts), iters=10)
+        plain_ms = time_ms(torch, lambda: ci.quantize_activation_plain(whole), iters=5)
+        n = sum(p.numel() for p in parts)
+        bound = _bound(0.0, n * (parts[0].element_size() + 1))
+        rows.append(dict(shape=[list(s) for s in shapes], dtype=dtype_name, uses=uses,
+                         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1], library_ms=None))
+        say(f"  quantize_int8 {tag} {shapes} {dtype_name} (x{uses}): equal to plain; kernel "
+            f"{ms:.4f} ms, plain (PyTorch ops) {plain_ms:.4f} ms, bound {bound[0]:.4f} ms")
+        del parts, whole, qs, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _record_int8_calls(mods, calls: dict, qcalls: dict):
+    """Wrap conv_int8 to count each (shape, stride, pads, dtype, bias mode,
+    mode, second part) it is called with, and the quantizer each (parts,
+    dtype); returns the undo."""
+    ci = mods["conv_int8"]
+    orig, orig_q = ci.conv_int8, ci.quantize_parts
 
     def rec(xq, wq, scale, bias=None, stride=1, padding="VALID", out_dtype=None,
-            bias_mode=None, packed=None):
+            bias_mode=None, packed=None, *, axes=None, split=None, xq2=None):
         x3, w3, st, pad = ci._as3d(xq, wq, stride, padding)
         pads, _ = ci._geometry(x3.shape, w3.shape, st, pad)
         if xq.dim() == 4:
             st, pads = st[1:], pads[1:]
         key = (tuple(xq.shape), tuple(wq.shape), tuple(st), tuple(pads),
-               str(out_dtype).replace("torch.", ""), bias_mode if bias is not None else None)
+               str(out_dtype).replace("torch.", ""), bias_mode if bias is not None else None,
+               None if axes is None else tuple(axes), 0 if xq2 is None else xq2.shape[-1])
         calls[key] = calls.get(key, 0) + 1
-        return orig(xq, wq, scale, bias, stride, padding, out_dtype, bias_mode, packed)
+        return orig(xq, wq, scale, bias, stride, padding, out_dtype, bias_mode, packed,
+                    axes=axes, split=split, xq2=xq2)
 
-    ci.conv_int8 = rec
-    return lambda: setattr(ci, "conv_int8", orig)
+    def rec_q(parts):
+        key = (tuple(tuple(p.shape) for p in parts), str(parts[0].dtype).replace("torch.", ""))
+        qcalls[key] = qcalls.get(key, 0) + 1
+        return orig_q(parts)
+
+    ci.conv_int8, ci.quantize_parts = rec, rec_q
+    return lambda: (setattr(ci, "conv_int8", orig), setattr(ci, "quantize_parts", orig_q))
 
 
 def _var_inference(torch, mods):
@@ -4915,9 +5036,9 @@ def _var_inference(torch, mods):
     }
     for run in runs.values():
         run()  # each path's derived weights
-    launches, masks, calls = {}, {}, {}
+    launches, masks, calls, qcalls = {}, {}, {}, {}
     for path, run in runs.items():
-        undo = _record_int8_calls(mods, calls.setdefault(path, {}))
+        undo = _record_int8_calls(mods, calls.setdefault(path, {}), qcalls.setdefault(path, {}))
         _var_reset(mods)
         try:
             masks[path] = run()
@@ -4970,8 +5091,7 @@ def _var_inference(torch, mods):
                 "packed_k4s2": twin(lambda: _flag(pvp, "LUCONV96_MODE", "k4s2")),
                 "packed_int8": twin(pvp.int8_packed_inference),
             }
-            if dtype_name == "float32":
-                variants["plain_int8"] = lambda: _int8_plain(layers, net, x)
+            variants["plain_int8"] = lambda n=n, xb=xb: _int8_plain(layers, n, xb)
             ref = variants["packed"]().argmax(-1)
             for k in ("packed_shift", "packed_k4s2"):
                 a = float((variants[k]().argmax(-1) == ref).mean(dtype=torch.float32))
@@ -4979,9 +5099,16 @@ def _var_inference(torch, mods):
                     fail(f"{k} {dtype_name} forward: mask agreement {a} with the dense twin")
             for k, f in variants.items():
                 fwd[f"{dtype_name} {k}"] = time_ms(torch, f, iters=3)
-    mods["conv_int8"].LAUNCHES = 0
+    _var_reset(mods)
     say("  27-patch forward device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fwd.items()))
     del net_bf16, x
+    # where an int8 forward's device time goes (torch.profiler; the int8
+    # route's calls in ranges of their own)
+    int8_split = {f"{route} {dt}": mods["int8_split"].split(route, dt)
+                  for route in ("plain", "twin") for dt in ("float32", "bfloat16")}
+    _var_reset(mods)
+    say("  int8 27-patch forward device ms by part (torch.profiler): "
+        + json.dumps(int8_split))
 
     # K3 beside the shift form's one cuDNN conv at the twin's k3 grids
     k3_rows = {}
@@ -5008,15 +5135,118 @@ def _var_inference(torch, mods):
             del xk, shift
     say("  K3 vs the shift form's cuDNN conv, one 27-patch call: " + json.dumps(k3_rows))
     rows = {p: _int8_rows(torch, mods, calls[p], p) for p in ("vnet_int8", "vnet_packed_int8")}
+    rows.update({f"quantize {p}": _quant_rows(torch, mods, qcalls[p], p)
+                 for p in ("vnet_int8", "vnet_packed_int8")})
     del model, net
     torch.cuda.empty_cache()
     return launches, rows, {"volume_ms": {k: best[k] * 1e3 for k in runs},
-                            "forward_ms": fwd, "k3_vs_shift": k3_rows, "agree": agree}
+                            "forward_ms": fwd, "k3_vs_shift": k3_rows, "agree": agree,
+                            "int8_split": int8_split}
 
 
 def _int8_plain(layers, net, x):
     with layers.int8_inference():
         return net(x)[1]
+
+
+@contextlib.contextmanager
+def _int8_plain_versions(torch, mods):
+    """Route the int8 conv's dense calls and the quantizer to their plain
+    versions on the card (the float64 conv, PyTorch's ops)."""
+    ci = mods["conv_int8"]
+    orig, orig_q = ci.conv_int8, ci.quantize_parts
+
+    def conv(xq, wq, scale, bias=None, stride=1, padding="VALID", out_dtype=None,
+             bias_mode=None, packed=None, *, axes=None, split=None, xq2=None):
+        if axes is not None or xq2 is not None:
+            fail("_int8_plain_versions: a structured or two-part call")
+        return ci.conv_int8_plain(xq, wq, scale, bias, stride, padding, out_dtype, bias_mode)
+
+    def quantize(parts):
+        xq, a_scale = ci.quantize_activation_plain(torch.cat(list(parts), dim=-1))
+        return list(xq.split([p.shape[-1] for p in parts], dim=-1)), a_scale
+
+    ci.conv_int8, ci.quantize_parts = conv, quantize
+    try:
+        yield
+    finally:
+        ci.conv_int8, ci.quantize_parts = orig, orig_q
+
+
+def _var_unet_int8(torch, mods):
+    """The plain UNet3d (features 16, 5 classes) through
+    MutilUNet3dModel.inference_patch at phase 8's volume and batch under
+    int8_inference (module comment above ``UNET_INT8_FORWARD``): launches
+    per volume, the mask against the same route through the int8 conv's
+    and the quantizer's plain versions (the same function: gate 0.999) and
+    against the float route (reported), volume and forward times; the int8
+    rows at each of its call shapes.  Returns (launches, conv rows,
+    quantizer rows, numbers)."""
+    layers = mods["layers"]
+    model = mods["MutilUNet3dModel"](*SWIN_UNET_PATCH, 1, CLASSES, features=FEATURES,
+                                     device="cuda")
+    model.load_jax_params(mods["seeded_unet_params"](SEED, FEATURES, CLASSES, 1))
+    model.packed_inference = False
+    ct = mods["synthetic_ct"](SWIN_UNET_SIZE, np.random.default_rng(SEED))
+    ct.spacing = SWIN_UNET_SPACING
+    work = mods["resample_to_spacing"](ct, (0.5, 0.5, 0.5))
+    n_fwd = -(-len(mods["sliding_window"].grid_positions(work.array.shape, SWIN_UNET_PATCH,
+                                                          0.5)) // SWIN_UNET_BATCH)
+
+    def patch_run(ctx):
+        def run():
+            with ctx():
+                return model.inference_patch(ct, (0.5, 0.5, 0.5),
+                                             batch_size=SWIN_UNET_BATCH).array
+        return run
+
+    runs = {"unet_f32": patch_run(contextlib.nullcontext),
+            "unet_int8": patch_run(layers.int8_inference)}
+    for run in runs.values():
+        run()
+    calls, qcalls = {}, {}
+    undo = _record_int8_calls(mods, calls, qcalls)
+    _var_reset(mods)
+    try:
+        mask = runs["unet_int8"]()
+    finally:
+        undo()
+    launches = _var_counts(mods)
+    want = {k: v * n_fwd for k, v in UNET_INT8_FORWARD.items()}
+    if launches != want:
+        fail(f"unet_int8: launches {launches} != {want}")
+    with _int8_plain_versions(torch, mods):
+        plain = runs["unet_int8"]()
+    _var_reset(mods)
+    agree = {"plain_versions": float((mask == plain).mean()),
+             "float_route": float((mask == runs["unet_f32"]()).mean())}
+    if mask.shape != ct.array.shape or mask.max() > CLASSES - 1:
+        fail(f"unet_int8: mask {mask.shape} labels up to {mask.max()}")
+    if not agree["plain_versions"] >= 0.999:
+        fail(f"unet_int8: mask agreement {agree['plain_versions']} with the plain versions")
+    best, med = interleaved(torch, runs, reps=3)
+    net = model.model
+    x = torch.randn((SWIN_UNET_BATCH, *SWIN_UNET_PATCH, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.inference_mode():
+        fwd = {"float32": time_ms(torch, lambda: net(x)[1], iters=3),
+               "float32 int8": time_ms(torch, lambda: _int8_plain(layers, net, x), iters=3)}
+    _var_reset(mods)
+    say(f"  MutilUNet3dModel.inference_patch (plain net) {ct.array.shape} at 0.5 mm, "
+        f"{n_fwd} forwards of {SWIN_UNET_BATCH} patches of {SWIN_UNET_PATCH} under "
+        f"int8_inference: launches per volume {json.dumps(launches)}; mask agreement "
+        f"{json.dumps(agree)} (gate: 0.999 with the plain versions); volume wall ms (host "
+        f"clock, min / median of 3 interleaved): "
+        + ", ".join(f"{k} {best[k] * 1e3:.1f} / {med[k] * 1e3:.1f}" for k in runs)
+        + f"; batch-{SWIN_UNET_BATCH} forward device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fwd.items()))
+    del x, net
+    rows = _int8_rows(torch, mods, calls, "unet_int8")
+    qrows = _quant_rows(torch, mods, qcalls, "unet_int8")
+    del model
+    torch.cuda.empty_cache()
+    return launches, rows, qrows, {"volume_ms": {k: best[k] * 1e3 for k in runs},
+                                   "forward_ms": fwd, "agree": agree, "forwards": n_fwd}
 
 
 def _var_training(torch, mods):
@@ -5101,10 +5331,13 @@ def _var_training(torch, mods):
 
 def phase_variants(torch, mods):
     """Phase 15: the opt-in variants (module comment above).  Returns
-    ({path: launches}, {path: conv_int8 rows}, numbers)."""
-    if mods["conv_int8"].LAUNCHES:
-        fail(f"conv_int8 launched {mods['conv_int8'].LAUNCHES} times with every flag off")
+    ({path: launches}, {path: conv_int8 rows, "quantize <path>": the
+    quantizer's rows}, numbers)."""
+    if any(_int8_counts(mods).values()):
+        fail(f"the int8 route launched with every flag off: {_int8_counts(mods)}")
     launches, rows, numbers = _var_inference(torch, mods)
+    (launches["unet_int8"], rows["unet_int8"], rows["quantize unet_int8"],
+     numbers["unet_int8"]) = _var_unet_int8(torch, mods)
     train_launches, step_ms = _var_training(torch, mods)
     launches.update(train_launches)
     numbers["step_ms"] = step_ms
@@ -5133,7 +5366,7 @@ def setup(torch):
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, ROOT)
     from tpuseg_torch import inference, recipes, serve, train
-    from tpuseg_torch.benchmarks import kbench, kmicro, kmicro2, kmicro3
+    from tpuseg_torch.benchmarks import int8_split, kbench, kmicro, kmicro2, kmicro3
     from tpuseg_torch.compat.seg_models import (MutilUNet3dModel, MutilVNet3dModel,
                                                 disable_tf32)
     from tpuseg_torch.compat import weights as zoo_weights
@@ -5202,7 +5435,7 @@ def setup(torch):
     mods = dict(
         serve=serve, train=train, parse_cli=parse_cli, SegServer=SegServer,
         conv3d=conv3d, fused_norm=fused_norm, packed_conv=packed_conv, layers=layers,
-        conv_int8=conv_int8,
+        conv_int8=conv_int8, int8_split=int8_split,
         unet_packed=unet_packed, vnet_packed=vnet_packed,
         packed_unet3d_apply=unet_packed.packed_unet3d_apply,
         pack_k3_to_k3_coarse=vnet_packed.pack_k3_to_k3_coarse,
@@ -5484,28 +5717,70 @@ def main() -> int:
             "bfloat16": fields(next(r for r in rows if r["dtype"] == "bfloat16")),
             "c64": fields(next(r for r in split_rows if r["c"] == PAR_SPLIT_CASES[1][0]
                                and r["dtype"] == "float32"))})
-    # the W8A8 int8 conv (phase 15): one 27-patch forward's calls of the
+    # the W8A8 int8 route (phase 15): one 27-patch forward's calls of the
     # packed twin under int8_packed_inference, the plain net's under
-    # int8_inference beside it
-    by_path = {p: c["conv_int8"] for p, c in var_paths.items() if c["conv_int8"]}
-    if not by_path:
-        fail("conv_int8 was not launched on the int8 paths")
-
-    def int8_fields(rows):
-        return dict(pass_fields(rows), library_ms=per_pass(rows, "library_ms"),
+    # int8_inference beside it, and a plain UNet3d volume's (its forwards'
+    # calls) under int8_inference: the conv's dense mode, its structured
+    # mode (the twin's packed k3s), the mma.sync kernel (the UNet3d's
+    # decoder k3 at 16x14x14) and the quantizer
+    def int8_fields(rows, library=True):
+        lib = [r["library_ms"] for r in rows]
+        return dict(pass_fields(rows),
+                    library_ms=None if not library or None in lib else per_pass(rows,
+                                                                                "library_ms"),
                     bound_by=max(rows, key=lambda r: r["bound_ms"] * r["uses"])["bound_by"],
                     max_abs_err=max(r["max_abs_err"] for r in rows))
 
-    summary.append({
-        "name": "conv_int8", "route": "cuda", "dtype": "int8",
-        "source": "tpuseg_torch/kernels/csrc/conv_int8.cu",
-        "replaces": ("tpuseg/models/vnet_packed.py:396 and tpuseg/nn/layers.py:152 "
-                     "(lax.conv_general_dilated on int8, an XLA op: no Pallas kernel)"),
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **int8_fields(int8_rows["vnet_packed_int8"]), "peak_tops": PEAK_INT8_OPS / 1e12,
-        "library": "cuDNN bf16 conv3d of the same shape",
-        "vnet_int8": int8_fields(int8_rows["vnet_int8"]),
-        "rows": int8_rows})
+    def int_mm_rows(rows):  # the 1x1 rows torch._int_mm takes: kernel and library
+        rows = [r for r in rows if r["library_ms"] is not None]
+        return {"ms": per_pass(rows, "ms"), "library_ms": per_pass(rows, "library_ms"),
+                "calls": sum(r["uses"] for r in rows)} if rows else None
+
+    int8_src = "tpuseg_torch/kernels/csrc/"
+    int8_paths = ("vnet_packed_int8", "vnet_int8", "unet_int8")  # the first with rows leads
+    for name, src, replaces, sel in (
+            ("conv_int8", "conv_int8.cu",
+             "tpuseg/models/vnet_packed.py:396 and tpuseg/nn/layers.py:152 "
+             "(lax.conv_general_dilated on int8, an XLA op: no Pallas kernel)", "dense"),
+            ("conv_int8_structured", "conv_int8.cu",
+             "tpuseg/models/vnet_packed.py:738-742 (the packed k3 as a dense coarse "
+             "lax.conv_general_dilated on int8 through _conv_int8: no Pallas kernel)",
+             "structured"),
+            ("conv_int8_sync", "conv_int8_sync.cu",
+             "tpuseg/nn/layers.py:152 (lax.conv_general_dilated on int8, an XLA op: no "
+             "Pallas kernel) at the shapes whose brick does not fit conv_int8.cu's block",
+             "sync"),
+            ("quantize_int8", "quantize_int8.cu",
+             "tpuseg/nn/layers.py:151-153 and tpuseg/models/vnet_packed.py:402-404 "
+             "(jnp ops, fused by XLA: no Pallas kernel)", "quantize")):
+        by_path = {p: c[name] for p, c in var_paths.items() if c[name]}
+        if not by_path:
+            fail(f"{name} was not launched on the int8 paths")
+        if sel == "quantize":
+            per_path = {p: int8_rows[f"quantize {p}"] for p in int8_paths}
+        else:
+            per_path = {p: [r for r in int8_rows[p] if r["mode"] == sel] for p in int8_paths}
+        lead = next(p for p in int8_paths if per_path[p])
+        entry = {"name": name, "route": "cuda", "dtype": "int8", "source": int8_src + src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "rows_of": lead, **int8_fields(per_path[lead]),
+                 "peak_tops": PEAK_INT8_OPS / 1e12}
+        if sel != "quantize":
+            entry["library"] = ("torch._int_mm (int8 x int8 -> int32) where every call is a "
+                                "1x1 it takes, else null; cuDNN's bf16 conv of the shape "
+                                "(another function) as cudnn_bf16_ms")
+            entry["cudnn_bf16_ms"] = per_pass(per_path[lead], "cudnn_bf16_ms")
+            entry["int_mm_1x1"] = int_mm_rows(per_path[lead])
+        if sel == "structured":
+            entry["dense_mode_ms"] = per_pass(per_path[lead], "dense_mode_ms")
+        for p in int8_paths:
+            if p != lead and per_path[p]:
+                entry[p] = int8_fields(per_path[p])
+                if sel != "quantize":
+                    entry[p]["cudnn_bf16_ms"] = per_pass(per_path[p], "cudnn_bf16_ms")
+                    entry[p]["int_mm_1x1"] = int_mm_rows(per_path[p])
+        entry["rows"] = per_path
+        summary.append(entry)
     say("nccl " + json.dumps(nccl, default=str))
     # the stem's one-product weight gradient (torch.matmul, not a kernel of
     # the package), a train step's calls of each packed net beside cuDNN's

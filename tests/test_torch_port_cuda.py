@@ -1529,3 +1529,120 @@ def test_int8_routes_launch_the_kernel_not_k2_or_k3(cuda):
         with vnet_packed.int8_packed_inference():
             vnet_packed.packed_vnet3d_apply(net, x)
         assert packed_conv.LAUNCHES == k3 and conv_int8.LAUNCHES > i8
+
+
+# the structured mode at the packed twins' k3 grids, small N: fully packed
+# (C 16, 8C = 128) and (H, W) (C 32, 4C = 128), one part and two (a second
+# part of C 8 fully packed, 64 channels), both bias modes and output dtypes
+INT8_STRUCT_CASES = [
+    ((True, True, True), (1, 12, 12, 12), (128,), torch.float32, "out"),
+    ((True, True, True), (2, 6, 10, 8), (128, 64), torch.bfloat16, "fp32"),
+    ((False, True, True), (1, 12, 6, 6), (128,), torch.bfloat16, "out"),
+    ((False, True, True), (1, 9, 5, 7), (128, 128), torch.float32, None),
+]
+
+
+@pytest.mark.parametrize("axes, size, cins, dtype, bias_mode", INT8_STRUCT_CASES)
+def test_conv_int8_structured_matches_plain_bit_for_bit(cuda, axes, size, cins, dtype,
+                                                        bias_mode):
+    """The packed k3 on its structural rows, the parts as they are, equals
+    the dense conv's plain version on the concat bit for bit."""
+    from tpuseg_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    p = packed_conv.deltas(axes)
+    xs = [torch.randn(size + (c,), generator=g, device=cuda) for c in cins]
+    w3 = torch.cat([packed_conv.pack_k3_axes(
+        torch.randn((3, 3, 3, c // p, 16), generator=g, device=cuda), axes) for c in cins],
+        dim=3)
+    bias = torch.randn(w3.shape[-1], generator=g, device=cuda) if bias_mode else None
+    xqs, a_scale = conv_int8.quantize_parts(xs)
+    wq, w_scale, packed = conv_int8.quantized(w3, axes, cins)
+    before = (conv_int8.LAUNCHES, conv_int8.LAUNCHES_STRUCTURED)
+    y = conv_int8.conv_int8(xqs[0], wq, a_scale * w_scale, bias, 1, "SAME", dtype, bias_mode,
+                            packed, axes=axes, xq2=xqs[1] if len(xqs) > 1 else None)
+    assert (conv_int8.LAUNCHES, conv_int8.LAUNCHES_STRUCTURED) == (before[0], before[1] + 1)
+    ref = conv_int8.conv_int8_plain(torch.cat(xqs, dim=-1), wq, a_scale * w_scale, bias, 1,
+                                    "SAME", dtype, bias_mode)
+    assert y.dtype == dtype and torch.equal(y, ref)
+
+
+def _quantize_cases(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ties = torch.arange(-127, 128, device=cuda, dtype=torch.float32) + 0.5
+    ties[-1] = 127.0  # the max: a_scale 1 exactly, so each x.5 is a tie
+    return {
+        "ties": [ties.reshape(1, 5, 51)],
+        "ragged": [torch.randn((3, 7, 11, 13), generator=g, device=cuda) * 40],
+        "two_parts": [torch.randn((2, 4, 6, 6, 16), generator=g, device=cuda),
+                      torch.randn((2, 4, 6, 6, 8), generator=g, device=cuda) * 1e3],
+        "zeros": [torch.zeros((2, 3, 17), device=cuda)],
+        "big": [torch.randn((4, 64, 64, 64), generator=g, device=cuda) * 1e-3],
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizer_matches_plain_bit_for_bit(cuda, dtype):
+    """The two-launch quantizer against the plain version on the CPU (true
+    division, ties to even, the clip, an all-zero map, parts)."""
+    from tpuseg_torch.kernels import conv_int8
+
+    for name, parts in _quantize_cases(cuda).items():
+        parts = [t.to(dtype) for t in parts]
+        before = conv_int8.QUANTIZE_LAUNCHES
+        qs, s = conv_int8.quantize_parts(parts)
+        assert conv_int8.QUANTIZE_LAUNCHES == before + 1
+        want, ws = conv_int8.quantize_activation_plain(
+            torch.cat([t.cpu() for t in parts], dim=-1) if len(parts) > 1 else parts[0].cpu())
+        assert torch.equal(s.cpu(), ws), name
+        assert torch.equal(torch.cat(qs, dim=-1).cpu(), want), name
+        if name == "ties" and dtype == torch.float32:
+            assert int(qs[0].reshape(-1)[0]) == -126  # -126.5 rounds to even
+    # an offset view (not 16-byte aligned) goes through the scalar loop
+    x = torch.randn(1001, device=cuda)[1:]
+    assert torch.equal(conv_int8.quantize_activation(x)[0].cpu(),
+                       conv_int8.quantize_activation_plain(x.cpu())[0])
+
+
+def test_int8_twin_runs_the_structured_mode_and_no_k2_or_k3(cuda):
+    """Under int8_packed_inference the packed VNet twin's five k3s (one
+    fully packed, four on the (H, W) grid) launch the structured mode, and
+    neither K3 nor K2 runs."""
+    from tpuseg_torch.kernels import conv_int8
+    from tpuseg_torch.models import vnet_packed
+
+    torch.manual_seed(0)
+    net = _seeded_vnet(cuda)
+    x = torch.randn(1, 32, 32, 32, 1, device=cuda)
+    with torch.no_grad(), vnet_packed.int8_packed_inference():
+        vnet_packed.packed_vnet3d_apply(net, x, packed_levels=2)  # derived weights
+        k2, k3 = conv3d.LAUNCHES, packed_conv.LAUNCHES
+        st, qz = conv_int8.LAUNCHES_STRUCTURED, conv_int8.QUANTIZE_LAUNCHES
+        vnet_packed.packed_vnet3d_apply(net, x, packed_levels=2)
+    assert conv_int8.LAUNCHES_STRUCTURED - st == 5
+    assert (conv3d.LAUNCHES, packed_conv.LAUNCHES) == (k2, k3)
+    assert conv_int8.QUANTIZE_LAUNCHES > qz
+
+
+@pytest.mark.parametrize("x_shape, w_shape, dtype", [
+    ((1, 3, 4000, 32), (3, 3, 32, 16), torch.float32),
+    ((2, 16, 14, 14, 256), (3, 3, 3, 256, 128), torch.float32),
+    ((2, 16, 14, 14, 256), (3, 3, 3, 256, 128), torch.bfloat16)])
+def test_conv_int8_wide_rows_take_the_mma_sync_kernel(cuda, x_shape, w_shape, dtype):
+    """A map whose halo'd rows do not fit a block's brick (2D, 4000 wide,
+    32 channels: ~256 KB a tile; the plain UNet3d's 256 -> 128 decoder k3
+    at 16x14x14) runs the mma.sync kernel, chosen by shape and counted
+    apart, bit for bit equal to the plain version."""
+    from tpuseg_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(dtype)
+    w = torch.randn(w_shape, generator=g, device=cuda)
+    bias = torch.randn(w_shape[-1], generator=g, device=cuda)
+    xq, a_scale = conv_int8.quantize_activation(x)
+    wq, w_scale = conv_int8.quantize_weight(w)
+    before = (conv_int8.LAUNCHES, conv_int8.LAUNCHES_SYNC)
+    y = conv_int8.conv_int8(xq, wq, a_scale * w_scale, bias, 1, "SAME", dtype, "fp32")
+    assert (conv_int8.LAUNCHES, conv_int8.LAUNCHES_SYNC) == (before[0], before[1] + 1)
+    ref = conv_int8.conv_int8_plain(xq, wq, a_scale * w_scale, bias, 1, "SAME", dtype, "fp32")
+    assert torch.equal(y, ref)

@@ -11,6 +11,12 @@
 * ``packed_conv`` — structured space-to-depth packed k3 conv, forward, on
   ``wgmma`` in bf16 and by 3xTF32 in f32 (tpuseg/kernels/packed_conv.py;
   ``csrc/packed_conv_tc.cu``)
+* ``conv_int8``  — the W8A8 int8 conv route's kernels: the conv on int8
+  ``wgmma`` over a staged input brick, dense or on a packed k3's
+  structural rows, its ``mma.sync`` form for bricks too large, and the
+  two-launch activation quantizer (JAX's ``_Int8Conv`` / ``_conv_int8``,
+  XLA ops; ``csrc/conv_int8.cu``, ``csrc/conv_int8_sync.cu``,
+  ``csrc/quantize_int8.cu``)
 * ``slab_conv``  — the slab-layout conv GEMM of K2's micro-benchmarks K4
   and K5, bf16 tensor cores (benchmarks/kmicro_r2.py, kmicro2_r2.py;
   ``csrc/slab_conv.cu``)
@@ -19,6 +25,7 @@
 
 Sources live in ``csrc/`` and are built on first use by ``_build``.
 """
-from tpuseg_torch.kernels import conv3d, flat_conv, fused_norm, packed_conv, slab_conv
+from tpuseg_torch.kernels import (conv3d, conv_int8, flat_conv, fused_norm, packed_conv,
+                                  slab_conv)
 
-__all__ = ["conv3d", "flat_conv", "fused_norm", "packed_conv", "slab_conv"]
+__all__ = ["conv3d", "conv_int8", "flat_conv", "fused_norm", "packed_conv", "slab_conv"]

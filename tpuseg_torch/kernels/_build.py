@@ -91,9 +91,14 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _P],
     "tpuseg_packed_conv3d_tf32x3": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _P],
+    # x0, x1, table, w_packed, scale, bias, y, plan (int64 array), out_dtype,
+    # stream
+    "tpuseg_conv_int8": [_P] * 8 + [_I, _P],
     # x, w_packed, scale, bias, y, n, d, h, w, cin, od, oh, ow, cout, kd,
     # kh, kw, sd, sh, sw, pd, ph, pw, k_pad, bn, bias_mode, out_dtype, stream
-    "tpuseg_conv_int8": [_P] * 5 + [_I] * 22 + [_P],
+    "tpuseg_conv_int8_sync": [_P] * 5 + [_I] * 22 + [_P],
+    # a, qa, na, b, qb, nb, amax, scale, dtype, stream
+    "tpuseg_quantize_int8": [_P, _P, _LL, _P, _P, _LL, _P, _P, _I, _P],
     # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream
     "tpuseg_slab_conv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P],

@@ -48,7 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpuseg_torch.kernels.conv_int8 import as_dhwio, int8_conv, int8_weight, quantized
+from tpuseg_torch.kernels.conv_int8 import (as_dhwio, int8_conv, int8_conv_parts,
+                                            int8_weight, quantized)
 from tpuseg_torch.kernels.fused_norm import fused_group_norm_relu
 from tpuseg_torch.kernels.packed_conv import (  # noqa: F401  (pack_k3_axes re-exported)
     FULL,
@@ -253,10 +254,11 @@ B_AXES = (False, True, True)
 # Opt-in variants, as tpuseg's flags of the same names; read at call time.
 # USE_INT8_PACKED: every conv the JAX twins send through ``_conv`` with
 # Cin >= _INT8_MIN_CIN runs W8A8 on the int8 kernel (``kernels/
-# conv_int8.py``): the packed k3s (on ``pack_k3_axes``'s weight, instead of
-# K3), the packed 1x1s, the strided packing convs and the convs of the
-# plain stages a twin calls; the k4 stem, the transpose convs and Cin < 32
-# stay as they are.  Inference only; switch it with
+# conv_int8.py``): the packed k3s (on ``pack_k3_axes``'s weight quantized,
+# instead of K3, in the kernel's structured mode, which skips the weight's
+# structural zeros), the packed 1x1s, the strided packing convs and the
+# convs of the plain stages a twin calls; the k4 stem, the transpose convs
+# and Cin < 32 stay as they are.  Inference only; switch it with
 # ``int8_packed_inference()``.  USE_SHIFT_PACKED_K3: the packed k3 runs
 # as the shift-stack k2 form on cuDNN (``shift_stack``) instead of K3.
 # LUCONV96_MODE "k4s2": the packed VNet's last LUConv is a depth-to-space
@@ -632,7 +634,10 @@ class PackedK3:
     (``shift_stack`` of each part, the ``pack_k3_axes_shift`` kernels,
     one cuDNN conv; differentiable), and under ``USE_INT8_PACKED`` the
     dense or shift form's conv is the int8 one when Cin >= 32 (JAX's
-    ``packed_k3_conv``); K3 runs in neither."""
+    ``packed_k3_conv``); K3 runs in neither.  The dense form's int8 conv
+    runs in the kernel's structured mode on the parts as they are (its
+    weight, made once when serving, a row gather of the dense int8
+    weight, so its sums and scales are JAX's)."""
 
     def __init__(self, w_parts, derive: Derive, axes: Sequence[bool] = FULL,
                  bias: Optional[torch.Tensor] = None):
@@ -641,6 +646,7 @@ class PackedK3:
         if self.train:
             self.w_fines, self.bias = tuple(w_parts), bias
             return
+        self._int8 = None  # (cins, quantized(...) in the structured mode)
         self.w_fines = tuple(w.clone() for w in w_parts)
         self.w3s = tuple(pack_k3_axes(w, self.axes).to(derive.device) for w in w_parts)
         self.bias = (None if bias is None else
@@ -674,8 +680,13 @@ class PackedK3:
             return _pconv(x, w, bias, 1, pad, layout="dhwio", cache=not self.train)
         if _int8_on(cin):
             w, bias = self._variant("dense")
-            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-            return _pconv(x, w, bias, 1, "SAME", layout="dhwio", cache=not self.train)
+            cins = tuple(p.shape[-1] for p in parts)
+            qweight = None
+            if not self.train:
+                if self._int8 is None or self._int8[0] != cins:
+                    self._int8 = (cins, quantized(w, self.axes, cins))
+                qweight = self._int8[1]
+            return int8_conv_parts(parts, w, bias, 1, "SAME", "out", qweight, axes=self.axes)
         return self.kernel(*parts)
 
     def kernel(self, *parts: torch.Tensor) -> torch.Tensor:
@@ -745,13 +756,13 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     (if any); with ``x2``/``w2`` the conv of the channel concat [x; x2] as
     two products into one sum, without the concat.  Under ``USE_INT8_PACKED``
     (Cin >= 32 over the concat) the int8 1x1 conv of the concat, its
-    activation scale over all of it, as JAX's ``_conv``."""
+    activation scale over all of it, as JAX's ``_conv`` (the two parts read
+    as they are on the card)."""
     cin = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
     if _int8_on(cin):
         if x2 is not None:
-            x, w = torch.cat([x, x2], dim=-1), torch.cat([w, w2], dim=0)
-            return int8_conv(x, as_dhwio(w, "io"), bias, 1, "VALID", "out",
-                             quantized(as_dhwio(w, "io")))
+            return int8_conv_parts([x, x2], as_dhwio(w, "io"), bias, 1, "VALID", "out",
+                                   int8_weight(w, "io", w2), w2=as_dhwio(w2, "io"))
         return int8_conv(x, as_dhwio(w, "io"), bias, 1, "VALID", "out",
                          int8_weight(w, "io"))
     if bias is None:
