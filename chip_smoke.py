@@ -4754,16 +4754,19 @@ def phase_parallel(torch, mods) -> tuple:
 # levels' convs in the dense mode instead of K2; 29 quantizer calls); the
 # shift form runs the twin's packed k3s on cuDNN (K3 none); k4s2 the last
 # LUConv as a depth-to-space and the k4 stride-2 conv (K3 4).  No call
-# shape of these paths takes the mma.sync kernel (``conv_int8_sync``)
-INT8_NONE = {"conv_int8": 0, "conv_int8_structured": 0, "conv_int8_sync": 0,
+# shape of these paths stages its brick by channel chunks
+# (``conv_int8_chunked``)
+INT8_NONE = {"conv_int8": 0, "conv_int8_structured": 0, "conv_int8_chunked": 0,
              "quantize_int8": 0}
 # per plain UNet3d forward (features 16, 5 classes, phase 8's batch of 8
 # patches of 128x112x112) under int8_inference: its 19 ConvNDs on the int8
-# route, 18 in the wgmma kernel's dense mode and the 256 -> 128 decoder k3
-# at 16x14x14, whose brick does not fit a block, on the mma.sync kernel;
-# 19 quantizer calls; K1 its 18 GroupNorms; K2 none
+# route, 18 in the wgmma kernel's dense mode with whole bricks and the
+# 256 -> 128 decoder k3 at 16x14x14, two of whose bricks do not fit a
+# block, in the dense mode staged by 128-channel chunks; 19 quantizer
+# calls; K1 its 18 GroupNorms; K2 none
 UNET_INT8_FORWARD = dict({k: 0 for k in EXPECTED_LAUNCHES}, fused_group_norm_relu=18,
-                         **dict(INT8_NONE, conv_int8=18, conv_int8_sync=1, quantize_int8=19))
+                         **dict(INT8_NONE, conv_int8=18, conv_int8_chunked=1,
+                                quantize_int8=19))
 VAR_VNET_LAUNCHES = {
     "vnet_f32": dict(SWIN_VNET_LAUNCHES, **INT8_NONE),
     "vnet_int8": dict(SWIN_VNET_LAUNCHES, **dict(INT8_NONE, conv_int8=31, quantize_int8=31),
@@ -4803,7 +4806,7 @@ PEAK_INT8_OPS = 1979e12
 def _int8_counts(mods) -> dict:
     ci = mods["conv_int8"]
     return {"conv_int8": ci.LAUNCHES, "conv_int8_structured": ci.LAUNCHES_STRUCTURED,
-            "conv_int8_sync": ci.LAUNCHES_SYNC, "quantize_int8": ci.QUANTIZE_LAUNCHES}
+            "conv_int8_chunked": ci.LAUNCHES_CHUNKED, "quantize_int8": ci.QUANTIZE_LAUNCHES}
 
 
 def _var_counts(mods) -> dict:
@@ -4813,7 +4816,7 @@ def _var_counts(mods) -> dict:
 def _var_reset(mods) -> None:
     reset_counts(mods)
     ci = mods["conv_int8"]
-    ci.LAUNCHES = ci.LAUNCHES_STRUCTURED = ci.LAUNCHES_SYNC = ci.QUANTIZE_LAUNCHES = 0
+    ci.LAUNCHES = ci.LAUNCHES_STRUCTURED = ci.LAUNCHES_CHUNKED = ci.QUANTIZE_LAUNCHES = 0
 
 
 @contextlib.contextmanager
@@ -4846,7 +4849,7 @@ def _int_mm_ms(torch, xs, wq):
 def _int8_rows(torch, mods, calls: dict, tag: str) -> list:
     """conv_int8 at each recorded call shape of a path (random int8
     operands, the same epilogue), in the mode it runs (dense, structured,
-    or the mma.sync kernel, read from the counter it moves): bit for bit against
+    or dense staged by channel chunks, read from the counter it moves): bit for bit against
     its plain version (the dense mode: the float64 conv on the card; the
     structured mode: the float64 sums of its K-row table, and the float64
     conv too), kernel and plain timed, the bound from the int8 rate and
@@ -4887,7 +4890,7 @@ def _int8_rows(torch, mods, calls: dict, tag: str) -> list:
         y = kern()
         mode = next(m for m, n in _int8_counts(mods).items() if n != before[m])
         mode = {"conv_int8": "dense", "conv_int8_structured": "structured",
-                "conv_int8_sync": "sync"}[mode]
+                "conv_int8_chunked": "chunked"}[mode]
         xcat = torch.cat(xqs, dim=-1) if c2 else xqs[0]
         ref = ci.conv_int8_plain(xcat, wq, scale, bias, st, pads, dtype, bias_mode)
         if not torch.equal(y, ref):
@@ -4969,6 +4972,48 @@ def _quant_rows(torch, mods, calls: dict, tag: str) -> list:
             f"{ms:.4f} ms, plain (PyTorch ops) {plain_ms:.4f} ms, bound {bound[0]:.4f} ms")
         del parts, whole, qs, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def _quant_nonfinite(torch, mods) -> list:
+    """The quantizer on maps holding one NaN or one +inf, f32 and bf16, at
+    the UNet3d decoder k3's input (8, 16, 14, 14, 256), against its plain
+    version on the same map on the CPU (JAX's semantics there): the scale
+    NaN (inf), the int8 map all zeros, and the conv's output (the chunked
+    plan) NaN at every voxel, as conv_int8_plain's on the plain operands.
+    Rows of strings and booleans (JSON has no NaN)."""
+    ci = mods["conv_int8"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    wq = torch.randint(-127, 128, (3, 3, 3, 256, 128), generator=g, device="cuda",
+                       dtype=torch.int8)
+    w_scale = torch.rand(128, generator=g, device="cuda") * 1e-3
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for value in ("nan", "inf"):
+            x = torch.randn((8, 16, 14, 14, 256), generator=g, device="cuda").to(
+                getattr(torch, dtype_name))
+            x[3, 7, 5, 9, 100] = float(value)
+            xq, scale = ci.quantize_activation(x)
+            want_q, want_s = ci.quantize_activation_plain(x.cpu())
+            y = ci.conv_int8(xq, wq, scale * w_scale, None, 1, "SAME", x.dtype)
+            ref = ci.conv_int8_plain(want_q.cuda(), wq, want_s.cuda() * w_scale, None, 1,
+                                     "SAME", x.dtype)
+            row = {"dtype": dtype_name, "value": value, "scale": str(scale.item()),
+                   "plain_scale": str(want_s.item()),
+                   "int8_map_equal": bool(torch.equal(xq.cpu(), want_q)),
+                   "int8_map_zero": not bool(xq.any()),
+                   "conv_all_nan": bool(torch.isnan(y).all()),
+                   "plain_conv_all_nan": bool(torch.isnan(ref).all())}
+            if not (row["scale"] == row["plain_scale"] == value and row["int8_map_equal"]
+                    and row["int8_map_zero"] and row["conv_all_nan"]
+                    and row["plain_conv_all_nan"]):
+                fail(f"quantize_int8 on a map holding {value} ({dtype_name}): {row}")
+            rows.append(row)
+            del x, xq, y, ref
+    torch.cuda.empty_cache()
+    say("  quantize_int8 on maps holding a NaN / an inf (one voxel of (8, 16, 14, 14, 256)): "
+        "scale, int8 map and the chunked conv's output equal to the plain version's: "
+        + json.dumps(rows))
     return rows
 
 
@@ -5338,6 +5383,7 @@ def phase_variants(torch, mods):
     launches, rows, numbers = _var_inference(torch, mods)
     (launches["unet_int8"], rows["unet_int8"], rows["quantize unet_int8"],
      numbers["unet_int8"]) = _var_unet_int8(torch, mods)
+    rows["quantize nonfinite"] = _quant_nonfinite(torch, mods)
     train_launches, step_ms = _var_training(torch, mods)
     launches.update(train_launches)
     numbers["step_ms"] = step_ms
@@ -5721,8 +5767,9 @@ def main() -> int:
     # packed twin under int8_packed_inference, the plain net's under
     # int8_inference beside it, and a plain UNet3d volume's (its forwards'
     # calls) under int8_inference: the conv's dense mode, its structured
-    # mode (the twin's packed k3s), the mma.sync kernel (the UNet3d's
-    # decoder k3 at 16x14x14) and the quantizer
+    # mode (the twin's packed k3s), the dense mode staged by channel chunks
+    # (the UNet3d's decoder k3 at 16x14x14) and the quantizer (with its
+    # NaN / inf checks)
     def int8_fields(rows, library=True):
         lib = [r["library_ms"] for r in rows]
         return dict(pass_fields(rows),
@@ -5739,17 +5786,17 @@ def main() -> int:
     int8_src = "tpuseg_torch/kernels/csrc/"
     int8_paths = ("vnet_packed_int8", "vnet_int8", "unet_int8")  # the first with rows leads
     for name, src, replaces, sel in (
-            ("conv_int8", "conv_int8.cu",
+            ("conv_int8", "conv_int8.cuh",
              "tpuseg/models/vnet_packed.py:396 and tpuseg/nn/layers.py:152 "
              "(lax.conv_general_dilated on int8, an XLA op: no Pallas kernel)", "dense"),
-            ("conv_int8_structured", "conv_int8.cu",
+            ("conv_int8_structured", "conv_int8.cuh",
              "tpuseg/models/vnet_packed.py:738-742 (the packed k3 as a dense coarse "
              "lax.conv_general_dilated on int8 through _conv_int8: no Pallas kernel)",
              "structured"),
-            ("conv_int8_sync", "conv_int8_sync.cu",
+            ("conv_int8_chunked", "conv_int8.cuh",
              "tpuseg/nn/layers.py:152 (lax.conv_general_dilated on int8, an XLA op: no "
-             "Pallas kernel) at the shapes whose brick does not fit conv_int8.cu's block",
-             "sync"),
+             "Pallas kernel) at the shapes two of whose whole bricks do not fit a block",
+             "chunked"),
             ("quantize_int8", "quantize_int8.cu",
              "tpuseg/nn/layers.py:151-153 and tpuseg/models/vnet_packed.py:402-404 "
              "(jnp ops, fused by XLA: no Pallas kernel)", "quantize")):
@@ -5773,6 +5820,8 @@ def main() -> int:
             entry["int_mm_1x1"] = int_mm_rows(per_path[lead])
         if sel == "structured":
             entry["dense_mode_ms"] = per_pass(per_path[lead], "dense_mode_ms")
+        if sel == "quantize":
+            entry["nonfinite"] = int8_rows["quantize nonfinite"]
         for p in int8_paths:
             if p != lead and per_path[p]:
                 entry[p] = int8_fields(per_path[p])

@@ -1624,25 +1624,105 @@ def test_int8_twin_runs_the_structured_mode_and_no_k2_or_k3(cuda):
     assert conv_int8.QUANTIZE_LAUNCHES > qz
 
 
-@pytest.mark.parametrize("x_shape, w_shape, dtype", [
-    ((1, 3, 4000, 32), (3, 3, 32, 16), torch.float32),
-    ((2, 16, 14, 14, 256), (3, 3, 3, 256, 128), torch.float32),
-    ((2, 16, 14, 14, 256), (3, 3, 3, 256, 128), torch.bfloat16)])
-def test_conv_int8_wide_rows_take_the_mma_sync_kernel(cuda, x_shape, w_shape, dtype):
-    """A map whose halo'd rows do not fit a block's brick (2D, 4000 wide,
-    32 channels: ~256 KB a tile; the plain UNet3d's 256 -> 128 decoder k3
-    at 16x14x14) runs the mma.sync kernel, chosen by shape and counted
-    apart, bit for bit equal to the plain version."""
+# shapes two of whose whole bricks of a run a tap plane do not fit a
+# block, once the int8 mma.sync kernel's: (parts' shapes, weight, chunked)
+# - the plain UNet3d's 256 -> 128 decoder k3 at 8 x 16x14x14, its input as
+#   one part and as the two 128-channel parts of a concat (128-channel
+#   chunks), f32 and bf16 out, both bias modes;
+# - wide maps, a run a tap row: 2D 4000 wide over 32 channels (the whole
+#   brick), 2D 1024 wide over 384 (128-channel chunks), 3D on 512^2
+#   planes over a 16 + 16 concat;
+# - parts 32 does not divide, in 32-byte chunks of channels padded to 32:
+#   3D over 144 channels on 12^2 planes, a 48 + 48 concat on 96^2 planes
+_DECODER = [([(8, 16, 14, 14, c) for c in parts], (3, 3, 3, 256, 128), True)
+            for parts in ((256,), (128, 128))]
+_WIDE = [([(1, 3, 4000, 32)], (3, 3, 32, 16), False),
+         ([(1, 3, 1024, 384)], (3, 3, 384, 128), True),
+         ([(1, 4, 512, 512, 16)] * 2, (3, 3, 3, 32, 16), False),
+         ([(2, 8, 12, 12, 144)], (3, 3, 3, 144, 128), True),
+         ([(1, 4, 96, 96, 48)] * 2, (3, 3, 3, 96, 128), True)]
+INT8_CHUNKED_CASES = ([(xs, w, dtype, mode, chunked) for xs, w, chunked in _DECODER
+                       for dtype in (torch.float32, torch.bfloat16) for mode in ("fp32", "out")]
+                      + [(xs, w, torch.float32, "fp32", chunked) for xs, w, chunked in _WIDE])
+
+
+@pytest.mark.parametrize("x_shapes, w_shape, dtype, bias_mode, chunked", INT8_CHUNKED_CASES)
+def test_conv_int8_wide_rows_take_the_mma_sync_kernel(cuda, x_shapes, w_shape, dtype, bias_mode,
+                                                      chunked):
+    """Shapes whose two whole bricks of a run a tap plane do not fit a
+    block, which once took an int8 mma.sync kernel: the wgmma kernel
+    stages them by channel chunks, or a run a tap row, or both (one scale
+    over the parts, the packed weight made once), a chunked launch counted
+    apart from the whole-brick ones, bit for bit equal to the plain
+    version."""
     from tpuseg_torch.kernels import conv_int8
 
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = torch.randn(x_shape, generator=g, device=cuda).to(dtype)
+    xs = [torch.randn(s, generator=g, device=cuda).to(dtype) for s in x_shapes]
     w = torch.randn(w_shape, generator=g, device=cuda)
     bias = torch.randn(w_shape[-1], generator=g, device=cuda)
-    xq, a_scale = conv_int8.quantize_activation(x)
-    wq, w_scale = conv_int8.quantize_weight(w)
-    before = (conv_int8.LAUNCHES, conv_int8.LAUNCHES_SYNC)
-    y = conv_int8.conv_int8(xq, wq, a_scale * w_scale, bias, 1, "SAME", dtype, "fp32")
-    assert (conv_int8.LAUNCHES, conv_int8.LAUNCHES_SYNC) == (before[0], before[1] + 1)
-    ref = conv_int8.conv_int8_plain(xq, wq, a_scale * w_scale, bias, 1, "SAME", dtype, "fp32")
-    assert torch.equal(y, ref)
+    xqs, a_scale = conv_int8.quantize_parts(xs)
+    wq, w_scale, packed = conv_int8.quantized(w)
+    before = (conv_int8.LAUNCHES, conv_int8.LAUNCHES_CHUNKED)
+    y = conv_int8.conv_int8(xqs[0], wq, a_scale * w_scale, bias, 1, "SAME", dtype, bias_mode,
+                            packed, xq2=xqs[1] if len(xqs) > 1 else None)
+    assert (conv_int8.LAUNCHES, conv_int8.LAUNCHES_CHUNKED) == (
+        before[0] + (not chunked), before[1] + chunked)
+    ref = conv_int8.conv_int8_plain(torch.cat(xqs, dim=-1), wq, a_scale * w_scale, bias, 1,
+                                    "SAME", dtype, bias_mode)
+    assert y.dtype == dtype and torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("x_shape, w_shape, padding", [
+    ((1, 16, 112, 112, 64), (7, 7, 7, 64, 16), "SAME"),
+    ((1, 1, 4, 3, 16), (1, 1, 1, 16, 16), [(0, 0), (0, 0), (0, 3)])])
+def test_conv_int8_refuses_a_shape_no_plan_fits(cuda, x_shape, w_shape, padding):
+    """A k7 over 64 channels on 112^2 planes (49 runs a tap row, ~250 KB a
+    brick even in 32-byte chunks) and a map whose padding outgrows it
+    (tile corners that do not grow with the voxel): ``conv_int8`` raises a
+    ValueError naming the shape; there is no other kernel to take it."""
+    from tpuseg_torch.kernels import conv_int8
+
+    xq = torch.randint(-127, 128, x_shape, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, w_shape, device=cuda, dtype=torch.int8)
+    scale = torch.full((w_shape[-1],), 1e-3, device=cuda)
+    launches = (conv_int8.LAUNCHES, conv_int8.LAUNCHES_CHUNKED)
+    with pytest.raises(ValueError, match="no plan fits"):
+        conv_int8.conv_int8(xq, wq, scale, None, 1, padding)
+    assert (conv_int8.LAUNCHES, conv_int8.LAUNCHES_CHUNKED) == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("value", ["nan", "inf"])
+def test_quantizer_keeps_a_nan_and_an_inf(cuda, dtype, value):
+    """Maps holding one NaN (or one +inf): one part (the 16-byte loop and
+    an offset view through the scalar loop) and two parts (the value in
+    the second).  The scale is NaN (inf) and the int8 map all zeros, as
+    the plain version's on the CPU; the conv's output is NaN at every
+    voxel, as the plain conv's on the plain operands."""
+    from tpuseg_torch.kernels import conv_int8
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    cases = {"one": [randn(2, 4, 6, 6, 16)],
+             "offset": [randn(4 * 6 * 6 * 16 + 1)[1:].reshape(1, 4, 6, 6, 16)],
+             "two": [randn(2, 4, 6, 6, 16), randn(2, 4, 6, 6, 16)]}
+    wq = torch.randint(-127, 128, (3, 3, 3, 16, 8), generator=g, device=cuda,
+                       dtype=torch.int8)
+    w_scale = torch.rand(8, generator=g, device=cuda) * 1e-3
+    for name, parts in cases.items():
+        parts[-1][0, 1, 2, 3, 5] = float(value)
+        qs, s = conv_int8.quantize_parts(parts)
+        want, ws = conv_int8.quantize_activation_plain(
+            torch.cat([t.cpu() for t in parts], dim=-1))
+        assert str(s.item()) == str(ws.item()) == value, name
+        assert torch.equal(torch.cat(qs, dim=-1).cpu(), want) and not want.any(), name
+        if name == "two":
+            continue
+        y = conv_int8.conv_int8(qs[0], wq, s * w_scale, None, 1, "SAME", dtype)
+        ref = conv_int8.conv_int8_plain(want.to(cuda), wq, ws.to(cuda) * w_scale, None, 1,
+                                        "SAME", dtype)
+        assert torch.isnan(y).all() and torch.isnan(ref).all(), name

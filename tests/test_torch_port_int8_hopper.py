@@ -7,15 +7,24 @@ JAX's side is ``tests/data/torch_port_variants_golden.npz`` (written by
   structural zeros skipped): its plain int32 sums equal the dense conv's
   exactly, fully packed and on the (H, W) grid, one part and two, C 8 and
   16; every nonzero of the dense int8 weight lies on a row of its table.
-- The dense mode's table enumerates (tap, piece) in ``pack_weight``'s
-  order, and ``pack_int8``'s wgmma layout holds those rows.
+- The dense mode's table enumerates (tap, piece) chunk-major, 32
+  channels a chunk, and ``pack_int8``'s wgmma layout holds those rows.
 - The two-part quantizer (one scale over a concat's parts).
 - An emulation of the kernel's index arithmetic in numpy (the tiles of
   ``_plan``, the staged brick with its TMA swizzle or its byte-path
   copies, each lane's row address from ``_table``, the k32 steps of the
   packed weight) against the plain int32 sums, at the zoo's shapes small:
   the dense and structured modes, two parts, strides, tiles within a plane
-  and over whole planes, and the byte path (Cin 1 and 3).
+  and over whole planes, the byte path (Cin 1 and 3), the plans that
+  stage the brick by channel chunks (the plain UNet3d's 256 -> 128 decoder
+  k3 on 14 x 14 planes, one part and two; Cin 144 and a 48 + 48 concat in
+  chunks of channels padded to 32), and those that stage a run a tap row
+  on wide maps (2D k3s 1024-4096 wide, the byte path among them, a 3D k3
+  on 512-wide planes over a 16 + 16 concat).
+- ``_plan`` puts every conv of the int8 paths, and a sweep of k3 and 1x1
+  convs over Cin 16-512 on planes of 6^2-112^2 and 512^2 and of 2D k3s on
+  maps 1024-4096 wide, on the wgmma kernel; None only where no staging
+  fits.
 - The packed twins under ``int8_packed_inference()`` through the
   structured route: bitwise the dense route's logits, JAX's masks at its
   0.97 bar.
@@ -95,13 +104,20 @@ def test_structured_sums_equal_dense_exactly(axes, parts, c):
 
 
 def test_dense_table_is_pack_weights_order():
+    """``dense_pieces`` is chunk-major (per 32 channels every tap, the
+    channel fastest), the order ``pack_int8`` packs the weight's rows in,
+    so a chunk of 32, 64 or 128 channels is a run of k32 steps."""
     rng = np.random.default_rng(5)
     wq = _int8(rng, (3, 2, 3, 32, 24))
     pieces = ci.dense_pieces(18, 32)
-    assert pieces[:3] == ((0, 0), (0, 16), (1, 0))
+    assert pieces[:3] == ((0, 0), (0, 16), (1, 0))  # Cin 32: tap-major
     rows = ci.weight_rows(wq, pieces)
-    legacy = ci.pack_weight(wq)  # (cout_pad, k_pad): k = (tap, ci), ci fastest
-    assert torch.equal(legacy[:24, :rows.shape[0]].t(), rows)
+    assert torch.equal(rows, wq.reshape(18 * 32, 24))
+    wide = ci.dense_pieces(27, 96)
+    assert wide[:3] == ((0, 0), (0, 16), (1, 0)) and wide[54:56] == ((0, 32), (0, 48))
+    w96 = _int8(rng, (3, 3, 3, 96, 8))
+    chunks = w96.reshape(27, 3, 32, 8).permute(1, 0, 2, 3).reshape(-1, 8)
+    assert torch.equal(ci.weight_rows(w96, wide), chunks)
     assert ci.dense_pieces(27, 40) is None  # the byte path
     # pack_int8's layout: [n tile][k32 step][n8][k half][8 rows][16 bytes]
     packed = ci.pack_int8(wq, pieces)
@@ -133,17 +149,22 @@ def _swz(lin, cs):
 
 
 def _emulate(xs, packed, plan, table, out_dtype_cout):
-    """csrc/conv_int8.cu's index arithmetic: the int32 sums it computes."""
+    """csrc/conv_int8.cuh's index arithmetic: the int32 sums it computes."""
     g = dict(zip(ci._G, plan.geo))
     n, d, h, w = g["n"], g["d"], g["h"], g["w"]
     od, oh, ow = g["od"], g["oh"], g["ow"]
     m_total, hw, nseg, lpad = n * od * oh * ow, h * w, g["nseg"], g["lpad"]
+    srows = g["srows"]
     bn, n_tiles, k_steps = g["bn"], g["n_tiles"], g["k_steps"]
     voxels = n * d * h * w
     flat = [x.reshape(voxels, -1).numpy().view(np.uint8) for x in xs]
     tab = table.numpy()
     wt = packed.wt.numpy()  # (n_tiles, k_steps, bn / 8, 2, 8, 16)
-    wk = wt.transpose(1, 3, 5, 0, 2, 4).reshape(k_steps * 32, n_tiles * bn).astype(np.int64)
+    # float64 products: exact for these sums (below 2**53)
+    wk = wt.transpose(1, 3, 5, 0, 2, 4).reshape(k_steps * 32, n_tiles * bn).astype(np.float64)
+    chunks = g["chunks"]
+    steps = k_steps // chunks  # k32 steps a brick chunk
+    subs = [(k, s) for k in range(g["nparts"]) for s in range(g[f"nsub{k}"])]
 
     def corner(m):
         m = np.asarray(m, np.int64)
@@ -153,7 +174,31 @@ def _emulate(xs, packed, plan, table, out_dtype_cout):
         z0, y0, x0 = oz * g["sd"] - g["pd"], oy * g["sh"] - g["ph"], ox * g["sw"] - g["pw"]
         return ((nn * d + z0) * h + y0) * w + x0, z0, y0, x0
 
-    acc = np.zeros((m_total, n_tiles * bn), np.int64)
+    acc = np.zeros((m_total, n_tiles * bn), np.float64)
+
+    def seg_lo(f0, sg):
+        """The first voxel of segment sg: a run a tap plane, or a tap row
+        (srows kh), or one for every tap (nseg 1)."""
+        return f0 + (sg // srows * hw + sg % srows * w if nseg > 1 else 0)
+
+    def stage(brick, f0, j):
+        """Fill ring slot ``brick`` with brick chunk j of the tile at f0:
+        every part's sub-parts (the whole brick), or the j-th sub-part in
+        the concat's order, in the slot's first buffers."""
+        for i, (k, s) in enumerate(subs if chunks == 1 else subs[j:j + 1]):
+            cs, box, base, seg = (g[f"{f}{k}"] for f in ("cs", "box", "base", "seg"))
+            local = s if chunks == 1 else 0
+            for sg in range(nseg):
+                lo = seg_lo(f0, sg)
+                v = lo + np.arange(lpad)
+                rows = np.zeros((lpad, cs), np.uint8)  # TMA zero-fills outside
+                inside = (v >= 0) & (v < voxels)
+                src = flat[k][v[inside], s * cs:(s + 1) * cs]  # a padded part's last: fewer
+                rows[inside, :src.shape[1]] = src
+                lin = np.arange(lpad * cs)
+                buf = base + (local * nseg + sg) * seg
+                brick[buf + _swz(lin, cs)] = rows.reshape(-1)
+
     for t in range(g["tiles_m"] * n_tiles):
         mt, nt = divmod(t, n_tiles)
         grp, q = divmod(mt, g["tpg"])
@@ -162,24 +207,12 @@ def _emulate(xs, packed, plan, table, out_dtype_cout):
         f0 = int(corner(m0)[0])
         brick = np.full(g["brick_bytes"], 0xAB, np.uint8)  # unfilled bytes show
         if not g["byte_path"]:
-            for k in range(g["nparts"]):
-                cs, nsub, box, base, seg = (g[f"{f}{k}"] for f in ("cs", "nsub", "box", "base",
-                                                                     "seg"))
-                for s in range(nsub):
-                    for sg in range(nseg):
-                        lo = f0 + (sg * hw if nseg > 1 else 0)
-                        v = lo + np.arange(lpad)
-                        rows = np.zeros((lpad, cs), np.uint8)  # TMA zero-fills outside
-                        inside = (v >= 0) & (v < voxels)
-                        rows[inside] = flat[k][v[inside], s * cs:(s + 1) * cs]
-                        lin = np.arange(lpad * cs)
-                        buf = base + (s * nseg + sg) * seg
-                        brick[buf + _swz(lin, cs)] = rows.reshape(-1)
+            stage(brick, f0, 0)
         else:
             cin = g["cin0"]
             src = flat[0].reshape(-1)
             for sg in range(nseg):
-                lo = (f0 + (sg * hw if nseg > 1 else 0)) * cin
+                lo = seg_lo(f0, sg) * cin
                 b_lo, b_hi = max(lo, 0), min(lo + lpad * cin, voxels * cin)
                 if b_hi > b_lo:
                     at = sg * g["seg0"] + np.arange(b_lo, b_hi) - (lo & ~15)
@@ -188,15 +221,18 @@ def _emulate(xs, packed, plan, table, out_dtype_cout):
         live = r < ln
         f, z0, y0, x0 = corner(np.where(live, m0 + r, m0))
         rel = f - f0
-        a = np.zeros((128, k_steps * 32), np.int64)
+        a = np.zeros((128, k_steps * 32), np.float64)
 
         def ok_of(e):
             dz, dy, dx = e[3] & 15, (e[3] >> 4) & 15, (e[3] >> 8) & 15
             inside = ((z0 + dz >= 0) & (z0 + dz < d) & (y0 + dy >= 0) & (y0 + dy < h)
                       & (x0 + dx >= 0) & (x0 + dx < w))
-            return live & inside & (not e[3] & ci._PAD_ROW), dz
+            return live & inside & (not e[3] & ci._PAD_ROW), dz * srows + dy if srows > 1 else dz
 
         for ks in range(k_steps):
+            if chunks > 1 and ks % steps == 0 and ks:  # the ring's next slot
+                brick = np.full(g["brick_bytes"], 0xAB, np.uint8)
+                stage(brick, f0, ks // steps)
             if not g["byte_path"]:
                 for piece in range(2):
                     e = tab[2 * ks + piece]
@@ -204,21 +240,21 @@ def _emulate(xs, packed, plan, table, out_dtype_cout):
                     cl = (e[3] >> 12) & 15
                     lin = ((rel + e[2]) << cl) + e[1]
                     addr = e[0] + _swz(np.where(ok, lin, 0), 1 << cl)
-                    vals = brick[addr[:, None] + np.arange(16)].view(np.int8).astype(np.int64)
+                    vals = brick[addr[:, None] + np.arange(16)].view(np.int8).astype(np.float64)
                     a[:, ks * 32 + 16 * piece:ks * 32 + 16 * piece + 16] = np.where(
                         ok[:, None], vals, 0)
             else:
                 cin = g["cin0"]
                 for kk in range(ks * 32, ks * 32 + 32):
                     e = tab[kk]
-                    ok, dz = ok_of(e)
-                    lo = (f0 + (dz * hw if nseg > 1 else 0)) * cin
+                    ok, sg = ok_of(e)
+                    lo = seg_lo(f0, sg) * cin
                     off = e[0] + (rel + e[2]) * cin + e[1] + (lo & 15)
-                    vals = brick[np.where(ok, off, 0)].view(np.int8).astype(np.int64)
+                    vals = brick[np.where(ok, off, 0)].view(np.int8).astype(np.float64)
                     a[:, kk] = np.where(ok, vals, 0)
         cols = slice(nt * bn, (nt + 1) * bn)
         acc[m0:m0 + ln, cols] += (a @ wk[:, cols])[:ln]
-    return acc[:, :out_dtype_cout]
+    return acc[:, :out_dtype_cout].astype(np.int64)
 
 
 EMU_CASES = [
@@ -256,28 +292,104 @@ def test_kernel_index_arithmetic_emulated(case):
     else:
         wq = _dense_weight(rng, cins, cout // packed_conv.deltas(axes), axes)
         pieces = ci.structured_pieces(cins, axes)
-    packed = ci.pack_int8(wq, pieces, axes is not None)
+    _check_emulated(xs, wq, pieces, ks, stride, padding, axes is not None)
+
+
+def _check_emulated(xs, wq, pieces, ks, stride, padding, structured):
+    """The emulated kernel's sums of ``_plan``'s plan equal the plain
+    int32 sums; returns the plan."""
+    cins = tuple(x.shape[-1] for x in xs)
+    packed = ci.pack_int8(wq, pieces, structured)
     st = ci._triple(stride, 3)
     pads, out = ci._geometry(xs[0].shape, wq.shape, st, padding)
     plan = ci._plan(tuple(xs[0].shape[:4]), out, ks, st, tuple(lo for lo, _ in pads), cins,
-                    pieces is None, packed.bn, packed.k_steps, packed.wt.shape[0])
+                    pieces is None, packed.bn, packed.k_steps, packed.wt.shape[0],
+                    not structured)
     assert plan is not None and plan.smem <= ci._SMEM
+    if plan.padded:  # as conv_int8 packs it
+        packed = ci.pack_int8(wq, ci.padded_pieces(int(np.prod(ks)), cins))
     table = ci._table(packed, plan, cins, xs[0].shape[2], xs[0].shape[3], "cpu")
     got = _emulate(xs, packed, plan, table, wq.shape[-1])
     want = ci.int32_sums_plain(torch.cat(xs, dim=-1), wq, stride, padding)
     assert np.array_equal(got, want.reshape(-1, wq.shape[-1]).numpy())
+    return plan
 
 
-def plan_of(x, ks, st, pads, cout, axes=None, cins=None):
-    """``_plan`` of a call: x (N, D, H, W, Cin), kernel, strides, low pads."""
+@pytest.mark.parametrize("parts", [(256,), (128, 128)])
+def test_chunked_plan_emulated(parts):
+    """The plain UNet3d's 256 -> 128 decoder k3 on 14 x 14 planes (as one
+    part, and as the two 128-channel parts of a concat), N = 1 and D = 4:
+    two whole bricks (3 x 160 voxels x 256 bytes) do not fit a block, so
+    the plan stages 128-channel chunks, two a tile, and the emulated K loop
+    walks them chunk by chunk to the plain sums."""
+    rng = np.random.default_rng(sum(parts) + len(parts))
+    xs = [_int8(rng, (1, 4, 14, 14, c)) for c in parts]
+    wq = _int8(rng, (3, 3, 3, 256, 128))
+    plan = _check_emulated(xs, wq, ci.dense_pieces(27, 256), (3, 3, 3), 1, "SAME", False)
+    g = dict(zip(ci._G, plan.geo))
+    assert (plan.chunks, plan.cs, g["lpad"], g["brick_bytes"]) == (
+        2, (128,) * len(parts), 160, 3 * 160 * 128)
+    whole = ci._plan(*(plan_args((1, 4, 14, 14, 256), (3, 3, 3), (1, 1, 1), (1, 1, 1), 128,
+                                 cins=parts)[:-1]), False)
+    assert whole is None  # the whole brick alone does not fit
+
+
+# plans no whole brick of a run a tap plane fits: (x shapes, kernel, Cout,
+# (runs a tap plane, brick chunks a tile, padded))
+# - a run a tap row on wide maps, whose size does not grow with the width:
+#   a 2D k3 over 32 channels 2000 wide, over 384 channels 1024 wide (in
+#   128-byte chunks), a 3D k3 on 512-wide planes over a 16 + 16 concat (no
+#   chunk width divides its parts), a 2D k3 on the byte path (Cin 24);
+# - 32-byte chunks of each part's channels padded to a multiple of 32,
+#   each chunk's 27 k32 steps to 28 (``padded_pieces``: the zero pieces
+#   read nothing): a k3 over 144 channels on 12^2 planes, over a 48 + 48
+#   concat on 96-wide planes (a 32-channel chunk of the concat would
+#   straddle its parts)
+STAGED_CASES = [
+    ([(1, 1, 3, 2000, 32)], (1, 3, 3), 24, (3, 1, False)),
+    ([(1, 1, 2, 1024, 384)], (1, 3, 3), 128, (3, 3, False)),
+    ([(1, 3, 3, 512, 16), (1, 3, 3, 512, 16)], (3, 3, 3), 16, (3, 1, False)),
+    ([(1, 1, 2, 4096, 24)], (1, 3, 3), 16, (3, 1, False)),
+    ([(1, 3, 12, 12, 144)], (3, 3, 3), 128, (1, 5, True)),
+    ([(1, 2, 6, 96, 48), (1, 2, 6, 96, 48)], (3, 3, 3), 128, (1, 4, True)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(STAGED_CASES)))
+def test_row_staged_and_padded_plans_emulated(case):
+    """Shapes two of whose whole bricks of a run a tap plane do not fit a
+    block plan a run a tap row or padded channel chunks (the list above);
+    the emulated kernel's sums equal the plain ones."""
+    shapes, ks, cout, (srows, chunks, padded) = STAGED_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    xs = [_int8(rng, s) for s in shapes]
+    cin = sum(s[-1] for s in shapes)
+    wq = _int8(rng, ks + (cin, cout))
+    pads = [((k - 1) // 2,) * 2 for k in ks]
+    plan = _check_emulated(xs, wq, ci.dense_pieces(int(np.prod(ks)), cin), ks, 1, pads, False)
+    assert (plan.srows, plan.nseg, plan.chunks, plan.padded) == (
+        srows, ks[0] * srows, chunks, padded)
+    g = dict(zip(ci._G, plan.geo))
+    if padded:  # a tap's k32 step a chunk, padded to whole weight chunks of 4
+        assert (g["k_steps"], g["chunk_steps"]) == (28 * chunks, 4)
+
+
+def plan_args(x, ks, st, pads, cout, axes=None, cins=None):
+    """``_plan``'s arguments for a call: x (N, D, H, W, Cin), kernel,
+    strides, low pads (SAME or VALID), Cout, as ``conv_int8`` passes them."""
     cins = cins or (x[-1],)
     pieces = (ci.dense_pieces(int(np.prod(ks)), sum(cins)) if axes is None
               else ci.structured_pieces(cins, axes))
     k = 16 * len(pieces) if pieces else int(np.prod(ks)) * x[-1]
     bn = ci._bn(cout, ci._BNS if axes is None else ci._BNS_STRUCTURED)
     out = tuple((s + 2 * p - kk) // t + 1 for s, p, kk, t in zip(x[1:4], pads, ks, st))
-    return ci._plan(tuple(x[:4]), out, ks, st, pads, cins, pieces is None, bn,
-                    -(-k // 32), -(-cout // bn))
+    return (tuple(x[:4]), out, ks, st, pads, cins, pieces is None, bn, -(-k // 32),
+            -(-cout // bn), axes is None)
+
+
+def plan_of(x, ks, st, pads, cout, axes=None, cins=None):
+    """``_plan`` of a call (``plan_args``)."""
+    return ci._plan(*plan_args(x, ks, st, pads, cout, axes, cins))
 
 
 def test_plans_of_the_served_shapes_fit():
@@ -320,9 +432,11 @@ def test_plans_of_the_served_shapes_fit():
 def test_the_plain_unet3ds_decoder_k3_takes_the_mma_sync_kernel():
     """The plain UNet3d (features 16, 5 classes) under int8_inference at a
     serving batch of 128x112x112 patches: each of its 19 convs plans onto
-    the wgmma kernel but the 256 -> 128 decoder k3 at 16x14x14, whose brick
-    (three 16-voxel-aligned runs of 256 bytes a voxel) and weight ring do
-    not fit a block, and which the wrapper sends to the mma.sync kernel."""
+    the wgmma kernel.  The 256 -> 128 decoder k3 at 16x14x14, two of whose
+    whole bricks (three 16-voxel-aligned runs of 256 bytes a voxel) do not
+    fit a block beside the weight's ring, and which once took an int8
+    mma.sync kernel, plans with its brick staged in two 128-channel chunks;
+    the other 18 stage whole bricks."""
     calls = []
     orig = ci.conv_int8
 
@@ -339,13 +453,65 @@ def test_the_plain_unet3ds_decoder_k3_takes_the_mma_sync_kernel():
     finally:
         ci.conv_int8 = orig
     assert len(calls) == 19
-    refused = []
+    chunked = []
     for x, w in calls:  # the same convs at 128x112x112, a batch of 8
         full = (8,) + tuple(s * f for s, f in zip(x[1:4], (8, 7, 7))) + x[4:]
         ks = w[:3]
-        if plan_of(full, ks, (1, 1, 1), tuple((k - 1) // 2 for k in ks), w[-1]) is None:
-            refused.append((full, w))
-    assert refused == [((8, 16, 14, 14, 256), (3, 3, 3, 256, 128))]
+        plan = plan_of(full, ks, (1, 1, 1), tuple((k - 1) // 2 for k in ks), w[-1])
+        assert plan is not None and plan.smem <= ci._SMEM, (full, w)
+        if plan.chunks > 1:
+            chunked.append((full, w, plan.chunks, plan.cs))
+    assert chunked == [((8, 16, 14, 14, 256), (3, 3, 3, 256, 128), 2, (128,))]
+
+
+# phase 15's batches: the VNet3d's 27 patches of 96^3 and the UNet3d's 8
+# of 128x112x112, at each level of the nets (planes 96^2 ... 6^2, 112^2
+# ... 7^2), and planes of 14^2 and 28^2 under a batch of 8 at depth 16
+SWEEP_SIZES = ([(27, s, s, s) for s in (96, 48, 24, 12, 6)]
+               + [(8, 128 >> l, 112 >> l, 112 >> l) for l in range(5)]
+               + [(8, 16, 28, 28), (8, 16, 56, 56), (1, 16, 512, 512)])
+SWEEP_CINS = (16, 32, 48, 64, 80, 96, 128, 144, 192, 256, 384, 512)
+# 2D maps (D 1) of 1024-4096 squared
+SWEEP_2D = [(1, 1, s, s) for s in (1024, 2048, 4096)]
+
+
+@pytest.mark.parametrize("ks, sizes", [((3, 3, 3), SWEEP_SIZES), ((1, 1, 1), SWEEP_SIZES),
+                                       ((1, 3, 3), SWEEP_2D)])
+def test_every_conv_plans_on_wgmma(ks, sizes):
+    """3x3x3 SAME and 1x1 convs over Cin 16-512 (and Cout 16-256) on every
+    plane of phase 15's batches and on CT's 512^2 slices, and 2D 3x3s on
+    maps 1024-4096 wide, plan onto the wgmma kernel, as one part and as a
+    concat of two equal parts (16 + 16 and 48 + 48 too), each plan within
+    a block's shared memory, a chunked plan's slot one 128-, 64- or
+    32-byte sub-part (of channels padded to a multiple of 32 where 32
+    does not divide a part)."""
+    pads = tuple((k - 1) // 2 for k in ks)
+    for size in sizes:
+        for cin in SWEEP_CINS:
+            for cout in (16, 128, 256):
+                for cins in ((cin,),) + (((cin // 2,) * 2,) if cin % 32 == 0 else ()):
+                    plan = plan_of(size + (cin,), ks, (1, 1, 1), pads, cout, cins=cins)
+                    assert plan is not None and plan.smem <= ci._SMEM, (size, cins, ks, cout)
+                    if plan.chunks > 1:  # one sub-part of one part a slot
+                        assert plan.cs[0] in ci._CHUNK_BYTES and len(set(plan.cs)) == 1
+                        assert plan.chunks == sum(-(-c // plan.cs[0]) for c in cins)
+                        assert plan.padded == any(c % plan.cs[0] for c in cins)
+
+
+def test_shapes_no_staging_fits_have_no_plan():
+    """``_plan`` is None, and ``conv_int8`` on the card raises, only where
+    the staging cannot take a shape: a tile whose corners do not grow with
+    the voxel (W 3 padded by 3 on the right), a brick too large even in
+    32-byte chunks of a run a tap row (a k7 on 112^2 planes over 64
+    channels, and over 48, padded to 64), an index of 2**31."""
+    assert plan_of((1, 1, 4, 3, 16), (1, 1, 1), (1, 1, 1), (0, 0, 0), 16) is not None
+    args = list(plan_args((1, 1, 4, 3, 16), (1, 1, 1), (1, 1, 1), (0, 0, 0), 16))
+    args[1] = (1, 4, 6)  # W 3 padded (0, 3): six outputs from three inputs
+    assert ci._plan(*args) is None
+    assert plan_of((1, 16, 112, 112, 48), (7, 7, 7), (1, 1, 1), (3, 3, 3), 16) is None
+    assert plan_of((1, 16, 112, 112, 64), (7, 7, 7), (1, 1, 1), (3, 3, 3), 16) is None
+    assert plan_of((1, 16, 28, 28, 64), (7, 7, 7), (1, 1, 1), (3, 3, 3), 16).cs == (32,)
+    assert plan_of((2048, 128, 96, 96, 16), (1, 1, 1), (1, 1, 1), (0, 0, 0), 16) is None
 
 
 def test_concat_weights_quantized_once_per_version():

@@ -264,3 +264,45 @@ def test_fused_gn_bf16_keeps_dtype_and_shape():
     ref = fused_norm.fused_group_norm_relu(x.bfloat16().float(), g, b)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     torch.testing.assert_close(got.float(), ref, atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("value", ["nan", "inf"])
+def test_int8_conv_of_a_nonfinite_map_is_jaxs(value, monkeypatch):
+    """A 4^3 map holding one NaN (or one +inf) through JAX's ``_Int8Conv``
+    (``tpuseg/nn/layers.py``, its int8 operand recorded at
+    ``lax.conv_general_dilated``) and through the port's
+    ``quantize_activation`` + ``conv_int8`` on the CPU: the scale NaN
+    (inf), the int8 map all zeros, and the output NaN at every voxel in
+    both."""
+    from tpuseg.nn.layers import _Int8Conv
+    from tpuseg_torch.kernels import conv_int8
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 4, 4, 4, 8)).astype(np.float32)
+    x[0, 1, 2, 3, 5] = float(value)
+    w = (rng.standard_normal((3, 3, 3, 8, 4)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(4).astype(np.float32)
+    operands = []
+    conv = jax.lax.conv_general_dilated
+
+    def recorded(lhs, rhs, *a, **kw):
+        operands.append(np.asarray(lhs))
+        return conv(lhs, rhs, *a, **kw)
+
+    monkeypatch.setattr(jax.lax, "conv_general_dilated", recorded)
+    mod = _Int8Conv(features=4, ndim=3, kernel_size=(3, 3, 3), strides=(1, 1, 1),
+                    padding="SAME")
+    y_jax = np.asarray(mod.apply({"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}},
+                                 jnp.asarray(x)))
+    # JAX's activation scale, as the module computes it
+    a_jax = float(jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x))), 1e-12) / 127.0)
+
+    xq, a_scale = conv_int8.quantize_activation(torch.from_numpy(x))
+    wq, w_scale = conv_int8.quantize_weight(torch.from_numpy(w))
+    y = conv_int8.conv_int8(xq, wq, a_scale * w_scale, torch.from_numpy(b), 1, "SAME",
+                            torch.float32, "fp32")
+    want = np.isnan if value == "nan" else np.isposinf
+    assert want(a_jax) and want(float(a_scale))
+    assert len(operands) == 1 and operands[0].dtype == np.int8 and not operands[0].any()
+    assert not xq.any() and np.array_equal(xq.numpy(), operands[0])
+    assert np.isnan(y_jax).all() and torch.isnan(y).all() and y.shape == y_jax.shape

@@ -12,11 +12,11 @@
   ``wgmma`` in bf16 and by 3xTF32 in f32 (tpuseg/kernels/packed_conv.py;
   ``csrc/packed_conv_tc.cu``)
 * ``conv_int8``  — the W8A8 int8 conv route's kernels: the conv on int8
-  ``wgmma`` over a staged input brick, dense or on a packed k3's
-  structural rows, its ``mma.sync`` form for bricks too large, and the
-  two-launch activation quantizer (JAX's ``_Int8Conv`` / ``_conv_int8``,
-  XLA ops; ``csrc/conv_int8.cu``, ``csrc/conv_int8_sync.cu``,
-  ``csrc/quantize_int8.cu``)
+  ``wgmma`` over an input brick staged whole or by channel chunks, dense
+  or on a packed k3's structural rows, and the two-launch activation
+  quantizer (JAX's ``_Int8Conv`` / ``_conv_int8``, XLA ops;
+  ``csrc/conv_int8.cuh`` with its launches in ``conv_int8.cu`` and
+  ``conv_int8_full.cu``, ``csrc/quantize_int8.cu``)
 * ``slab_conv``  — the slab-layout conv GEMM of K2's micro-benchmarks K4
   and K5, bf16 tensor cores (benchmarks/kmicro_r2.py, kmicro2_r2.py;
   ``csrc/slab_conv.cu``)

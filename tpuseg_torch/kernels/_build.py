@@ -94,9 +94,6 @@ _SIGNATURES = {
     # x0, x1, table, w_packed, scale, bias, y, plan (int64 array), out_dtype,
     # stream
     "tpuseg_conv_int8": [_P] * 8 + [_I, _P],
-    # x, w_packed, scale, bias, y, n, d, h, w, cin, od, oh, ow, cout, kd,
-    # kh, kw, sd, sh, sw, pd, ph, pw, k_pad, bn, bias_mode, out_dtype, stream
-    "tpuseg_conv_int8_sync": [_P] * 5 + [_I] * 22 + [_P],
     # a, qa, na, b, qb, nb, amax, scale, dtype, stream
     "tpuseg_quantize_int8": [_P, _P, _LL, _P, _P, _LL, _P, _P, _I, _P],
     # xf, wm, out, n, d, c, lfull, lv, wp, m, kp, mode, bd, fuse, stream

@@ -4,7 +4,7 @@ The JAX package's int8 route (``tpuseg/nn/layers.py`` ``_Int8Conv`` and
 ``tpuseg/models/vnet_packed.py`` ``_conv_int8``) is no Pallas kernel: it
 quantizes, runs ``lax.conv_general_dilated`` on int8 operands with int32
 sums, and dequantizes.  PyTorch has no int8 3D convolution on CUDA, so the
-route is two kernels of its own: the conv (``csrc/conv_int8.cu``) and the
+route is two kernels of its own: the conv (``csrc/conv_int8.cuh``) and the
 activation quantizer (``csrc/quantize_int8.cu``).
 
 The route, as JAX's:
@@ -25,23 +25,26 @@ The route, as JAX's:
 The conv kernel is an implicit GEMM on int8 ``wgmma`` whose K loop runs
 over a K-row table (``_table``): each row is a 16-byte piece of input
 channels at one tap.  The dense mode's table is every (tap, piece), in
-``pack_weight``'s order.  The structured mode (``axes``, a packed twin's
-k3 on a space-to-depth grid) keeps only the pieces that carry a nonzero
-of ``pack_k3_axes``'s weight (``structured_pieces``, after K3's
-``_taps``): 64C of 27 x 8C rows fully packed, 48C of 27 x 4C on the (H, W)
-grid.  The skipped rows are structural zeros, so the int32 sums are the
-same bits.  Its weight is a row gather of the dense int8 weight, so its
-``w_scale`` stays JAX's.  Up to two input parts (a decoder's concat) are
-read without a concat, under one activation scale.  Where Cin is not a
-multiple of 16 (the Cin 1 stem) the table packs (tap, ci) densely into the
-k32 steps instead (the "byte path"), with no padded copy of the map.  The
-input of each output tile is staged once into shared memory (the kernel
-source says how); ``_plan`` sizes that brick and the weight's ring.  The
-shapes whose brick does not fit (many input channels on wide planes: the
-plain UNet3d's 256 -> 128 decoder k3 at 16 x 14 x 14, say) run an int8
-``mma.sync`` kernel (``csrc/conv_int8_sync.cu``, gathering each tap's
-input by ``cp.async``), chosen by shape before the launch and counted
-apart.
+``dense_pieces``' order: chunk-major, 32 channels a chunk.  The structured
+mode (``axes``, a packed twin's k3 on a space-to-depth grid) keeps only
+the pieces that carry a nonzero of ``pack_k3_axes``'s weight
+(``structured_pieces``, after K3's ``_taps``): 64C of 27 x 8C rows fully
+packed, 48C of 27 x 4C on the (H, W) grid.  The skipped rows are
+structural zeros, so the int32 sums are the same bits.  Its weight is a
+row gather of the dense int8 weight, so its ``w_scale`` stays JAX's.  Up
+to two input parts (a decoder's concat) are read without a concat, under
+one activation scale.  Where Cin is not a multiple of 16 (the Cin 1 stem)
+the table packs (tap, ci) densely into the k32 steps instead (the "byte
+path"), with no padded copy of the map.  The input of each output tile is
+staged into shared memory (the kernel source says how): one run of input
+voxels a tap plane, or, on wide maps where those runs span whole rows, one
+a tap row, whose size does not grow with the map's width; the whole brick
+at once where two of them fit a block beside the weight's ring, else (many
+input channels on wide planes: the plain UNet3d's 256 -> 128 decoder k3 at
+16 x 14 x 14, say) by channel chunks of 128, 64 or 32 bytes a voxel, the K
+loop walking the table chunk by chunk (a "chunked" plan, dense mode only).
+``_plan`` sizes the brick or its chunks and the weight's ring; a shape
+that no plan fits (a k7 over many channels on wide planes) raises.
 
 Plain versions: ``conv_int8_plain`` (the sums as a float64 conv of the
 int8 values, exact for any sum below 2**53), ``int32_sums_table_plain``
@@ -64,29 +67,33 @@ import torch.nn.functional as F
 from tpuseg_torch.kernels import _build
 from tpuseg_torch.kernels.packed_conv import FULL, _taps, deltas
 
-# kernel launches in this process (plain calls not counted): the wgmma
-# kernel in the dense mode and in the structured mode, the mma.sync kernel
-# (shapes whose brick does not fit), and the quantizer (one a call, its two
-# launches)
+# kernel launches in this process (plain calls not counted), each counted
+# once: the conv in the dense mode with the whole brick staged (LAUNCHES),
+# in the dense mode staged by channel chunks (LAUNCHES_CHUNKED, not in
+# LAUNCHES), in the structured mode, and the quantizer (one a call, its
+# two launches)
 LAUNCHES = 0
+LAUNCHES_CHUNKED = 0
 LAUNCHES_STRUCTURED = 0
-LAUNCHES_SYNC = 0
 QUANTIZE_LAUNCHES = 0
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_MODES = {None: 0, "fp32": 1, "out": 2}
 _BK = 32  # bytes of K per k-step
-# must match csrc/conv_int8.cu: output voxels a tile, the block's shared
+# must match csrc/conv_int8.cuh: output voxels a tile, the block's shared
 # memory, the widths of a wgmma tile, the weight and brick rings' slots at
 # most
 _BM = 128
 _SMEM = 232448
 _BNS = (8, 16, 24, 32, 64, 128, 256)
 _BNS_STRUCTURED = (64, 128, 256)  # the structured mode's (the packed k3s' P F)
+_CHUNK_BYTES = (128, 64, 32)  # a chunked plan's bytes a voxel (the TMA swizzles)
 _MAX_SLOTS = 64
 _MAX_BRICKS = 8
 _SMEM_TWO = 110 * 1024  # a block's share when two run on a SM (tiles <= 24 wide)
-_BOX_BYTES = 2048  # bytes of one TMA box of the staged brick
+# bytes of one TMA box of the staged brick (a run a tap row: the least the
+# swizzle allows, since those runs are short)
+_BOX_BYTES, _ROW_BOX_BYTES = 2048, 1024
 _PAD_ROW = 1 << 16  # a table row's flag: a zero piece
 
 Padding = Union[str, int, Sequence[Tuple[int, int]]]
@@ -241,13 +248,35 @@ def conv_int8_plain(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
 
 
 def dense_pieces(taps: int, cin: int) -> Optional[Tuple[Tuple[int, int], ...]]:
-    """The dense mode's 16-byte pieces (tap, first channel), tap-major with
-    the channel fastest: the rows of ``pack_weight``'s K in its order.
-    None where Cin is not a multiple of 16 (the byte path: K is (tap, ci)
+    """The dense mode's 16-byte pieces (tap, first channel), chunk-major:
+    per 32 channels every tap, the channel fastest (Cin <= 32: tap-major).
+    A chunk of 32, 64 or 128 channels is then a run of rows, so that one
+    packed weight serves the whole-brick and every chunked plan.  None
+    where Cin is not a multiple of 16 (the byte path: K is (tap, ci)
     densely)."""
     if cin % 16:
         return None
-    return tuple((t, c) for t in range(taps) for c in range(0, cin, 16))
+    return tuple((t, c) for c0 in range(0, cin, 32) for t in range(taps)
+                 for c in range(c0, min(c0 + 32, cin), 16))
+
+
+@functools.lru_cache(maxsize=None)
+def padded_pieces(taps: int, cins: Tuple[int, ...]) -> Tuple[Tuple[int, Optional[int]], ...]:
+    """``dense_pieces``' order part by part, each part's channels padded to
+    a multiple of 32 by zero pieces (tap, None), and each 32-channel
+    chunk's k32 steps (one a tap) to a multiple of 4 (whole weight chunks
+    of four steps, issued unconditionally): the order of a chunked plan
+    whose parts 32 does not divide (Cin 144, a 48 + 48 concat), one
+    32-byte chunk a slot, the last of a part half zeros."""
+    steps = -(-taps // 4) * 4
+    pieces, off = [], 0
+    for cin in cins:
+        for c0 in range(0, cin, 32):
+            pieces += [(t, off + c if c < cin else None) for t in range(taps)
+                       for c in (c0, c0 + 16)]
+            pieces += [(0, None)] * (2 * (steps - taps))
+        off += cin
+    return tuple(pieces)
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,23 +314,31 @@ class Int8Weight:
     """The kernel's weight, made once per weight (``pack_int8``): ``wt``
     (n_tiles, k_steps, bn / 8, 2, 8, 16) int8, per N tile and k32 step the
     B tile in wgmma's K-major core-matrix layout ([n8][16-byte k half][8
-    rows][16 bytes]); its pieces (None on the byte path); and the K-row
-    tables made for it, per call geometry."""
+    rows][16 bytes]); its pieces (None on the byte path); the K-row
+    tables made for it, per call geometry; and the same weight packed in
+    ``padded_pieces``' order, per split into parts, where a plan needs it."""
 
-    def __init__(self, wt: torch.Tensor, pieces, bn: int, k_steps: int, shape):
+    def __init__(self, wt: torch.Tensor, pieces, bn: int, k_steps: int, shape,
+                 structured: bool = False):
         self.wt, self.pieces, self.bn, self.k_steps = wt, pieces, bn, k_steps
         self.shape = tuple(shape)  # (kd, kh, kw, Cin, Cout) of the dense weight
+        self.structured = structured
         self.tables = {}
+        self.padded = {}
 
 
 def weight_rows(wq3: torch.Tensor, pieces) -> torch.Tensor:
     """The (K, Cout) rows of a (kd, kh, kw, Cin, Cout) weight in the order
-    of ``pieces`` (16 rows each), or (tap, ci) with ci fastest (None)."""
+    of ``pieces`` (16 rows each; a zero piece (tap, None) zeros), or (tap,
+    ci) with ci fastest (None)."""
     kd, kh, kw, cin, cout = wq3.shape
     rows = wq3.reshape(kd * kh * kw * cin, cout)
     if pieces is None:
         return rows
-    idx = torch.tensor([t * cin + c for t, c in pieces], dtype=torch.long)
+    zero = rows.shape[0]
+    rows = F.pad(rows, (0, 0, 0, 16))
+    idx = torch.tensor([zero if c is None else t * cin + c for t, c in pieces],
+                       dtype=torch.long)
     idx = (idx[:, None] + torch.arange(16)).reshape(-1).to(wq3.device)
     return rows[idx]
 
@@ -317,7 +354,7 @@ def pack_int8(wq3: torch.Tensor, pieces, structured: bool = False) -> Int8Weight
     n_tiles = -(-cout // bn)
     wk = F.pad(rows, (0, n_tiles * bn - cout, 0, k_steps * _BK - rows.shape[0]))
     wt = wk.t().reshape(n_tiles, bn // 8, 8, k_steps, 2, 16).permute(0, 3, 1, 4, 2, 5)
-    return Int8Weight(wt.contiguous(), pieces, bn, k_steps, wq3.shape)
+    return Int8Weight(wt.contiguous(), pieces, bn, k_steps, wq3.shape, structured)
 
 
 def pack_dense(wq: torch.Tensor) -> Int8Weight:
@@ -327,34 +364,49 @@ def pack_dense(wq: torch.Tensor) -> Int8Weight:
 
 
 class Plan(NamedTuple):
-    geo: Tuple[int, ...]   # csrc/conv_int8.cu `Geo`, cout and bias mode 0
-    nseg: int              # staged segments a part (kd, or 1 for all dz)
+    geo: Tuple[int, ...]   # csrc/conv_int8.cuh `Geo`, cout and bias mode 0
+    nseg: int              # staged segments a part (kd, kd kh, or 1 for all dz)
     cs: Tuple[int, ...]    # each part's bytes a voxel in one sub-part
-    bases: Tuple[int, ...]  # each part's first buffer in a brick
+    bases: Tuple[int, ...]  # each part's first buffer in a brick (a slot)
     segs: Tuple[int, ...]  # each part's bytes a (sub-part, segment) buffer
     smem: int              # dynamic shared memory of a block
+    chunks: int            # brick chunks a tile (1: the whole brick a slot)
+    srows: int             # segments a tap plane (1: a run a plane; kh: a run a row)
+    padded: bool           # the table and weight in ``padded_pieces``' order
 
 
 _G = {name: i for i, name in enumerate(
     "n d h w od oh ow sd sh sw pd ph pw group tpg tiles_m n_tiles cout nseg lpad k_steps "
     "chunk_steps w_slots resident brick_bytes bias_mode byte_path nparts bn cin0 cs0 nsub0 "
-    "box0 base0 seg0 cin1 cs1 nsub1 box1 base1 seg1 structured bslots".split())}
+    "box0 base0 seg0 cin1 cs1 nsub1 box1 base1 seg1 structured bslots chunks srows".split())}
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan(size, out, ks, st, pads_lo, cins, byte_path: bool, bn: int, k_steps: int,
-          n_tiles: int) -> Optional[Plan]:
-    """The kernel's tiling of one call, or None where its brick and weight
-    ring do not fit a block's shared memory (or the corners of a tile do
-    not grow with the voxel, which the staging assumes).
+          n_tiles: int, chunkable: bool = False) -> Optional[Plan]:
+    """The kernel's tiling of one call, or None where no brick or chunk of
+    it fits beside the weight's ring in a block's shared memory (or the
+    corners of a tile do not grow with the voxel, which the staging
+    assumes, or an index reaches 2**31).
 
     Tiles: 128 consecutive output voxels of one output plane (``tpg``
     tiles a plane), or, where a plane holds fewer, the most whole planes
-    whose brick fits (one, a partial tile, at the least).  A tile's input corner (tap 0) grows with the voxel, so its first
-    voxel reads the lowest input and its last the highest.  Per part and
-    tap plane dz the brick holds the run of ``lpad`` voxels from the first
-    corner (one run for all dz when the tile spans planes), each in
-    sub-parts of at most 128 bytes a voxel (the TMA swizzle's width)."""
+    whose brick fits (one, a partial tile, at the least).  A tile's input
+    corner (tap 0) grows with the voxel, so its first voxel reads the
+    lowest input and its last the highest.  Per part and tap plane dz the
+    brick holds the run of ``lpad`` voxels from the first corner (one run
+    for all dz when the tile spans planes), each in sub-parts of at most
+    128 bytes a voxel (the TMA swizzle's width).  Such a run spans kh - 1
+    input rows, so where it does not fit (a wide map), the brick holds a
+    run a tap row (dz, dy) instead, from the corner's voxel of that row:
+    kd kh runs of about 128 sw + kw voxels, whatever the width.  The whole
+    brick is a slot of the ring where two fit; else, where ``chunkable``
+    (the dense mode's chunk-major table), a slot holds one sub-part of one
+    part (a chunk), at the widest of 128, 64 or 32 bytes a voxel whose two
+    slots fit, and the K loop walks the chunks in the concat's channel
+    order; last, where 32 does not divide a part, 32-byte chunks of each
+    part's channels padded to a multiple of 32 (``padded``: K grows by the
+    zero pieces, a part's last chunk is half zeros)."""
     n, d, h, w = size
     od, oh, ow = out
     kd, kh, kw = ks
@@ -368,6 +420,14 @@ def _plan(size, out, ks, st, pads_lo, cins, byte_path: bool, bn: int, k_steps: i
         oz, nn = r % od, r // od
         return ((nn * d + oz * sd - pd) * h + oy * sh - ph) * w + ox * sw - pw
 
+    @functools.lru_cache(maxsize=None)
+    def rel(g):
+        """The most a tile's last corner lies past its first: tiles of 128
+        voxels of a plane (g 1), else of g whole planes."""
+        size, total = (_BM, plane) if g == 1 else (g * plane, m_total)
+        m0 = torch.arange(0, total, size, dtype=torch.int64)
+        return int((corner(torch.clamp(m0 + size, max=total) - 1) - corner(m0)).max())
+
     tail = (oh - 1) * sh * w + (ow - 1) * sw  # from a plane's first corner to its last
     if sh * w - (ow - 1) * sw <= 0 or m_total >= 1 << 31 or n * d * h * w >= 1 << 31:
         return None
@@ -376,38 +436,55 @@ def _plan(size, out, ks, st, pads_lo, cins, byte_path: bool, bn: int, k_steps: i
     gs = [1]
     if plane < _BM and sd * h * w - tail > 0 and (d - (od - 1) * sd) * h * w - tail > 0:
         gs = list(range(_BM // plane, 1, -1)) + gs
-    for g in gs:
-        fit = _fit(g, corner, plane, m_total, n, od, h, w, ks, cins, byte_path, bn, k_steps,
-                   n_tiles)
+    widths = [None] + [cw for cw in _CHUNK_BYTES if chunkable and not byte_path
+                       and all(c % cw == 0 for c in cins)]
+    padded = chunkable and not byte_path and any(c % 32 for c in cins)
+    if padded:  # K of padded_pieces: a tap's k32 step a 32-channel chunk
+        widths.append(32)
+    # tiles of whole planes, of 128 voxels with a run a tap plane, then
+    # (where kh > 1) with a run a tap row
+    stagings = [(g, 1) for g in gs] + ([(1, kh)] if kh > 1 else [])
+    for i, cw in enumerate(widths):  # the whole brick first, then the widest chunks
+        pad = padded and i == len(widths) - 1
+        if pad:
+            k_steps = -(-kd * kh * kw // 4) * 4 * sum(-(-c // 32) for c in cins)
+        for g, srows in stagings:
+            fit = _fit(g, srows, rel(g), plane, m_total, n, od, h, w, ks, cins, byte_path,
+                       bn, k_steps, n_tiles, cw)
+            if fit is not None:
+                break
         if fit is not None:
             break
     else:
         return None
-    group, tpg, nseg, tiles_m, lpad, parts, bases, brick, chunk, slots, resident, bslots, smem = fit
+    (group, tpg, nseg, tiles_m, lpad, parts, bases, brick, chunk, slots, resident, bslots,
+     smem, chunks) = fit
     geo = [n, d, h, w, od, oh, ow, sd, sh, sw, pd, ph, pw, group, tpg, tiles_m, n_tiles, 0,
            nseg, lpad, k_steps, chunk, slots, resident, brick, 0, int(byte_path), len(cins), bn]
     for k in range(2):
         geo += list(parts[k] if k < len(parts) else (0, 0, 0, 0, 0))[:4] + [
             bases[k] if k < len(parts) else 0, parts[k][4] if k < len(parts) else 0]
-    geo += [0, bslots]  # the mode (set by the call), the brick ring's slots
+    # the mode (set by the call), the brick ring's slots, chunks, runs a plane
+    geo += [0, bslots, chunks, srows]
     return Plan(tuple(geo), nseg, tuple(p[1] for p in parts), tuple(bases),
-                tuple(p[4] for p in parts), smem)
+                tuple(p[4] for p in parts), smem, chunks, srows, pad)
 
 
-def _fit(g, corner, plane, m_total, n, od, h, w, ks, cins, byte_path, bn, k_steps, n_tiles):
-    """``_plan``'s tiles of ``g`` planes (1: 128 voxels of one plane): the
-    brick, and the weight resident or in a ring, if they fit."""
+def _fit(g, srows, rel, plane, m_total, n, od, h, w, ks, cins, byte_path, bn, k_steps,
+         n_tiles, cw=None):
+    """``_plan``'s tiles of ``g`` planes (1: 128 voxels of one plane, with
+    ``srows`` runs a tap plane: 1 or kh), whose last corner lies at most
+    ``rel`` voxels past the first: the brick a slot (``cw`` None) or its
+    chunks of ``cw`` bytes a voxel, and the weight resident or in a ring,
+    if they fit."""
     kd, kh, kw = ks
     if g == 1:
-        group, tpg, nseg = plane, -(-plane // _BM), kd
+        group, tpg, nseg = plane, -(-plane // _BM), kd * srows
         tiles_m = n * od * tpg
-        rel = max(corner(min(q0 + _BM, plane) - 1) - corner(q0) for q0 in range(0, plane, _BM))
-        span = rel + (kh - 1) * w + kw
+        span = rel + (kh - 1) * w + kw if srows == 1 else rel + kw
     else:
         group, tpg, nseg = g * plane, 1, 1
         tiles_m = -(-m_total // group)
-        rel = max(corner(min(m0 + group, m_total) - 1) - corner(m0)
-                  for m0 in range(0, m_total, group))
         span = rel + ((kd - 1) * h + kh - 1) * w + kw
     parts = []
     if byte_path:
@@ -415,25 +492,32 @@ def _fit(g, corner, plane, m_total, n, od, h, w, ks, cins, byte_path, bn, k_step
         parts.append((cins[0], cins[0], 1, 0, seg))
         lpad = span
     else:
-        boxes = [_BOX_BYTES // min(128, c & -c) for c in cins]
+        widths = [cw or min(128, c & -c) for c in cins]
+        boxes = [(_BOX_BYTES if srows == 1 else _ROW_BOX_BYTES) // cs for cs in widths]
         lpad = -(-span // max(boxes)) * max(boxes)
-        for c, box in zip(cins, boxes):
-            cs = min(128, c & -c)
-            parts.append((c, cs, c // cs, box, lpad * cs))
-    bases, brick = [], 0
-    for c, cs, nsub, box, seg in parts:
-        bases.append(brick)
-        brick += nsub * nseg * seg
+        for c, cs, box in zip(cins, widths, boxes):
+            parts.append((c, cs, -(-c // cs), box, lpad * cs))
+    if cw is None:
+        bases, brick, chunks = [], 0, 1
+        for c, cs, nsub, box, seg in parts:
+            bases.append(brick)
+            brick += nsub * nseg * seg
+    else:  # a slot holds one sub-part of one part
+        bases, brick = [0] * len(parts), nseg * lpad * cw
+        chunks = sum(nsub for _, _, nsub, _, _ in parts)
     wstep = bn * _BK
     # the K-row table, the scales and the bias, staged once a block
     staged = 16 * (32 if byte_path else 2) * k_steps + 8 * n_tiles * bn
     budget = _SMEM - 1024 - 2 * brick - 32 - 32 - staged
-    chunk = min(4, k_steps)
+    # a weight chunk's k32 steps; a chunked plan's weight chunks do not
+    # straddle its brick chunks
+    sizes = [c for c in (4, 2, 1) if cw is None or (k_steps // chunks) % c == 0]
+    chunk = min(sizes[0], k_steps)
     n_chunks = -(-k_steps // chunk)
     if n_tiles == 1 and n_chunks <= _MAX_SLOTS and n_chunks * (chunk * wstep + 16) <= budget:
         slots, resident = n_chunks, 1
     else:
-        fits = [(c, s) for c in (4, 2, 1) for s in (4, 3, 2) if s * (c * wstep + 16) <= budget]
+        fits = [(c, s) for c in sizes for s in (4, 3, 2) if s * (c * wstep + 16) <= budget]
         if not fits:
             return None
         (chunk, slots), resident = fits[0], 0
@@ -448,17 +532,21 @@ def _fit(g, corner, plane, m_total, n, od, h, w, ks, cins, byte_path, bn, k_step
     while bslots < _MAX_BRICKS and smem_of(bslots + 1) <= limit:
         bslots += 1
     return (group, tpg, nseg, tiles_m, lpad, parts, bases, brick, chunk, slots, resident,
-            bslots, smem_of(bslots))
+            bslots, smem_of(bslots), chunks)
 
 
 def _table(packed: Int8Weight, plan: Plan, cins: Tuple[int, ...], h: int, w: int,
            device) -> torch.Tensor:
     """The kernel's K-row table for this plan, (rows, 4) int32 on
     ``device``: per piece (two a k32 step; per byte on the byte path, 32 a
-    step) its buffer in the brick (part, sub-part, segment), its byte in
-    the voxel's sub-part, its tap's offset in voxels from the row's corner
-    within the segment, and dz | dy << 4 | dx << 8 | log2(sub-part bytes)
-    << 12 (a zero piece: 1 << 16)."""
+    step) its buffer in the slot (part, sub-part, segment; a chunked plan's
+    slot: the segment of its one sub-part), its byte in the voxel's
+    sub-part, its tap's offset in voxels from the row's corner within the
+    segment (the segment a tap plane's, or a tap row's: ``plan.srows``),
+    and dz | dy << 4 | dx << 8 | log2(sub-part bytes) << 12 (a
+    zero piece: 1 << 16).  A chunked plan's rows run chunk by chunk,
+    ``k_steps / chunks`` k32 steps each (``dense_pieces``' order, or
+    ``padded_pieces``' for a padded plan)."""
     key = (plan, cins, h, w, str(device))
     if key in packed.tables:
         return packed.tables[key]
@@ -468,6 +556,8 @@ def _table(packed: Int8Weight, plan: Plan, cins: Tuple[int, ...], h: int, w: int
     def tap_of(t):
         dz, r = divmod(t, kh * kw)
         dy, dx = divmod(r, kw)
+        if plan.srows > 1:  # a run a tap row
+            return dz, dy, dx, dx, dz * kh + dy
         off = (dz * hw if plan.nseg == 1 else 0) + dy * w + dx
         return dz, dy, dx, off, (dz if plan.nseg > 1 else 0)
 
@@ -485,11 +575,17 @@ def _table(packed: Int8Weight, plan: Plan, cins: Tuple[int, ...], h: int, w: int
         for c in cins[:-1]:
             starts.append(starts[-1] + c)
         for t, gc in packed.pieces:
+            if gc is None:  # a zero piece (padded_pieces)
+                rows.append((0, 0, 0, _PAD_ROW))
+                continue
             k = max(i for i, s0 in enumerate(starts) if gc >= s0)
             c = gc - starts[k]
             cs = plan.cs[k]
             dz, dy, dx, off, seg = tap_of(t)
-            buf = plan.bases[k] + ((c // cs) * plan.nseg + seg) * plan.segs[k]
+            if plan.chunks == 1:
+                buf = plan.bases[k] + ((c // cs) * plan.nseg + seg) * plan.segs[k]
+            else:  # the slot holds this piece's chunk alone
+                buf = seg * plan.segs[k]
             rows.append((buf, c % cs, off, dz | dy << 4 | dx << 8 | (cs.bit_length() - 1) << 12))
         rows += [(0, 0, 0, _PAD_ROW)] * (2 * packed.k_steps - len(rows))
     table = torch.tensor(rows, dtype=torch.int32).to(device)
@@ -520,53 +616,6 @@ def int32_sums_table_plain(xs: Sequence[torch.Tensor], wq: torch.Tensor, pieces,
     return acc.to(torch.int32)
 
 
-def _cin_pad(cin: int) -> int:
-    return -(-cin // 16) * 16
-
-
-def _sync_bn(cout: int) -> int:
-    return 16 if cout <= 16 else 32 if cout <= 32 else 64
-
-
-def pack_weight(wq: torch.Tensor) -> torch.Tensor:
-    """int8 (kd, kh, kw, Cin, Cout) -> the ``mma.sync`` kernel's (cout_pad,
-    k_pad) rows, k = (tap, ci) with ci fastest over Cin padded to 16, zero
-    beyond K (padded to 32) and Cout (padded to the block's width): the
-    order of the dense mode's K-row table (``dense_pieces``)."""
-    kd, kh, kw, cin, cout = wq.shape
-    cp = _cin_pad(cin)
-    w = F.pad(wq, (0, 0, 0, cp - cin)) if cp != cin else wq
-    k = kd * kh * kw * cp
-    k_pad = -(-k // _BK) * _BK
-    bn = _sync_bn(cout)
-    cout_pad = -(-cout // bn) * bn
-    rows = w.reshape(k, cout).t()
-    return F.pad(rows, (0, k_pad - k, 0, cout_pad - cout)).contiguous()
-
-
-def _conv_sync(x3, w3, scale, b, st, pads, out, out_dtype, bias_mode):
-    """The ``mma.sync`` kernel (x3 int8 NDHWC, Cin padded to 16 here)."""
-    global LAUNCHES_SYNC
-    n, d, h, wd, cin = x3.shape
-    cout = w3.shape[4]
-    cp = _cin_pad(cin)
-    if cp != cin:
-        x3 = F.pad(x3, (0, cp - cin))
-    x3 = x3.contiguous()
-    packed = pack_weight(w3)
-    y = torch.empty((n,) + out + (cout,), dtype=out_dtype, device=x3.device)
-    with _build.on_device(x3):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        err = _build.library().tpuseg_conv_int8_sync(
-            x3.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-            None if b is None else b.data_ptr(), y.data_ptr(), n, d, h, wd, cp, *out, cout,
-            *w3.shape[:3], *st, *(lo for lo, _ in pads), packed.shape[1], _sync_bn(cout),
-            _BIAS_MODES[bias_mode if b is not None else None], _OUT_DTYPES[out_dtype], stream)
-    _build.check(err, "conv_int8 (mma.sync)")
-    LAUNCHES_SYNC += 1
-    return y
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -590,7 +639,7 @@ def conv_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     mode.  Its parts are ``xq`` and ``xq2`` (a second int8 map, Cin of
     ``wq`` over both), or ``xq`` the concat split after ``split``
     channels.  CPU tensors: the plain versions; CUDA tensors: the kernels."""
-    global LAUNCHES, LAUNCHES_STRUCTURED
+    global LAUNCHES, LAUNCHES_CHUNKED, LAUNCHES_STRUCTURED
     if bias is not None and bias_mode not in ("fp32", "out"):
         raise ValueError(f"conv_int8: bias_mode {bias_mode!r} is not 'fp32' or 'out'")
     xs = [xq] if xq2 is None else [xq, xq2]
@@ -646,13 +695,18 @@ def conv_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     n, d, h, wd, _ = x3s[0].shape
     plan = _plan((n, d, h, wd), out, tuple(w3.shape[:3]), st, tuple(lo for lo, _ in pads),
                  tuple(x.shape[-1] for x in x3s), packed.pieces is None, packed.bn,
-                 packed.k_steps, packed.wt.shape[0])
+                 packed.k_steps, packed.wt.shape[0], not packed.structured)
     if plan is None:
-        y = _conv_sync(torch.cat(x3s, dim=-1) if len(x3s) > 1 else x3s[0], w3, scale, b, st,
-                       pads, out, out_dtype, mode)
-        return y[:, 0] if squeeze else y
+        raise ValueError(f"conv_int8: no plan fits a block for x {[tuple(x.shape) for x in x3s]} "
+                         f"w {tuple(w3.shape)} stride {st} pads {pads} (the staged input, even "
+                         "a run a tap row in 32-byte channel chunks, or the tile's corners)")
     x3s = [_aligned(x) for x in x3s]
-    table = _table(packed, plan, tuple(x.shape[-1] for x in x3s), h, wd, xq.device)
+    cins = tuple(x.shape[-1] for x in x3s)
+    if plan.padded:  # the weight in padded_pieces' order, made once per split
+        if cins not in packed.padded:
+            packed.padded[cins] = pack_int8(w3, padded_pieces(taps, cins))
+        packed = packed.padded[cins]
+    table = _table(packed, plan, cins, h, wd, xq.device)
     geo = list(plan.geo)
     geo[_G["cout"]], geo[_G["bias_mode"]] = cout, _BIAS_MODES[mode]
     geo[_G["structured"]] = int(axes is not None)
@@ -664,10 +718,12 @@ def conv_int8(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
             y.data_ptr(), (ctypes.c_longlong * len(geo))(*geo), _OUT_DTYPES[out_dtype],
             torch.cuda.current_stream(xq.device).cuda_stream)
     _build.check(err, "conv_int8")
-    if axes is None:
-        LAUNCHES += 1
-    else:
+    if axes is not None:
         LAUNCHES_STRUCTURED += 1
+    elif plan.chunks > 1:
+        LAUNCHES_CHUNKED += 1
+    else:
+        LAUNCHES += 1
     return y[:, 0] if squeeze else y
 
 

@@ -8,8 +8,16 @@
 // `_Int8Conv`).  Pass 1 reads each part once with 16-byte loads (f32 or
 // bf16 as they are), reduces a block's max |x| and folds it into one
 // device word by atomicMax on the bits of a non-negative float (which
-// order as the floats do).  Pass 2 reads the word, computes a_scale,
-// writes it (block 0) and the int8 maps.  Nothing returns to the host.
+// order as the floats do, a positive NaN above +inf).  Pass 2 reads the
+// word, computes a_scale, writes it (block 0) and the int8 maps.  Nothing
+// returns to the host.
+//
+// A map holding a NaN or an inf quantizes as on the CPU and in JAX: the
+// max keeps a NaN (fmaxf would drop it) and the scale keeps it (as
+// torch.clamp_min), so a_scale is NaN (a NaN) or inf (an inf, no NaN), and
+// a NaN quotient (every x / NaN, inf / inf) maps to 0, as XLA's convert
+// and PyTorch's CPU cast do: the int8 map is all zeros, and the conv's
+// output NaN at every voxel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,6 +30,11 @@ using namespace tpuseg;
 
 constexpr int kThreads = 256;
 
+// max(a, b), a NaN where either is one (the canonical positive NaN)
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+
 template <typename T>
 __device__ __forceinline__ float part_absmax(const T* x, long long n) {
   constexpr int V = 16 / sizeof(T);
@@ -33,9 +46,10 @@ __device__ __forceinline__ float part_absmax(const T* x, long long n) {
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(x) + i);
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int j = 0; j < V; ++j) m = fmaxf(m, fabsf(to_float(e[j])));
+    for (int j = 0; j < V; ++j) m = max_keep_nan(m, fabsf(to_float(e[j])));
   }
-  for (long long i = nv * V + tid; i < n; i += stride) m = fmaxf(m, fabsf(to_float(x[i])));
+  for (long long i = nv * V + tid; i < n; i += stride)
+    m = max_keep_nan(m, fabsf(to_float(x[i])));
   return m;
 }
 
@@ -44,23 +58,24 @@ __global__ void __launch_bounds__(kThreads)
     absmax_kernel(const T* a, long long na, const T* b, long long nb, unsigned int* amax) {
   __shared__ float red[kThreads / 32];
   float m = part_absmax(a, na);
-  if (b != nullptr) m = fmaxf(m, part_absmax(b, nb));
+  if (b != nullptr) m = max_keep_nan(m, part_absmax(b, nb));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  for (int o = 16; o > 0; o >>= 1) m = max_keep_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) red[warp] = m;
   __syncthreads();
   if (warp == 0) {
     m = lane < kThreads / 32 ? red[lane] : 0.f;
 #pragma unroll
-    for (int o = 4; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int o = 4; o > 0; o >>= 1) m = max_keep_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
     if (lane == 0) atomicMax(amax, __float_as_uint(m));
   }
 }
 
 __device__ __forceinline__ int8_t quant(float v, float s) {
-  const float r = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
-  return (int8_t)(int)r;
+  const float r = rintf(__fdiv_rn(v, s));
+  if (r != r) return 0;  // a NaN quotient
+  return (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
 }
 
 template <typename T>
@@ -90,7 +105,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quantize_kernel(const T* a, int8_t* qa, long long na, const T* b, int8_t* qb, long long nb,
                     const unsigned int* amax, float* scale) {
-  const float s = __fdiv_rn(fmaxf(__uint_as_float(*amax), 1e-12f), 127.0f);
+  const float m = __uint_as_float(*amax);
+  const float s = __fdiv_rn(m != m ? m : fmaxf(m, 1e-12f), 127.0f);
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale = s;
   part_quantize(a, qa, na, s);
   if (b != nullptr) part_quantize(b, qb, nb, s);
